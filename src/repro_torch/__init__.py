@@ -1,0 +1,26 @@
+"""PyTorch and CUDA port of ``repro`` for an NVIDIA H100.
+
+The JAX package ``repro`` is the reference; this package mirrors it module
+for module (``repro/core/pcoa.py`` → ``repro_torch/core/pcoa.py``) and
+imports nothing of it. Each Pallas kernel of the reference becomes a CUDA
+kernel written for Hopper (``sm_90a``) under ``csrc/``, built on first use
+(``kernels/_build.py``).
+
+Every entry point runs on the card unless the caller passes
+``device="cpu"``, and raises when there is no card and the CPU was not
+asked for. On the CPU each kernel wrapper runs its plain PyTorch version.
+
+The reference is fp32 throughout, so TF32 is switched off here for
+matrix products and convolutions.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from repro_torch.core import (DistanceMatrix, DistanceMatrixError,  # noqa: E402
+                              mantel, pcoa, random_distance_matrix)
+
+__all__ = ["DistanceMatrix", "DistanceMatrixError", "mantel", "pcoa",
+           "random_distance_matrix"]

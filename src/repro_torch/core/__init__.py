@@ -1,0 +1,16 @@
+"""The paper's core workloads: validation, matrix-free PCoA, Mantel."""
+
+from repro_torch.core.distance_matrix import (MAX_TRIANGLE_N, DistanceMatrix,
+                                              DistanceMatrixError,
+                                              condensed_index,
+                                              condensed_to_square,
+                                              random_distance_matrix,
+                                              triangle_coords)
+from repro_torch.core.operators import CenteredGramOperator
+from repro_torch.core.pcoa import pcoa
+from repro_torch.core.mantel import MantelStatistic, mantel
+
+__all__ = ["MAX_TRIANGLE_N", "CenteredGramOperator", "DistanceMatrix",
+           "DistanceMatrixError", "MantelStatistic", "condensed_index",
+           "condensed_to_square", "mantel", "pcoa", "random_distance_matrix",
+           "triangle_coords"]

@@ -1,0 +1,153 @@
+"""Principal Coordinates Analysis: paper §4.1, operator-based.
+
+The counterpart of ``repro/core/pcoa.py``.
+
+* ``method="fsvd"`` (default) — randomized range-finder with power
+  iterations (Halko et al. 2011) driven entirely through
+  ``CenteredGramOperator.matvec``: on the card every product is one launch
+  of the ``center_matvec`` kernel, four per solve (Ω, two power
+  iterations, the projection), and no n×n intermediate is written.
+  ``materialize=True`` keeps the materialize-then-solve path.
+* ``method="eigh"`` — exact symmetric eigendecomposition, the oracle; it
+  always materializes the centred matrix.
+
+The sketch Ω is ``omega`` when given (the parity tests pass the
+reference's ``jax.random.normal(key, (n, p))``, which torch cannot
+reproduce), else a standard normal draw from a CPU ``torch.Generator``
+seeded by ``key`` (an int; ``None`` is the reference's default seed 42).
+That draw is not key-compatible with JAX: the same seed gives another Ω.
+
+Output mirrors scikit-bio's ``OrdinationResults``: coordinates scaled by
+√λ; the proportion explained clamps negative eigenvalues to zero over the
+exact total inertia ``Σλ = tr(F)``, and is 0 for the all-zero matrix.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Union
+
+import torch
+
+from repro_torch.api.results import OrdinationResult
+from repro_torch.core import centering
+from repro_torch.core.distance_matrix import DistanceMatrix, as_generator
+from repro_torch.core.operators import CenteredGramOperator
+from repro_torch.core.validation import ensure_finite
+from repro_torch.kernels.dispatch import DeviceLike, resolve_device
+
+#: extra sketch columns beyond the requested dimensions, and power steps.
+OVERSAMPLE = 10
+POWER_ITERS = 2
+#: the reference's documented default seed of the range finder.
+DEFAULT_SEED = 42
+
+
+def resolve_dimensions(dimensions: Optional[int], n: int) -> int:
+    """``None`` means all axes (n − 1); ``dimensions <= 0`` raises;
+    ``dimensions > n`` clamps to n."""
+    if dimensions is None:
+        return max(n - 1, 1)
+    d = int(dimensions)
+    if d != dimensions:
+        raise ValueError(f"dimensions must be an integer, got {dimensions!r}")
+    if d <= 0:
+        raise ValueError(f"dimensions must be positive, got {d}")
+    return min(d, n)
+
+
+def sketch_width(k: int, n: int) -> int:
+    """Columns p of the range-finder sketch Ω for k dimensions."""
+    return min(k + OVERSAMPLE, n)
+
+
+def _subspace_iteration(matvec: Callable[[torch.Tensor], torch.Tensor],
+                        omega: torch.Tensor, k: int,
+                        power_iters: int = POWER_ITERS):
+    """Top-k eigenpairs of a symmetric operator given only ``matvec`` and
+    the (n, p) sketch: Y = AΩ, orthonormalize, power-iterate, project
+    T = QᵀAQ, exact eigh of the small T, lift back."""
+    q, _ = torch.linalg.qr(matvec(omega))
+    for _ in range(power_iters):
+        q, _ = torch.linalg.qr(matvec(q))
+    t = q.T @ matvec(q)                    # (p, p) — tiny
+    t = 0.5 * (t + t.T)
+    evals, evecs = torch.linalg.eigh(t)
+    order = torch.argsort(-evals)[:k]      # eigh is ascending; top-k
+    return evals[order], (q @ evecs)[:, order]
+
+
+def _exact_eigh(a: torch.Tensor, k: int):
+    evals, evecs = torch.linalg.eigh(a)
+    order = torch.argsort(-evals)[:k]
+    return evals[order], evecs[:, order]
+
+
+def materialized_gram(dm_data: torch.Tensor,
+                      centering_impl: str = "fused") -> torch.Tensor:
+    """The full Gower-centred matrix by the selected centering."""
+    if centering_impl == "ref":
+        return centering.center_distance_matrix_ref(dm_data)
+    if centering_impl == "fused":
+        return centering.center_distance_matrix(dm_data)
+    raise ValueError(f"unknown centering_impl {centering_impl!r} "
+                     f"(the distributed centering is not ported yet)")
+
+
+def pcoa(dm: DistanceMatrix, dimensions: int = 10, method: str = "fsvd",
+         key: Union[int, torch.Generator, None] = None,
+         centering_impl: str = "fused", materialize: bool = False,
+         check_finite: bool = True, omega: Optional[torch.Tensor] = None,
+         device: DeviceLike = None) -> OrdinationResult:
+    """Principal Coordinates Analysis of a distance matrix, on ``device``
+    (``None``: the card).
+
+    ``method="fsvd"`` runs matrix-free against a ``CenteredGramOperator``
+    unless ``materialize=True``; ``method="eigh"`` is the exact oracle.
+    ``key`` seeds the sketch (see the module docstring); ``omega`` replaces
+    the draw with a given (n, min(k + 10, n)) sketch. Non-finite input is
+    rejected up front unless ``check_finite=False``.
+    """
+    if method not in ("eigh", "fsvd"):
+        raise ValueError(f"unknown method {method!r}")
+    dev = resolve_device(device)
+    dm = dm.copy()                         # free: validation is cached
+    data = dm.data.to(dev)
+    if check_finite:
+        ensure_finite(data)
+    n = len(dm)
+    k = resolve_dimensions(dimensions, n)
+
+    if method == "eigh":
+        centered = materialized_gram(data, centering_impl)
+        evals, evecs = _exact_eigh(centered, k)
+        total = torch.trace(centered)
+        seed = None
+    else:
+        p = sketch_width(k, n)
+        if omega is None:
+            seed = DEFAULT_SEED if key is None else \
+                (None if isinstance(key, torch.Generator) else int(key))
+            omega = torch.randn((n, p), generator=as_generator(
+                key, DEFAULT_SEED), dtype=torch.float32)
+        else:
+            seed = None
+            if tuple(omega.shape) != (n, p):
+                raise ValueError(f"omega must be ({n}, {p}), got "
+                                 f"{tuple(omega.shape)}")
+        omega = omega.to(device=dev, dtype=torch.float32)
+        if materialize:
+            centered = materialized_gram(data, centering_impl)
+            evals, evecs = _subspace_iteration(lambda x: centered @ x,
+                                               omega, k)
+            total = torch.trace(centered)
+        else:
+            op = CenteredGramOperator.from_distance(data)
+            evals, evecs = _subspace_iteration(op.matvec, omega, k)
+            total = op.trace()
+
+    pos = torch.clamp_min(evals, 0.0)
+    coordinates = evecs * torch.sqrt(pos)[None, :]
+    proportion = torch.where(total > 0, pos / total, torch.zeros_like(pos))
+    return OrdinationResult(coordinates=coordinates, eigenvalues=evals,
+                            proportion_explained=proportion, method=method,
+                            key=seed)

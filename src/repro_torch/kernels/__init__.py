@@ -1,0 +1,25 @@
+"""Hand-written Hopper kernels for the memory-bound hot spots.
+
+Each kernel keeps the reference's three-file layout
+(``repro/kernels/__init__.py``):
+
+* ``<name>.py``      — the launch of the CUDA kernel in ``csrc/<name>.cu``
+                       (built for ``sm_90a`` by ``_build`` and bound with
+                       ctypes), with its launch count;
+* ``<name>_ops.py``  — the public wrapper: checks device, dtype, shape and
+                       contiguity, owns the geometry, and dispatches — the
+                       kernel on a CUDA tensor, the plain version on a CPU
+                       tensor, no fallback from one to the other;
+* ``<name>_ref.py``  — the plain PyTorch version of the same function.
+
+Kernels ported so far (the main path: validate → matrix-free PCoA →
+Mantel):
+
+* ``symhollow``      — fused symmetric+hollow validation (paper Algorithm 7).
+* ``center_matvec``  — fused center-matvec for matrix-free PCoA.
+* ``permute_reduce`` — B permuted condensed multiply-reduces per tile, the
+                       Mantel permutation hot loop.
+
+This package imports nothing at import time, so no module here needs
+``nvcc`` or a card to be imported.
+"""

@@ -1,0 +1,164 @@
+"""Build the port's CUDA sources into one shared library and bind it.
+
+Every ``.cu`` file in ``repro_torch/csrc/`` is compiled for Hopper
+(``sm_90a``) by its own ``nvcc`` process, all started together, and the
+objects are linked into one ``.so`` under ``build/repro_torch/<hash>/`` at
+the root of the checkout, keyed by a hash of the sources and flags. The
+first call of :func:`library` builds; later calls, and later processes
+with the same sources, load the cached library. The entry points are plain
+C functions bound with ``ctypes``: every pointer and the stream is a
+``c_void_p`` and every size an integer, and each returns
+``cudaGetLastError()``, which :func:`check` turns into an exception.
+
+Nothing here runs at import time, so the CPU tests import every kernel
+module without ``nvcc``.
+
+``launches`` counts kernel launches by name. Each kernel module adds one
+where it launches its kernel and nowhere else, so a run can show that its
+main path went through the kernels: set the counts to 0 with
+:func:`reset_launches`, drive the path, read them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+LIB_NAME = "librepro_torch.so"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+launches: dict[str, int] = {
+    "symhollow": 0,
+    "center_matvec": 0,
+    "permute_reduce": 0,
+    "permute_reduce_finish": 0,
+}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    "repro_symhollow": [_P, _I, _P, _P],
+    "repro_center_matvec": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "repro_permute_reduce_partials": [_P, _P, _P, _P, _P, _P, _I, _L, _L,
+                                      _I, _I, _I, _I, _P],
+    "repro_permute_reduce_finish": [_P, _P, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = Path("/usr/local/cuda/bin/nvcc")
+    if fallback.exists():
+        return str(fallback)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                       "build the repro_torch kernels")
+
+
+def build() -> Path:
+    """Compile the sources if this hash is not built yet; return the .so."""
+    out_dir = BUILD_ROOT / _digest()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        return lib_path
+    nvcc = _nvcc()
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
+        tmp = Path(tmp)
+        procs = []
+        for src in _sources():
+            obj = tmp / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for src, _, proc in procs:
+            output, _ = proc.communicate()
+            log.append(f"== {src.name}\n{output}")
+            if proc.returncode:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
+                               + "\n".join(log))
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp / LIB_NAME),
+             *[str(obj) for _, obj, _ in procs]],
+            capture_output=True, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
+                               f"{link.stderr}")
+        (tmp / "ptxas.log").write_text("\n".join(log))
+        out_dir.mkdir(parents=True, exist_ok=True)
+        os.replace(tmp / "ptxas.log", out_dir / "ptxas.log")
+        os.replace(tmp / LIB_NAME, lib_path)    # atomic: readers never see half a file
+    return lib_path
+
+
+def build_log() -> str:
+    """What ``nvcc -Xptxas -v`` said about each kernel of the current build."""
+    path = BUILD_ROOT / _digest() / "ptxas.log"
+    return path.read_text() if path.exists() else ""
+
+
+def library() -> ctypes.CDLL:
+    """The bound library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.repro_error_string.argtypes = [ctypes.c_int]
+            lib.repro_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err:
+        name = library().repro_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({name})")
+
+
+def stream_handle(device: torch.device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,40 @@
+"""Launch of the fused center-matvec CUDA kernel (``csrc/center_matvec.cu``).
+
+Replaces the Pallas kernel ``repro/kernels/center_matvec.py::center_matvec``:
+``F @ X`` for the Gower-centred F with ``E = −½D∘D`` formed in registers
+from each D tile, fp32 FMA against the X tile in shared memory, and the
+rank-1 corrections ``−r_i·colsumᵀ + corrᵀ`` in the epilogue. One block owns
+64 output rows and sweeps all columns, so no sum crosses blocks.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: widest X block one launch takes (the kernel's accumulators per row).
+KMAX = 32
+
+
+def center_matvec(d: torch.Tensor, x: torch.Tensor, row_means: torch.Tensor,
+                  colsum: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
+    """(n, k) ``E@X − r·colsumᵀ + corrᵀ`` on the card, 1 <= k <= KMAX.
+
+    All operands fp32, contiguous, on one CUDA device: d (n, n), x (n, k),
+    row_means (n,), colsum and corr (k,). Returns without synchronising.
+    """
+    n, k = x.shape
+    if not 1 <= k <= KMAX:
+        raise ValueError(f"center_matvec takes 1 <= k <= {KMAX}, got {k}")
+    out = torch.empty((n, k), dtype=torch.float32, device=d.device)
+    if n == 0:
+        return out
+    lib = _build.library()
+    err = lib.repro_center_matvec(d.data_ptr(), x.data_ptr(),
+                                  row_means.data_ptr(), colsum.data_ptr(),
+                                  corr.data_ptr(), out.data_ptr(), n, k,
+                                  _build.stream_handle(d.device))
+    _build.launches["center_matvec"] += 1
+    _build.check(err, "center_matvec")
+    return out

@@ -1,0 +1,161 @@
+"""Shared permutation-test engine: paper §4.2's recipe, generalized.
+
+The counterpart of ``repro/stats/engine.py``. A statistic splits at the
+paper's hoisting boundary: ``hoist() -> invariants`` runs once,
+``per_perm(invariants, order) -> scalar`` is the only work that scales with
+K, and the optional ``per_batch(invariants, orders) -> (B,)`` is the
+primary path. ``permutation_test`` pads the (K, n) orders up to full
+``batch_size`` tiles by wrapping real permutations (``engine.py:226-246``
+of the reference), hands each tile to ``per_batch`` — for the Mantel
+family one launch of the ``permute_reduce`` kernel per tile on the card —
+and drops the padded tail before finishing.
+
+Orders are the argsort of uint32-range random words from a CPU
+``torch.Generator`` (the reference draws threefry bits in JAX, which torch
+cannot reproduce): a seed gives the same orders on every device, but not
+the reference's. The parity tests pass the reference's orders in through
+``orders=``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Protocol, Union, runtime_checkable
+
+import numpy as np
+import torch
+
+from repro_torch.core.distance_matrix import as_generator
+from repro_torch.kernels.dispatch import DeviceLike, resolve_device
+
+ALTERNATIVES = ("two-sided", "greater", "less")
+
+
+@runtime_checkable
+class Statistic(Protocol):
+    """A permutation-test statistic, split at the hoisting boundary. The
+    observed statistic is ``per_perm(invariants, identity)``."""
+
+    n: int
+
+    def hoist(self) -> Any: ...
+
+    def per_perm(self, invariants: Any, order: torch.Tensor) -> torch.Tensor: ...
+
+
+@dataclasses.dataclass(frozen=True)
+class PermutationTestResult:
+    """What every permutation test returns; ``key`` is the int seed that
+    drew the permutations (``None`` for given orders or a generator)."""
+
+    statistic: float
+    p_value: float
+    sample_size: int
+    permutations: int
+    method: str = ""
+    key: Optional[int] = dataclasses.field(default=None, compare=False)
+
+
+def permutation_orders(generator: Union[int, torch.Generator, None],
+                       permutations: int, n: int,
+                       device: DeviceLike = "cpu") -> torch.Tensor:
+    """(K, n) int32 independent uniform permutations of range(n): the
+    stable argsort of iid uint32-range words drawn on the CPU."""
+    words = torch.randint(0, 2**32, (permutations, n), dtype=torch.int64,
+                          generator=as_generator(generator))
+    return torch.argsort(words.to(device), dim=-1, stable=True).to(torch.int32)
+
+
+def count_better(orig_stat: torch.Tensor, permuted_stats: torch.Tensor,
+                 alternative: str) -> int:
+    """How many null draws are at least as extreme as the observed value."""
+    if alternative == "two-sided":
+        return int(torch.sum(permuted_stats.abs() >= orig_stat.abs()))
+    if alternative == "greater":
+        return int(torch.sum(permuted_stats >= orig_stat))
+    if alternative == "less":
+        return int(torch.sum(permuted_stats <= orig_stat))
+    raise ValueError(f"unknown alternative {alternative!r}")
+
+
+def finish(orig_stat: torch.Tensor, permuted_stats: torch.Tensor,
+           permutations: int, alternative: str, n: int, method: str = "",
+           key: Optional[int] = None) -> PermutationTestResult:
+    """Monte-Carlo p-value with the +1 correction, divided in fp32 as the
+    reference divides. A NaN observed statistic gives a NaN p-value."""
+    c = count_better(orig_stat, permuted_stats, alternative)
+    p_value = np.float32(c + 1) / np.float32(permutations + 1)
+    stat = float(orig_stat)
+    return PermutationTestResult(
+        stat, float("nan") if np.isnan(stat) else float(p_value), n,
+        permutations, method, key)
+
+
+def hoist_and_observe(stat: Statistic, device: torch.device):
+    """``(invariants, observed)``: the hoist, and the statistic at the
+    identity order."""
+    inv = stat.hoist()
+    identity = torch.arange(stat.n, dtype=torch.int32, device=device)
+    return inv, stat.per_perm(inv, identity)
+
+
+def tile_statistics(stat: Statistic, invariants, orders: torch.Tensor
+                    ) -> torch.Tensor:
+    """(B,) null statistics for one tile of permutation orders."""
+    per_batch = getattr(stat, "per_batch", None)
+    if per_batch is not None:
+        return per_batch(invariants, orders)
+    return torch.stack([stat.per_perm(invariants, o) for o in orders])
+
+
+def null_distribution(stat: Statistic, invariants, orders: torch.Tensor,
+                      batch_size: int) -> torch.Tensor:
+    """(K,) null draws: the padded-tile loop, one ``tile_statistics`` call
+    per full tile of ``batch_size`` orders, the wrapped tail dropped."""
+    permutations = orders.shape[0]
+    if permutations == 0:
+        return torch.zeros((0,), dtype=torch.float32, device=orders.device)
+    num_tiles = -(-permutations // batch_size)
+    total = num_tiles * batch_size
+    if total != permutations:
+        wrap = torch.arange(total, device=orders.device) % permutations
+        orders = orders[wrap]
+    tiles = [tile_statistics(stat, invariants,
+                             orders[t * batch_size:(t + 1) * batch_size])
+             for t in range(num_tiles)]
+    return torch.cat(tiles)[:permutations]
+
+
+def permutation_test(stat: Statistic, permutations: int = 999,
+                     key: Union[int, torch.Generator, None] = None,
+                     alternative: str = "two-sided", batch_size: int = 8,
+                     orders: Optional[torch.Tensor] = None, method: str = "",
+                     device: DeviceLike = None) -> PermutationTestResult:
+    """Run a hoisted + fused Monte-Carlo permutation test of ``stat``,
+    whose tensors lie on ``device`` (``None``: the card).
+
+    ``key`` seeds the orders (an int, ``None`` for seed 0, or a CPU
+    generator); ``orders`` replaces the draw with given (K, n) orders.
+    """
+    if alternative not in ALTERNATIVES:
+        raise ValueError(f"unknown alternative {alternative!r}")
+    if batch_size < 1:
+        raise ValueError(f"batch_size must be positive, got {batch_size}")
+    dev = resolve_device(device)
+    n = stat.n
+    if orders is None:
+        seed = 0 if key is None else \
+            (None if isinstance(key, torch.Generator) else int(key))
+        orders = permutation_orders(key, permutations, n, dev)
+    else:
+        seed = None
+        orders = torch.as_tensor(orders).to(device=dev, dtype=torch.int32)
+        if tuple(orders.shape) != (permutations, n):
+            raise ValueError(f"orders must be ({permutations}, {n}), got "
+                             f"{tuple(orders.shape)}")
+        if permutations and (int(orders.min()) < 0 or int(orders.max()) >= n):
+            raise ValueError(f"orders must hold indices in [0, {n})")
+    invariants, observed = hoist_and_observe(stat, dev)
+    permuted = null_distribution(stat, invariants, orders, batch_size)
+    return finish(observed, permuted, permutations, alternative, n,
+                  method=method, key=seed)

@@ -1,0 +1,100 @@
+"""The port's boundaries: it imports no JAX and nothing of the reference,
+its entry points run on the card unless asked for the CPU (and raise when
+there is no card), and its kernel modules import without a CUDA toolkit."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import convert
+from repro_torch.core import (DistanceMatrix, mantel, pcoa,
+                              random_distance_matrix)
+from repro_torch.core.mantel import MantelStatistic
+from repro_torch.kernels import _build
+from repro_torch.stats.engine import permutation_test
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_port_imports_no_jax_and_nothing_of_the_reference(path):
+    assert path.exists(), path
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = random_distance_matrix(0, 12, device="cpu")
+    calls = [
+        lambda: DistanceMatrix(d.data),
+        lambda: DistanceMatrix.from_numpy(d.data.numpy()),
+        lambda: random_distance_matrix(0, 12),
+        lambda: pcoa(d, dimensions=2),
+        lambda: mantel(d, d, permutations=9),
+        lambda: permutation_test(MantelStatistic(d.data, d.data, 12), 9),
+        lambda: convert.from_reference({"data": d.data.numpy()}),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_kernel_modules_import_without_a_toolkit():
+    env = dict(os.environ, PATH="", PYTHONPATH=str(ROOT / "src"))
+    code = ("import repro_torch.kernels.symhollow_ops, "
+            "repro_torch.kernels.center_matvec_ops, "
+            "repro_torch.kernels.permute_reduce_ops, "
+            "repro_torch.kernels._build as b; "
+            "assert all(v == 0 for v in b.launches.values())")
+    subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                   timeout=120)
+
+
+def test_build_covers_every_source_and_refuses_without_nvcc(monkeypatch):
+    names = {p.name for p in _build._sources()}
+    assert {"symhollow.cu", "center_matvec.cu",
+            "permute_reduce.cu"} <= names
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "Path", lambda p: Path("/nonexistent/nvcc"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()
+
+
+def test_tf32_is_off_and_cpu_runs_launch_nothing():
+    assert repro_torch.__name__ == "repro_torch"
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    _build.reset_launches()
+    d = random_distance_matrix(3, 30, device="cpu")
+    DistanceMatrix(d.data, device="cpu")
+    pcoa(d, dimensions=2, device="cpu")
+    mantel(d, d, permutations=5, device="cpu")
+    assert set(_build.launches.values()) == {0}
+    assert np.isfinite(d.data.numpy()).all()
