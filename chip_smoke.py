@@ -17,7 +17,10 @@ check fails:
    ``mantel(permutations=999)`` against a noisy copy, with the kernels'
    launch counts set to 0 just before and read just after;
 4. checks of the answers (and of a small pipeline on the card against the
-   CPU) and per-phase times;
+   CPU) and per-phase times; then pcoa's time taken apart: the main path's
+   cold call beside warm calls, a warm call step by step, and the solver's
+   first calls in a fresh process (``--solver-first-calls``, which the
+   script runs itself);
 5. one JSON line of per-kernel launches, errors, times and bounds.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -298,6 +301,107 @@ def phase_checks(main: dict, card: str) -> None:
         print(f"  {name}: {seconds:.4f} ({card})")
 
 
+def pcoa_steps(dm) -> dict:
+    """One ``pcoa(dm, dimensions=DIMS)`` taken apart: its steps in the order
+    ``core/pcoa.py`` runs them, each timed on the host clock between two
+    synchronisations, so launches, library calls and host syncs count where
+    they fall. Returns ms per step (repeated steps summed)."""
+    from repro_torch.core.operators import CenteredGramOperator
+    from repro_torch.core.pcoa import DEFAULT_SEED, POWER_ITERS, sketch_width
+    from repro_torch.core.validation import ensure_finite
+
+    steps = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        steps[name] = steps.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    def qr(y):
+        return timed("qr, 3 calls", lambda: torch.linalg.qr(y)[0])
+
+    def project(q, aq):
+        t = q.T @ aq
+        return 0.5 * (t + t.T)
+
+    data = timed("copy (validation cached)", lambda: dm.copy().data)
+    timed("ensure_finite", lambda: ensure_finite(data))
+    omega = timed("omega (CPU draw, copy to the card)", lambda: torch.randn(
+        (N, sketch_width(DIMS, N)), dtype=torch.float32,
+        generator=torch.Generator().manual_seed(DEFAULT_SEED)).cuda())
+    op = timed("hoist row means", lambda: CenteredGramOperator.from_distance(
+        data))
+    q = qr(timed("center_matvec, 4 calls", lambda: op.matvec(omega)))
+    for _ in range(POWER_ITERS):
+        q = qr(timed("center_matvec, 4 calls", lambda: op.matvec(q)))
+    aq = timed("center_matvec, 4 calls", lambda: op.matvec(q))
+    t = timed("project Q^T A Q", lambda: project(q, aq))
+    evals, evecs = timed("eigh (p x p)", lambda: torch.linalg.eigh(t))
+
+    def finish():
+        order = torch.argsort(-evals)[:DIMS]
+        pos = torch.clamp_min(evals[order], 0.0)
+        coords = (q @ evecs)[:, order] * torch.sqrt(pos)[None, :]
+        total = op.trace()
+        return coords, torch.where(total > 0, pos / total,
+                                   torch.zeros_like(pos))
+    timed("lift, trace, proportions", finish)
+    return steps
+
+
+def solver_first_calls() -> dict:
+    """ms of the first and of a second ``torch.linalg.qr`` of an (N, p)
+    block and ``torch.linalg.eigh`` of a (p, p) matrix on the card, in this
+    process, after the CUDA context exists: the first call's excess is the
+    solver library's one-time set-up."""
+    from repro_torch.core.pcoa import sketch_width
+
+    p = sketch_width(DIMS, N)
+    y = torch.randn((N, p), device="cuda")
+    t = y[:p].T @ y[:p]
+    out = {}
+    for name, fn in (("qr", lambda: torch.linalg.qr(y)),
+                     ("eigh", lambda: torch.linalg.eigh(t))):
+        for call in ("first", "second"):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            out[f"{name}_{call}_ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def phase_pcoa_split(main: dict, card: str) -> None:
+    """The main path's cold ``pcoa`` next to warm calls, a warm call taken
+    apart, and the solver's first-call set-up from a fresh process."""
+    from repro_torch.core import pcoa
+
+    print(f"== phase 4b: where pcoa's time goes ({card})")
+    print(f"  cold (the main path's call, first solver calls of the "
+          f"process): {main['times']['pcoa_s'] * 1e3:.4f} ms")
+    for rep in range(3):
+        sync()
+        t0 = time.perf_counter()
+        pcoa(main["dm"], dimensions=DIMS)
+        sync()
+        print(f"  warm call {rep + 1}: "
+              f"{(time.perf_counter() - t0) * 1e3:.4f} ms")
+    steps = pcoa_steps(main["dm"])
+    for name, ms in steps.items():
+        print(f"  warm step {name}: {ms:.4f} ms")
+    print(f"  warm steps in all: {sum(steps.values()):.4f} ms")
+    fresh = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--solver-first-calls"],
+        capture_output=True, text=True, timeout=300)
+    check(fresh.returncode == 0,
+          f"solver first-call probe failed: {fresh.stderr[-2000:]}")
+    first = json.loads(fresh.stdout.strip().splitlines()[-1])
+    print(f"  solver first calls in a fresh process (ms): {first}")
+
+
 def phase_kernel_line(main: dict, errors: dict, d: torch.Tensor,
                       ynorm: torch.Tensor, card: str) -> None:
     from repro_torch.core.distance_matrix import (condensed_form,
@@ -320,7 +424,7 @@ def phase_kernel_line(main: dict, errors: dict, d: torch.Tensor,
     kernels = []
 
     def entry(name, source, replaces, ms, plain_ms, bytes_, flops, peak,
-              library_ms=None, **extra):
+              library_ms=None, **yardsticks):
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
         t_ops = flops / peak * 1e3
         kernels.append({
@@ -329,7 +433,7 @@ def phase_kernel_line(main: dict, errors: dict, d: torch.Tensor,
             "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, **extra})
+            "library_ms": library_ms, **yardsticks})
 
     entry("symhollow", "src/repro_torch/csrc/symhollow.cu",
           "src/repro/kernels/symhollow.py:50",
@@ -360,7 +464,6 @@ def phase_kernel_line(main: dict, errors: dict, d: torch.Tensor,
     chunks = -(-m // DEFAULT_CHUNK)
     partials = permute_reduce_partials(xc, ys, ii, jj, orders,
                                        chunk=DEFAULT_CHUNK)
-    design_bytes = 4 * m * (perms + 3) + 4 * perms * n
     entry("permute_reduce", "src/repro_torch/csrc/permute_reduce.cu",
           "src/repro/kernels/permute_reduce.py:90",
           cuda_ms(lambda: permute_reduce_partials(
@@ -368,10 +471,16 @@ def phase_kernel_line(main: dict, errors: dict, d: torch.Tensor,
           cuda_ms(lambda: permute_reduce_ref(
               xc, ys, ii, jj, orders, n, DEFAULT_CHUNK), reps=2),
           4 * m * (1 + rows + 2) + 4 * perms * n + 8 * chunks * rows * perms,
-          2 * m * perms * rows, FP64_FLOPS,
-          design_bytes_ms=design_bytes / HBM_BYTES_PER_S * 1e3,
-          design_sector_bytes_ms=(4 * m * 3 + 32 * m * perms + 4 * perms * n)
-          / HBM_BYTES_PER_S * 1e3)
+          2 * m * perms * rows, FP64_FLOPS)
+    # Analytic models, not timings: the Pallas design's traffic, xc gathered
+    # once per permutation, at 4-byte and at 32-byte-sector granularity.
+    design_bytes = 4 * m * (perms + 3) + 4 * perms * n
+    sector_bytes = 4 * m * 3 + 32 * m * perms + 4 * perms * n
+    print(f"  permute_reduce traffic models (analytic, not timed): "
+          f"{design_bytes / 1e9:.2f} GB = "
+          f"{design_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at 4-byte "
+          f"granularity, {sector_bytes / 1e9:.2f} GB = "
+          f"{sector_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms in 32-byte sectors")
     entry("permute_reduce_finish", "src/repro_torch/csrc/permute_reduce.cu",
           "src/repro/kernels/permute_reduce.py:90",
           cuda_ms(lambda: permute_reduce_finish(partials), reps=20),
@@ -396,6 +505,10 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:] == ["--solver-first-calls"]:     # phase 4b's fresh process
+        torch.zeros(1, device="cuda")
+        print(json.dumps(solver_first_calls()))
+        return 0
     from repro_torch.core import random_distance_matrix
     from repro_torch.core.mantel import condensed_moments
 
@@ -415,6 +528,7 @@ def main() -> int:
     errors = phase_kernels(dm0.data, ynorm)
     main_path = phase_main_path(dm0, d2)
     phase_checks(main_path, card)
+    phase_pcoa_split(main_path, card)
     phase_kernel_line(main_path, errors, dm0.data, ynorm, card)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -19,7 +19,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.centering import center_distance_matrix
-from repro_torch.kernels.center_matvec_ops import center_matvec_cuda
+from repro_torch.kernels.center_matvec_ops import center_matvec_op
 
 
 @dataclasses.dataclass
@@ -47,8 +47,8 @@ class CenteredGramOperator:
         squeeze = x.ndim == 1
         if squeeze:
             x = x[:, None]
-        out = center_matvec_cuda(self.d, x.contiguous(), self.row_means,
-                                 self.global_mean)
+        out = center_matvec_op(self.d, x.contiguous(), self.row_means,
+                               self.global_mean)
         return out[:, 0] if squeeze else out
 
     def trace(self) -> torch.Tensor:

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.symhollow_ops import is_symmetric_and_hollow_cuda
+from repro_torch.kernels.symhollow_ops import is_symmetric_and_hollow_op
 
 
 def ensure_finite(arr: torch.Tensor, what: str = "distance matrix") -> None:
@@ -41,7 +41,7 @@ def is_symmetric_and_hollow_ref(mat: torch.Tensor) -> tuple[bool, bool]:
 
 def is_symmetric_and_hollow(mat: torch.Tensor) -> tuple[bool, bool]:
     """Algorithm 7 — fused single-pass validation."""
-    return is_symmetric_and_hollow_cuda(mat)
+    return is_symmetric_and_hollow_op(mat)
 
 
 def is_symmetric_and_hollow_blocked(mat: torch.Tensor,

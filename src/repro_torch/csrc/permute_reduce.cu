@@ -127,7 +127,8 @@ int launch_partials(const float* xc, const float* ys, const int* ii, const int* 
 
 // xc: (m,) fp32; ys: S rows of m fp32 at row stride ys_stride; ii/jj: (m,)
 // int32; orders: (B, n) int32; partials: (num_chunks, S, B) fp64 scratch.
-// 1 <= S <= 4, num_chunks = ceil(m / chunk), num_chunks * B < 2^31.
+// 1 <= S <= 2 (Mantel streams 1 row, partial Mantel 2), num_chunks =
+// ceil(m / chunk), num_chunks * B < 2^31.
 REPRO_EXPORT int repro_permute_reduce_partials(const float* xc, const float* ys, const int* ii,
                                                const int* jj, const int* orders, double* partials,
                                                int n, long long m, long long ys_stride, int rows,
@@ -138,10 +139,6 @@ REPRO_EXPORT int repro_permute_reduce_partials(const float* xc, const float* ys,
     case 1: return launch_partials<1>(xc, ys, ii, jj, orders, partials, n, m, ys_stride,
                                       num_perms, chunk, num_chunks, stream);
     case 2: return launch_partials<2>(xc, ys, ii, jj, orders, partials, n, m, ys_stride,
-                                      num_perms, chunk, num_chunks, stream);
-    case 3: return launch_partials<3>(xc, ys, ii, jj, orders, partials, n, m, ys_stride,
-                                      num_perms, chunk, num_chunks, stream);
-    case 4: return launch_partials<4>(xc, ys, ii, jj, orders, partials, n, m, ys_stride,
                                       num_perms, chunk, num_chunks, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

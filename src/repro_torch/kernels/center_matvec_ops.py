@@ -18,9 +18,9 @@ from repro_torch.kernels.center_matvec_ref import (center_corrections,
 from repro_torch.kernels.dispatch import require, same_device
 
 
-def center_matvec_cuda(d: torch.Tensor, x: torch.Tensor,
-                       row_means: torch.Tensor,
-                       global_mean: torch.Tensor) -> torch.Tensor:
+def center_matvec_op(d: torch.Tensor, x: torch.Tensor,
+                     row_means: torch.Tensor,
+                     global_mean: torch.Tensor) -> torch.Tensor:
     """``F @ x`` with F never formed. d: (n, n); x: (n, k); row_means and
     global_mean: the operator's hoisted statistics of ``E = −½D∘D``."""
     n = d.shape[0]

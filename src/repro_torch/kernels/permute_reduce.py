@@ -17,8 +17,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: invariant rows one launch reduces against the same gather.
-MAX_ROWS = 4
+#: invariant rows one launch reduces against the same gather (Mantel
+#: streams 1, partial Mantel 2).
+MAX_ROWS = 2
 #: the CUDA grid's limit on blocks (chunks × permutations).
 MAX_BLOCKS = 2**31 - 1
 

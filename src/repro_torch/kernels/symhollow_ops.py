@@ -15,7 +15,7 @@ from repro_torch.kernels.symhollow import symhollow
 from repro_torch.kernels.symhollow_ref import is_symmetric_and_hollow_ref
 
 
-def is_symmetric_and_hollow_cuda(mat: torch.Tensor) -> tuple[bool, bool]:
+def is_symmetric_and_hollow_op(mat: torch.Tensor) -> tuple[bool, bool]:
     """``(is_sym, is_hollow)`` of a square fp32 matrix in one pass."""
     if mat.ndim != 2 or mat.shape[0] != mat.shape[1]:
         raise ValueError(f"expected a square 2-D matrix, got "

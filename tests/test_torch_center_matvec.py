@@ -18,7 +18,7 @@ from repro.kernels.center_matvec_ops import center_matvec_pallas
 from repro_torch.core.centering import (center_distance_matrix,
                                         center_distance_matrix_ref)
 from repro_torch.core.operators import CenteredGramOperator
-from repro_torch.kernels.center_matvec_ops import center_matvec_cuda
+from repro_torch.kernels.center_matvec_ops import center_matvec_op
 
 
 def _inputs(n, k, seed):
@@ -47,8 +47,8 @@ def test_plain_version_matches_pallas_kernel(n, k):
                                 jop.global_mean, block_m=32, block_n=32,
                                 interpret=True)
     op = CenteredGramOperator.from_distance(torch.from_numpy(d))
-    got = center_matvec_cuda(op.d, torch.from_numpy(x), op.row_means,
-                             op.global_mean)
+    got = center_matvec_op(op.d, torch.from_numpy(x), op.row_means,
+                           op.global_mean)
     _close(got, want)
 
 
@@ -78,11 +78,11 @@ def test_wrapper_checks_operands():
     d, x = _inputs(10, 3, seed=4)
     op = CenteredGramOperator.from_distance(torch.from_numpy(d))
     with pytest.raises(ValueError, match="x must be"):
-        center_matvec_cuda(op.d, torch.zeros(9, 3), op.row_means,
-                           op.global_mean)
+        center_matvec_op(op.d, torch.zeros(9, 3), op.row_means,
+                         op.global_mean)
     with pytest.raises(TypeError, match="float32"):
-        center_matvec_cuda(op.d.double(), torch.from_numpy(x), op.row_means,
-                           op.global_mean)
+        center_matvec_op(op.d.double(), torch.from_numpy(x), op.row_means,
+                         op.global_mean)
     with pytest.raises(ValueError, match="contiguous"):
-        center_matvec_cuda(op.d, torch.zeros(3, 10).T, op.row_means,
-                           op.global_mean)
+        center_matvec_op(op.d, torch.zeros(3, 10).T, op.row_means,
+                         op.global_mean)

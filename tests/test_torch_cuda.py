@@ -20,11 +20,11 @@ import torch
 from repro_torch.core import pcoa, mantel, random_distance_matrix
 from repro_torch.core.distance_matrix import DistanceMatrix, triangle_coords
 from repro_torch.kernels import _build
-from repro_torch.kernels.center_matvec_ops import center_matvec_cuda
+from repro_torch.kernels.center_matvec_ops import center_matvec_op
 from repro_torch.kernels.center_matvec_ref import center_matvec_ref
 from repro_torch.kernels.permute_reduce_ops import permute_reduce
 from repro_torch.kernels.permute_reduce_ref import permute_reduce_ref
-from repro_torch.kernels.symhollow_ops import is_symmetric_and_hollow_cuda
+from repro_torch.kernels.symhollow_ops import is_symmetric_and_hollow_op
 from repro_torch.kernels.symhollow_ref import is_symmetric_and_hollow_ref
 from repro_torch.stats.engine import permutation_orders
 
@@ -65,7 +65,7 @@ def test_symhollow_matches_plain(cuda, n, case):
         mat[j, j] = float("nan")
     elif case == "negzero_diag":
         mat[j, j] = -0.0
-    got = is_symmetric_and_hollow_cuda(mat)
+    got = is_symmetric_and_hollow_op(mat)
     assert got == is_symmetric_and_hollow_ref(mat.cpu())
 
 
@@ -77,7 +77,7 @@ def test_center_matvec_matches_plain(cuda, n, k):
     x = torch.randn((n, k), generator=gen).to(cuda)
     row_means = -0.5 * torch.mean(d * d, dim=1)
     gm = torch.mean(row_means)
-    got = center_matvec_cuda(d, x, row_means, gm)
+    got = center_matvec_op(d, x, row_means, gm)
     want = center_matvec_ref(d, x, row_means, gm)
     scale = want.abs().max().item()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
