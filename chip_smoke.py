@@ -6,21 +6,28 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
-``build/repro_torch/``), then runs five phases and exits non-zero if any
+``build/repro_torch/``), then runs these phases and exits non-zero if any
 check fails:
 
 1. environment: the card's name and power limit, versions, build time;
 2. every kernel against its plain PyTorch version on the card, at a ragged
-   small shape (n = 1000) and at the main path's shape;
+   small shape (n = 1000) and at the paths' shapes; 2b does the same for
+   the feature path's kernels (``pairwise_panel`` for the five metrics,
+   the ``center`` pair in fp32 and bf16);
 3. the main path at n = 16384 (a 1.07 GB fp32 matrix): two validated
    ``DistanceMatrix`` objects, ``pcoa(dimensions=10)`` matrix-free, and
-   ``mantel(permutations=999)`` against a noisy copy, with the kernels'
-   launch counts set to 0 just before and read just after;
-4. checks of the answers (and of a small pipeline on the card against the
-   CPU) and per-phase times; then pcoa's time taken apart: the main path's
-   cold call beside warm calls, a warm call step by step, and the solver's
+   ``mantel(permutations=999)`` against a noisy copy; 3b the feature path
+   at full width: two n = 16384 by d = 2048 abundance tables → condensed
+   Bray–Curtis distances (``pairwise_condensed``) → operator-only
+   ``pcoa`` → Mantel (K = 999, B = 32). Each path runs with the kernels'
+   launch counts set to 0 just before it and read just after;
+4. checks of the answers (and of small runs on the card against the CPU)
+   and per-phase times; 4b takes pcoa's time apart: the main path's cold
+   call beside warm calls, a warm call step by step, and the solver's
    first calls in a fresh process (``--solver-first-calls``, which the
-   script runs itself);
+   script runs itself); 4c checks the feature path and drives the
+   materialized solves (``materialize=True`` through the ``center``
+   kernels, and ``method="eigh"`` against the CPU);
 5. one JSON line of per-kernel launches, errors, times and bounds.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -45,13 +52,26 @@ DIMS = 10            # PCoA dimensions (sketch width 20)
 PERMUTATIONS = 999   # Mantel permutations: 32 tiles of 32
 SMALL_N = 1000       # the ragged small shape of phase 2
 SEED = 2021
+FEATURES = 2048      # features of the feature path's tables (full width)
+COMMUNITIES = 6      # latent communities the samples are mixed from
+METRIC = "braycurtis"
+PANEL = 256          # rows of a pairwise panel: pairwise_condensed's default
+SMALL_FEATURES = 300  # features of phase 2b's ragged pairwise shape
+EIGH_N = 2048        # the eigh solve held against the CPU
+SMALL_FEATURE_N = 512  # the feature path held against the CPU
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, no sparsity).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12           # CUDA cores, outside the tensor cores
 FP64_FLOPS = 34e12           # CUDA cores, outside the tensor cores
+FP32_INSTR = FP32_FLOPS / 2  # instructions/s: the sheet counts an FMA as 2
+# fp32 instructions a pair-feature term, as csrc/pairwise.cu writes them:
+# Euclidean a-b and an FMA; Bray-Curtis a-b, a+b and two accumulates (the
+# abs is an operand modifier).
+PAIRWISE_INSTR = {"euclidean": 2, "braycurtis": 4}
 
-KERNEL_TOL = "rtol 1e-5, atol 1e-5*max(scale,1)"
+CENTER_TOL = {"rtol": 2e-4, "atol": 2e-4}    # tests/test_kernels.py, fp32
+PAIRWISE_TOL = {"rtol": 1e-5, "atol": 1e-5}  # tests/test_dist.py
 
 
 class SmokeFailure(RuntimeError):
@@ -83,34 +103,40 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """Hold a kernel's output against its plain version at the stated
-    tolerance; return the max abs error."""
-    got = got.double().cpu()
-    want = want.double().cpu()
+def compare(name: str, got: torch.Tensor, want: torch.Tensor,
+            rtol: float = 1e-5, atol=None) -> float:
+    """Hold a kernel's output against its plain version: within
+    ``atol + rtol·|want|`` elementwise, ``atol`` 1e-5·max(scale, 1) unless
+    given. Computed in fp64 where the tensors lie; returns the max abs
+    error."""
+    got = got.double()
+    want = want.double()
     check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != "
                                    f"{tuple(want.shape)}")
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
     err = (got - want).abs()
     scale = float(want.abs().max()) if want.numel() else 0.0
-    limit = 1e-5 * max(scale, 1.0) + 1e-5 * want.abs()
+    atol = 1e-5 * max(scale, 1.0) if atol is None else atol
+    tol = f"rtol {rtol:g}, atol {atol:.3g}"
     max_abs = float(err.max()) if err.numel() else 0.0
     max_rel = float((err / want.abs().clamp_min(1e-30)).max()) \
         if err.numel() else 0.0
     print(f"  {name}: max abs err {max_abs:.3e}, max rel err {max_rel:.3e} "
-          f"(scale {scale:.4g}; {KERNEL_TOL})")
-    check(bool((err <= limit).all()), f"{name}: outside {KERNEL_TOL}")
+          f"(scale {scale:.4g}; {tol})")
+    check(bool((err <= atol + rtol * want.abs()).all()),
+          f"{name}: outside {tol}")
     return max_abs
 
 
-def check_spectrum(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
-    """The leading POINT_DIM eigenvalues agree to rtol 1e-4; the rest, which
-    are numerically zero for rank-POINT_DIM data, to 1e-4 of the largest."""
+def check_spectrum(got: torch.Tensor, want: torch.Tensor, what: str,
+                   lead: int = POINT_DIM) -> None:
+    """The ``lead`` leading eigenvalues (the data's rank) agree to rtol
+    1e-4; all of them to 1e-4 of the largest."""
     got, want = got.double().cpu(), want.double().cpu()
-    lead = slice(0, POINT_DIM)
-    rel = float(((got[lead] - want[lead]).abs() / want[lead].abs()).max())
+    top = slice(0, lead)
+    rel = float(((got[top] - want[top]).abs() / want[top].abs()).max())
     tail = float((got - want).abs().max() / want.abs().max())
-    print(f"  {what}: leading {POINT_DIM} eigenvalues max rel err {rel:.2e} "
+    print(f"  {what}: leading {lead} eigenvalues max rel err {rel:.2e} "
           f"(rtol 1e-4); all, relative to the largest, {tail:.2e} (1e-4)")
     check(rel <= 1e-4 and tail <= 1e-4, f"{what}: eigenvalues disagree")
 
@@ -131,10 +157,13 @@ def phase_environment() -> dict:
     _build.library()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s: "
           f"{lib_path.relative_to(ROOT)}")
+    kernel = ""
     for line in _build.build_log().splitlines():
-        if "registers" in line or ("spill" in line
-                                   and " 0 bytes spill" not in line):
-            print("  " + line.strip())
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]          # the mangled kernel name
+        elif "registers" in line or ("spill" in line
+                                     and " 0 bytes spill" not in line):
+            print(f"  {kernel}: {line.strip()}")
     return {"card": card}
 
 
@@ -242,9 +271,23 @@ def phase_main_path(dm0, d2) -> dict:
             "launches": launches, "times": times}
 
 
+def check_center_launches(what: str) -> None:
+    """One launch of each center kernel since the counts were reset, and
+    no matvec kernel: F was formed by the kernel pair."""
+    from repro_torch.kernels import _build
+
+    got = {k: _build.launches[k] for k in
+           ("center_pass1", "center_finish", "center_pass2", "center_matvec")}
+    print(f"  {what}: launches {got}")
+    check(got == {"center_pass1": 1, "center_finish": 1, "center_pass2": 1,
+                  "center_matvec": 0},
+          f"{what}: F was not formed by one launch of each center kernel")
+
+
 def phase_checks(main: dict, card: str) -> None:
     from repro_torch.core import DistanceMatrix, mantel, pcoa
     from repro_torch.core.pcoa import sketch_width
+    from repro_torch.kernels import _build
     from repro_torch.stats.engine import permutation_orders
 
     print("== phase 4: checks and timings")
@@ -257,8 +300,11 @@ def phase_checks(main: dict, card: str) -> None:
           f"pcoa: one of the leading {POINT_DIM} eigenvalues is not > 0")
     check(bool((ev[POINT_DIM:].abs() <= 1e-4 * ev[0]).all()),
           f"pcoa: eigenvalues past the data's rank {POINT_DIM} are not ~0")
-    # the same solve with F materialized by plain PyTorch (no kernel)
+    # the same solve with F materialized by the center kernel pair
+    _build.reset_launches()
     mat = pcoa(main["dm"], dimensions=DIMS, materialize=True)
+    sync()
+    check_center_launches(f"materialized solve n={N}")
     check_spectrum(ev, mat.eigenvalues, "matrix-free vs materialized solve")
     p_want = float(np.float32(1) / np.float32(PERMUTATIONS + 1))
     print(f"  mantel: stat {main['stat']:.6f}, p {main['p']}, n {main['size']}")
@@ -299,6 +345,264 @@ def phase_checks(main: dict, card: str) -> None:
           "small pipeline: statistic differs from the CPU")
     for name, seconds in main["times"].items():
         print(f"  {name}: {seconds:.4f} ({card})")
+
+
+def abundance_tables(n: int, d: int, seed: int, device="cuda"):
+    """Two synthetic (n, d) abundance tables X and Y, made from ``seed``
+    on ``device``: non-negative, about 80% zeros, each sample a mix of
+    COMMUNITIES latent community profiles (so the ordination has
+    COMMUNITIES − 1 leading axes), and Y a perturbed copy of X (10% of its
+    entries dropped, the rest scaled by lognormal noise)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    profiles = rand(COMMUNITIES, d) ** 4
+    weights = torch.softmax(3.0 * randn(n, COMMUNITIES), dim=1)
+    mean = weights @ profiles
+    keep = rand(n, d) < 0.2 * mean / mean.mean(dim=1, keepdim=True)
+    x = torch.where(keep, mean * torch.exp(0.5 * randn(n, d)), 0.0)
+    y = torch.where(rand(n, d) < 0.9, x * torch.exp(0.3 * randn(n, d)), 0.0)
+    return x.contiguous(), y.contiguous()
+
+
+def phase_feature_kernels(x: torch.Tensor, d_main: torch.Tensor) -> dict:
+    """``pairwise_panel`` and the center kernels against their plain
+    versions; returns max abs errors at the paths' shapes."""
+    from repro_torch.core import random_distance_matrix
+    from repro_torch.dist import METRICS
+    from repro_torch.kernels.center import (center_finish, center_pass1,
+                                            center_pass2)
+    from repro_torch.kernels.center_ops import center_distance_matrix_op
+    from repro_torch.kernels.center_ref import (center_distance_matrix_ref,
+                                                center_finish_ref,
+                                                center_pass1_ref,
+                                                center_pass2_ref)
+    from repro_torch.kernels.pairwise import pairwise_panel
+    from repro_torch.kernels.pairwise_ref import pairwise_panel_ref
+
+    print("== phase 2b: feature-path kernels against their plain versions")
+    errors = {}
+    small, _ = abundance_tables(SMALL_N, SMALL_FEATURES, SEED + 5)
+    small[[0, 17, SMALL_N - 1]] = 0.0        # empty samples: the 0/0 pairs
+    xi = small[:PANEL]
+    for name, metric in sorted(METRICS.items()):
+        compare(f"pairwise_panel {name} bm={PANEL} n={SMALL_N} "
+                f"d={SMALL_FEATURES}", pairwise_panel(xi, small, metric.kind),
+                pairwise_panel_ref(xi, small, metric),
+                **PAIRWISE_TOL)
+    xi = x[:PANEL]
+    errors["pairwise_panel"] = compare(
+        f"pairwise_panel {METRIC} bm={PANEL} n={N} d={FEATURES}",
+        pairwise_panel(xi, x, METRICS[METRIC].kind),
+        pairwise_panel_ref(xi, x, METRICS[METRIC]),
+        **PAIRWISE_TOL)
+
+    d_small = random_distance_matrix(SEED + 6, SMALL_N, device="cuda").data
+    for label, d in (("n=1000", d_small), (f"n={N}", d_main)):
+        row_sums = center_pass1(d)
+        row_means, global_mean = center_finish(row_sums)
+        f = center_pass2(d, row_means, global_mean)
+        errors["center_pass1"] = compare(
+            f"center_pass1 {label} fp32", row_sums, center_pass1_ref(d),
+            **CENTER_TOL)
+        want_means, want_global = center_finish_ref(row_sums)
+        errors["center_finish"] = max(
+            compare(f"center_finish {label} row means", row_means,
+                    want_means, **CENTER_TOL),
+            compare(f"center_finish {label} global mean", global_mean,
+                    want_global, **CENTER_TOL))
+        errors["center_pass2"] = compare(
+            f"center_pass2 {label} fp32", f,
+            center_pass2_ref(d, row_means, global_mean), **CENTER_TOL)
+        compare(f"center, both passes, {label} fp32, vs Algorithm 1", f,
+                center_distance_matrix_ref(d), **CENTER_TOL)
+        del f
+    got = center_distance_matrix_op(d_small.bfloat16()).float()
+    want = center_distance_matrix_ref(d_small)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    corr = float(torch.corrcoef(torch.stack([got.flatten(),
+                                             want.flatten()]))[0, 1])
+    print(f"  center n=1000 bf16 vs the fp32 Algorithm 1: max abs err "
+          f"{err:.3e} (limit 0.05*scale = {0.05 * scale:.3e}), correlation "
+          f"{corr:.6f} (> 0.999)")
+    check(err < 0.05 * scale and corr > 0.999, "center bf16: outside limits")
+    return errors
+
+
+def run_feature_path(x: torch.Tensor, y: torch.Tensor, device,
+                     omega=None, orders=None,
+                     permutations: int = PERMUTATIONS) -> dict:
+    """Feature tables X and Y → Bray–Curtis productions → operator-only
+    PCoA of X → Mantel of X (permuted) against Y, on ``device``, with
+    host seconds for each step. ``omega`` and ``orders`` replace the
+    sketch and the orders that ``pcoa`` and the engine draw by default."""
+    from repro_torch.core import CondensedCenteredGramOperator, pcoa
+    from repro_torch.dist import pairwise_condensed, production_mantel
+
+    marks = [time.perf_counter()]
+
+    def mark():
+        if torch.device(device).type == "cuda":
+            sync()
+        marks.append(time.perf_counter())
+
+    prod_x = pairwise_condensed(x, METRIC, block=PANEL, device=device)
+    prod_y = pairwise_condensed(y, METRIC, block=PANEL, device=device)
+    mark()
+    op = CondensedCenteredGramOperator.from_production(prod_x)
+    res = pcoa(None, dimensions=DIMS, operator=op, omega=omega,
+               device=device)
+    mark()
+    mantel_res = production_mantel(prod_x, prod_y, permutations,
+                                   orders=orders, device=device)
+    mark()
+    steps = ("productions_2x_s", "pcoa_operator_s", "mantel_s")
+    return {"prod_x": prod_x, "op": op, "pcoa": res, "mantel": mantel_res,
+            "times": {name: b - a for name, a, b in
+                      zip(steps, marks, marks[1:])}}
+
+
+def phase_feature_path(x: torch.Tensor, y: torch.Tensor) -> dict:
+    """The feature path at full width on the card, with the launch counts
+    set to 0 just before and read just after."""
+    from repro_torch.core.mantel import MANTEL_BATCH
+    from repro_torch.kernels import _build
+
+    print(f"== phase 3b: feature path at n={N}, d={FEATURES} ({METRIC}, "
+          f"block {PANEL}; pcoa dims={DIMS}; mantel K={PERMUTATIONS}, "
+          f"B={MANTEL_BATCH})")
+    sync()
+    _build.reset_launches()
+    feat = run_feature_path(x, y, "cuda")
+    feat["launches"] = dict(_build.launches)
+    print(f"  launches on the feature path: {feat['launches']}")
+    return feat
+
+
+def phase_feature_checks(feat: dict, x: torch.Tensor, y: torch.Tensor,
+                         card: str) -> dict:
+    """Check the feature path's answers and launches; drive the
+    materialized solves. Returns the center kernels' launches on the
+    materialized path and its times."""
+    from repro_torch.core import DistanceMatrix, pcoa
+    from repro_torch.core.distance_matrix import (as_generator,
+                                                  condensed_to_square)
+    from repro_torch.core.pcoa import DEFAULT_SEED, sketch_width
+    from repro_torch.dist import condensed_size, pairwise_distances
+    from repro_torch.kernels import _build
+    from repro_torch.stats.engine import permutation_orders
+
+    print("== phase 4c: feature-path checks and the materialized solves")
+    launches = feat["launches"]
+    panels = 2 * -(-N // PANEL)
+    tiles = -(-PERMUTATIONS // 32)
+    want = {"pairwise_panel": panels, "permute_reduce": tiles,
+            "permute_reduce_finish": tiles, "center_matvec": 0,
+            "symhollow": 0, "center_pass1": 0, "center_finish": 0,
+            "center_pass2": 0}
+    check(launches == want, f"feature path launches {launches} != {want}")
+    prod = feat["prod_x"]
+    cond = prod["condensed"]
+    check(tuple(cond.shape) == (condensed_size(N),), "production: shape")
+    check(bool(torch.isfinite(cond).all()) and float(cond.min()) >= 0.0
+          and float(cond.max()) <= 1.0,
+          "production: Bray-Curtis distances not in [0, 1]")
+    check(bool(torch.isfinite(prod["row_means"]).all())
+          and float(prod["norm"]) > 0, "production: hoists")
+    res = feat["pcoa"]
+    ev = res.eigenvalues.cpu()
+    print(f"  eigenvalues: {[round(float(v), 4) for v in ev]}")
+    check(tuple(res.coordinates.shape) == (N, DIMS)
+          and bool(torch.isfinite(res.coordinates).all()),
+          "feature pcoa: coordinates")
+    check(bool((ev[:COMMUNITIES - 1] > 0).all())
+          and float(res.proportion_explained.sum()) <= 1.0,
+          "feature pcoa: leading eigenvalues or proportions")
+    m = feat["mantel"]
+    p_want = float(np.float32(1) / np.float32(PERMUTATIONS + 1))
+    print(f"  mantel X vs Y: stat {m.statistic:.6f}, p {m.p_value}, "
+          f"n {m.sample_size}")
+    check(m.statistic > 0.5 and m.p_value == p_want,
+          f"feature mantel: stat <= 0.5 or p != 1/{PERMUTATIONS + 1}")
+
+    v = torch.randn((N, sketch_width(DIMS, N)),
+                    generator=torch.Generator().manual_seed(SEED)).cuda()
+    matvec_ms = cuda_ms(lambda: feat["op"].matvec(v), reps=3)
+    print(f"  condensed operator matvec (plain torch), k={v.shape[1]}: "
+          f"{matvec_ms:.4f} ms ({card})")
+    del v
+
+    # the materialized solve on the square of the same distances, same Ω
+    times = {}
+    sync()
+    t0 = time.perf_counter()
+    dm = DistanceMatrix(condensed_to_square(cond, N))
+    sync()
+    t1 = time.perf_counter()
+    omega = torch.randn((N, sketch_width(DIMS, N)), dtype=torch.float32,
+                        generator=as_generator(None, DEFAULT_SEED))
+    _build.reset_launches()
+    mat = pcoa(dm, dimensions=DIMS, materialize=True, omega=omega)
+    sync()
+    t2 = time.perf_counter()
+    mat_launches = dict(_build.launches)
+    check_center_launches(f"feature materialized solve n={N}")
+    times.update(square_and_validate_s=t1 - t0, pcoa_materialized_s=t2 - t1)
+    diff = float((mat.eigenvalues.cpu() - ev).abs().max() / ev.abs().max())
+    print(f"  matrix-free (condensed operator) vs materialized: eigenvalues "
+          f"max diff / largest {diff:.2e} (1e-4)")
+    check(diff <= 1e-4, "feature path: materialized eigenvalues disagree")
+    del dm, mat
+
+    # eigh on the card against the same call on the CPU
+    sq = pairwise_distances(x[:EIGH_N], METRIC, block=PANEL)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        r = pcoa(DistanceMatrix(sq, device=dev), dimensions=DIMS,
+                 method="eigh", device=dev)
+        out[dev] = r.eigenvalues.cpu().double()
+    rel = float(((out["cuda"] - out["cpu"]).abs() / out["cpu"].abs()).max())
+    print(f"  eigh n={EIGH_N}, card vs CPU: eigenvalues max rel err "
+          f"{rel:.2e} (rtol 1e-4)")
+    check(rel <= 1e-4, "eigh: card and CPU disagree")
+
+    # the feature path at a small size on the card and on the CPU
+    n, d = SMALL_FEATURE_N, SMALL_FEATURES
+    xs = x[:n, :d].contiguous().cpu()
+    ys = y[:n, :d].contiguous().cpu()
+    omega = torch.randn((n, sketch_width(DIMS, n)),
+                        generator=torch.Generator().manual_seed(SEED))
+    orders = permutation_orders(SEED, 99, n)
+    small = {dev: run_feature_path(xs, ys, dev, omega, orders, 99)
+             for dev in ("cpu", "cuda")}
+    cpu, gpu = small["cpu"], small["cuda"]
+    for key in ("condensed", "row_means", "global_mean", "mean"):
+        got = gpu["prod_x"][key].double().cpu()
+        ref = cpu["prod_x"][key].double()
+        err = (got - ref).abs()
+        print(f"  n={n} d={d} feature path, card vs CPU: {key} max abs err "
+              f"{float(err.max()):.3e} (rtol 1e-5, atol 1e-7)")
+        check(bool((err <= 1e-5 * ref.abs() + 1e-7).all()),
+              f"small feature path: {key} differs from the CPU")
+    check_spectrum(gpu["pcoa"].eigenvalues, cpu["pcoa"].eigenvalues,
+                   f"n={n} feature path, card vs CPU", lead=COMMUNITIES - 1)
+    m_gpu, m_cpu = gpu["mantel"], cpu["mantel"]
+    print(f"  n={n} feature path, card vs CPU: mantel "
+          f"({m_gpu.statistic}, {m_gpu.p_value}) vs "
+          f"({m_cpu.statistic}, {m_cpu.p_value})")
+    check(m_gpu.p_value == m_cpu.p_value,
+          "small feature path: p differs from the CPU")
+    check(abs(m_gpu.statistic - m_cpu.statistic) <= 1e-5,
+          "small feature path: statistic differs from the CPU")
+    for name, seconds in {**feat["times"], **times}.items():
+        print(f"  feature path {name}: {seconds:.4f} ({card})")
+    return {"launches": mat_launches, "times": times}
 
 
 def pcoa_steps(dm) -> dict:
@@ -402,13 +706,24 @@ def phase_pcoa_split(main: dict, card: str) -> None:
     print(f"  solver first calls in a fresh process (ms): {first}")
 
 
-def phase_kernel_line(main: dict, errors: dict, d: torch.Tensor,
-                      ynorm: torch.Tensor, card: str) -> None:
+def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
+                      ynorm: torch.Tensor, table: torch.Tensor,
+                      card: str) -> None:
+    """Time every kernel at its path's shapes beside its bound and its
+    plain version; ``launches`` holds each kernel's count on its path."""
     from repro_torch.core.distance_matrix import (condensed_form,
                                                   triangle_coords)
+    from repro_torch.dist import METRICS
+    from repro_torch.kernels.center import (center_finish, center_pass1,
+                                            center_pass2)
+    from repro_torch.kernels.center_ref import (center_finish_ref,
+                                                center_pass1_ref,
+                                                center_pass2_ref)
     from repro_torch.kernels.center_matvec import center_matvec
     from repro_torch.kernels.center_matvec_ref import (center_corrections,
                                                        center_matvec_ref)
+    from repro_torch.kernels.pairwise import pairwise_panel
+    from repro_torch.kernels.pairwise_ref import pairwise_panel_ref
     from repro_torch.kernels.permute_reduce import (permute_reduce_finish,
                                                     permute_reduce_partials)
     from repro_torch.kernels.permute_reduce_ops import DEFAULT_CHUNK
@@ -418,7 +733,7 @@ def phase_kernel_line(main: dict, errors: dict, d: torch.Tensor,
     from repro_torch.kernels.symhollow_ref import is_symmetric_and_hollow_ref
     from repro_torch.stats.engine import permutation_orders
 
-    print(f"== phase 5: kernel times at the main path's shapes ({card})")
+    print(f"== phase 5: kernel times at the paths' shapes ({card})")
     n, k, perms, rows = N, DIMS + 10, 32, 1
     m = n * (n - 1) // 2
     kernels = []
@@ -429,7 +744,7 @@ def phase_kernel_line(main: dict, errors: dict, d: torch.Tensor,
         t_ops = flops / peak * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": main["launches"][name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -488,6 +803,46 @@ def phase_kernel_line(main: dict, errors: dict, d: torch.Tensor,
           8 * chunks * rows * perms + 4 * rows * perms,
           chunks * rows * perms, FP64_FLOPS,
           library_ms=cuda_ms(lambda: torch.sum(partials, dim=0), reps=20))
+    del xc, ii, jj, partials
+
+    # the feature path: one panel of PANEL rows against the (n, FEATURES)
+    # table, bound by the fp32 instructions of its n·PANEL·FEATURES terms
+    xi = table[:PANEL]
+    terms = PANEL * n * FEATURES
+    panel_bytes = 4 * (PANEL * FEATURES + n * FEATURES + PANEL * n)
+    bc, eu = METRICS[METRIC], METRICS["euclidean"]
+    entry("pairwise_panel", "src/repro_torch/csrc/pairwise.cu",
+          "src/repro/kernels/pairwise.py:70",
+          cuda_ms(lambda: pairwise_panel(xi, table, bc.kind), reps=10),
+          cuda_ms(lambda: pairwise_panel_ref(xi, table, bc), reps=1),
+          panel_bytes, PAIRWISE_INSTR[METRIC] * terms, FP32_INSTR,
+          euclidean_ms=cuda_ms(lambda: pairwise_panel(xi, table, eu.kind),
+                               reps=10),
+          euclidean_bound_ms=PAIRWISE_INSTR["euclidean"] * terms
+          / FP32_INSTR * 1e3,
+          yardstick_cdist_euclidean_ms=cuda_ms(lambda: torch.cdist(
+              xi, table, compute_mode="donot_use_mm_for_euclid_dist"),
+              reps=3))
+
+    # the center pair at n: pass 1 reads D, pass 2 reads D and writes F
+    row_sums = center_pass1(d)
+    row_means, global_mean = center_finish(row_sums)
+    entry("center_pass1", "src/repro_torch/csrc/center.cu",
+          "src/repro/kernels/center.py:67",
+          cuda_ms(lambda: center_pass1(d), reps=20),
+          cuda_ms(lambda: center_pass1_ref(d), reps=5),
+          4 * n * n + 4 * n, 2 * n * n, FP32_FLOPS)
+    entry("center_finish", "src/repro_torch/csrc/center.cu",
+          "src/repro/kernels/center.py:67",
+          cuda_ms(lambda: center_finish(row_sums), reps=20),
+          cuda_ms(lambda: center_finish_ref(row_sums), reps=20),
+          8 * n + 4, n, FP64_FLOPS)
+    entry("center_pass2", "src/repro_torch/csrc/center.cu",
+          "src/repro/kernels/center.py:90",
+          cuda_ms(lambda: center_pass2(d, row_means, global_mean), reps=20),
+          cuda_ms(lambda: center_pass2_ref(d, row_means, global_mean),
+                  reps=5),
+          8 * n * n + 4 * n + 4, 5 * n * n, FP32_FLOPS)
     for kern in kernels:
         print(f"  {kern['name']}: {kern['ms']:.4f} ms, plain "
               f"{kern['plain_ms']:.4f} ms, bound {kern['bound_ms']:.4f} ms "
@@ -525,11 +880,23 @@ def main() -> int:
     ynorm = condensed_moments(d2, N)["hat"]
     sync()
 
+    x, y = abundance_tables(N, FEATURES, SEED + 4)
+
     errors = phase_kernels(dm0.data, ynorm)
+    errors.update(phase_feature_kernels(x, dm0.data))
     main_path = phase_main_path(dm0, d2)
+    feature = phase_feature_path(x, y)
     phase_checks(main_path, card)
     phase_pcoa_split(main_path, card)
-    phase_kernel_line(main_path, errors, dm0.data, ynorm, card)
+    materialized = phase_feature_checks(feature, x, y, card)
+    feature_launches = feature["launches"]
+    del feature
+    # each kernel's launches on the path that runs it
+    launches = {**main_path["launches"],
+                "pairwise_panel": feature_launches["pairwise_panel"]}
+    launches.update({k: materialized["launches"][k] for k in
+                     ("center_pass1", "center_finish", "center_pass2")})
+    phase_kernel_line(launches, errors, dm0.data, ynorm, x, card)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,9 @@ torch.backends.cudnn.allow_tf32 = False
 
 from repro_torch.core import (DistanceMatrix, DistanceMatrixError,  # noqa: E402
                               mantel, pcoa, random_distance_matrix)
+from repro_torch.dist import (pairwise_condensed,  # noqa: E402
+                              pairwise_distances)
 
-__all__ = ["DistanceMatrix", "DistanceMatrixError", "mantel", "pcoa",
+__all__ = ["DistanceMatrix", "DistanceMatrixError", "mantel",
+           "pairwise_condensed", "pairwise_distances", "pcoa",
            "random_distance_matrix"]

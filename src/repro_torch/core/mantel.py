@@ -139,13 +139,30 @@ def mantel(x: DistanceMatrix, y: DistanceMatrix, permutations: int = 999,
     n = len(x)
     if len(y) != n:
         raise ValueError("x and y must have the same shape")
-    x_data = x.data.to(dev)
-    xc = condensed_form(x_data)
-    pre = {"normxm": condensed_moments_vec(xc)["norm"],
-           "ynorm": condensed_moments(y.data.to(dev), n)["hat"]}
-    stat = MantelStatistic(xc, None, n, pre=pre)
-    r = engine.permutation_test(stat, permutations, key,
-                                alternative=alternative,
-                                batch_size=MANTEL_BATCH, orders=orders,
-                                method="mantel", device=dev)
+    xc = condensed_form(x.data.to(dev))
+    r = mantel_condensed(xc, condensed_moments_vec(xc)["norm"],
+                         condensed_moments(y.data.to(dev), n)["hat"], n,
+                         permutations, key, alternative, orders, dev)
     return r.statistic, r.p_value, r.sample_size
+
+
+def mantel_condensed(xc: torch.Tensor, x_norm: torch.Tensor,
+                     y_hat: torch.Tensor, n: int, permutations: int = 999,
+                     key: Union[int, torch.Generator, None] = None,
+                     alternative: str = "two-sided",
+                     orders: Optional[torch.Tensor] = None,
+                     device: DeviceLike = None) -> engine.PermutationTestResult:
+    """Mantel test over condensed operands on ``device`` (``None``: the
+    card): ``xc`` is the permuted side, ``x_norm`` its centred norm, and
+    ``y_hat`` the fixed side's centred-normalized condensed vector (as
+    ``Workspace.statistic("mantel")`` of the reference builds it). Runs
+    B = ``MANTEL_BATCH`` permutations a tile and returns the engine's
+    result."""
+    dev = resolve_device(device)
+    stat = MantelStatistic(xc.to(dev), None, n,
+                           pre={"normxm": x_norm.to(dev),
+                                "ynorm": y_hat.to(dev)})
+    return engine.permutation_test(stat, permutations, key,
+                                   alternative=alternative,
+                                   batch_size=MANTEL_BATCH, orders=orders,
+                                   method="mantel", device=dev)

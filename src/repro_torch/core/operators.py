@@ -8,8 +8,15 @@ skinny (n, k) blocks, and
     F @ X = E @ X − r (1ᵀX) − 1 (rᵀX) + m·1 (1ᵀX)
 
 so ``r`` and ``m`` are hoisted once and F is never formed. On the card
-``matvec`` always goes through the ``center_matvec`` kernel; on the CPU
-through its plain version.
+``CenteredGramOperator.matvec`` always goes through the ``center_matvec``
+kernel; on the CPU through its plain version.
+
+``CondensedCenteredGramOperator`` is the same operator backed by the
+condensed distances of a feature-table production
+(``repro_torch.dist.pairwise_condensed``), whose means it takes for free.
+Its matvec gathers each row strip of D from the condensed vector and
+multiplies with ``torch.matmul``: the reference has no kernel there, and a
+condensed-input ``center_matvec`` kernel is later work.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import dataclasses
 import torch
 
 from repro_torch.core.centering import center_distance_matrix
+from repro_torch.core.distance_matrix import (MAX_TRIANGLE_N, condensed_index,
+                                              condensed_to_square)
 from repro_torch.kernels.center_matvec_ops import center_matvec_op
 
 
@@ -60,3 +69,97 @@ class CenteredGramOperator:
     def materialize(self) -> torch.Tensor:
         """The full F — the oracle path (``method="eigh"`` needs it)."""
         return center_distance_matrix(self.d)
+
+
+@dataclasses.dataclass
+class CondensedCenteredGramOperator:
+    """The centred-Gram operator backed by the CONDENSED distances.
+
+    The m = n(n−1)/2 condensed vector is the only large buffer, and each
+    matvec row strip is gathered from it by closed-form triangle indexing,
+
+        k(i, j) = i(2n − i − 1)/2 + (j − i − 1)   for i < j  (scipy layout),
+
+    per strip, so no n×n position map is built either. The index
+    arithmetic is int32, exact only for n <= 46340 (an overflow would
+    gather silently wrong distances), so construction refuses larger n.
+    D is hollow by construction, so ``trace`` needs no diagonal term.
+    """
+
+    dc: torch.Tensor           # (m,) condensed distances — the only big buffer
+    row_means: torch.Tensor    # (n,)  row means of E = −½ D∘D
+    global_mean: torch.Tensor  # ()    global mean of E
+    n: int
+    block: int = 256
+
+    def __post_init__(self):
+        if self.n > MAX_TRIANGLE_N:
+            raise ValueError(
+                f"CondensedCenteredGramOperator supports n <= "
+                f"{MAX_TRIANGLE_N} (int32 triangle indexing would overflow "
+                f"and silently corrupt the gather); got n={self.n}")
+
+    @classmethod
+    def from_production(cls, prod: dict, *, block: int = 256
+                        ) -> "CondensedCenteredGramOperator":
+        """Wrap a ``repro_torch.dist.pairwise_condensed`` result: its means
+        were accumulated during the production, so this costs nothing."""
+        return cls(prod["condensed"], prod["row_means"], prod["global_mean"],
+                   prod["n"], block)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.dc.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.dc.device
+
+    def row_panel(self, i0: int, b: int) -> torch.Tensor:
+        """Rows [i0, i0+b) of D gathered from the condensed vector."""
+        if self.dc.shape[0] == 0:              # n <= 1: no off-diagonal pairs
+            return torch.zeros((b, self.n), dtype=self.dtype,
+                               device=self.device)
+        r = torch.arange(i0, i0 + b, dtype=torch.int32,
+                         device=self.device)[:, None]
+        c = torch.arange(self.n, dtype=torch.int32,
+                         device=self.device)[None, :]
+        on_diag = r == c
+        k = condensed_index(r, c, self.n)
+        return torch.where(on_diag, 0.0,
+                           self.dc[torch.where(on_diag, 0, k).long()])
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """``F @ x`` with each D row strip gathered from the condensed
+        storage; peak extra memory is one (block, n) strip, never n²."""
+        squeeze = x.ndim == 1
+        if squeeze:
+            x = x[:, None]
+        colsum = torch.sum(x, dim=0)                         # 1ᵀX   (k,)
+        corr = self.global_mean * colsum - self.row_means @ x  # m·1ᵀX − rᵀX
+        b = max(min(self.block, self.n), 1)
+        out = torch.empty((self.n, x.shape[1]), dtype=x.dtype,
+                          device=x.device)
+        for i0 in range(0, self.n, b):
+            bi = min(b, self.n - i0)
+            rows = self.row_panel(i0, bi)
+            e_rows = -0.5 * rows * rows
+            out[i0:i0 + bi] = (e_rows @ x
+                               - self.row_means[i0:i0 + bi, None]
+                               * colsum[None, :] + corr[None, :])
+        return out[:, 0] if squeeze else out
+
+    def trace(self) -> torch.Tensor:
+        """Exact ``tr(F) = Σλ``: the condensed form is hollow, so
+        tr(E) = 0 and tr(F) = −n·m̄."""
+        return -self.n * self.global_mean
+
+    def to_square(self) -> torch.Tensor:
+        """The full symmetric hollow D — only for callers that ask for a
+        square; it defeats the point otherwise."""
+        return condensed_to_square(self.dc, self.n)
+
+    def materialize(self) -> torch.Tensor:
+        """The full Gower-centred F (the eigh oracle path): the ``center``
+        kernel pair on the card."""
+        return center_distance_matrix(self.to_square())

@@ -11,6 +11,10 @@ The counterpart of ``repro/core/pcoa.py``.
 * ``method="eigh"`` — exact symmetric eigendecomposition, the oracle; it
   always materializes the centred matrix.
 
+``pcoa(None, operator=op)`` is the fully matrix-free entry: a prebuilt
+operator (the condensed-backed one a feature-table production gives)
+stands in for the square matrix, on the matrix-free fsvd path only.
+
 The sketch Ω is ``omega`` when given (the parity tests pass the
 reference's ``jax.random.normal(key, (n, p))``, which torch cannot
 reproduce), else a standard normal draw from a CPU ``torch.Generator``
@@ -31,7 +35,8 @@ import torch
 from repro_torch.api.results import OrdinationResult
 from repro_torch.core import centering
 from repro_torch.core.distance_matrix import DistanceMatrix, as_generator
-from repro_torch.core.operators import CenteredGramOperator
+from repro_torch.core.operators import (CenteredGramOperator,
+                                        CondensedCenteredGramOperator)
 from repro_torch.core.validation import ensure_finite
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
 
@@ -93,28 +98,53 @@ def materialized_gram(dm_data: torch.Tensor,
                      f"(the distributed centering is not ported yet)")
 
 
-def pcoa(dm: DistanceMatrix, dimensions: int = 10, method: str = "fsvd",
-         key: Union[int, torch.Generator, None] = None,
+def pcoa(dm: Optional[DistanceMatrix], dimensions: int = 10,
+         method: str = "fsvd", key: Union[int, torch.Generator, None] = None,
          centering_impl: str = "fused", materialize: bool = False,
          check_finite: bool = True, omega: Optional[torch.Tensor] = None,
+         operator: Union[CenteredGramOperator,
+                         CondensedCenteredGramOperator, None] = None,
          device: DeviceLike = None) -> OrdinationResult:
     """Principal Coordinates Analysis of a distance matrix, on ``device``
     (``None``: the card).
 
     ``method="fsvd"`` runs matrix-free against a ``CenteredGramOperator``
     unless ``materialize=True``; ``method="eigh"`` is the exact oracle.
-    ``key`` seeds the sketch (see the module docstring); ``omega`` replaces
-    the draw with a given (n, min(k + 10, n)) sketch. Non-finite input is
-    rejected up front unless ``check_finite=False``.
+    ``operator`` replaces the operator built from ``dm`` on the
+    matrix-free path, and with ``dm=None`` stands in for the matrix
+    altogether (the eigh and materialized solves then refuse: they need
+    the square). ``key`` seeds the sketch (see the module docstring);
+    ``omega`` replaces the draw with a given (n, min(k + 10, n)) sketch.
+    Non-finite input is rejected up front unless ``check_finite=False``.
     """
     if method not in ("eigh", "fsvd"):
         raise ValueError(f"unknown method {method!r}")
     dev = resolve_device(device)
-    dm = dm.copy()                         # free: validation is cached
-    data = dm.data.to(dev)
-    if check_finite:
-        ensure_finite(data)
-    n = len(dm)
+    needs_gram = method == "eigh" or materialize
+    if dm is None:
+        if operator is None:
+            raise ValueError("pcoa needs a DistanceMatrix or a prebuilt "
+                             "operator")
+        if needs_gram:
+            raise ValueError("dm=None (operator-only) is limited to the "
+                             "matrix-free fsvd path; eigh/materialized "
+                             "solves need the square matrix")
+    if operator is not None:
+        if needs_gram:
+            raise ValueError("a prebuilt operator is only consumed by the "
+                             "matrix-free fsvd path")
+        if operator.row_means.device.type != dev.type:
+            raise ValueError(f"the operator lies on "
+                             f"{operator.row_means.device}, not on {dev}")
+        dev = operator.row_means.device
+    if dm is not None:
+        dm = dm.copy()                     # free: validation is cached
+        data = dm.data.to(dev)
+        if check_finite:
+            ensure_finite(data)
+        n = len(dm)
+    else:
+        n = operator.n
     k = resolve_dimensions(dimensions, n)
 
     if method == "eigh":
@@ -141,7 +171,8 @@ def pcoa(dm: DistanceMatrix, dimensions: int = 10, method: str = "fsvd",
                                                omega, k)
             total = torch.trace(centered)
         else:
-            op = CenteredGramOperator.from_distance(data)
+            op = operator if operator is not None else \
+                CenteredGramOperator.from_distance(data)
             evals, evecs = _subspace_iteration(op.matvec, omega, k)
             total = op.trace()
 

@@ -1,0 +1,10 @@
+"""Feature tables to distances: the metrics and the panel loop."""
+
+from repro_torch.dist.metrics import METRICS, Metric, get_metric
+from repro_torch.dist.driver import (condensed_size, pairwise_condensed,
+                                     pairwise_distances, production_mantel,
+                                     production_moments)
+
+__all__ = ["METRICS", "Metric", "condensed_size", "get_metric",
+           "pairwise_condensed", "pairwise_distances", "production_mantel",
+           "production_moments"]

@@ -12,13 +12,21 @@ Each kernel keeps the reference's three-file layout
                        tensor, no fallback from one to the other;
 * ``<name>_ref.py``  — the plain PyTorch version of the same function.
 
-Kernels ported so far (the main path: validate → matrix-free PCoA →
+Kernels ported so far. The main path (validate → matrix-free PCoA →
 Mantel):
 
 * ``symhollow``      — fused symmetric+hollow validation (paper Algorithm 7).
 * ``center_matvec``  — fused center-matvec for matrix-free PCoA.
 * ``permute_reduce`` — B permuted condensed multiply-reduces per tile, the
                        Mantel permutation hot loop.
+
+The feature-table path (feature table → condensed distances → PCoA →
+Mantel) and the materialized solves:
+
+* ``pairwise``       — one row panel of pairwise distances for the five
+                       metrics of ``repro_torch.dist``.
+* ``center``         — two-pass Gower centering (paper Algorithm 2): pass 1
+                       row sums, a fixed-order finish, pass 2.
 
 This package imports nothing at import time, so no module here needs
 ``nvcc`` or a card to be imported.

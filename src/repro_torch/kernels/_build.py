@@ -45,6 +45,10 @@ launches: dict[str, int] = {
     "center_matvec": 0,
     "permute_reduce": 0,
     "permute_reduce_finish": 0,
+    "pairwise_panel": 0,
+    "center_pass1": 0,
+    "center_finish": 0,
+    "center_pass2": 0,
 }
 
 _P = ctypes.c_void_p
@@ -56,6 +60,10 @@ _SIGNATURES = {
     "repro_permute_reduce_partials": [_P, _P, _P, _P, _P, _P, _I, _L, _L,
                                       _I, _I, _I, _I, _P],
     "repro_permute_reduce_finish": [_P, _P, _I, _I, _P],
+    "repro_pairwise_panel": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_center_pass1": [_P, _P, _I, _I, _P],
+    "repro_center_finish": [_P, _P, _P, _I, _P],
+    "repro_center_pass2": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()

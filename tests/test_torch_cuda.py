@@ -10,18 +10,31 @@ Tolerances: ``symhollow`` is exact (it computes booleans);
 ``center_matvec`` rtol 1e-5 / atol 1e-5·max(scale, 1) and
 ``permute_reduce`` rtol 1e-5 / atol 1e-5, the reference's own kernel
 tolerances (``tests/test_kernels.py``, ``tests/test_permute_reduce.py``):
-both sum in another order than their plain versions.
+both sum in another order than their plain versions. ``pairwise_panel``
+rtol 1e-5 / atol 1e-5 (``tests/test_dist.py``) and the ``center`` pair
+rtol 2e-4 / atol 2e-4 in fp32, within 0.05·scale with correlation > 0.999
+in bf16 (``tests/test_kernels.py``), for the same reason.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import pcoa, mantel, random_distance_matrix
+from repro_torch.core import (CondensedCenteredGramOperator, mantel, pcoa,
+                              random_distance_matrix)
 from repro_torch.core.distance_matrix import DistanceMatrix, triangle_coords
+from repro_torch.dist import (METRICS, pairwise_condensed, pairwise_distances,
+                              production_mantel)
 from repro_torch.kernels import _build
+from repro_torch.kernels.center import (center_finish, center_pass1,
+                                        center_pass2)
+from repro_torch.kernels.center_ops import center_distance_matrix_op
+from repro_torch.kernels.center_ref import (center_distance_matrix_ref,
+                                            center_two_pass_ref)
 from repro_torch.kernels.center_matvec_ops import center_matvec_op
 from repro_torch.kernels.center_matvec_ref import center_matvec_ref
+from repro_torch.kernels.pairwise_ops import pairwise_panel_op
+from repro_torch.kernels.pairwise_ref import pairwise_panel_ref
 from repro_torch.kernels.permute_reduce_ops import permute_reduce
 from repro_torch.kernels.permute_reduce_ref import permute_reduce_ref
 from repro_torch.kernels.symhollow_ops import is_symmetric_and_hollow_op
@@ -119,7 +132,9 @@ def test_launch_counts_follow_the_main_path(cuda):
     mantel(dm, dm, permutations=40, device=cuda)
     assert _build.launches == {"symhollow": 1, "center_matvec": 4,
                                "permute_reduce": 2,
-                               "permute_reduce_finish": 2}
+                               "permute_reduce_finish": 2,
+                               "pairwise_panel": 0, "center_pass1": 0,
+                               "center_finish": 0, "center_pass2": 0}
 
 
 def test_main_path_card_matches_cpu(cuda):
@@ -142,3 +157,102 @@ def test_main_path_card_matches_cpu(cuda):
     np.testing.assert_allclose(ev_gpu.numpy(), ev_cpu.numpy(), rtol=1e-4)
     assert m_gpu[1] == m_cpu[1]
     assert abs(m_gpu[0] - m_cpu[0]) <= 1e-5
+
+
+def _abundances(n, d, seed, zero_rows=()):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand((n, d), generator=gen)
+    x[torch.rand((n, d), generator=gen) < 0.6] = 0.0
+    x[list(zero_rows)] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("metric", sorted(METRICS))
+@pytest.mark.parametrize("bm,n,d", [(1, 1, 1), (10, 30, 11), (64, 64, 32),
+                                    (70, 130, 33), (256, 1000, 300)])
+def test_pairwise_panel_matches_plain(cuda, metric, bm, n, d):
+    x = _abundances(n, d, bm + n + d, zero_rows=(0, n - 1)).to(cuda)
+    xi = x[:bm]
+    got = pairwise_panel_op(xi, x, metric)
+    want = pairwise_panel_ref(xi, x, METRICS[metric])
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_pairwise_square_is_symmetric_hollow_and_validates(cuda):
+    x = _abundances(300, 40, 3).to(cuda)
+    for metric in sorted(METRICS):
+        sq = pairwise_distances(x, metric, block=64, device=cuda)
+        assert torch.equal(sq, sq.T), metric
+        assert bool((torch.diagonal(sq) == 0).all()), metric
+        DistanceMatrix(sq, device=cuda)
+
+
+@pytest.mark.parametrize("n", [1, 7, 100, 1000, 1027])
+def test_center_matches_plain(cuda, n):
+    d = _matrix(n, n + 2, cuda)
+    row_sums = center_pass1(d)
+    np.testing.assert_allclose(row_sums.cpu().numpy(),
+                               (-0.5 * d.double() ** 2).sum(1).cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    row_means, global_mean = center_finish(row_sums)
+    got = center_pass2(d, row_means, global_mean)
+    for want in (center_two_pass_ref(d), center_distance_matrix_ref(d)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=2e-4, atol=2e-4)
+    assert torch.equal(center_distance_matrix_op(d), got)   # deterministic
+
+
+@pytest.mark.parametrize("n", [64, 1000, 1001])
+def test_center_bf16_matches_plain(cuda, n):
+    d = _matrix(n, n + 3, cuda)
+    got = center_distance_matrix_op(d.bfloat16())
+    assert got.dtype == torch.bfloat16
+    got = got.float().cpu().numpy()
+    want = center_distance_matrix_ref(d).cpu().numpy()
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() < 0.05 * scale
+    assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.999
+
+
+def test_feature_path_launches_and_matches_cpu(cuda):
+    n, d = 300, 50
+    x = _abundances(n, d, 8)
+    y = x * torch.exp(0.3 * torch.randn((n, d), generator=torch.Generator()
+                                        .manual_seed(9)))
+    omega = torch.randn((n, 14), generator=torch.Generator().manual_seed(3))
+    orders = permutation_orders(4, 49, n)
+    results = {}
+    for dev in ("cpu", cuda):
+        _build.reset_launches()
+        px = pairwise_condensed(x, block=128, device=dev)
+        py = pairwise_condensed(y, block=128, device=dev)
+        op = CondensedCenteredGramOperator.from_production(px)
+        r = pcoa(None, dimensions=4, operator=op, omega=omega, device=dev)
+        m = production_mantel(px, py, 49, orders=orders, device=dev)
+        results[str(dev)] = (px, r.eigenvalues.cpu(), m,
+                             dict(_build.launches))
+    (p_cpu, ev_cpu, m_cpu, l_cpu), (p_gpu, ev_gpu, m_gpu, l_gpu) = \
+        results["cpu"], results["cuda"]
+    assert set(l_cpu.values()) == {0}
+    assert l_gpu["pairwise_panel"] == 6 and l_gpu["center_matvec"] == 0
+    assert l_gpu["permute_reduce"] == 2
+    for key in ("condensed", "row_means", "global_mean", "mean"):
+        np.testing.assert_allclose(p_gpu[key].cpu().numpy(),
+                                   p_cpu[key].numpy(), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(ev_gpu.numpy(), ev_cpu.numpy(), rtol=1e-4)
+    assert m_gpu.p_value == m_cpu.p_value
+    assert abs(m_gpu.statistic - m_cpu.statistic) <= 1e-5
+
+
+def test_materialized_solves_launch_the_center_pair(cuda):
+    dm = random_distance_matrix(6, 257, dim=5, device=cuda)
+    _build.reset_launches()
+    r = pcoa(dm, dimensions=4, materialize=True, device=cuda)
+    assert (_build.launches["center_pass1"], _build.launches["center_finish"],
+            _build.launches["center_pass2"]) == (1, 1, 1)
+    assert _build.launches["center_matvec"] == 0
+    cpu = DistanceMatrix(dm.data.cpu(), device="cpu")
+    want = pcoa(cpu, dimensions=4, method="eigh", device="cpu")
+    np.testing.assert_allclose(r.eigenvalues.cpu().numpy(),
+                               want.eigenvalues.numpy(), rtol=1e-4)

@@ -14,9 +14,11 @@ import torch
 
 import repro_torch
 from repro_torch import convert
-from repro_torch.core import (DistanceMatrix, mantel, pcoa,
-                              random_distance_matrix)
+from repro_torch.core import (CondensedCenteredGramOperator, DistanceMatrix,
+                              mantel, pcoa, random_distance_matrix)
 from repro_torch.core.mantel import MantelStatistic
+from repro_torch.dist import (pairwise_condensed, pairwise_distances,
+                              production_mantel)
 from repro_torch.kernels import _build
 from repro_torch.stats.engine import permutation_test
 
@@ -51,6 +53,10 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(path):
 def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     d = random_distance_matrix(0, 12, device="cpu")
+    x = np.abs(np.random.default_rng(0).normal(size=(12, 5))).astype(
+        np.float32)
+    prod = pairwise_condensed(x, device="cpu")
+    op = CondensedCenteredGramOperator.from_production(prod)
     calls = [
         lambda: DistanceMatrix(d.data),
         lambda: DistanceMatrix.from_numpy(d.data.numpy()),
@@ -59,6 +65,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: mantel(d, d, permutations=9),
         lambda: permutation_test(MantelStatistic(d.data, d.data, 12), 9),
         lambda: convert.from_reference({"data": d.data.numpy()}),
+        lambda: pairwise_condensed(x),
+        lambda: pairwise_distances(x),
+        lambda: pairwise_distances(x, out="condensed"),
+        lambda: pcoa(None, dimensions=2, operator=op),
+        lambda: production_mantel(prod, prod, permutations=9),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -70,6 +81,8 @@ def test_kernel_modules_import_without_a_toolkit():
     code = ("import repro_torch.kernels.symhollow_ops, "
             "repro_torch.kernels.center_matvec_ops, "
             "repro_torch.kernels.permute_reduce_ops, "
+            "repro_torch.kernels.pairwise_ops, "
+            "repro_torch.kernels.center_ops, "
             "repro_torch.kernels._build as b; "
             "assert all(v == 0 for v in b.launches.values())")
     subprocess.run([sys.executable, "-c", code], env=env, check=True,
@@ -78,8 +91,8 @@ def test_kernel_modules_import_without_a_toolkit():
 
 def test_build_covers_every_source_and_refuses_without_nvcc(monkeypatch):
     names = {p.name for p in _build._sources()}
-    assert {"symhollow.cu", "center_matvec.cu",
-            "permute_reduce.cu"} <= names
+    assert {"symhollow.cu", "center_matvec.cu", "permute_reduce.cu",
+            "pairwise.cu", "center.cu"} <= names
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build, "Path", lambda p: Path("/nonexistent/nvcc"))
@@ -98,3 +111,22 @@ def test_tf32_is_off_and_cpu_runs_launch_nothing():
     mantel(d, d, permutations=5, device="cpu")
     assert set(_build.launches.values()) == {0}
     assert np.isfinite(d.data.numpy()).all()
+
+
+def test_cpu_feature_path_launches_nothing():
+    """The feature path and the materialized solves on the CPU run the
+    kernels' plain versions: no launch is counted."""
+    x = np.abs(np.random.default_rng(1).normal(size=(24, 6))).astype(
+        np.float32)
+    _build.reset_launches()
+    prod = pairwise_condensed(x, device="cpu")
+    op = CondensedCenteredGramOperator.from_production(prod)
+    pcoa(None, dimensions=2, operator=op, device="cpu")
+    production_mantel(prod, prod, 9, device="cpu")
+    dm = DistanceMatrix(pairwise_distances(x, device="cpu"), device="cpu")
+    pcoa(dm, dimensions=2, materialize=True, device="cpu")
+    pcoa(dm, dimensions=2, method="eigh", device="cpu")
+    op.materialize()
+    assert set(_build.launches.values()) == {0}
+    assert {"pairwise_panel", "center_pass1", "center_finish",
+            "center_pass2"} <= set(_build.launches)
