@@ -13,21 +13,30 @@ check fails:
 2. every kernel against its plain PyTorch version on the card, at a ragged
    small shape (n = 1000) and at the paths' shapes; 2b does the same for
    the feature path's kernels (``pairwise_panel`` for the five metrics,
-   the ``center`` pair in fp32 and bf16);
+   the ``center`` pair in fp32 and bf16); 2c for ``mantel_corr`` (n = 1000
+   with K = 54, and one batch of 27 at n = 16384), and its identity order
+   against the plain Pearson r;
 3. the main path at n = 16384 (a 1.07 GB fp32 matrix): two validated
    ``DistanceMatrix`` objects, ``pcoa(dimensions=10)`` matrix-free, and
    ``mantel(permutations=999)`` against a noisy copy; 3b the feature path
    at full width: two n = 16384 by d = 2048 abundance tables → condensed
    Bray–Curtis distances (``pairwise_condensed``) → operator-only
-   ``pcoa`` → Mantel (K = 999, B = 32). Each path runs with the kernels'
-   launch counts set to 0 just before it and read just after;
+   ``pcoa`` → Mantel (K = 999, B = 32); 3c the statistics battery on the
+   main path's matrices (K = 999, B = 32, 4 groups of 4096): PERMANOVA,
+   ANOSIM, PERMDISP (10 dimensions), partial Mantel against a third
+   matrix, PERMANOVA over the feature path's condensed operator, and the
+   materialized Mantel baseline ``mantel_corr_op`` (27 a launch) on
+   ``mantel``'s orders, its draws held against ``mantel``'s. Each path,
+   and each test of the battery, runs with the kernels' launch counts set
+   to 0 just before it and read just after;
 4. checks of the answers (and of small runs on the card against the CPU)
    and per-phase times; 4b takes pcoa's time apart: the main path's cold
    call beside warm calls, a warm call step by step, and the solver's
    first calls in a fresh process (``--solver-first-calls``, which the
    script runs itself); 4c checks the feature path and drives the
    materialized solves (``materialize=True`` through the ``center``
-   kernels, and ``method="eigh"`` against the CPU);
+   kernels, and ``method="eigh"`` against the CPU); 4d runs the battery at
+   n = 512 on the card and on the CPU with the same orders and sketch;
 5. one JSON line of per-kernel launches, errors, times and bounds.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -59,6 +68,9 @@ PANEL = 256          # rows of a pairwise panel: pairwise_condensed's default
 SMALL_FEATURES = 300  # features of phase 2b's ragged pairwise shape
 EIGH_N = 2048        # the eigh solve held against the CPU
 SMALL_FEATURE_N = 512  # the feature path held against the CPU
+GROUPS = 4           # the battery's groups: 4 of N / 4 samples, drawn from a seed
+CORR_BATCH = 27      # mantel_corr permutations a launch: K = 999 in 37
+BATTERY_N = 512      # the battery held against the CPU
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, no sparsity).
 HBM_BYTES_PER_S = 3.35e12
@@ -71,6 +83,7 @@ FP32_INSTR = FP32_FLOPS / 2  # instructions/s: the sheet counts an FMA as 2
 PAIRWISE_INSTR = {"euclidean": 2, "braycurtis": 4}
 
 CENTER_TOL = {"rtol": 2e-4, "atol": 2e-4}    # tests/test_kernels.py, fp32
+CORR_TOL = {"rtol": 1e-4, "atol": 1e-5}      # tests/test_kernels.py, mantel_corr
 PAIRWISE_TOL = {"rtol": 1e-5, "atol": 1e-5}  # tests/test_dist.py
 
 
@@ -267,8 +280,8 @@ def phase_main_path(dm0, d2) -> dict:
     launches = dict(_build.launches)
     times = {"validate_2x_s": t1 - t0, "pcoa_s": t2 - t1, "mantel_s": t3 - t2}
     print(f"  launches on the main path: {launches}")
-    return {"dm": dm, "pcoa": res, "stat": stat, "p": p, "size": size,
-            "launches": launches, "times": times}
+    return {"dm": dm, "dm2": dm2, "pcoa": res, "stat": stat, "p": p,
+            "size": size, "launches": launches, "times": times}
 
 
 def check_center_launches(what: str) -> None:
@@ -435,6 +448,65 @@ def phase_feature_kernels(x: torch.Tensor, d_main: torch.Tensor) -> dict:
     return errors
 
 
+def phase_mantel_corr_kernel(d_main: torch.Tensor, d2: torch.Tensor) -> dict:
+    """``mantel_corr`` against ``mantel_corr_plain`` on the card, as Pearson
+    r (the sums over 2‖x−x̄‖); returns the max abs error at full width."""
+    from repro_torch.core import random_distance_matrix
+    from repro_torch.kernels.mantel_corr import (mantel_corr_finish,
+                                                 mantel_corr_partials)
+    from repro_torch.kernels.mantel_corr_ops import (mantel_corr_hoist,
+                                                     mantel_corr_op)
+    from repro_torch.kernels.mantel_corr_ref import mantel_corr_plain
+    from repro_torch.kernels.permute_reduce_ref import \
+        permute_reduce_finish_ref
+    from repro_torch.stats.engine import permutation_orders
+
+    print("== phase 2c: mantel_corr against its plain version on the card")
+    errors = {}
+    small = random_distance_matrix(SEED + 8, SMALL_N, device="cuda").data
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    noise = torch.triu(0.05 * torch.rand((SMALL_N, SMALL_N), generator=gen,
+                                         device="cuda"), 1)
+    small_y = small + noise + noise.T
+    for label, x, y, k in ((f"n={SMALL_N} K=54", small, small_y, 54),
+                           (f"n={N} one batch", d_main, d2, CORR_BATCH)):
+        n = x.shape[0]
+        orders = permutation_orders(SEED + 9, k, n, "cuda")
+        normxm, yhat = mantel_corr_hoist(x, y)
+        sums = []
+        for b in range(0, k, CORR_BATCH):
+            partials = mantel_corr_partials(x, yhat, orders[b:b + CORR_BATCH])
+            sums.append(mantel_corr_finish(partials))
+        want = mantel_corr_plain(x, yhat, orders)
+        errors["mantel_corr"] = compare(
+            f"mantel_corr {label} B={CORR_BATCH}, as r",
+            torch.cat(sums) / (2 * normxm), want / (2 * normxm), **CORR_TOL)
+        # the finish is the fixed-order sum over the leading axis, as
+        # permute_reduce's
+        errors["mantel_corr_finish"] = compare(
+            f"mantel_corr_finish {label}", sums[-1],
+            permute_reduce_finish_ref(partials))
+        del yhat, partials
+    identity = torch.arange(SMALL_N, device="cuda")[None]
+    r = mantel_corr_op(small, small_y, identity, perm_batch=1)
+    want = pearson_fp64(small, small_y)
+    print(f"  mantel_corr_op identity order: {float(r[0]):.8f}, plain "
+          f"Pearson r (fp64) {want:.8f} (rtol 1e-4, atol 1e-5)")
+    check(abs(float(r[0]) - want) <= 1e-5 + 1e-4 * abs(want),
+          "mantel_corr: the identity order does not give Pearson r")
+    return errors
+
+
+def pearson_fp64(x: torch.Tensor, y: torch.Tensor) -> float:
+    """Pearson r of the condensed forms, in fp64."""
+    from repro_torch.core.distance_matrix import condensed_form
+
+    a = condensed_form(x).double()
+    b = condensed_form(y).double()
+    a, b = a - a.mean(), b - b.mean()
+    return float(torch.dot(a, b) / (a.norm() * b.norm()))
+
+
 def run_feature_path(x: torch.Tensor, y: torch.Tensor, device,
                      omega=None, orders=None,
                      permutations: int = PERMUTATIONS) -> dict:
@@ -505,7 +577,7 @@ def phase_feature_checks(feat: dict, x: torch.Tensor, y: torch.Tensor,
     want = {"pairwise_panel": panels, "permute_reduce": tiles,
             "permute_reduce_finish": tiles, "center_matvec": 0,
             "symhollow": 0, "center_pass1": 0, "center_finish": 0,
-            "center_pass2": 0}
+            "center_pass2": 0, "mantel_corr": 0, "mantel_corr_finish": 0}
     check(launches == want, f"feature path launches {launches} != {want}")
     prod = feat["prod_x"]
     cond = prod["condensed"]
@@ -603,6 +675,167 @@ def phase_feature_checks(feat: dict, x: torch.Tensor, y: torch.Tensor,
     for name, seconds in {**feat["times"], **times}.items():
         print(f"  feature path {name}: {seconds:.4f} ({card})")
     return {"launches": mat_launches, "times": times}
+
+
+def battery_tests(x, y, z, op, groups, orders, device, omega=None,
+                  corr_batch: int = CORR_BATCH) -> dict:
+    """The battery's tests on ``device`` as ``{name: (the launches each
+    makes on the card, thunk)}``: x permuted, y and z held fixed, ``op`` a
+    condensed operator of the feature path; every test on the same
+    ``orders``, ``mantel_corr`` ``corr_batch`` permutations a launch."""
+    from repro_torch.kernels.mantel_corr_ops import mantel_corr_op
+    from repro_torch.stats import (PermanovaOperatorStatistic, anosim,
+                                   partial_mantel, permanova, permdisp,
+                                   permutation_test)
+    from repro_torch.stats.engine import WORKSPACE_BATCH
+
+    permutations = orders.shape[0]
+    codes = torch.as_tensor(groups).to(device)
+    common = {"orders": orders, "batch_size": WORKSPACE_BATCH,
+              "device": device}
+    tiles = -(-permutations // WORKSPACE_BATCH)
+    corr_launches = permutations // corr_batch
+    return {
+        "permanova": ({"center_pass1": 1, "center_finish": 1,
+                       "center_pass2": 1},
+                      lambda: permanova(x, groups, permutations, **common)),
+        "anosim": ({"permute_reduce": tiles, "permute_reduce_finish": tiles},
+                   lambda: anosim(x, groups, permutations, **common)),
+        "permdisp": ({"center_matvec": 4},
+                     lambda: permdisp(x, groups, permutations,
+                                      dimensions=DIMS, omega=omega,
+                                      **common)),
+        "partial_mantel": ({"permute_reduce": tiles,
+                            "permute_reduce_finish": tiles},
+                           lambda: partial_mantel(x, y, z, permutations,
+                                                  **common)),
+        # the condensed operator's matvec is plain torch: no kernel of the
+        # port runs (a condensed-input center_matvec is later work)
+        "permanova_operator": ({}, lambda: permutation_test(
+            PermanovaOperatorStatistic(op, codes, op.n, GROUPS),
+            permutations, method="permanova", **common)),
+        "mantel_corr": ({"mantel_corr": corr_launches,
+                         "mantel_corr_finish": corr_launches},
+                        lambda: mantel_corr_op(x.data, y.data, orders,
+                                               perm_batch=corr_batch)),
+    }
+
+
+def battery_tolerance(name: str, statistic: float) -> float:
+    """The reference's tolerance on a battery statistic: 1e-5
+    (tests/test_stats.py:148), PERMDISP 1e-4·max(|s|, 1) (:221), and
+    1e-4·|s| for the operator-form PERMANOVA, whose condensed operator
+    comes from a production summed in another order on each device
+    (tests/test_dist.py:214 holds it to the materialized form so)."""
+    if name == "permdisp":
+        return 1e-4 * max(abs(statistic), 1.0)
+    if name == "permanova_operator":
+        return 1e-4 * abs(statistic)
+    return 1e-5
+
+
+def phase_battery(main: dict, op, card: str) -> dict:
+    """Phase 3c: the statistics battery at full width on the square path's
+    matrices (and PERMANOVA over the feature path's condensed operator),
+    each test with the launch counts set to 0 just before it and read
+    just after; ``mantel_corr``'s draws held against ``mantel``'s."""
+    from repro_torch.core import random_distance_matrix
+    from repro_torch.core.distance_matrix import condensed_form
+    from repro_torch.core.mantel import MantelStatistic, condensed_moments_vec
+    from repro_torch.kernels import _build
+    from repro_torch.stats import engine
+    from repro_torch.stats.engine import WORKSPACE_BATCH
+
+    print(f"== phase 3c: the statistics battery at n={N}, K={PERMUTATIONS}, "
+          f"B={WORKSPACE_BATCH}, {GROUPS} groups of {N // GROUPS} "
+          f"(mantel_corr B={CORR_BATCH})")
+    groups = np.random.default_rng(SEED + 11).permutation(
+        np.repeat(np.arange(GROUPS), N // GROUPS))
+    x, y = main["dm"], main["dm2"]
+    z = random_distance_matrix(SEED + 12, N, dim=POINT_DIM, device="cuda")
+    # the orders mantel drew on the main path (key None: seed 0)
+    orders = engine.permutation_orders(None, PERMUTATIONS, N, "cuda")
+    launches_by_test, draws = {}, None
+    for name, (want, run) in battery_tests(x, y, z, op, groups, orders,
+                                           "cuda").items():
+        sync()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = run()
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.launches.items() if v}
+        launches_by_test[name] = dict(_build.launches)
+        if name == "mantel_corr":
+            draws = res
+            shown = f"{res.numel()} draws"
+        else:
+            shown = f"stat {res.statistic:.6f}, p {res.p_value}"
+            check(np.isfinite(res.statistic) and 0 < res.p_value <= 1
+                  and res.sample_size == N, f"{name}: result {res}")
+        print(f"  {name}: {shown}; {seconds:.4f} s ({card}); launches "
+              f"{launches}")
+        check(launches == want, f"{name}: launches {launches} != {want}")
+
+    # mantel_corr's draws against mantel's permute_reduce draws, same orders
+    xc = condensed_form(x.data)
+    ynorm = condensed_moments_vec(condensed_form(y.data))["hat"]
+    stat = MantelStatistic(xc, None, N, pre={
+        "normxm": condensed_moments_vec(xc)["norm"], "ynorm": ynorm})
+    inv, observed = engine.hoist_and_observe(stat, torch.device("cuda"))
+    want = engine.null_distribution(stat, inv, orders, WORKSPACE_BATCH)
+    compare(f"mantel_corr K={PERMUTATIONS} draws vs mantel's permute_reduce "
+            f"draws", draws, want, **CORR_TOL)
+    p_corr = engine.finish(observed, draws, PERMUTATIONS, "two-sided", N)
+    p_mantel = engine.finish(observed, want, PERMUTATIONS, "two-sided", N)
+    print(f"  p-values: mantel_corr {p_corr.p_value}, mantel's draws "
+          f"{p_mantel.p_value}, main path {main['p']}")
+    check(p_corr.p_value == p_mantel.p_value == main["p"],
+          "mantel_corr: p-value differs from mantel's")
+    del z, xc, ynorm, inv, want
+    return {"launches": launches_by_test, "groups": groups}
+
+
+def phase_battery_vs_cpu(main: dict, x_feat: torch.Tensor, groups) -> None:
+    """Phase 4d: the battery at n = BATTERY_N on the card and on the CPU,
+    with the same orders and sketch: statistics and p-values agree."""
+    from repro_torch.core import (CondensedCenteredGramOperator,
+                                  DistanceMatrix, random_distance_matrix)
+    from repro_torch.core.pcoa import sketch_width
+    from repro_torch.dist import pairwise_condensed
+    from repro_torch.stats.engine import permutation_orders
+
+    n, k = BATTERY_N, 99
+    print(f"== phase 4d: the battery at n={n}, K={k}, card against CPU")
+    sq = [main["dm"].data[:n, :n].cpu(), main["dm2"].data[:n, :n].cpu(),
+          random_distance_matrix(SEED + 13, n, dim=POINT_DIM,
+                                 device="cpu").data]
+    feats = x_feat[:n, :SMALL_FEATURES].contiguous().cpu()
+    omega = torch.randn((n, sketch_width(DIMS, n)),
+                        generator=torch.Generator().manual_seed(SEED))
+    orders = permutation_orders(SEED, k, n)
+    small_groups = groups[:n]
+    results = {}
+    for dev in ("cpu", "cuda"):
+        x, y, z = (DistanceMatrix(m, device=dev) for m in sq)
+        op = CondensedCenteredGramOperator.from_production(
+            pairwise_condensed(feats, METRIC, block=PANEL, device=dev))
+        tests = battery_tests(x, y, z, op, small_groups, orders.to(dev), dev,
+                              omega=omega, corr_batch=33)
+        results[dev] = {name: run() for name, (_, run) in tests.items()}
+    draws = {dev: r.pop("mantel_corr").cpu() for dev, r in results.items()}
+    compare(f"mantel_corr n={n} K={k} draws, card vs CPU", draws["cuda"],
+            draws["cpu"], **CORR_TOL)
+    for name, cpu in results["cpu"].items():
+        gpu = results["cuda"][name]
+        tol = battery_tolerance(name, cpu.statistic)
+        print(f"  {name}: card ({gpu.statistic:.7f}, p {gpu.p_value}) vs "
+              f"CPU ({cpu.statistic:.7f}, p {cpu.p_value}); statistic "
+              f"diff {abs(gpu.statistic - cpu.statistic):.2e} (limit "
+              f"{tol:.1e}), p equal")
+        check(abs(gpu.statistic - cpu.statistic) <= tol
+              and gpu.p_value == cpu.p_value,
+              f"{name}: card and CPU disagree at n={n}")
 
 
 def pcoa_steps(dm) -> dict:
@@ -843,6 +1076,41 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
           cuda_ms(lambda: center_pass2_ref(d, row_means, global_mean),
                   reps=5),
           8 * n * n + 4 * n + 4, 5 * n * n, FP32_FLOPS)
+    # mantel_corr at the battery's shape: one launch of CORR_BATCH
+    # permutations reads x once a permutation and yhat once
+    from repro_torch.core.distance_matrix import condensed_to_square
+    from repro_torch.kernels.mantel_corr import (mantel_corr_finish,
+                                                 mantel_corr_partials)
+    from repro_torch.kernels.mantel_corr_ref import mantel_corr_plain
+    yhat = condensed_to_square(ynorm, n)
+    orders = permutation_orders(SEED + 3, CORR_BATCH, n, "cuda")
+    partials = mantel_corr_partials(d, yhat, orders)
+
+    def gather_mv():
+        # x[o][:, o] for the batch: the rows, then the columns of each
+        # (two 29 GB buffers; one broadcast index would be a 58 GB int64)
+        o = orders.long()
+        rows = d[o]
+        xp = torch.gather(rows, 2, o[:, None, :].expand(-1, n, -1))
+        del rows
+        return torch.mv(xp.view(CORR_BATCH, n * n), yhat.view(-1))
+
+    entry("mantel_corr", "src/repro_torch/csrc/mantel_corr.cu",
+          "src/repro/kernels/mantel_corr.py:59",
+          cuda_ms(lambda: mantel_corr_partials(d, yhat, orders), reps=5),
+          cuda_ms(lambda: mantel_corr_plain(d, yhat, orders), reps=1),
+          4 * n * n * (CORR_BATCH + 1) + 4 * CORR_BATCH * n
+          + 8 * n * CORR_BATCH, 2 * CORR_BATCH * n * n, FP32_FLOPS,
+          yardstick_gather_then_mv_two_library_calls_ms=cuda_ms(gather_mv,
+                                                                reps=1))
+    entry("mantel_corr_finish", "src/repro_torch/csrc/mantel_corr.cu",
+          "src/repro/kernels/mantel_corr.py:59",
+          cuda_ms(lambda: mantel_corr_finish(partials), reps=20),
+          # the same fixed-order sum over the leading axis
+          cuda_ms(lambda: permute_reduce_finish_ref(partials), reps=20),
+          8 * n * CORR_BATCH + 4 * CORR_BATCH, n * CORR_BATCH, FP64_FLOPS,
+          library_ms=cuda_ms(lambda: torch.sum(partials, dim=0), reps=20))
+    del yhat, partials
     for kern in kernels:
         print(f"  {kern['name']}: {kern['ms']:.4f} ms, plain "
               f"{kern['plain_ms']:.4f} ms, bound {kern['bound_ms']:.4f} ms "
@@ -884,18 +1152,24 @@ def main() -> int:
 
     errors = phase_kernels(dm0.data, ynorm)
     errors.update(phase_feature_kernels(x, dm0.data))
+    errors.update(phase_mantel_corr_kernel(dm0.data, d2))
     main_path = phase_main_path(dm0, d2)
     feature = phase_feature_path(x, y)
     phase_checks(main_path, card)
     phase_pcoa_split(main_path, card)
     materialized = phase_feature_checks(feature, x, y, card)
+    battery = phase_battery(main_path, feature["op"], card)
     feature_launches = feature["launches"]
     del feature
+    phase_battery_vs_cpu(main_path, x, battery["groups"])
     # each kernel's launches on the path that runs it
     launches = {**main_path["launches"],
                 "pairwise_panel": feature_launches["pairwise_panel"]}
     launches.update({k: materialized["launches"][k] for k in
                      ("center_pass1", "center_finish", "center_pass2")})
+    launches.update({k: battery["launches"]["mantel_corr"][k] for k in
+                     ("mantel_corr", "mantel_corr_finish")})
+    del battery, main_path
     phase_kernel_line(launches, errors, dm0.data, ynorm, x, card)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -28,6 +28,12 @@ Mantel) and the materialized solves:
 * ``center``         — two-pass Gower centering (paper Algorithm 2): pass 1
                        row sums, a fixed-order finish, pass 2.
 
+The statistics battery runs on the kernels above; beside it, the
+materialized Mantel baseline (paper Algorithm 5 over square operands):
+
+* ``mantel_corr``    — B permuted square multiply-reduces per launch, the
+                       permutation's row and column gather fused in.
+
 This package imports nothing at import time, so no module here needs
 ``nvcc`` or a card to be imported.
 """

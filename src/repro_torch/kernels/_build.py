@@ -49,6 +49,8 @@ launches: dict[str, int] = {
     "center_pass1": 0,
     "center_finish": 0,
     "center_pass2": 0,
+    "mantel_corr": 0,
+    "mantel_corr_finish": 0,
 }
 
 _P = ctypes.c_void_p
@@ -64,6 +66,8 @@ _SIGNATURES = {
     "repro_center_pass1": [_P, _P, _I, _I, _P],
     "repro_center_finish": [_P, _P, _P, _I, _P],
     "repro_center_pass2": [_P, _P, _P, _P, _I, _I, _P],
+    "repro_mantel_corr_partials": [_P, _P, _P, _P, _I, _I, _P],
+    "repro_mantel_corr_finish": [_P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()

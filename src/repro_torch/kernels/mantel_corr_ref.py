@@ -1,0 +1,51 @@
+"""Plain PyTorch versions of the batched permuted-Pearson reduction.
+
+* ``mantel_corr_ref`` — the oracle of ``repro/kernels/mantel_corr_ref.py``:
+  per permutation, Pearson r computed the original way (scipy ``pearsonr``
+  semantics, paper Algorithms 3 + 4).
+* ``mantel_corr_plain`` — the kernel's own function,
+  ``stats[b] = Σ_ij x[o_b[i], o_b[j]]·ŷ[i, j]``, gathered a row block at a
+  time (peak extra memory one (ROW_CHUNK, n) block) and summed in fp64. The
+  CPU path runs it; the card's kernel is held against it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.distance_matrix import condensed_form
+
+#: rows of the permuted square gathered at once by ``mantel_corr_plain``.
+ROW_CHUNK = 1024
+
+
+def mantel_corr_ref(x: torch.Tensor, y_flat: torch.Tensor,
+                    orders: torch.Tensor) -> torch.Tensor:
+    """r[p] = pearsonr(condensed(x[o_p][:, o_p]), y_flat), (K,).
+
+    ``y_flat`` is the raw condensed y: mean and norm are re-derived from
+    scratch, as the original implementation does."""
+    ym = y_flat - y_flat.mean()
+    ynorm = ym / torch.linalg.vector_norm(ym)
+    out = []
+    for order in orders.long():
+        xf = condensed_form(x[order][:, order])
+        xm = xf - xf.mean()
+        out.append(torch.dot(xm / torch.linalg.vector_norm(xm), ynorm))
+    return torch.stack(out) if out else \
+        torch.zeros((0,), dtype=x.dtype, device=x.device)
+
+
+def mantel_corr_plain(x: torch.Tensor, yhat: torch.Tensor,
+                      orders: torch.Tensor) -> torch.Tensor:
+    """stats[b] = Σ_ij x[o_b[i], o_b[j]]·ŷ[i, j], (B,) in ``x``'s dtype.
+
+    x, yhat: (n, n); orders: (B, n) integer permutations."""
+    n = x.shape[0]
+    out = torch.zeros((orders.shape[0],), dtype=torch.float64,
+                      device=x.device)
+    for b, order in enumerate(orders.long()):
+        for r0 in range(0, n, ROW_CHUNK):
+            rows = x[order[r0:r0 + ROW_CHUNK]][:, order]
+            out[b] += torch.sum(rows.double() * yhat[r0:r0 + ROW_CHUNK].double())
+    return out.to(x.dtype)

@@ -1,7 +1,45 @@
-"""The permutation-test engine (the rest of the battery is not ported yet)."""
+"""Distance-matrix permutation tests on one shared engine.
+
+The counterpart of ``repro/stats``:
+
+* ``engine``         — the shared loop: the ``Statistic`` protocol
+                       (hoist / per_perm, with ``per_batch`` as the primary
+                       path over padded full-size tiles) and p-value
+                       finishing.
+* ``permanova``      — pseudo-F from the centred Gower matrix (materialized
+                       by the ``center`` kernel pair, or as an operator).
+* ``anosim``         — Clarke's R with the ranks hoisted and kept
+                       condensed; each tile is one ``permute_reduce``.
+* ``permdisp``       — Anderson's dispersion F with the ordination hoisted.
+* ``partial_mantel`` — three-matrix partial correlation, ŷ residualized
+                       once; each tile is one S = 2 ``permute_reduce``.
+
+``core.mantel.mantel`` is a client of the same engine. Each test has an
+eager ``*_ref`` oracle in scikit-bio's evaluation order.
+"""
 
 from repro_torch.stats.engine import (PermutationTestResult, Statistic,
-                                      permutation_orders, permutation_test)
+                                      encode_grouping, permutation_orders,
+                                      permutation_test)
+from repro_torch.stats.anosim import (AnosimStatistic, anosim, anosim_ref,
+                                      rank_transform,
+                                      rank_transform_condensed)
+from repro_torch.stats.partial_mantel import (PartialMantelStatistic,
+                                              partial_mantel,
+                                              partial_mantel_ref)
+from repro_torch.stats.permanova import (PermanovaOperatorStatistic,
+                                         PermanovaStatistic, permanova,
+                                         permanova_ref)
+from repro_torch.stats.permdisp import (PermdispStatistic, permdisp,
+                                        permdisp_ref)
 
-__all__ = ["PermutationTestResult", "Statistic", "permutation_orders",
-           "permutation_test"]
+__all__ = [
+    "PermutationTestResult", "Statistic", "encode_grouping",
+    "permutation_orders", "permutation_test",
+    "AnosimStatistic", "anosim", "anosim_ref", "rank_transform",
+    "rank_transform_condensed",
+    "PartialMantelStatistic", "partial_mantel", "partial_mantel_ref",
+    "PermanovaOperatorStatistic", "PermanovaStatistic", "permanova",
+    "permanova_ref",
+    "PermdispStatistic", "permdisp", "permdisp_ref",
+]

@@ -29,6 +29,9 @@ from repro_torch.core.distance_matrix import as_generator
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
 
 ALTERNATIVES = ("two-sided", "greater", "less")
+#: permutations per tile of the battery's tests (``Workspace``'s default
+#: batch in the reference).
+WORKSPACE_BATCH = 32
 
 
 @runtime_checkable
@@ -124,6 +127,28 @@ def null_distribution(stat: Statistic, invariants, orders: torch.Tensor,
                              orders[t * batch_size:(t + 1) * batch_size])
              for t in range(num_tiles)]
     return torch.cat(tiles)[:permutations]
+
+
+def encode_grouping(grouping) -> tuple[np.ndarray, int]:
+    """Map arbitrary hashable labels to int codes in [0, num_groups), in
+    the sorted order of the labels (numpy ``unique``)."""
+    codes = np.unique(np.asarray(grouping), return_inverse=True)[1]
+    num_groups = int(codes.max()) + 1
+    if num_groups < 2:
+        raise ValueError("grouping must contain at least two groups")
+    if num_groups == codes.size:
+        raise ValueError("grouping must have at least one group of size > 1")
+    return codes.astype(np.int32), num_groups
+
+
+def grouping_codes(grouping, n: int, device: torch.device
+                   ) -> tuple[torch.Tensor, int]:
+    """``encode_grouping`` on ``device``, refusing a grouping whose length
+    is not ``n`` (``Workspace._codes`` of the reference)."""
+    codes, num_groups = encode_grouping(grouping)
+    if codes.size != n:
+        raise ValueError("grouping length does not match distance matrix")
+    return torch.from_numpy(codes).to(device), num_groups
 
 
 def permutation_test(stat: Statistic, permutations: int = 999,

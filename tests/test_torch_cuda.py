@@ -13,7 +13,13 @@ tolerances (``tests/test_kernels.py``, ``tests/test_permute_reduce.py``):
 both sum in another order than their plain versions. ``pairwise_panel``
 rtol 1e-5 / atol 1e-5 (``tests/test_dist.py``) and the ``center`` pair
 rtol 2e-4 / atol 2e-4 in fp32, within 0.05·scale with correlation > 0.999
-in bf16 (``tests/test_kernels.py``), for the same reason.
+in bf16 (``tests/test_kernels.py``), for the same reason. ``mantel_corr``
+rtol 1e-5 / atol 1e-5·max(scale, 1) on its raw sums and rtol 1e-4 /
+atol 1e-5 on the Pearson r (``tests/test_kernels.py``); the statistics
+battery card against CPU: statistic to 1e-5 (PERMDISP 1e-4·max(|s|, 1)),
+p-values equal (``tests/test_stats.py``); the operator-form PERMANOVA, whose
+production sums in another order on the card, to 1e-4·|s|
+(``tests/test_dist.py``).
 """
 
 import numpy as np
@@ -33,13 +39,19 @@ from repro_torch.kernels.center_ref import (center_distance_matrix_ref,
                                             center_two_pass_ref)
 from repro_torch.kernels.center_matvec_ops import center_matvec_op
 from repro_torch.kernels.center_matvec_ref import center_matvec_ref
+from repro_torch.kernels.mantel_corr import mantel_corr
+from repro_torch.kernels.mantel_corr_ops import mantel_corr_op
+from repro_torch.kernels.mantel_corr_ref import mantel_corr_plain
 from repro_torch.kernels.pairwise_ops import pairwise_panel_op
 from repro_torch.kernels.pairwise_ref import pairwise_panel_ref
 from repro_torch.kernels.permute_reduce_ops import permute_reduce
 from repro_torch.kernels.permute_reduce_ref import permute_reduce_ref
 from repro_torch.kernels.symhollow_ops import is_symmetric_and_hollow_op
 from repro_torch.kernels.symhollow_ref import is_symmetric_and_hollow_ref
-from repro_torch.stats.engine import permutation_orders
+from repro_torch.stats import (PermanovaOperatorStatistic, anosim,
+                               partial_mantel, permanova, permdisp)
+from repro_torch.stats.engine import (encode_grouping, permutation_orders,
+                                      permutation_test)
 
 
 @pytest.fixture
@@ -134,7 +146,8 @@ def test_launch_counts_follow_the_main_path(cuda):
                                "permute_reduce": 2,
                                "permute_reduce_finish": 2,
                                "pairwise_panel": 0, "center_pass1": 0,
-                               "center_finish": 0, "center_pass2": 0}
+                               "center_finish": 0, "center_pass2": 0,
+                               "mantel_corr": 0, "mantel_corr_finish": 0}
 
 
 def test_main_path_card_matches_cpu(cuda):
@@ -256,3 +269,99 @@ def test_materialized_solves_launch_the_center_pair(cuda):
     want = pcoa(cpu, dimensions=4, method="eigh", device="cpu")
     np.testing.assert_allclose(r.eigenvalues.cpu().numpy(),
                                want.eigenvalues.numpy(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("n,perms", [(1, 1), (2, 3), (33, 5), (999, 27),
+                                     (1000, 27), (1029, 8)])
+def test_mantel_corr_matches_plain(cuda, n, perms):
+    """The raw sums against the plain version, with a yhat that is neither
+    symmetric nor hollow, at ragged n (n % 4 != 0 stages scalars)."""
+    x = _matrix(n, n + 3, cuda)
+    gen = torch.Generator().manual_seed(n)
+    yhat = torch.randn((n, n), generator=gen).to(cuda)
+    orders = permutation_orders(n + 4, perms, n, cuda)
+    _build.reset_launches()
+    got = mantel_corr(x, yhat, orders)
+    assert (_build.launches["mantel_corr"],
+            _build.launches["mantel_corr_finish"]) == (1, 1)
+    want = mantel_corr_plain(x, yhat, orders)
+    scale = want.abs().max().item()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * max(scale, 1.0))
+    assert torch.equal(got, mantel_corr(x, yhat, orders))   # bitwise again
+
+
+def test_mantel_corr_op_matches_cpu_and_the_condensed_null(cuda):
+    n, k = 1000, 54
+    d = random_distance_matrix(7, n, device="cpu").data
+    noise = torch.triu(0.05 * torch.rand((n, n), generator=torch.Generator()
+                                         .manual_seed(8)), 1)
+    y = d + noise + noise.T
+    orders = permutation_orders(9, k, n)
+    got = mantel_corr_op(d.to(cuda), y.to(cuda), orders.to(cuda),
+                         perm_batch=27)
+    want = mantel_corr_op(d, y, orders, perm_batch=27)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    draws = mantel(DistanceMatrix(d, device=cuda), DistanceMatrix(y, device=cuda),
+                   permutations=k, orders=orders, device=cuda)
+    ident = mantel_corr_op(d.to(cuda), y.to(cuda),
+                           torch.arange(n, device=cuda)[None], perm_batch=1)
+    assert abs(float(ident[0]) - draws[0]) <= 1e-5
+    count = int(torch.sum(got.abs() >= abs(float(ident[0]))))
+    assert float(np.float32(count + 1) / np.float32(k + 1)) == draws[1]
+
+
+def test_battery_card_matches_cpu_with_its_launches(cuda):
+    n, k = 300, 49
+    d, y, z = (random_distance_matrix(s, n, dim=5, device="cpu")
+               for s in (11, 12, 13))
+    groups = np.arange(n) % 4
+    codes = torch.from_numpy(encode_grouping(groups)[0])
+    omega = torch.randn((n, 20), generator=torch.Generator().manual_seed(3))
+    orders = permutation_orders(4, k, n)
+    x = _abundances(n, 40, 14)
+    tests = {
+        "permanova": lambda dev, a, b, c: permanova(
+            a, groups, k, orders=orders, device=dev),
+        "anosim": lambda dev, a, b, c: anosim(
+            a, groups, k, orders=orders, device=dev),
+        "permdisp": lambda dev, a, b, c: permdisp(
+            a, groups, k, dimensions=10, orders=orders, omega=omega,
+            device=dev),
+        "partial_mantel": lambda dev, a, b, c: partial_mantel(
+            a, b, c, k, orders=orders, device=dev),
+        "permanova_operator": lambda dev, a, b, c: permutation_test(
+            PermanovaOperatorStatistic(
+                CondensedCenteredGramOperator.from_production(
+                    pairwise_condensed(x, device=dev)), codes, n, 4),
+            k, orders=orders, device=dev),
+    }
+    want_launches = {
+        "permanova": {"center_pass1": 1, "center_finish": 1,
+                      "center_pass2": 1},
+        "anosim": {"permute_reduce": 2, "permute_reduce_finish": 2},
+        "permdisp": {"center_matvec": 4},
+        "partial_mantel": {"permute_reduce": 2, "permute_reduce_finish": 2},
+        "permanova_operator": {"pairwise_panel": 2},
+    }
+    for name, run in tests.items():
+        results = {}
+        for dev in ("cpu", cuda):
+            mats = [DistanceMatrix(m.data, device=dev) for m in (d, y, z)]
+            _build.reset_launches()
+            results[str(dev)] = run(dev, *mats)
+            launches = {key: v for key, v in _build.launches.items() if v}
+            if str(dev) == "cpu":
+                assert launches == {}, name
+            else:
+                assert launches == want_launches[name], name
+        cpu, gpu = results["cpu"], results["cuda"]
+        # the reference's tolerances: PERMDISP tests/test_stats.py:221; the
+        # operator form's production is summed in another order on each
+        # device, held as tests/test_dist.py:214 holds it
+        tol = {"permdisp": 1e-4 * max(abs(cpu.statistic), 1.0),
+               "permanova_operator": 1e-4 * abs(cpu.statistic)}.get(name,
+                                                                   1e-5)
+        assert abs(gpu.statistic - cpu.statistic) <= tol, name
+        assert gpu.p_value == cpu.p_value, name

@@ -20,6 +20,9 @@ from repro_torch.core.mantel import MantelStatistic
 from repro_torch.dist import (pairwise_condensed, pairwise_distances,
                               production_mantel)
 from repro_torch.kernels import _build
+from repro_torch.kernels.mantel_corr_ops import mantel_corr_op
+from repro_torch.stats import (PermanovaOperatorStatistic, anosim,
+                               partial_mantel, permanova, permdisp)
 from repro_torch.stats.engine import permutation_test
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -57,6 +60,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
         np.float32)
     prod = pairwise_condensed(x, device="cpu")
     op = CondensedCenteredGramOperator.from_production(prod)
+    d2 = random_distance_matrix(1, 12, device="cpu")
+    d3 = random_distance_matrix(2, 12, device="cpu")
+    groups = np.arange(12) % 3
     calls = [
         lambda: DistanceMatrix(d.data),
         lambda: DistanceMatrix.from_numpy(d.data.numpy()),
@@ -70,6 +76,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: pairwise_distances(x, out="condensed"),
         lambda: pcoa(None, dimensions=2, operator=op),
         lambda: production_mantel(prod, prod, permutations=9),
+        lambda: permanova(d, groups, permutations=9),
+        lambda: anosim(d, groups, permutations=9),
+        lambda: permdisp(d, groups, permutations=9, dimensions=2),
+        lambda: partial_mantel(d, d2, d3, permutations=9),
+        lambda: permutation_test(PermanovaOperatorStatistic(
+            op, torch.from_numpy(groups), 12, 3), 9),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -83,6 +95,8 @@ def test_kernel_modules_import_without_a_toolkit():
             "repro_torch.kernels.permute_reduce_ops, "
             "repro_torch.kernels.pairwise_ops, "
             "repro_torch.kernels.center_ops, "
+            "repro_torch.kernels.mantel_corr_ops, "
+            "repro_torch.stats, "
             "repro_torch.kernels._build as b; "
             "assert all(v == 0 for v in b.launches.values())")
     subprocess.run([sys.executable, "-c", code], env=env, check=True,
@@ -92,7 +106,11 @@ def test_kernel_modules_import_without_a_toolkit():
 def test_build_covers_every_source_and_refuses_without_nvcc(monkeypatch):
     names = {p.name for p in _build._sources()}
     assert {"symhollow.cu", "center_matvec.cu", "permute_reduce.cu",
-            "pairwise.cu", "center.cu"} <= names
+            "pairwise.cu", "center.cu", "mantel_corr.cu"} <= names
+    assert set(_build.launches) == {
+        "symhollow", "center_matvec", "permute_reduce",
+        "permute_reduce_finish", "pairwise_panel", "center_pass1",
+        "center_finish", "center_pass2", "mantel_corr", "mantel_corr_finish"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build, "Path", lambda p: Path("/nonexistent/nvcc"))
@@ -130,3 +148,25 @@ def test_cpu_feature_path_launches_nothing():
     assert set(_build.launches.values()) == {0}
     assert {"pairwise_panel", "center_pass1", "center_finish",
             "center_pass2"} <= set(_build.launches)
+
+
+def test_cpu_battery_launches_nothing():
+    """The statistics battery and the materialized Mantel baseline on the
+    CPU run the kernels' plain versions: no launch is counted."""
+    d, y, z = (random_distance_matrix(s, 24, device="cpu") for s in (4, 5, 6))
+    groups = np.arange(24) % 3
+    x = np.abs(np.random.default_rng(2).normal(size=(24, 6))).astype(
+        np.float32)
+    op = CondensedCenteredGramOperator.from_production(
+        pairwise_condensed(x, device="cpu"))
+    _build.reset_launches()
+    permanova(d, groups, permutations=9, device="cpu")
+    anosim(d, groups, permutations=9, device="cpu")
+    permdisp(d, groups, permutations=9, dimensions=3, device="cpu")
+    partial_mantel(d, y, z, permutations=9, device="cpu")
+    permutation_test(PermanovaOperatorStatistic(op, torch.from_numpy(groups),
+                                                24, 3), 9, device="cpu")
+    r = mantel_corr_op(d.data, y.data, torch.arange(24)[None].repeat(4, 1),
+                       perm_batch=2)
+    assert set(_build.launches.values()) == {0}
+    assert bool(torch.isfinite(r).all())
