@@ -15,7 +15,8 @@ check fails:
    the feature path's kernels (``pairwise_panel`` for the five metrics,
    the ``center`` pair in fp32 and bf16); 2c for ``mantel_corr`` (n = 1000
    with K = 54, and one batch of 27 at n = 16384), and its identity order
-   against the plain Pearson r;
+   against the plain Pearson r; 2d for ``rmsnorm`` at the LM path's shapes
+   in fp32 and bf16, two launches bitwise equal;
 3. the main path at n = 16384 (a 1.07 GB fp32 matrix): two validated
    ``DistanceMatrix`` objects, ``pcoa(dimensions=10)`` matrix-free, and
    ``mantel(permutations=999)`` against a noisy copy; 3b the feature path
@@ -37,7 +38,19 @@ check fails:
    materialized solves (``materialize=True`` through the ``center``
    kernels, and ``method="eigh"`` against the CPU); 4d runs the battery at
    n = 512 on the card and on the CPU with the same orders and sketch;
-5. one JSON line of per-kernel launches, errors, times and bounds.
+5. per-kernel times, bounds and plain versions at the paths' shapes; then
+   the analysis paths' tensors are freed and
+6. the LM serving path: qwen3-8b at full width and depth (36 layers,
+   d = 4096, 16.4 GB of bf16 weights drawn from a seed on the card),
+   four prompts of 512 token ids prefilled (``build_prefill_fn``, 544
+   slots) and 32 greedy ``build_decode_fn`` steps, with exact ``rmsnorm``
+   launch counts (145 a pass); a warm prefill, a profile of prefill and
+   decode, decode held against a prefill of the same tokens in bf16 and,
+   with the weights upcast, in fp32, where two cache faults planted in the
+   cache's state must fail the check; and the smoke widths in fp32 on the
+   card against the CPU; 5b times ``rmsnorm`` at the
+   path's shapes; then one JSON line of per-kernel launches, errors, times
+   and bounds.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it fails before printing any result.
@@ -45,6 +58,9 @@ outside a checkout of the repository, it fails before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -71,9 +87,25 @@ SMALL_FEATURE_N = 512  # the feature path held against the CPU
 GROUPS = 4           # the battery's groups: 4 of N / 4 samples, drawn from a seed
 CORR_BATCH = 27      # mantel_corr permutations a launch: K = 999 in 37
 BATTERY_N = 512      # the battery held against the CPU
+LM_ARCH = "qwen3-8b"  # phase 6: full width and depth, bf16, random weights
+LM_BATCH = 4          # requests
+LM_PROMPT = 512       # prompt tokens a request
+LM_STEPS = 32         # greedy decode steps
+LM_MAX_LEN = 544      # cache slots: prompt + steps
+LM_CHECK_STEP = 16    # the decode step held against a prefill of its tokens
+# phase 2d: rmsnorm's inputs on the LM path, x dtype: the prefill block and
+# final norms (B·S rows), q- and k-norms (32·B·S and 8·B·S rows of
+# head_dim), the decode block norm, the decode q- and k-norms in the
+# (B, 1, heads, head_dim) form attention passes, and a ragged fp32 shape
+RMSNORM_SHAPES = [
+    ((2048, 4096), torch.bfloat16), ((2048, 4096), torch.float32),
+    ((65536, 128), torch.bfloat16), ((16384, 128), torch.bfloat16),
+    ((4, 4096), torch.bfloat16), ((4, 1, 32, 128), torch.bfloat16),
+    ((4, 1, 8, 128), torch.bfloat16), ((1000, 100), torch.float32)]
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, no sparsity).
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2**20
 FP32_FLOPS = 67e12           # CUDA cores, outside the tensor cores
 FP64_FLOPS = 34e12           # CUDA cores, outside the tensor cores
 FP32_INSTR = FP32_FLOPS / 2  # instructions/s: the sheet counts an FMA as 2
@@ -85,6 +117,24 @@ PAIRWISE_INSTR = {"euclidean": 2, "braycurtis": 4}
 CENTER_TOL = {"rtol": 2e-4, "atol": 2e-4}    # tests/test_kernels.py, fp32
 CORR_TOL = {"rtol": 1e-4, "atol": 1e-5}      # tests/test_kernels.py, mantel_corr
 PAIRWISE_TOL = {"rtol": 1e-5, "atol": 1e-5}  # tests/test_dist.py
+RMSNORM_TOL = {"rtol": 1e-5, "atol": 1e-6}   # fp32; bf16: at most 1 ulp
+# decode step vs a prefill of the same tokens, qwen3-8b: max abs error as
+# a share of max|logits|, and the least correlation, each set between the
+# sound reading and the planted faults' (PERF.md). In bf16 (the served
+# model): sound 0.0211 / 0.999772, the rope fault 0.0609 / 0.998496.
+# In fp32 (the same weights upcast), where the order of the sums alone
+# separates decode from prefill: sound 5.0e-6, the mask fault 1.4e-3 /
+# 1 - 7.7e-7
+LM_CONSISTENCY_ATOL = 0.035
+LM_CONSISTENCY_CORR = 0.9994
+LM_FP32_ATOL = 1e-4
+LM_FP32_CORR = 0.9999999
+# cache faults planted through the cache's state, not the code: every decode
+# token one position late (rope and slot pos + 1; slot pos stays empty and
+# masked), and the empty slot pos + 1 admitted by the slot mask. Both checks
+# must fail the first; the second moves the logits less than bf16's own
+# rounding does, so only the fp32 check must fail it
+LM_FAULTS = ("rope position + 1", "mask admits slot pos + 1")
 
 
 class SmokeFailure(RuntimeError):
@@ -114,6 +164,59 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     sync()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 100) -> float:
+    """Device time of ``fn()`` in ms with no host work between launches:
+    ``reps`` calls captured in one CUDA graph, replayed, timed by CUDA
+    events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def device_breakdown(what: str, fn, card: str, top: int = 8) -> None:
+    """Run ``fn`` under ``torch.profiler`` and print the device's busy time
+    against the host clock, and the kernels that took most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not busy_ms:
+        print(f"  {what}: the profiler saw no device time: not measured")
+        return
+    print(f"  {what}: wall {wall_ms:.4f} ms, device busy {busy_ms:.4f} ms "
+          f"({busy_ms / wall_ms:.4f} of the wall; idle "
+          f"{1 - busy_ms / wall_ms:.4f}), {sum(e.count for e in kernels)} "
+          f"kernels ({card})")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        ms = e.self_device_time_total / 1e3
+        print(f"    {ms:.4f} ms ({ms / busy_ms:.4f}) x{e.count} "
+              f"{e.key[:90]}")
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -507,6 +610,48 @@ def pearson_fp64(x: torch.Tensor, y: torch.Tensor) -> float:
     return float(torch.dot(a, b) / (a.norm() * b.norm()))
 
 
+def rmsnorm_inputs(shape, dtype, seed: int = SEED):
+    """x (rows, d) of ``dtype``, scaled and shifted off zero, and a '1 + w'
+    weight w (d,) of the same dtype, drawn on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + sum(shape))
+    x = torch.randn(shape, generator=gen, device="cuda") * 3.0 + 0.25
+    w = 0.1 * torch.randn(shape[-1:], generator=gen, device="cuda")
+    return x.to(dtype), w.to(dtype)
+
+
+def phase_rmsnorm_kernel() -> dict:
+    """``rmsnorm`` against its plain version on the card at the LM path's
+    inputs, through ``rmsnorm_op`` as the model calls it: fp32 to rtol 1e-5
+    / atol 1e-6, bf16 to at most one unit in the last place, and two
+    launches bitwise equal. Returns the max abs error at the prefill block
+    norm's shape."""
+    from repro_torch.kernels.rmsnorm_ops import rmsnorm_op
+    from repro_torch.kernels.rmsnorm_ref import (bf16_ulp_distance,
+                                                 rmsnorm_plain)
+
+    print("== phase 2d: rmsnorm against its plain version on the card")
+    errors = {}
+    for shape, dtype in RMSNORM_SHAPES:
+        x, w = rmsnorm_inputs(shape, dtype)
+        got = rmsnorm_op(x, w, 1e-6)
+        again = rmsnorm_op(x, w, 1e-6)
+        want = rmsnorm_plain(x, w)
+        label = f"rmsnorm {shape} {str(dtype).replace('torch.', '')}"
+        check(torch.equal(got, again), f"{label}: two launches differ")
+        if dtype == torch.float32:
+            err = compare(label, got, want, **RMSNORM_TOL)
+        else:
+            ulps = int(bf16_ulp_distance(got, want).max())
+            err = float((got.double() - want.double()).abs().max())
+            print(f"  {label}: max abs err {err:.3e}, max {ulps} bf16 ulp "
+                  f"(limit 1)")
+            check(bool(torch.isfinite(got).all()) and ulps <= 1,
+                  f"{label}: more than 1 bf16 ulp from the plain version")
+        print(f"  {label}: two launches bitwise equal")
+        errors.setdefault("rmsnorm", err)
+    return errors
+
+
 def run_feature_path(x: torch.Tensor, y: torch.Tensor, device,
                      omega=None, orders=None,
                      permutations: int = PERMUTATIONS) -> dict:
@@ -577,7 +722,8 @@ def phase_feature_checks(feat: dict, x: torch.Tensor, y: torch.Tensor,
     want = {"pairwise_panel": panels, "permute_reduce": tiles,
             "permute_reduce_finish": tiles, "center_matvec": 0,
             "symhollow": 0, "center_pass1": 0, "center_finish": 0,
-            "center_pass2": 0, "mantel_corr": 0, "mantel_corr_finish": 0}
+            "center_pass2": 0, "mantel_corr": 0, "mantel_corr_finish": 0,
+            "rmsnorm": 0}
     check(launches == want, f"feature path launches {launches} != {want}")
     prod = feat["prod_x"]
     cond = prod["condensed"]
@@ -838,6 +984,237 @@ def phase_battery_vs_cpu(main: dict, x_feat: torch.Tensor, groups) -> None:
               f"{name}: card and CPU disagree at n={n}")
 
 
+def lm_smoke_vs_cpu() -> None:
+    """``qwen3-8b-smoke`` in fp32 on the card (the rmsnorm kernel) and on the
+    CPU (its plain version) with the same weights: prefill then 6 decode
+    steps, logits to rtol 1e-5."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.runtime.serve import build_decode_fn, build_prefill_fn
+
+    cfg = get_arch(LM_ARCH, smoke=True)
+    cpu = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    with torch.no_grad():               # the '1 + w' norm weights act
+        for name, p in cpu.named_parameters():
+            if p.ndim == 1:
+                p.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(
+                    len(name)))
+    card = Transformer(cfg, "cuda")
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab, (2, 22),
+                           generator=torch.Generator().manual_seed(SEED))
+    out, launches = {}, {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        prefill = build_prefill_fn(cfg, 24, device=dev)
+        decode = build_decode_fn(cfg, device=dev)
+        _build.reset_launches()
+        logits, cache = prefill(model, {"tokens": tokens[:, :16]})
+        steps = [logits]
+        for t in range(16, 22):
+            logits, cache = decode(model, tokens[:, t:t + 1], cache)
+            steps.append(logits)
+        out[dev] = torch.cat(steps, dim=1).cpu()
+        launches[dev] = _build.launches["rmsnorm"]
+    want = 7 * (4 * cfg.n_layers + 1)
+    print(f"  {cfg.name} fp32, card vs CPU (prefill of 16, 6 decode steps): "
+          f"rmsnorm launches card {launches['cuda']} (want {want}), CPU "
+          f"{launches['cpu']}")
+    check(launches == {"cpu": 0, "cuda": want},
+          "smoke LM: rmsnorm launches on the card or the CPU")
+    compare(f"{cfg.name} logits, card vs CPU", out["cuda"], out["cpu"],
+            rtol=1e-5)
+
+
+def consistency(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """max|got - want| as a share of max|want|, and their correlation."""
+    got, want = got.double().flatten(), want.double().flatten()
+    share = float((got - want).abs().max() / want.abs().max())
+    return share, float(torch.corrcoef(torch.stack([got, want]))[0, 1])
+
+
+def decode_after_prefill(model, cfg, prompts, fed, fault=None):
+    """Prefill ``prompts``, then decode the tokens of ``fed`` (B, steps) one
+    a step, with ``fault`` (one of LM_FAULTS, or none) planted in the
+    cache's state. Returns the last step's logits."""
+    from repro_torch.runtime.serve import build_decode_fn, build_prefill_fn
+
+    prefill, decode = build_prefill_fn(cfg, LM_MAX_LEN), build_decode_fn(cfg)
+    _, cache = prefill(model, {"tokens": prompts})
+    if fault == LM_FAULTS[0]:
+        cache.pos += 1
+    for t in range(fed.shape[1]):
+        if fault == LM_FAULTS[1]:
+            for layer in cache.blocks:
+                layer.pos[cache.pos + 1] = 0
+        logits, cache = decode(model, fed[:, t:t + 1], cache)
+    return logits
+
+
+def fp32_decode_check(model, cfg, prompts, fed, seq) -> None:
+    """Decode against prefill at full width and depth in fp32: the bf16
+    weights upcast (exactly) into an fp32 model beside the bf16 one (49 GB
+    together). Sound, the two differ by the order of their sums alone; each
+    planted cache fault must fail the check."""
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.runtime.serve import build_prefill_fn
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = Transformer(cfg32, "cuda")
+    model32.load_state_dict(model.state_dict())
+    want, _ = build_prefill_fn(cfg32, LM_MAX_LEN)(model32, {"tokens": seq})
+    for fault in (None, *LM_FAULTS):
+        share, corr = consistency(
+            decode_after_prefill(model32, cfg32, prompts, fed, fault), want)
+        sound = share <= LM_FP32_ATOL and corr >= LM_FP32_CORR
+        what = f"planted fault '{fault}'" if fault else "sound"
+        print(f"  decode step {LM_CHECK_STEP} vs prefill, fp32, {what}: max "
+              f"abs err {share:.3e} of max|logits| (limit {LM_FP32_ATOL}), "
+              f"1 - correlation {1 - corr:.3e} (limit "
+              f"{1 - LM_FP32_CORR:.0e})")
+        check(sound == (fault is None),
+              f"LM fp32: {what}: the decode check "
+              f"{'failed' if fault is None else 'did not see it'}")
+
+
+def phase_lm(card: str) -> dict:
+    """Phase 6: the LM serving path of qwen3-8b at full width and depth on
+    the card: LM_BATCH prompts prefilled, LM_STEPS greedy decode steps, with
+    the launch counts set to 0 just before and read just after; then a warm
+    prefill, a profile, decode held against a prefill of the same tokens in
+    bf16 and in fp32 (with planted cache faults that the fp32 check must
+    see), and the smoke widths card vs CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime.serve import build_decode_fn, build_prefill_fn
+
+    cfg = get_arch(LM_ARCH)
+    print(f"== phase 6: LM serving, {cfg.name} at full width and depth "
+          f"({cfg.n_layers} layers, d={cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} kv, d_ff={cfg.d_ff}, vocab={cfg.vocab}) in "
+          f"{cfg.param_dtype}: {LM_BATCH} prompts of {LM_PROMPT} tokens, "
+          f"max_len {LM_MAX_LEN}, {LM_STEPS} greedy decode steps")
+    sync()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = init_params(cfg, gen, "cuda")
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device="cuda")
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    print(f"  weights drawn on the card in {time.perf_counter() - t0:.4f} s: "
+          f"{n_params} parameters, {param_bytes / 1e9:.4f} GB")
+    check(n_params == cfg.param_count(), "LM: parameter count != config's")
+    prefill = build_prefill_fn(cfg, LM_MAX_LEN)
+    decode = build_decode_fn(cfg)
+
+    # the main path: counts set to 0 just before, read just after
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, {"tokens": prompts})
+    sync()
+    cold_s = time.perf_counter() - t0
+    per_prefill = _build.launches["rmsnorm"]
+    tokens = [logits[:, -1].argmax(-1, keepdim=True)]
+    step_logits, step_ms, per_step = [logits], [], []
+    for _ in range(LM_STEPS):
+        before = _build.launches["rmsnorm"]
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = decode(model, tokens[-1], cache)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(_build.launches["rmsnorm"] - before)
+        step_logits.append(logits)
+        tokens.append(logits[:, -1].argmax(-1, keepdim=True))
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    per_pass = 4 * cfg.n_layers + 1     # 2 block norms + q, k norms a layer
+    print(f"  rmsnorm launches: prefill {per_prefill}, decode steps "
+          f"{sorted(set(per_step))}, in all {launches['rmsnorm']} (want "
+          f"{per_pass} a pass, {per_pass * (LM_STEPS + 1)} in all); other "
+          f"kernels {sum(v for k, v in launches.items() if k != 'rmsnorm')}")
+    check(per_prefill == per_pass and set(per_step) == {per_pass}
+          and launches["rmsnorm"] == per_pass * (LM_STEPS + 1),
+          "LM: rmsnorm launches on the main path")
+    check(all(bool(torch.isfinite(lg).all()) for lg in step_logits)
+          and tuple(step_logits[-1].shape) == (LM_BATCH, 1, cfg.vocab),
+          "LM: non-finite logits or wrong shape")
+    check(cache.pos == LM_PROMPT + LM_STEPS, "LM: cache position")
+    del cache
+
+    sync()
+    t0 = time.perf_counter()
+    _, warm_cache = prefill(model, {"tokens": prompts})
+    sync()
+    warm_s = time.perf_counter() - t0
+
+    def decode_3(cache=warm_cache):
+        for _ in range(3):
+            decode(model, tokens[0], cache)
+    device_breakdown("warm prefill, profiled", lambda: prefill(
+        model, {"tokens": prompts}), card)
+    device_breakdown("3 decode steps, profiled", decode_3, card)
+    del warm_cache
+
+    # decode step LM_CHECK_STEP consumed tokens[LM_CHECK_STEP - 1]: a prefill
+    # of the prompts and those tokens gives its logits at the last position
+    fed = torch.cat(tokens[:LM_CHECK_STEP], dim=1)
+    seq = torch.cat([prompts, fed], dim=1)
+    again, extra = prefill(model, {"tokens": seq})
+    del extra
+    share, corr = consistency(step_logits[LM_CHECK_STEP], again)
+    agree = float((step_logits[LM_CHECK_STEP].argmax(-1)
+                   == again.argmax(-1)).float().mean())
+    print(f"  decode step {LM_CHECK_STEP} vs a prefill of its "
+          f"{seq.shape[1]} tokens, bf16: max abs err {share:.6f} of "
+          f"max|logits| (limit {LM_CONSISTENCY_ATOL}), correlation "
+          f"{corr:.6f} (limit {LM_CONSISTENCY_CORR}), greedy tokens agree "
+          f"{agree:.2f}")
+    check(share <= LM_CONSISTENCY_ATOL and corr >= LM_CONSISTENCY_CORR,
+          "LM: decode disagrees with prefill")
+    for fault in LM_FAULTS:
+        f_share, f_corr = consistency(
+            decode_after_prefill(model, cfg, prompts, fed, fault), again)
+        seen = not (f_share <= LM_CONSISTENCY_ATOL
+                    and f_corr >= LM_CONSISTENCY_CORR)
+        print(f"  planted fault '{fault}', bf16: max abs err {f_share:.6f} "
+              f"of max|logits|, correlation {f_corr:.6f}: the bf16 check "
+              f"{'fails it' if seen else 'does not see it'}")
+        check(seen or fault != LM_FAULTS[0],
+              f"LM bf16: the decode check did not see '{fault}'")
+    del again
+    table_bytes = model.embed.table.numel() * model.embed.table.element_size()
+    fp32_decode_check(model, cfg, prompts, fed, seq)
+    del model, step_logits, seq, fed
+
+    median_ms = float(np.median(step_ms))
+    kv_bytes = (2 * cfg.n_layers * LM_BATCH * (LM_PROMPT + LM_CHECK_STEP)
+                * cfg.n_kv_heads * cfg.head_dim * 2)
+    floor_all = (param_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    floor_read = (param_bytes - table_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    print(f"  prefill ({LM_BATCH} x {LM_PROMPT}): cold {cold_s:.4f} s, warm "
+          f"{warm_s:.4f} s ({card})")
+    print(f"  decode: median {median_ms:.4f} ms a step (first {step_ms[0]:.4f}"
+          f", min {min(step_ms):.4f}, max {max(step_ms):.4f}), "
+          f"{LM_BATCH / median_ms * 1e3:.1f} tokens/s ({card})")
+    print(f"  decode floor at step {LM_CHECK_STEP}: parameters and filled KV "
+          f"({(param_bytes + kv_bytes) / 1e9:.4f} GB) over 3.35 TB/s = "
+          f"{floor_all:.4f} ms; without the token table, of which a step "
+          f"reads {LM_BATCH} rows, {floor_read:.4f} ms")
+    print(f"  peak memory (torch.cuda.max_memory_allocated, weights drawn "
+          f"before the reset): {peak / 1e9:.4f} GB")
+    del prompts
+    lm_smoke_vs_cpu()
+    return {"launches": launches["rmsnorm"]}
+
+
 def pcoa_steps(dm) -> dict:
     """One ``pcoa(dm, dimensions=DIMS)`` taken apart: its steps in the order
     ``core/pcoa.py`` runs them, each timed on the host clock between two
@@ -939,11 +1316,34 @@ def phase_pcoa_split(main: dict, card: str) -> None:
     print(f"  solver first calls in a fresh process (ms): {first}")
 
 
+def kernel_entry(name: str, source: str, replaces: str, launches: int,
+                 error: float, ms: float, plain_ms: float, bytes_: float,
+                 flops: float, peak: float, library_ms=None,
+                 **yardsticks) -> dict:
+    """One kernel of the ``kernels`` line: its bound is the larger of its
+    bytes over the HBM rate and its operations over ``peak``."""
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": error,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, **yardsticks}
+
+
+def print_kernel_times(kernels: list) -> None:
+    for kern in kernels:
+        print(f"  {kern['name']}: {kern['ms']:.4f} ms, plain "
+              f"{kern['plain_ms']:.4f} ms, bound {kern['bound_ms']:.4f} ms "
+              f"({kern['bound_by']}), {kern['launches']} launches")
+
+
 def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
                       ynorm: torch.Tensor, table: torch.Tensor,
-                      card: str) -> None:
-    """Time every kernel at its path's shapes beside its bound and its
-    plain version; ``launches`` holds each kernel's count on its path."""
+                      card: str) -> list:
+    """Time every kernel of the analysis paths at its path's shapes beside
+    its bound and its plain version; ``launches`` holds each kernel's count
+    on its path. Returns the entries of the ``kernels`` line."""
     from repro_torch.core.distance_matrix import (condensed_form,
                                                   triangle_coords)
     from repro_torch.dist import METRICS
@@ -971,17 +1371,9 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
     m = n * (n - 1) // 2
     kernels = []
 
-    def entry(name, source, replaces, ms, plain_ms, bytes_, flops, peak,
-              library_ms=None, **yardsticks):
-        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / peak * 1e3
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, **yardsticks})
+    def entry(name, source, replaces, *args, **kwargs):
+        kernels.append(kernel_entry(name, source, replaces, launches[name],
+                                    errors[name], *args, **kwargs))
 
     entry("symhollow", "src/repro_torch/csrc/symhollow.cu",
           "src/repro/kernels/symhollow.py:50",
@@ -1111,11 +1503,73 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
           8 * n * CORR_BATCH + 4 * CORR_BATCH, n * CORR_BATCH, FP64_FLOPS,
           library_ms=cuda_ms(lambda: torch.sum(partials, dim=0), reps=20))
     del yhat, partials
-    for kern in kernels:
-        print(f"  {kern['name']}: {kern['ms']:.4f} ms, plain "
-              f"{kern['plain_ms']:.4f} ms, bound {kern['bound_ms']:.4f} ms "
-              f"({kern['bound_by']}), {kern['launches']} launches")
-    print(json.dumps({"kernels": kernels}))
+    print_kernel_times(kernels)
+    return kernels
+
+
+def rmsnorm_entry(launches: int, error: float, card: str) -> dict:
+    """``rmsnorm`` timed at the LM path's shapes beside its bound, its plain
+    version and the one-call yardstick ``F.rms_norm`` (its weight ``1 + w``
+    formed before the timing). ``ms``, ``plain_ms`` and ``library_ms``
+    replay the calls from a CUDA graph: the device's time, with no host work
+    between launches. ``host_launch_ms`` and ``library_host_launch_ms`` time
+    back-to-back calls from Python, which at small shapes is the wrapper's
+    host time. The entry's own numbers are the prefill block norm's
+    (2048, 4096) bf16; ``shapes`` holds every shape's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rmsnorm_ref import rmsnorm_plain
+
+    tokens = LM_BATCH * LM_PROMPT
+    shapes = [("prefill block and final norms", (tokens, 4096)),
+              ("prefill q-norm", (32 * tokens, 128)),
+              ("prefill k-norm", (8 * tokens, 128)),
+              ("decode block and final norms", (LM_BATCH, 4096)),
+              ("decode q-norm", (32 * LM_BATCH, 128)),
+              ("decode k-norm", (8 * LM_BATCH, 128))]
+    print(f"== phase 5b: rmsnorm times at the LM path's shapes, bf16 ({card})")
+    timed = []
+    for what, shape in shapes:
+        x, w = rmsnorm_inputs(shape, torch.bfloat16)
+        rows, d = shape
+        one_plus_w = 1 + w
+        # successive calls read different copies of x, together over twice
+        # the 50 MB L2, so a large x comes from device memory each time
+        copies = min(64, -(-2 * L2_BYTES // (2 * rows * d)))
+        xs = itertools.cycle([x.clone() for _ in range(copies)])
+
+        def kernel():
+            return rmsnorm(next(xs), w, 1e-6)
+
+        def plain():
+            return rmsnorm_plain(next(xs), w)
+
+        def library():
+            return F.rms_norm(next(xs), (d,), weight=one_plus_w, eps=1e-6)
+        timed.append(kernel_entry(
+            "rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
+            "src/repro/kernels/rmsnorm.py:35", launches, error,
+            graph_ms(kernel), graph_ms(plain, reps=20),
+            2 * 2 * rows * d + 2 * d, 4 * rows * d, FP32_FLOPS,
+            library_ms=graph_ms(library), shape=list(shape), path=what,
+            host_launch_ms=cuda_ms(kernel, reps=200),
+            library_host_launch_ms=cuda_ms(library, reps=200)))
+        del xs
+        t = timed[-1]
+        print(f"  rmsnorm {shape} ({what}), from a CUDA graph: "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, F.rms_norm "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}); launched from Python "
+              f"{t['host_launch_ms']:.4f} ms, F.rms_norm "
+              f"{t['library_host_launch_ms']:.4f} ms")
+    main = dict(timed[0])
+    main["shapes"] = [{k: t[k] for k in ("path", "shape", "ms", "plain_ms",
+                                         "bound_ms", "library_ms",
+                                         "host_launch_ms",
+                                         "library_host_launch_ms")}
+                      for t in timed]
+    return main
 
 
 def main() -> int:
@@ -1153,6 +1607,7 @@ def main() -> int:
     errors = phase_kernels(dm0.data, ynorm)
     errors.update(phase_feature_kernels(x, dm0.data))
     errors.update(phase_mantel_corr_kernel(dm0.data, d2))
+    errors.update(phase_rmsnorm_kernel())
     main_path = phase_main_path(dm0, d2)
     feature = phase_feature_path(x, y)
     phase_checks(main_path, card)
@@ -1170,7 +1625,14 @@ def main() -> int:
     launches.update({k: battery["launches"]["mantel_corr"][k] for k in
                      ("mantel_corr", "mantel_corr_finish")})
     del battery, main_path
-    phase_kernel_line(launches, errors, dm0.data, ynorm, x, card)
+    kernels = phase_kernel_line(launches, errors, dm0.data, ynorm, x, card)
+    # phase 6 holds 16.4 GB of weights: free the analysis paths' tensors
+    del dm0, d2, ynorm, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = phase_lm(card)
+    kernels.append(rmsnorm_entry(lm["launches"], errors["rmsnorm"], card))
+    print(json.dumps({"kernels": kernels}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

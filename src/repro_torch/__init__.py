@@ -11,13 +11,16 @@ Every entry point runs on the card unless the caller passes
 asked for. On the CPU each kernel wrapper runs its plain PyTorch version.
 
 The reference is fp32 throughout, so TF32 is switched off here for
-matrix products and convolutions.
+matrix products and convolutions. Its bf16 products (the LM stack)
+accumulate in fp32, so cuBLAS's reduced-precision bf16 reduction is
+switched off too.
 """
 
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 from repro_torch.core import (DistanceMatrix, DistanceMatrixError,  # noqa: E402
                               mantel, pcoa, random_distance_matrix)

@@ -1,11 +1,13 @@
 """Carry state from the reference package into the port.
 
-The system has no weights: what crosses from ``repro`` (JAX) to
+The analyses have no weights: what crosses from ``repro`` (JAX) to
 ``repro_torch`` is data and the few quantities that JAX draws with its own
 random numbers, which torch cannot reproduce. The reference's arrays are
 taken as numpy (``np.asarray(jax_array)``) and become tensors of the port's
-dtypes on the chosen device. This is the whole of the transfer; it is how
-both packages compute on the same inputs in the parity tests.
+dtypes on the chosen device (``from_reference``). The LM stack's weights
+cross the same way (``lm_params_from_reference``). This is the whole of the
+transfer; it is how both packages compute on the same inputs in the parity
+tests.
 """
 
 from __future__ import annotations
@@ -38,3 +40,46 @@ def from_reference(state: dict[str, np.ndarray],
     return {key: torch.from_numpy(np.array(value, copy=True)).to(
                 device=dev, dtype=STATE_DTYPES[key]).contiguous()
             for key, value in state.items()}
+
+
+def lm_params_from_reference(params_np: dict, cfg,
+                             device: DeviceLike = None
+                             ) -> dict[str, torch.Tensor]:
+    """The port's ``Transformer`` state_dict for the reference's
+    ``models/transformer.py::init_params`` pytree, taken as numpy
+    (``jax.tree.map(np.asarray, params)``).
+
+    The reference stacks each pattern position's block params (n_full, ...)
+    for its scan and keeps the remainder layers apart; layer
+    ``i·period + j`` is row i of pattern position j, and remainder layer r
+    is layer ``n_full·period + r``. Each leaf becomes a tensor of the
+    config's param dtype (bf16 arrives as float32, exactly)."""
+    dev = resolve_device(device)
+    if "frontend" in params_np:
+        raise NotImplementedError("modality frontends are not ported yet")
+    dtype = cfg.dtype()
+    period = len(cfg.pattern)
+    n_full = cfg.n_layers // period
+
+    def tensor(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+            device=dev, dtype=dtype)
+
+    def leaves(tree: dict, prefix: str = ""):
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                yield from leaves(value, f"{prefix}{key}.")
+            else:
+                yield f"{prefix}{key}", value
+
+    state = {f"embed.{k}": tensor(v) for k, v in leaves(params_np["embed"])}
+    for j, stacked in enumerate(params_np["blocks"]):
+        for name, value in leaves(stacked):
+            for i in range(n_full):
+                state[f"blocks.{i * period + j}.{name}"] = tensor(value[i])
+    for r, block in enumerate(params_np["rem"]):
+        for name, value in leaves(block):
+            state[f"blocks.{n_full * period + r}.{name}"] = tensor(value)
+    state.update({f"final_norm.{k}": tensor(v)
+                  for k, v in leaves(params_np["final_norm"])})
+    return state

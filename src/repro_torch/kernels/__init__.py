@@ -34,6 +34,12 @@ materialized Mantel baseline (paper Algorithm 5 over square operands):
 * ``mantel_corr``    — B permuted square multiply-reduces per launch, the
                        permutation's row and column gather fused in.
 
+The LM serving path (``repro_torch.models``, ``repro_torch.runtime``):
+
+* ``rmsnorm``        — fused RMSNorm with the '1 + w' scale and fp32
+                       statistics: every block, final and q/k norm of a
+                       dense decoder.
+
 This package imports nothing at import time, so no module here needs
 ``nvcc`` or a card to be imported.
 """

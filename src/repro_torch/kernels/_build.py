@@ -51,11 +51,13 @@ launches: dict[str, int] = {
     "center_pass2": 0,
     "mantel_corr": 0,
     "mantel_corr_finish": 0,
+    "rmsnorm": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "repro_symhollow": [_P, _I, _P, _P],
     "repro_center_matvec": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
@@ -68,6 +70,7 @@ _SIGNATURES = {
     "repro_center_pass2": [_P, _P, _P, _P, _I, _I, _P],
     "repro_mantel_corr_partials": [_P, _P, _P, _P, _I, _I, _P],
     "repro_mantel_corr_finish": [_P, _P, _I, _I, _P],
+    "repro_rmsnorm": [_P, _P, _P, _L, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

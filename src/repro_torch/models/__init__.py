@@ -1,0 +1,8 @@
+"""The LM stack: dense decoders (``attn`` blocks) for serving.
+
+The counterpart of ``repro/models`` for the blocks ported so far:
+``layers`` (norms, rotary embeddings, MLPs, embedding and head),
+``attention`` (GQA/MQA/MHA with qk-norm and QKV bias, the KV cache) and
+``transformer`` (the stack and its three entry points). Every norm reaches
+the ``rmsnorm`` kernel on a CUDA tensor.
+"""

@@ -1,0 +1,254 @@
+"""Attention: GQA/MQA/MHA with RoPE, qk-norm, QKV bias and logit softcap.
+
+The counterpart of ``repro/models/attention.py`` for the dense decoders'
+serving path, computed as the reference computes it: products through
+``torch.einsum``/``matmul``, scores cast to fp32, masked scores set to
+``_NEG_INF`` (not ``-inf``), an fp32 softmax, and the probabilities cast to
+q's dtype before the PV product. No fused attention library is called.
+
+* ``attn_forward`` takes one masked pass while S <= max(attn_chunk, 2048)
+  and loops over query chunks of ``attn_chunk`` above it, so the live
+  scores buffer is (chunk, S) (the reference's ``lax.scan``);
+* prefill expands K/V to the full head count (``repeat_interleave``, the
+  reference's ``jnp.repeat``); decode uses the grouped (K, G) product. Both
+  map query head h to kv head h // G;
+* the cache is updated in place (the reference's ``dynamic_update_slice``
+  returns a new one; its jitted decode donates the old). The decode
+  position is a host ``int``: no host sync a layer. The slot-validity mask
+  is built on the device from the cache's ``pos`` slot array.
+
+Not ported yet (ROADMAP.md, queue 1): the int8 cache (``kv_quant``),
+sliding-window attention and its ring cache (``window > 0`` raises),
+and the enc-dec cross-attention (``kv_x`` in the forward, and decode).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.kernels.rmsnorm_ops import rmsnorm_op
+from repro_torch.models.layers import apply_rope, draw_normal, param
+
+_NEG_INF = -1e30
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1)")
+
+
+# --------------------------------------------------------------------------
+# params
+# --------------------------------------------------------------------------
+class Attention(nn.Module):
+    """wq (d, H, hd), wk/wv (d, K, hd), wo (H, hd, d); optional QKV biases
+    (zeros) and per-head q/k norm weights (zeros: the '1 + w' scale)."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        d, h, k_, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        dt = cfg.dtype()
+        self.cfg = cfg
+        self.wq = param((d, h, hd), dt, device)
+        self.wk = param((d, k_, hd), dt, device)
+        self.wv = param((d, k_, hd), dt, device)
+        self.wo = param((h, hd, d), dt, device)
+        if cfg.qkv_bias:
+            self.bq = param((h, hd), dt, device, fill=0.0)
+            self.bk = param((k_, hd), dt, device, fill=0.0)
+            self.bv = param((k_, hd), dt, device, fill=0.0)
+        if cfg.qk_norm:
+            self.q_norm = param((hd,), dt, device, fill=0.0)
+            self.k_norm = param((hd,), dt, device, fill=0.0)
+
+    def forward(self, x, positions):
+        return attn_forward(self, x, positions, self.cfg)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        s = self.cfg.d_model ** -0.5
+        draw_normal(self.wq, s, generator)
+        draw_normal(self.wk, s, generator)
+        draw_normal(self.wv, s, generator)
+        draw_normal(self.wo, (self.cfg.n_heads * self.cfg.head_dim) ** -0.5,
+                    generator)
+
+
+# --------------------------------------------------------------------------
+# projections
+# --------------------------------------------------------------------------
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one (B·S, d) x (d, H·hd) product."""
+    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+
+def _project_q(p: Attention, x, positions, cfg):
+    q = _proj(x, p.wq)
+    if cfg.qkv_bias:
+        q = q + p.bq
+    if cfg.qk_norm:
+        q = rmsnorm_op(q, p.q_norm)
+    return apply_rope(q, positions, cfg.rope_theta)
+
+
+def _project_kv(p: Attention, x, positions, cfg):
+    k = _proj(x, p.wk)
+    v = _proj(x, p.wv)
+    if cfg.qkv_bias:
+        k = k + p.bk
+        v = v + p.bv
+    if cfg.qk_norm:
+        k = rmsnorm_op(k, p.k_norm)
+    return apply_rope(k, positions, cfg.rope_theta), v
+
+
+# --------------------------------------------------------------------------
+# core scores → output (GQA grouping, softcap, fp32 softmax)
+# --------------------------------------------------------------------------
+def _scores_to_probs(scores, mask, hd, cfg, dtype):
+    scores = scores.float() * (hd ** -0.5)
+    if cfg.attn_softcap:
+        scores = cfg.attn_softcap * torch.tanh(scores / cfg.attn_softcap)
+    if mask is not None:
+        scores = torch.where(mask, scores, _NEG_INF)
+    return torch.softmax(scores, dim=-1).to(dtype)
+
+
+def _attend(q, k, v, mask, cfg):
+    """q: (B,Sq,H,hd); k,v: (B,Skv,K,hd); mask: broadcastable (B,1,Sq,Skv)
+    boolean (True = attend) or None."""
+    b, sq, h, hd = q.shape
+    n_kv = k.shape[2]
+    if n_kv != h and sq == 1:
+        # decode: the grouped product, without expanding K/V G times
+        g = h // n_kv
+        qg = q.reshape(b, sq, n_kv, g, hd)
+        scores = torch.einsum("bskgh,btkh->bkgst", qg, k)
+        probs = _scores_to_probs(scores, None if mask is None else
+                                 mask[:, :, None], hd, cfg, q.dtype)
+        out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+        return out.reshape(b, sq, h, hd)
+    if n_kv != h:
+        g = h // n_kv
+        k = torch.repeat_interleave(k, g, dim=2)
+        v = torch.repeat_interleave(v, g, dim=2)
+    scores = torch.einsum("bshk,bthk->bhst", q, k)
+    probs = _scores_to_probs(scores, mask, hd, cfg, q.dtype)
+    return torch.einsum("bhst,bthk->bshk", probs, v)
+
+
+def _causal_mask(sq: int, skv: int, offset: int = 0,
+                 device=None) -> torch.Tensor:
+    """(1, 1, sq, skv) boolean; query i attends key j iff j <= i+offset."""
+    qi = torch.arange(sq, device=device)[:, None] + offset
+    kj = torch.arange(skv, device=device)[None, :]
+    return (kj <= qi)[None, None]
+
+
+# --------------------------------------------------------------------------
+# train / prefill forward
+# --------------------------------------------------------------------------
+def attn_forward(p: Attention, x, positions, cfg, *, window: int = 0):
+    """Causal self-attention over the sequence. Chunks queries when
+    S > max(attn_chunk, 2048). → (out, (k, v))."""
+    if window:
+        raise _not_ported("sliding-window attention (window > 0)")
+    q = _project_q(p, x, positions, cfg)
+    k, v = _project_kv(p, x, positions, cfg)
+    sq, skv = q.shape[1], k.shape[1]
+
+    chunk = cfg.attn_chunk
+    if sq <= max(chunk, 2048):
+        out = _attend(q, k, v, _causal_mask(sq, skv, device=x.device), cfg)
+    else:
+        # a loop over query chunks: the live scores buffer is (chunk, skv)
+        if sq % chunk:
+            raise ValueError(f"sequence {sq} is not a multiple of "
+                             f"attn_chunk {chunk}")
+        outs = []
+        for ci in range(sq // chunk):
+            mask = _causal_mask(chunk, skv, offset=ci * chunk,
+                                device=x.device)
+            outs.append(_attend(q[:, ci * chunk:(ci + 1) * chunk], k, v,
+                                mask, cfg))
+        out = torch.cat(outs, dim=1)
+    return _out_proj(out, p.wo), (k, v)
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one (B·S, H·hd) x (H·hd, d) product."""
+    return out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+
+
+# --------------------------------------------------------------------------
+# caches
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class AttnCache:
+    """k, v: (B, size, K, hd) in the compute dtype; pos: (size,) int32, the
+    global position held in each slot (-1 = empty)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+
+
+def init_attn_cache(cfg, batch: int, max_len: int, window: int = 0,
+                    device=None) -> AttnCache:
+    if cfg.kv_quant:
+        raise _not_ported("the int8 KV cache (kv_quant=True)")
+    if window:
+        raise _not_ported("the ring cache of sliding-window attention")
+    dev = resolve_device(device)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dt = cfg.dtype("compute")
+    return AttnCache(k=torch.zeros(shape, dtype=dt, device=dev),
+                     v=torch.zeros(shape, dtype=dt, device=dev),
+                     pos=torch.full((max_len,), -1, dtype=torch.int32,
+                                    device=dev))
+
+
+def fill_cache_from_prefill(cache: AttnCache, k: torch.Tensor,
+                            v: torch.Tensor, window: int = 0) -> AttnCache:
+    """Store prefill K/V in slots [0, S) of the cache, in place."""
+    if window:
+        raise _not_ported("the ring cache of sliding-window attention")
+    s = k.shape[1]
+    if s > cache.k.shape[1]:
+        raise ValueError(f"prompt of {s} tokens exceeds the cache's "
+                         f"{cache.k.shape[1]} slots")
+    cache.k[:, :s] = k
+    cache.v[:, :s] = v
+    cache.pos[:s] = torch.arange(s, dtype=torch.int32, device=k.device)
+    return cache
+
+
+# --------------------------------------------------------------------------
+# decode: one token against the cache
+# --------------------------------------------------------------------------
+def attn_decode(p: Attention, x, cache: AttnCache, pos: int, cfg, *,
+                window: int = 0):
+    """x: (B, 1, D); pos: host int, the new token's position. Writes its
+    K/V into slot ``pos`` in place. → (out (B,1,D), cache)."""
+    if window:
+        raise _not_ported("sliding-window decode (the ring cache)")
+    if not 0 <= pos < cache.k.shape[1]:
+        raise ValueError(f"position {pos} is outside the cache's "
+                         f"{cache.k.shape[1]} slots")
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                           device=x.device)
+    q = _project_q(p, x, positions, cfg)
+    k_new, v_new = _project_kv(p, x, positions, cfg)
+    cache.k[:, pos] = k_new[:, 0]
+    cache.v[:, pos] = v_new[:, 0]
+    cache.pos[pos] = pos
+    valid = (cache.pos >= 0) & (cache.pos <= pos)
+    out = _attend(q, cache.k, cache.v, valid[None, None, None, :], cfg)
+    return _out_proj(out, p.wo), cache
+
+
+def attn_decode_cross(p, x, cross_kv, cfg):
+    """Cross-attention decode (enc-dec): not ported yet."""
+    raise _not_ported("cross-attention decode (attn_decode_cross)")

@@ -1,0 +1,223 @@
+"""Decoder-only transformer for the dense archs (``attn`` blocks).
+
+The counterpart of ``repro/models/transformer.py``. Where the reference
+stacks each pattern position's params (n_periods, ...) for ``lax.scan`` and
+runs remainder layers unrolled, the port holds one ``Block`` a layer in an
+``nn.ModuleList``, in the order ``cfg.layer_types()`` gives: the order the
+reference's scan and remainder visit them. ``forward_train`` runs the
+forward only (no remat; the training path is not ported yet). The
+reference's ``sharding/ctx.constrain*`` calls pin shardings on a mesh and
+compute nothing; on one card they become nothing.
+
+Three entry points with the reference's signatures, ``params`` being the
+``Transformer``:
+  forward_train  — full-sequence causal forward → final hidden states
+  prefill        — forward + cache construction (inference)
+  decode_step    — one token through all layers against the cache
+
+Only ``attn`` blocks are ported; ``local``, ``moe``, ``rec`` and ``ssd``
+blocks, enc-dec and the vision frontend raise ``NotImplementedError``
+(ROADMAP.md, queue 1). ``init_params`` draws from an explicit
+``torch.Generator`` on the parameters' device: not key-compatible with JAX
+(the parity tests load the reference's weights through
+``repro_torch.convert.lm_params_from_reference``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.dispatch import DeviceLike, resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import MLP, Embedding, embed_tokens, init_norm
+
+PORTED_BLOCKS = ("attn",)
+
+
+def _check_block(btype: str) -> None:
+    if btype not in PORTED_BLOCKS:
+        raise NotImplementedError(
+            f"{btype!r} blocks are not ported to repro_torch yet "
+            f"(ROADMAP.md, queue 1); ported: {PORTED_BLOCKS}")
+
+
+# --------------------------------------------------------------------------
+# the block module and its forward / prefill / decode
+# --------------------------------------------------------------------------
+class Block(nn.Module):
+    """ln1 → attention → residual, ln2 → MLP → residual."""
+
+    def __init__(self, cfg, btype: str = "attn", device=None):
+        super().__init__()
+        _check_block(btype)
+        d = cfg.d_model
+        self.cfg = cfg
+        self.btype = btype
+        self.ln1 = init_norm(cfg, d, device)
+        self.attn = attn_mod.Attention(cfg, device)
+        self.ln2 = init_norm(cfg, d, device)
+        self.mlp = MLP(cfg, d, cfg.d_ff, device)
+
+    def forward(self, x, positions):
+        return block_forward(self, x, positions, self.cfg, self.btype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.attn.reset_parameters(generator)
+        self.mlp.reset_parameters(generator)
+
+
+def block_forward(p: Block, x, positions, cfg, btype: str):
+    """→ (x, aux_loss)."""
+    _check_block(btype)
+    h, _ = attn_mod.attn_forward(p.attn, p.ln1(x), positions, cfg)
+    x = x + h
+    x = x + p.mlp(p.ln2(x))
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def init_block_cache(cfg, btype: str, batch: int, max_len: int,
+                     device=None) -> attn_mod.AttnCache:
+    _check_block(btype)
+    return attn_mod.init_attn_cache(cfg, batch, max_len, device=device)
+
+
+def block_prefill(p: Block, x, positions, cfg, btype: str, max_len: int):
+    """→ (x, cache). Like forward but keeps the inference cache."""
+    _check_block(btype)
+    h, (k, v) = attn_mod.attn_forward(p.attn, p.ln1(x), positions, cfg)
+    x = x + h
+    cache = attn_mod.init_attn_cache(cfg, x.shape[0], max_len,
+                                     device=x.device)
+    cache = attn_mod.fill_cache_from_prefill(cache, k, v)
+    return x + p.mlp(p.ln2(x)), cache
+
+
+def block_decode(p: Block, x, cache, pos: int, cfg, btype: str):
+    """→ (x, cache). x: (B, 1, D); the cache is updated in place."""
+    _check_block(btype)
+    h, cache = attn_mod.attn_decode(p.attn, p.ln1(x), cache, pos, cfg)
+    x = x + h
+    return x + p.mlp(p.ln2(x)), cache
+
+
+# --------------------------------------------------------------------------
+# the stack
+# --------------------------------------------------------------------------
+class Transformer(nn.Module):
+    """embed → blocks (one a layer) → final_norm. Parameters are left
+    uninitialised (norms and biases at their init values): ``init_params``
+    draws them, ``load_state_dict`` fills them."""
+
+    def __init__(self, cfg, device: DeviceLike = None):
+        super().__init__()
+        if cfg.is_encdec or cfg.frontend != "none":
+            raise NotImplementedError(
+                "enc-dec models and modality frontends are not ported to "
+                "repro_torch yet (ROADMAP.md, queue 1)")
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.embed = Embedding(cfg, dev)
+        self.blocks = nn.ModuleList(Block(cfg, t, dev)
+                                    for t in cfg.layer_types())
+        self.final_norm = init_norm(cfg, cfg.d_model, dev)
+
+    def forward(self, tokens):
+        return forward_train(self, tokens, self.cfg)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.embed.reset_parameters(generator)
+        for block in self.blocks:
+            block.reset_parameters(generator)
+
+
+def init_params(cfg, generator: torch.Generator,
+                device: DeviceLike = None) -> Transformer:
+    """The full model with weights drawn at the reference's init scales
+    (``layers.py``, ``attention.py``): the embedding, then each layer's
+    attention and MLP in order, from ``generator``, which must lie on
+    ``device`` (the card unless the CPU is asked for)."""
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"the generator lies on {generator.device}, the "
+                         f"parameters on {dev}: draw where they live")
+    model = Transformer(cfg, dev)
+    model.reset_parameters(generator)
+    return model
+
+
+@dataclasses.dataclass
+class LMCache:
+    """One ``AttnCache`` a layer, and the next token's position as a host
+    int (the reference keeps it as a device scalar)."""
+    blocks: list
+    pos: int
+
+
+def _embed_inputs(params: Transformer, tokens, cfg):
+    x = embed_tokens(params.embed, tokens, cfg)
+    # the scale rounded to x's dtype before the multiply, as the reference's
+    # jnp.asarray(d ** 0.5, x.dtype); the product of two bf16 values is exact
+    # in the fp32 torch computes it in, so it is rounded once, as there
+    scale = torch.tensor(cfg.d_model ** 0.5, dtype=torch.float64).to(
+        x.dtype).item()
+    return x * scale
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    return torch.arange(x.shape[1], dtype=torch.int32,
+                        device=x.device).expand(x.shape[:2])
+
+
+def forward_train(params: Transformer, tokens, cfg, extra_embeds=None):
+    """→ (hidden (B,S,D), aux_loss). Forward only."""
+    if extra_embeds is not None:
+        raise NotImplementedError("modality frontends are not ported yet")
+    x = _embed_inputs(params, tokens, cfg)
+    positions = _positions(x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for btype, bp in zip(cfg.layer_types(), params.blocks):
+        x, a = block_forward(bp, x, positions, cfg, btype)
+        aux = aux + a
+    return params.final_norm(x), aux
+
+
+@torch.no_grad()
+def prefill(params: Transformer, tokens, cfg, extra_embeds=None,
+            max_len: Optional[int] = None):
+    """→ (hidden, cache). max_len: cache capacity (≥ prompt length)."""
+    if extra_embeds is not None:
+        raise NotImplementedError("modality frontends are not ported yet")
+    x = _embed_inputs(params, tokens, cfg)
+    max_len = max_len or x.shape[1]
+    positions = _positions(x)
+    caches = []
+    for btype, bp in zip(cfg.layer_types(), params.blocks):
+        x, c = block_prefill(bp, x, positions, cfg, btype, max_len)
+        caches.append(c)
+    cache = LMCache(blocks=caches, pos=x.shape[1])
+    return params.final_norm(x), cache
+
+
+def init_cache(cfg, batch: int, max_len: int,
+               device: DeviceLike = None) -> LMCache:
+    """Empty cache (decode from scratch)."""
+    dev = resolve_device(device)
+    return LMCache(blocks=[init_block_cache(cfg, t, batch, max_len, dev)
+                           for t in cfg.layer_types()], pos=0)
+
+
+@torch.no_grad()
+def decode_step(params: Transformer, token, cache: LMCache, cfg):
+    """token: (B, 1) integers → (hidden (B,1,D), cache), the cache updated
+    in place and its position advanced by one."""
+    pos = cache.pos
+    x = _embed_inputs(params, token, cfg)
+    for i, (btype, bp) in enumerate(zip(cfg.layer_types(), params.blocks)):
+        x, cache.blocks[i] = block_decode(bp, x, cache.blocks[i], pos, cfg,
+                                          btype)
+    cache.pos = pos + 1
+    return params.final_norm(x), cache

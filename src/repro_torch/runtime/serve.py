@@ -1,0 +1,57 @@
+"""Serving step builders: batched prefill and single-token decode.
+
+The counterpart of ``repro/runtime/serve.py::build_prefill_fn`` and
+``build_decode_fn``, with the reference's signatures: ``params`` is the
+``Transformer``, ``batch`` a dict holding ``"tokens"`` (B, S), and each
+step returns ``(logits, cache)``. Prefill returns only the last position's
+logits; decode updates the cache in place (the reference's jitted decode
+donates it) and returns it.
+
+The builders resolve the device once: the card unless ``device="cpu"``,
+raising when there is no card. Enc-dec and vision models are refused where
+the model is built (``Transformer``). The sharded ``make_prefill_step`` and
+``make_decode_step`` (a mesh and its shardings) wait for the distributed
+slice (ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.dispatch import DeviceLike, resolve_device
+from repro_torch.models import transformer as tf_mod
+from repro_torch.models.layers import lm_logits
+
+
+def _on(params: tf_mod.Transformer, dev: torch.device, tokens):
+    """The tokens as integers on ``dev``; raise unless the model lies there."""
+    where = params.embed.table.device
+    if where.type != dev.type:
+        raise ValueError(f"the model lies on {where}, the step was built "
+                         f"for {dev}")
+    return torch.as_tensor(tokens, device=where)
+
+
+def build_prefill_fn(cfg, max_len: int, device: DeviceLike = None):
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        tokens = _on(params, dev, batch["tokens"])
+        hidden, cache = tf_mod.prefill(params, tokens, cfg, max_len=max_len)
+        # only the last position's logits are needed to start decoding
+        return lm_logits(params.embed, hidden[:, -1:], cfg), cache
+
+    return prefill_step
+
+
+def build_decode_fn(cfg, device: DeviceLike = None):
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def decode_step(params, token, cache):
+        hidden, cache = tf_mod.decode_step(params, _on(params, dev, token),
+                                           cache, cfg)
+        return lm_logits(params.embed, hidden, cfg), cache
+
+    return decode_step

@@ -19,7 +19,12 @@ atol 1e-5 on the Pearson r (``tests/test_kernels.py``); the statistics
 battery card against CPU: statistic to 1e-5 (PERMDISP 1e-4·max(|s|, 1)),
 p-values equal (``tests/test_stats.py``); the operator-form PERMANOVA, whose
 production sums in another order on the card, to 1e-4·|s|
-(``tests/test_dist.py``).
+(``tests/test_dist.py``). ``rmsnorm`` against its plain version: rtol
+1e-5 / atol 1e-6 in fp32 (another summation order, ``rsqrtf``), at most one
+bf16 unit in the last place in bf16 (one rounding of values that differ in
+fp32 by an ulp or two), and two launches bitwise equal (a fixed-order sum);
+the LM smoke path card against CPU in fp32: logits to rtol 1e-5 /
+atol 1e-5·max(scale, 1), the products summing in another order on the card.
 """
 
 import numpy as np
@@ -44,8 +49,13 @@ from repro_torch.kernels.mantel_corr_ops import mantel_corr_op
 from repro_torch.kernels.mantel_corr_ref import mantel_corr_plain
 from repro_torch.kernels.pairwise_ops import pairwise_panel_op
 from repro_torch.kernels.pairwise_ref import pairwise_panel_ref
+from repro_torch.configs import get_arch
 from repro_torch.kernels.permute_reduce_ops import permute_reduce
 from repro_torch.kernels.permute_reduce_ref import permute_reduce_ref
+from repro_torch.kernels.rmsnorm_ops import rmsnorm_op
+from repro_torch.kernels.rmsnorm_ref import bf16_ulp_distance, rmsnorm_plain
+from repro_torch.models.transformer import Transformer, init_params
+from repro_torch.runtime.serve import build_decode_fn, build_prefill_fn
 from repro_torch.kernels.symhollow_ops import is_symmetric_and_hollow_op
 from repro_torch.kernels.symhollow_ref import is_symmetric_and_hollow_ref
 from repro_torch.stats import (PermanovaOperatorStatistic, anosim,
@@ -147,7 +157,8 @@ def test_launch_counts_follow_the_main_path(cuda):
                                "permute_reduce_finish": 2,
                                "pairwise_panel": 0, "center_pass1": 0,
                                "center_finish": 0, "center_pass2": 0,
-                               "mantel_corr": 0, "mantel_corr_finish": 0}
+                               "mantel_corr": 0, "mantel_corr_finish": 0,
+                               "rmsnorm": 0}
 
 
 def test_main_path_card_matches_cpu(cuda):
@@ -365,3 +376,73 @@ def test_battery_card_matches_cpu_with_its_launches(cuda):
                                                                    1e-5)
         assert abs(gpu.statistic - cpu.statistic) <= tol, name
         assert gpu.p_value == cpu.p_value, name
+
+
+# the phase-2d shapes of chip_smoke.py, and edges of both kernels and paths
+RMSNORM_CASES = [
+    ((2048, 4096), torch.bfloat16, torch.bfloat16),
+    ((2048, 4096), torch.float32, torch.float32),
+    ((65536, 128), torch.bfloat16, torch.bfloat16),
+    ((16384, 128), torch.bfloat16, torch.bfloat16),
+    ((4, 4096), torch.bfloat16, torch.bfloat16),
+    ((4, 1, 32, 128), torch.bfloat16, torch.bfloat16),
+    ((4, 1, 8, 128), torch.bfloat16, torch.bfloat16),
+    ((1000, 100), torch.float32, torch.float32),
+    ((1, 1), torch.float32, torch.float32),
+    ((9, 256), torch.bfloat16, torch.float32),
+    ((3, 257), torch.bfloat16, torch.bfloat16),
+    ((5, 264), torch.float32, torch.bfloat16),
+    ((2, 4, 3, 128), torch.bfloat16, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,w_dtype", RMSNORM_CASES,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_rmsnorm_matches_plain(cuda, shape, dtype, w_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=gen, device=cuda) * 3 + 0.5).to(dtype)
+    w = (0.1 * torch.randn(shape[-1:], generator=gen, device=cuda)).to(
+        w_dtype)
+    _build.reset_launches()
+    got = rmsnorm_op(x, w)
+    again = rmsnorm_op(x, w)
+    assert _build.launches["rmsnorm"] == 2
+    want = rmsnorm_plain(x, w)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        assert int(bf16_ulp_distance(got, want).max()) <= 1
+
+
+def test_lm_smoke_path_card_matches_cpu(cuda):
+    cfg = get_arch("qwen3-8b", smoke=True)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.endswith(("norm.w", "q_norm", "k_norm", "ln1.w",
+                              "ln2.w")):
+                p.copy_(0.1 * torch.randn(p.shape, generator=torch.Generator(
+                    ).manual_seed(len(name))))
+    card = Transformer(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab, (2, 18),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        prefill = build_prefill_fn(cfg, max_len=20, device=dev)
+        decode = build_decode_fn(cfg, device=dev)
+        _build.reset_launches()
+        logits, cache = prefill(model, {"tokens": tokens[:, :12]})
+        steps = [logits]
+        for t in range(12, 18):
+            logits, cache = decode(model, tokens[:, t:t + 1], cache)
+            steps.append(logits)
+        launches = _build.launches["rmsnorm"]
+        out[dev] = torch.cat(steps, dim=1).cpu()
+        per_pass = cfg.n_layers * 4 + 1
+        assert launches == (0 if dev == "cpu" else 7 * per_pass), dev
+    scale = float(out["cpu"].abs().max())
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-5,
+                               atol=1e-5 * max(scale, 1.0))

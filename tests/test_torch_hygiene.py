@@ -14,6 +14,7 @@ import torch
 
 import repro_torch
 from repro_torch import convert
+from repro_torch.configs import get_arch
 from repro_torch.core import (CondensedCenteredGramOperator, DistanceMatrix,
                               mantel, pcoa, random_distance_matrix)
 from repro_torch.core.mantel import MantelStatistic
@@ -21,6 +22,9 @@ from repro_torch.dist import (pairwise_condensed, pairwise_distances,
                               production_mantel)
 from repro_torch.kernels import _build
 from repro_torch.kernels.mantel_corr_ops import mantel_corr_op
+from repro_torch.models.transformer import (Transformer, init_cache,
+                                            init_params)
+from repro_torch.runtime.serve import build_decode_fn, build_prefill_fn
 from repro_torch.stats import (PermanovaOperatorStatistic, anosim,
                                partial_mantel, permanova, permdisp)
 from repro_torch.stats.engine import permutation_test
@@ -63,6 +67,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     d2 = random_distance_matrix(1, 12, device="cpu")
     d3 = random_distance_matrix(2, 12, device="cpu")
     groups = np.arange(12) % 3
+    lm = get_arch("qwen3-8b", smoke=True)
     calls = [
         lambda: DistanceMatrix(d.data),
         lambda: DistanceMatrix.from_numpy(d.data.numpy()),
@@ -82,6 +87,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: partial_mantel(d, d2, d3, permutations=9),
         lambda: permutation_test(PermanovaOperatorStatistic(
             op, torch.from_numpy(groups), 12, 3), 9),
+        lambda: init_params(lm, torch.Generator()),
+        lambda: Transformer(lm),
+        lambda: init_cache(lm, 1, 4),
+        lambda: build_prefill_fn(lm, 8),
+        lambda: build_decode_fn(lm),
+        lambda: convert.lm_params_from_reference({}, lm),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -96,7 +107,11 @@ def test_kernel_modules_import_without_a_toolkit():
             "repro_torch.kernels.pairwise_ops, "
             "repro_torch.kernels.center_ops, "
             "repro_torch.kernels.mantel_corr_ops, "
+            "repro_torch.kernels.rmsnorm_ops, "
             "repro_torch.stats, "
+            "repro_torch.configs, "
+            "repro_torch.models.transformer, "
+            "repro_torch.runtime.serve, "
             "repro_torch.kernels._build as b; "
             "assert all(v == 0 for v in b.launches.values())")
     subprocess.run([sys.executable, "-c", code], env=env, check=True,
@@ -106,11 +121,13 @@ def test_kernel_modules_import_without_a_toolkit():
 def test_build_covers_every_source_and_refuses_without_nvcc(monkeypatch):
     names = {p.name for p in _build._sources()}
     assert {"symhollow.cu", "center_matvec.cu", "permute_reduce.cu",
-            "pairwise.cu", "center.cu", "mantel_corr.cu"} <= names
+            "pairwise.cu", "center.cu", "mantel_corr.cu",
+            "rmsnorm.cu"} <= names
     assert set(_build.launches) == {
         "symhollow", "center_matvec", "permute_reduce",
         "permute_reduce_finish", "pairwise_panel", "center_pass1",
-        "center_finish", "center_pass2", "mantel_corr", "mantel_corr_finish"}
+        "center_finish", "center_pass2", "mantel_corr", "mantel_corr_finish",
+        "rmsnorm"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build, "Path", lambda p: Path("/nonexistent/nvcc"))
@@ -122,6 +139,8 @@ def test_tf32_is_off_and_cpu_runs_launch_nothing():
     assert repro_torch.__name__ == "repro_torch"
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+        is False
     _build.reset_launches()
     d = random_distance_matrix(3, 30, device="cpu")
     DistanceMatrix(d.data, device="cpu")
@@ -170,3 +189,19 @@ def test_cpu_battery_launches_nothing():
                        perm_batch=2)
     assert set(_build.launches.values()) == {0}
     assert bool(torch.isfinite(r).all())
+
+
+def test_cpu_lm_serving_launches_nothing():
+    """Prefill and decode of a dense decoder on the CPU run the rmsnorm
+    kernel's plain version at every norm: no launch is counted."""
+    cfg = get_arch("qwen3-8b", smoke=True)
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    _build.reset_launches()
+    logits, cache = build_prefill_fn(cfg, 6, device="cpu")(
+        model, {"tokens": torch.zeros((2, 4), dtype=torch.int32)})
+    for _ in range(2):
+        logits, cache = build_decode_fn(cfg, device="cpu")(
+            model, logits.argmax(-1), cache)
+    assert set(_build.launches.values()) == {0}
+    assert "rmsnorm" in _build.launches
+    assert bool(torch.isfinite(logits).all()) and cache.pos == 6
