@@ -25,7 +25,8 @@ check fails:
    ``pcoa`` → Mantel (K = 999, B = 32); 3c the statistics battery on the
    main path's matrices (K = 999, B = 32, 4 groups of 4096): PERMANOVA,
    ANOSIM, PERMDISP (10 dimensions), partial Mantel against a third
-   matrix, PERMANOVA over the feature path's condensed operator, and the
+   matrix, PERMANOVA over the feature path's condensed operator (timed
+   also before the others, and once under the profiler), and the
    materialized Mantel baseline ``mantel_corr_op`` (27 a launch) on
    ``mantel``'s orders, its draws held against ``mantel``'s. Each path,
    and each test of the battery, runs with the kernels' launch counts set
@@ -302,19 +303,11 @@ def phase_kernels(d_main: torch.Tensor, ynorm_main: torch.Tensor) -> dict:
     """Every kernel against its plain version; returns max abs errors at
     the main-path shape."""
     from repro_torch.core import random_distance_matrix
-    from repro_torch.core.distance_matrix import (condensed_form,
-                                                  triangle_coords)
     from repro_torch.kernels.center_matvec import center_matvec
     from repro_torch.kernels.center_matvec_ref import (center_corrections,
                                                        center_matvec_ref)
-    from repro_torch.kernels.permute_reduce import (permute_reduce_finish,
-                                                    permute_reduce_partials)
-    from repro_torch.kernels.permute_reduce_ops import DEFAULT_CHUNK
-    from repro_torch.kernels.permute_reduce_ref import (
-        permute_reduce_finish_ref, permute_reduce_ref)
     from repro_torch.kernels.symhollow import symhollow
     from repro_torch.kernels.symhollow_ref import is_symmetric_and_hollow_ref
-    from repro_torch.stats.engine import permutation_orders
 
     print("== phase 2: kernels against their plain versions on the card")
     errors = {}
@@ -339,26 +332,103 @@ def phase_kernels(d_main: torch.Tensor, ynorm_main: torch.Tensor) -> dict:
             center_matvec(d, x, row_means, colsum, corr),
             center_matvec_ref(d, x, row_means, gm))
 
-        xc = condensed_form(d)
-        ii, jj = triangle_coords(n, device="cuda")
-        orders = permutation_orders(SEED + 2, 32, n, "cuda")
-        stacks = [("S=1", ynorm_main[None, :] if n == N else
-                   torch.randn((1, xc.numel()), generator=gen).cuda())]
-        if n == SMALL_N:
-            stacks.append(("S=2", torch.randn((2, xc.numel()),
-                                              generator=gen).cuda()))
-        for rows_label, ys in stacks:
-            partials = permute_reduce_partials(xc, ys, ii, jj, orders,
-                                               chunk=DEFAULT_CHUNK)
-            out = permute_reduce_finish(partials)
-            errors["permute_reduce"] = compare(
-                f"permute_reduce {label} {rows_label} B=32", out,
-                permute_reduce_ref(xc, ys, ii, jj, orders, n, DEFAULT_CHUNK))
-            errors["permute_reduce_finish"] = compare(
-                f"permute_reduce_finish {label} {rows_label}", out,
-                permute_reduce_finish_ref(partials))
-        del xc, ii, jj
+    # the ragged small shape, one more ragged n (each row's run starts at
+    # another alignment), and the main path's
+    d_ragged = random_distance_matrix(SEED + 2, SMALL_N + 1, device="cuda").data
+    for d in (d_small, d_ragged, d_main):
+        check_permute_reduce(d, ynorm_main if d is d_main else None, errors)
     return errors
+
+
+def check_inverse_orders(orders: torch.Tensor, label: str) -> float:
+    """The inverse-order kernel against its plain version (exact), and a
+    repeated index refused, by the kernel's flags and by the wrapper.
+    Returns the max abs difference of both outputs from the plain
+    version's."""
+    from repro_torch.kernels.inverse_orders import (inverse_orders,
+                                                    inverse_orders_kernel,
+                                                    inverse_orders_plain)
+
+    inv, orders16 = inverse_orders(orders)
+    want_inv, want16, _ = inverse_orders_plain(orders)
+    err = max(float((inv.long() - want_inv.long()).abs().max()),
+              float((orders16.long() - want16.long()).abs().max()))
+    check(err == 0 and torch.equal(inv, want_inv)
+          and torch.equal(orders16, want16),
+          f"inverse_orders {label}: differs from its plain version "
+          f"(max abs {err})")
+    bad = orders.clone()
+    bad[1, 3] = bad[1, 0]                      # a repeated index in row 1
+    flags = inverse_orders_kernel(bad)[2].tolist()
+    check(flags == [1] + [0] + [1] * (len(flags) - 2),
+          f"inverse_orders {label}: flags {flags} on a repeated index")
+    try:
+        inverse_orders(bad)
+    except ValueError as e:
+        print(f"  inverse_orders {label}: equal to its plain version "
+              f"(exact); a repeated index refused ({e})")
+    else:
+        raise SmokeFailure(f"inverse_orders {label}: a repeated index was "
+                           f"not refused")
+    return err
+
+
+def check_permute_reduce(d: torch.Tensor, ynorm, errors: dict) -> None:
+    """permute_reduce at one n against its plain version, S = 1 and S = 2
+    (the Mantel row, or a random one, and a second random row), B = 32;
+    the finish against its plain version; two launches bitwise equal; a
+    repeated order index refused. ``errors`` takes the main path's (S = 1
+    with the Mantel row)."""
+    from repro_torch.core.distance_matrix import (condensed_form,
+                                                  triangle_coords)
+    from repro_torch.kernels.inverse_orders import inverse_orders
+    from repro_torch.kernels.permute_reduce import (permute_reduce_finish,
+                                                    permute_reduce_partials)
+    from repro_torch.kernels.permute_reduce_ops import (DEFAULT_CHUNK,
+                                                        permute_reduce)
+    from repro_torch.kernels.permute_reduce_ref import (
+        permute_reduce_finish_ref, permute_reduce_ref)
+    from repro_torch.stats.engine import permutation_orders
+
+    n = d.shape[0]
+    label = f"n={n}"
+    xc = condensed_form(d)
+    orders = permutation_orders(SEED + 2, 32, n, "cuda")
+    inverse_err = check_inverse_orders(orders, label)
+    inv, orders16 = inverse_orders(orders)
+    gen = torch.Generator().manual_seed(SEED + n)
+    first = ynorm[None, :] if ynorm is not None else \
+        torch.randn((1, xc.numel()), generator=gen).cuda()
+    ys = torch.cat([first, torch.randn((1, xc.numel()), generator=gen).cuda()])
+    ii, jj = triangle_coords(n, device="cuda")
+    for rows in (1, 2):
+        partials = permute_reduce_partials(xc, ys[:rows], inv, orders16)
+        out = permute_reduce_finish(partials)
+        err = compare(f"permute_reduce {label} S={rows} B=32", out,
+                      permute_reduce_ref(xc, ys[:rows], ii, jj, orders, n,
+                                         DEFAULT_CHUNK))
+        finish_err = compare(f"permute_reduce_finish {label} S={rows}", out,
+                             permute_reduce_finish_ref(partials))
+        if ynorm is not None and rows == 1:
+            errors["permute_reduce"] = err
+            errors["permute_reduce_finish"] = finish_err
+            errors["inverse_orders"] = inverse_err
+        again = permute_reduce_finish(permute_reduce_partials(
+            xc, ys[:rows], inv, orders16))
+        check(torch.equal(out, again),
+              f"permute_reduce {label} S={rows}: two launches differ")
+    print(f"  permute_reduce {label}: two launches bitwise equal at S=1, 2")
+    bad = orders.clone()
+    bad[5, 7] = bad[5, 8]
+    try:
+        permute_reduce(xc, ys[:1], bad)
+    except ValueError as e:
+        print(f"  permute_reduce {label}: a repeated order index refused "
+              f"({e})")
+    else:
+        raise SmokeFailure(f"permute_reduce {label}: a repeated order index "
+                           f"was not refused")
+    del xc, ys, ii, jj
 
 
 def phase_main_path(dm0, d2) -> dict:
@@ -376,15 +446,19 @@ def phase_main_path(dm0, d2) -> dict:
     t1 = time.perf_counter()
     res = pcoa(dm, dimensions=DIMS)
     sync()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t2 = time.perf_counter()
     stat, p, size = mantel(dm, dm2, permutations=PERMUTATIONS)
     sync()
     t3 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
     launches = dict(_build.launches)
     times = {"validate_2x_s": t1 - t0, "pcoa_s": t2 - t1, "mantel_s": t3 - t2}
     print(f"  launches on the main path: {launches}")
     return {"dm": dm, "dm2": dm2, "pcoa": res, "stat": stat, "p": p,
-            "size": size, "launches": launches, "times": times}
+            "size": size, "launches": launches, "times": times,
+            "mantel_memory": (before, peak)}
 
 
 def check_center_launches(what: str) -> None:
@@ -430,6 +504,8 @@ def phase_checks(main: dict, card: str) -> None:
     tiles = -(-PERMUTATIONS // 32)
     check(launches["symhollow"] >= 2, "symhollow launched < 2 times")
     check(launches["center_matvec"] == 4, "center_matvec launches != 4")
+    check(launches["inverse_orders"] == tiles,
+          f"inverse_orders launches != {tiles}")
     check(launches["permute_reduce"] == tiles,
           f"permute_reduce launches != {tiles}")
     check(launches["permute_reduce_finish"] == tiles,
@@ -461,6 +537,14 @@ def phase_checks(main: dict, card: str) -> None:
           "small pipeline: statistic differs from the CPU")
     for name, seconds in main["times"].items():
         print(f"  {name}: {seconds:.4f} ({card})")
+    # device memory allocated through mantel: before it, and its peak
+    before, peak = main["mantel_memory"]
+    print(f"  mantel memory: {before / 1e9:.4f} GB allocated before, peak "
+          f"{peak / 1e9:.4f} GB, {(peak - before) / 1e9:.4f} GB above it "
+          f"({card})")
+    device_breakdown(f"mantel K={PERMUTATIONS} again, profiled",
+                     lambda: mantel(main["dm"], main["dm2"],
+                                    permutations=PERMUTATIONS), card)
 
 
 def abundance_tables(n: int, d: int, seed: int, device="cuda"):
@@ -555,7 +639,9 @@ def phase_mantel_corr_kernel(d_main: torch.Tensor, d2: torch.Tensor) -> dict:
     """``mantel_corr`` against ``mantel_corr_plain`` on the card, as Pearson
     r (the sums over 2‖x−x̄‖); returns the max abs error at full width."""
     from repro_torch.core import random_distance_matrix
-    from repro_torch.kernels.mantel_corr import (mantel_corr_finish,
+    from repro_torch.kernels.inverse_orders import inverse_orders
+    from repro_torch.kernels.mantel_corr import (mantel_corr,
+                                                 mantel_corr_finish,
                                                  mantel_corr_partials)
     from repro_torch.kernels.mantel_corr_ops import (mantel_corr_hoist,
                                                      mantel_corr_op)
@@ -571,25 +657,45 @@ def phase_mantel_corr_kernel(d_main: torch.Tensor, d2: torch.Tensor) -> dict:
     noise = torch.triu(0.05 * torch.rand((SMALL_N, SMALL_N), generator=gen,
                                          device="cuda"), 1)
     small_y = small + noise + noise.T
+    ragged = random_distance_matrix(SEED + 10, SMALL_N + 1, device="cuda").data
+    ragged_y = random_distance_matrix(SEED + 11, SMALL_N + 1,
+                                      device="cuda").data
     for label, x, y, k in ((f"n={SMALL_N} K=54", small, small_y, 54),
+                           (f"n={SMALL_N + 1} K=27", ragged, ragged_y, 27),
                            (f"n={N} one batch", d_main, d2, CORR_BATCH)):
         n = x.shape[0]
         orders = permutation_orders(SEED + 9, k, n, "cuda")
         normxm, yhat = mantel_corr_hoist(x, y)
         sums = []
         for b in range(0, k, CORR_BATCH):
-            partials = mantel_corr_partials(x, yhat, orders[b:b + CORR_BATCH])
+            inv, orders16 = inverse_orders(orders[b:b + CORR_BATCH])
+            partials = mantel_corr_partials(x, yhat, inv, orders16)
             sums.append(mantel_corr_finish(partials))
+        check(torch.equal(sums[-1], mantel_corr_finish(
+            mantel_corr_partials(x, yhat, inv, orders16))),
+            f"mantel_corr {label}: two launches differ")
         want = mantel_corr_plain(x, yhat, orders)
-        errors["mantel_corr"] = compare(
-            f"mantel_corr {label} B={CORR_BATCH}, as r",
-            torch.cat(sums) / (2 * normxm), want / (2 * normxm), **CORR_TOL)
+        err = compare(f"mantel_corr {label} B={CORR_BATCH}, as r",
+                      torch.cat(sums) / (2 * normxm), want / (2 * normxm),
+                      **CORR_TOL)
         # the finish is the fixed-order sum over the leading axis, as
         # permute_reduce's
-        errors["mantel_corr_finish"] = compare(
-            f"mantel_corr_finish {label}", sums[-1],
-            permute_reduce_finish_ref(partials))
+        finish_err = compare(f"mantel_corr_finish {label}", sums[-1],
+                             permute_reduce_finish_ref(partials))
+        if n == N:
+            errors["mantel_corr"], errors["mantel_corr_finish"] = \
+                err, finish_err
         del yhat, partials
+    print("  mantel_corr: two launches bitwise equal at every input")
+    bad = permutation_orders(SEED + 9, CORR_BATCH, SMALL_N, "cuda")
+    bad[3, 100] = bad[3, 200]
+    try:
+        mantel_corr(small, small_y, bad)
+    except ValueError as e:
+        print(f"  mantel_corr: a repeated order index refused ({e})")
+    else:
+        raise SmokeFailure("mantel_corr: a repeated order index was not "
+                           "refused")
     identity = torch.arange(SMALL_N, device="cuda")[None]
     r = mantel_corr_op(small, small_y, identity, perm_batch=1)
     want = pearson_fp64(small, small_y)
@@ -719,7 +825,8 @@ def phase_feature_checks(feat: dict, x: torch.Tensor, y: torch.Tensor,
     launches = feat["launches"]
     panels = 2 * -(-N // PANEL)
     tiles = -(-PERMUTATIONS // 32)
-    want = {"pairwise_panel": panels, "permute_reduce": tiles,
+    want = {"pairwise_panel": panels, "inverse_orders": tiles,
+            "permute_reduce": tiles,
             "permute_reduce_finish": tiles, "center_matvec": 0,
             "symhollow": 0, "center_pass1": 0, "center_finish": 0,
             "center_pass2": 0, "mantel_corr": 0, "mantel_corr_finish": 0,
@@ -845,13 +952,14 @@ def battery_tests(x, y, z, op, groups, orders, device, omega=None,
         "permanova": ({"center_pass1": 1, "center_finish": 1,
                        "center_pass2": 1},
                       lambda: permanova(x, groups, permutations, **common)),
-        "anosim": ({"permute_reduce": tiles, "permute_reduce_finish": tiles},
+        "anosim": ({"inverse_orders": tiles, "permute_reduce": tiles,
+                    "permute_reduce_finish": tiles},
                    lambda: anosim(x, groups, permutations, **common)),
         "permdisp": ({"center_matvec": 4},
                      lambda: permdisp(x, groups, permutations,
                                       dimensions=DIMS, omega=omega,
                                       **common)),
-        "partial_mantel": ({"permute_reduce": tiles,
+        "partial_mantel": ({"inverse_orders": tiles, "permute_reduce": tiles,
                             "permute_reduce_finish": tiles},
                            lambda: partial_mantel(x, y, z, permutations,
                                                   **common)),
@@ -860,7 +968,8 @@ def battery_tests(x, y, z, op, groups, orders, device, omega=None,
         "permanova_operator": ({}, lambda: permutation_test(
             PermanovaOperatorStatistic(op, codes, op.n, GROUPS),
             permutations, method="permanova", **common)),
-        "mantel_corr": ({"mantel_corr": corr_launches,
+        "mantel_corr": ({"inverse_orders": corr_launches,
+                         "mantel_corr": corr_launches,
                          "mantel_corr_finish": corr_launches},
                         lambda: mantel_corr_op(x.data, y.data, orders,
                                                perm_batch=corr_batch)),
@@ -902,8 +1011,12 @@ def phase_battery(main: dict, op, card: str) -> dict:
     # the orders mantel drew on the main path (key None: seed 0)
     orders = engine.permutation_orders(None, PERMUTATIONS, N, "cuda")
     launches_by_test, draws = {}, None
-    for name, (want, run) in battery_tests(x, y, z, op, groups, orders,
-                                           "cuda").items():
+    tests = battery_tests(x, y, z, op, groups, orders, "cuda")
+    # the operator-form PERMANOVA also runs first, before the kernel
+    # tests, so that each run reads it in both places
+    for name, (want, run) in [("permanova_operator first",
+                               tests["permanova_operator"]),
+                              *tests.items()]:
         sync()
         _build.reset_launches()
         t0 = time.perf_counter()
@@ -922,6 +1035,9 @@ def phase_battery(main: dict, op, card: str) -> dict:
         print(f"  {name}: {shown}; {seconds:.4f} s ({card}); launches "
               f"{launches}")
         check(launches == want, f"{name}: launches {launches} != {want}")
+
+    device_breakdown("permanova_operator again, profiled",
+                     tests["permanova_operator"][1], card)
 
     # mantel_corr's draws against mantel's permute_reduce draws, same orders
     xc = condensed_form(x.data)
@@ -1336,6 +1452,20 @@ def print_kernel_times(kernels: list) -> None:
         print(f"  {kern['name']}: {kern['ms']:.4f} ms, plain "
               f"{kern['plain_ms']:.4f} ms, bound {kern['bound_ms']:.4f} ms "
               f"({kern['bound_by']}), {kern['launches']} launches")
+    by_name = {kern["name"]: kern for kern in kernels}
+    pr = by_name["permute_reduce"]
+    print(f"  permute_reduce: {pr['bound_ms'] / pr['ms']:.4f} of its bound; "
+          f"S=2 {pr['rows2_ms']:.4f} ms; B=2 {pr['perms2_ms']:.4f} ms")
+    mc = by_name["mantel_corr"]
+    print(f"  mantel_corr: {mc['bound_ms'] / mc['ms']:.4f} of its bound")
+    for name in ("inverse_orders", "permute_reduce_finish",
+                 "mantel_corr_finish"):
+        kern = by_name[name]
+        print(f"  {name}: {kern['ms']:.4f} ms from a CUDA graph, one-call "
+              f"library {kern['library_ms']:.4f} ms; from Python "
+              f"{kern['host_launch_ms']:.4f} ms"
+              + (f", torch.sum {kern['library_host_launch_ms']:.4f} ms"
+                 if "library_host_launch_ms" in kern else ""))
 
 
 def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
@@ -1355,6 +1485,9 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
     from repro_torch.kernels.center_matvec import center_matvec
     from repro_torch.kernels.center_matvec_ref import (center_corrections,
                                                        center_matvec_ref)
+    from repro_torch.kernels.inverse_orders import (inverse_orders,
+                                                    inverse_orders_kernel,
+                                                    inverse_orders_plain)
     from repro_torch.kernels.pairwise import pairwise_panel
     from repro_torch.kernels.pairwise_ref import pairwise_panel_ref
     from repro_torch.kernels.permute_reduce import (permute_reduce_finish,
@@ -1397,38 +1530,71 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
           4 * (n * n + 2 * n * k + n + 2 * k), 2 * n * n * k + 2 * n * n,
           FP32_FLOPS, yardstick_matmul_preformed_e_ms=matmul_ms)
 
-    xc = condensed_form(d)
-    ii, jj = triangle_coords(n, device="cuda")
+    # the inverse orders of one tile, as each tile of the main path forms
+    # them; its one-call yardstick is the argsort, which inverts a
+    # permutation too
     orders = permutation_orders(SEED + 3, perms, n, "cuda")
-    ys = ynorm[None, :]
-    chunks = -(-m // DEFAULT_CHUNK)
-    partials = permute_reduce_partials(xc, ys, ii, jj, orders,
-                                       chunk=DEFAULT_CHUNK)
-    entry("permute_reduce", "src/repro_torch/csrc/permute_reduce.cu",
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        inverse_orders(orders)                 # the checked call: one sync
+    checked_ms = (time.perf_counter() - t0) / reps * 1e3
+    entry("inverse_orders", "src/repro_torch/csrc/inverse_orders.cu",
           "src/repro/kernels/permute_reduce.py:90",
-          cuda_ms(lambda: permute_reduce_partials(
-              xc, ys, ii, jj, orders, chunk=DEFAULT_CHUNK), reps=5),
+          graph_ms(lambda: inverse_orders_kernel(orders)),
+          cuda_ms(lambda: inverse_orders_plain(orders), reps=reps),
+          10 * perms * n + 4 * perms, 0, FP32_INSTR,
+          library_ms=graph_ms(lambda: torch.argsort(orders, dim=1)),
+          role="inverse and 16-bit orders of a tile for the row-stationary "
+               "permute_reduce and mantel_corr; no Pallas counterpart",
+          host_launch_ms=cuda_ms(lambda: inverse_orders_kernel(orders),
+                                 reps=reps),
+          checked_call_host_ms=checked_ms)
+
+    # permute_reduce at the main path's tile (S = 1), at partial Mantel's
+    # (S = 2) and at B = 2; the bound counts xc, the S rows of ys, the
+    # orders and the partials once
+    xc = condensed_form(d)
+    inv, orders16 = inverse_orders(orders)
+    gen = torch.Generator().manual_seed(SEED + 4)
+    ys = torch.cat([ynorm[None, :],
+                    torch.randn((1, m), generator=gen).cuda()])
+    ii, jj = triangle_coords(n, device="cuda")
+    partials = permute_reduce_partials(xc, ys[:1], inv, orders16)
+    blocks = partials.shape[0]
+    rows2_ms = cuda_ms(lambda: permute_reduce_partials(xc, ys, inv, orders16),
+                       reps=5)
+    perms2_ms = cuda_ms(lambda: permute_reduce_partials(
+        xc, ys[:1], inv[:2], orders16[:2]), reps=5)
+    pr_ms = cuda_ms(lambda: permute_reduce_partials(xc, ys[:1], inv,
+                                                    orders16), reps=5)
+    entry("permute_reduce", "src/repro_torch/csrc/permute_reduce.cu",
+          "src/repro/kernels/permute_reduce.py:90", pr_ms,
           cuda_ms(lambda: permute_reduce_ref(
-              xc, ys, ii, jj, orders, n, DEFAULT_CHUNK), reps=2),
-          4 * m * (1 + rows + 2) + 4 * perms * n + 8 * chunks * rows * perms,
-          2 * m * perms * rows, FP64_FLOPS)
-    # Analytic models, not timings: the Pallas design's traffic, xc gathered
-    # once per permutation, at 4-byte and at 32-byte-sector granularity.
-    design_bytes = 4 * m * (perms + 3) + 4 * perms * n
-    sector_bytes = 4 * m * 3 + 32 * m * perms + 4 * perms * n
-    print(f"  permute_reduce traffic models (analytic, not timed): "
-          f"{design_bytes / 1e9:.2f} GB = "
-          f"{design_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at 4-byte "
-          f"granularity, {sector_bytes / 1e9:.2f} GB = "
-          f"{sector_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms in 32-byte sectors")
+              xc, ys[:1], ii, jj, orders, n, DEFAULT_CHUNK), reps=2),
+          4 * m * (1 + rows) + 4 * perms * n + 8 * blocks * rows * perms,
+          2 * m * perms * rows, FP64_FLOPS,
+          rows2_ms=rows2_ms, perms2_ms=perms2_ms, blocks=blocks)
+    # Analytic, not timed: the floor of a design that passes over one
+    # operand once a permutation, 4 m (B S + 1) + 8 n B bytes over HBM.
+    floors = {s_rows: (4 * m * (perms * s_rows + 1) + 8 * n * perms)
+              / HBM_BYTES_PER_S * 1e3 for s_rows in (1, 2)}
+    print(f"  permute_reduce one-pass floor (analytic, not timed): S=1 "
+          f"{floors[1]:.4f} ms, {floors[1] / pr_ms:.4f} of the kernel's "
+          f"time; S=2 {floors[2]:.4f} ms, {floors[2] / rows2_ms:.4f} of it")
+    del ii, jj
     entry("permute_reduce_finish", "src/repro_torch/csrc/permute_reduce.cu",
           "src/repro/kernels/permute_reduce.py:90",
-          cuda_ms(lambda: permute_reduce_finish(partials), reps=20),
+          graph_ms(lambda: permute_reduce_finish(partials)),
           cuda_ms(lambda: permute_reduce_finish_ref(partials), reps=20),
-          8 * chunks * rows * perms + 4 * rows * perms,
-          chunks * rows * perms, FP64_FLOPS,
-          library_ms=cuda_ms(lambda: torch.sum(partials, dim=0), reps=20))
-    del xc, ii, jj, partials
+          8 * blocks * rows * perms + 4 * rows * perms,
+          blocks * rows * perms, FP64_FLOPS,
+          library_ms=graph_ms(lambda: torch.sum(partials, dim=0)),
+          host_launch_ms=cuda_ms(lambda: permute_reduce_finish(partials),
+                                 reps=20),
+          library_host_launch_ms=cuda_ms(lambda: torch.sum(partials, dim=0),
+                                         reps=20))
+    del xc, ys, partials
 
     # the feature path: one panel of PANEL rows against the (n, FEATURES)
     # table, bound by the fp32 instructions of its n·PANEL·FEATURES terms
@@ -1476,7 +1642,9 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
     from repro_torch.kernels.mantel_corr_ref import mantel_corr_plain
     yhat = condensed_to_square(ynorm, n)
     orders = permutation_orders(SEED + 3, CORR_BATCH, n, "cuda")
-    partials = mantel_corr_partials(d, yhat, orders)
+    inv, orders16 = inverse_orders(orders)
+    partials = mantel_corr_partials(d, yhat, inv, orders16)
+    blocks = partials.shape[0]
 
     def gather_mv():
         # x[o][:, o] for the batch: the rows, then the columns of each
@@ -1489,19 +1657,25 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
 
     entry("mantel_corr", "src/repro_torch/csrc/mantel_corr.cu",
           "src/repro/kernels/mantel_corr.py:59",
-          cuda_ms(lambda: mantel_corr_partials(d, yhat, orders), reps=5),
+          cuda_ms(lambda: mantel_corr_partials(d, yhat, inv, orders16),
+                  reps=5),
           cuda_ms(lambda: mantel_corr_plain(d, yhat, orders), reps=1),
           4 * n * n * (CORR_BATCH + 1) + 4 * CORR_BATCH * n
-          + 8 * n * CORR_BATCH, 2 * CORR_BATCH * n * n, FP32_FLOPS,
+          + 8 * blocks * CORR_BATCH, 2 * CORR_BATCH * n * n, FP32_FLOPS,
           yardstick_gather_then_mv_two_library_calls_ms=cuda_ms(gather_mv,
                                                                 reps=1))
     entry("mantel_corr_finish", "src/repro_torch/csrc/mantel_corr.cu",
           "src/repro/kernels/mantel_corr.py:59",
-          cuda_ms(lambda: mantel_corr_finish(partials), reps=20),
+          graph_ms(lambda: mantel_corr_finish(partials)),
           # the same fixed-order sum over the leading axis
           cuda_ms(lambda: permute_reduce_finish_ref(partials), reps=20),
-          8 * n * CORR_BATCH + 4 * CORR_BATCH, n * CORR_BATCH, FP64_FLOPS,
-          library_ms=cuda_ms(lambda: torch.sum(partials, dim=0), reps=20))
+          8 * blocks * CORR_BATCH + 4 * CORR_BATCH, blocks * CORR_BATCH,
+          FP64_FLOPS,
+          library_ms=graph_ms(lambda: torch.sum(partials, dim=0)),
+          host_launch_ms=cuda_ms(lambda: mantel_corr_finish(partials),
+                                 reps=20),
+          library_host_launch_ms=cuda_ms(lambda: torch.sum(partials, dim=0),
+                                         reps=20))
     del yhat, partials
     print_kernel_times(kernels)
     return kernels

@@ -15,7 +15,7 @@ silent move to the CPU when the card is missing.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -28,6 +28,9 @@ from repro_torch.kernels.dispatch import DeviceLike, resolve_device
 #: past this n the closed-form condensed index would wrap, so every
 #: condensed-indexed path refuses larger n. floor(sqrt(2^31)).
 MAX_TRIANGLE_N = 46340
+#: condensed positions ``permuted_condensed`` maps at a time (about
+#: 0.2 GB of index temporaries a chunk).
+PERMUTED_CHUNK = 2**22
 
 
 class DistanceMatrixError(ValueError):
@@ -131,22 +134,41 @@ def condensed_index(i: torch.Tensor, j: torch.Tensor, n: int) -> torch.Tensor:
     return lo * (2 * n - lo - 1) // 2 + (hi - lo - 1)
 
 
-def triangle_coords(n: int, device: DeviceLike = "cpu"
+def triangle_coords(n: int, device: DeviceLike = "cpu", start: int = 0,
+                    stop: Optional[int] = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(ii, jj) int32 tensors of length m = n(n−1)/2: the (row, col) pair
-    of every condensed position, in scipy ``pdist`` order. The inverse of
-    ``condensed_index``, by a searchsorted over the n row starts
-    S(i) = i(2n − i − 1)/2 — no (n, n) position map."""
+    """(ii, jj) int32 tensors: the (row, col) pair of every condensed
+    position k in [start, stop) (default the whole m = n(n−1)/2), in scipy
+    ``pdist`` order. The inverse of ``condensed_index``, by a searchsorted
+    over the n row starts S(i) = i(2n − i − 1)/2 — no (n, n) position map."""
     m = n * (n - 1) // 2
-    if n < 2:
+    stop = m if stop is None else stop
+    if n < 2 or stop <= start:
         z = torch.zeros((0,), dtype=torch.int32, device=device)
         return z, z
     i_all = torch.arange(n, dtype=torch.int32, device=device)
     row_starts = i_all * (2 * n - i_all - 1) // 2      # S(i), increasing
-    k = torch.arange(m, dtype=torch.int32, device=device)
+    k = torch.arange(start, stop, dtype=torch.int32, device=device)
     ii = torch.searchsorted(row_starts, k, right=True, out_int32=True) - 1
     jj = k - row_starts[ii.long()] + ii + 1
     return ii, jj
+
+
+def permuted_condensed(values: torch.Tensor, order: torch.Tensor,
+                       n: int) -> torch.Tensor:
+    """``condensed(V[order][:, order])`` for the condensed ``values`` of a
+    symmetric V: ``values[tri(order[i_k], order[j_k])]`` for every k,
+    ``PERMUTED_CHUNK`` positions at a time, so the index temporaries stay a
+    few chunk-long vectors and no (m,) triangle map is kept."""
+    m = n * (n - 1) // 2
+    o = order.to(device=values.device, dtype=torch.int32)
+    out = torch.empty((m,), dtype=values.dtype, device=values.device)
+    for k0 in range(0, m, PERMUTED_CHUNK):
+        k1 = min(k0 + PERMUTED_CHUNK, m)
+        ii, jj = triangle_coords(n, values.device, k0, k1)
+        out[k0:k1] = values[condensed_index(o[ii.long()], o[jj.long()],
+                                            n).long()]
+    return out
 
 
 def condensed_to_square(condensed: torch.Tensor, n: int) -> torch.Tensor:

@@ -26,8 +26,7 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.core.distance_matrix import (DistanceMatrix, condensed_form,
-                                              condensed_index,
-                                              triangle_coords)
+                                              permuted_condensed)
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
 from repro_torch.kernels.permute_reduce_ops import permute_reduce
 from repro_torch.stats import engine
@@ -110,17 +109,14 @@ class MantelStatistic:
             y_flat = _as_condensed(self.y)
             ym = y_flat - y_flat.mean()
             inv["ynorm"] = ym / torch.linalg.vector_norm(ym)
-        inv["ii"], inv["jj"] = triangle_coords(self.n, device=inv["xc"].device)
         return inv
 
     def per_perm(self, inv: dict, order: torch.Tensor) -> torch.Tensor:
-        o = order.to(torch.int32)
-        k = condensed_index(o[inv["ii"].long()], o[inv["jj"].long()], self.n)
-        return torch.dot(inv["xc"][k.long()], inv["ynorm"]) / inv["normxm"]
+        xp = permuted_condensed(inv["xc"], order, self.n)
+        return torch.dot(xp, inv["ynorm"]) / inv["normxm"]
 
     def per_batch(self, inv: dict, orders: torch.Tensor) -> torch.Tensor:
-        stats = permute_reduce(inv["xc"], inv["ynorm"][None, :], orders,
-                               inv["ii"], inv["jj"])
+        stats = permute_reduce(inv["xc"], inv["ynorm"][None, :], orders)
         return stats[0] / inv["normxm"]
 
 

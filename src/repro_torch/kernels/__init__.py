@@ -18,7 +18,13 @@ Mantel):
 * ``symhollow``      — fused symmetric+hollow validation (paper Algorithm 7).
 * ``center_matvec``  — fused center-matvec for matrix-free PCoA.
 * ``permute_reduce`` — B permuted condensed multiply-reduces per tile, the
-                       Mantel permutation hot loop.
+                       Mantel permutation hot loop; row-stationary on the
+                       card (a row of x held, ys streamed once per
+                       permutation).
+* ``inverse_orders`` — the inverse and 16-bit orders of a tile that the
+                       row-stationary kernels read, refusing any order row
+                       that is not a permutation (no Pallas counterpart;
+                       launch, plain version and dispatch in one module).
 
 The feature-table path (feature table → condensed distances → PCoA →
 Mantel) and the materialized solves:
@@ -32,7 +38,8 @@ The statistics battery runs on the kernels above; beside it, the
 materialized Mantel baseline (paper Algorithm 5 over square operands):
 
 * ``mantel_corr``    — B permuted square multiply-reduces per launch, the
-                       permutation's row and column gather fused in.
+                       permutation's row and column gather fused in,
+                       row-stationary like ``permute_reduce``.
 
 The LM serving path (``repro_torch.models``, ``repro_torch.runtime``):
 

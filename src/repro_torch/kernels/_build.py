@@ -22,6 +22,7 @@ main path went through the kernels: set the counts to 0 with
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -43,6 +44,7 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 launches: dict[str, int] = {
     "symhollow": 0,
     "center_matvec": 0,
+    "inverse_orders": 0,
     "permute_reduce": 0,
     "permute_reduce_finish": 0,
     "pairwise_panel": 0,
@@ -58,17 +60,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "repro_symhollow": [_P, _I, _P, _P],
     "repro_center_matvec": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "repro_permute_reduce_partials": [_P, _P, _P, _P, _P, _P, _I, _L, _L,
-                                      _I, _I, _I, _I, _P],
+    "repro_inverse_orders": [_P, _P, _P, _P, _I, _I, _P],
+    "repro_permute_reduce_grid": [_I, _I, _I, _IP],
+    "repro_permute_reduce_partials": [_P, _P, _L, _P, _P, _P, _I, _I, _I,
+                                      _I, _P],
     "repro_permute_reduce_finish": [_P, _P, _I, _I, _P],
     "repro_pairwise_panel": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_center_pass1": [_P, _P, _I, _I, _P],
     "repro_center_finish": [_P, _P, _P, _I, _P],
     "repro_center_pass2": [_P, _P, _P, _P, _I, _I, _P],
-    "repro_mantel_corr_partials": [_P, _P, _P, _P, _I, _I, _P],
+    "repro_mantel_corr_grid": [_I, _I, _IP],
+    "repro_mantel_corr_partials": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "repro_mantel_corr_finish": [_P, _P, _I, _I, _P],
     "repro_rmsnorm": [_P, _P, _P, _L, _I, _I, _I, _F, _P],
 }
@@ -172,6 +178,16 @@ def check(err: int, what: str) -> None:
     if err:
         name = library().repro_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({name})")
+
+
+@functools.lru_cache(maxsize=None)
+def resident_grid(entry: str, *sizes: int) -> int:
+    """The grid a row-striding kernel runs at these sizes, as its C entry
+    ``entry`` reports it for the current card: as many blocks as the card
+    holds at once, capped at the rows. Asked once per sizes."""
+    grid = ctypes.c_int(0)
+    check(getattr(library(), entry)(*sizes, ctypes.byref(grid)), entry)
+    return grid.value
 
 
 def stream_handle(device: torch.device) -> int:

@@ -1,0 +1,85 @@
+"""Inverse permutation orders of a tile, on the card
+(``csrc/inverse_orders.cu``) or in plain PyTorch.
+
+The row-stationary ``permute_reduce`` and ``mantel_corr`` kernels walk the
+pairs of each permutation from the side of the permuted operand, so they
+need ``inv[b, orders[b, i]] = i``, and read the orders themselves as a
+16-bit copy. On an order row that is not a permutation of 0..n−1 they
+would read out of range or return a silently wrong sum, so
+:func:`inverse_orders` refuses any such tile. No Pallas kernel of the
+reference is replaced: the TPU kernels gathered from the other side and
+never formed the inverse.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: widest order a 16-bit copy holds.
+MAX_N = 2**16
+
+
+def inverse_orders_kernel(orders: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(inv, orders16, is_perm)`` on the card: (B, n) int32, (B, n) int16
+    holding the orders' 16 low bits, (B,) int32 flags. orders: (B, n) int32,
+    contiguous, 1 <= n <= MAX_N. Returns without synchronising."""
+    perms, n = orders.shape
+    inv = torch.empty((perms, n), dtype=torch.int32, device=orders.device)
+    orders16 = torch.empty((perms, n), dtype=torch.int16,
+                           device=orders.device)
+    is_perm = torch.empty((perms,), dtype=torch.int32, device=orders.device)
+    err = _build.library().repro_inverse_orders(
+        orders.data_ptr(), inv.data_ptr(), orders16.data_ptr(),
+        is_perm.data_ptr(), n, perms, _build.stream_handle(orders.device))
+    _build.launches["inverse_orders"] += 1
+    _build.check(err, "inverse_orders")
+    return inv, orders16, is_perm
+
+
+def inverse_orders_plain(orders: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch: one scatter a tile. Where a
+    row is not a permutation, its ``inv`` holds -1 in the slots no entry
+    reached and an arbitrary one of the entries that collide."""
+    perms, n = orders.shape
+    o = orders.long()
+    valid = (o >= 0) & (o < n)
+    inv = torch.full((perms, n + 1), -1, dtype=torch.int32,
+                     device=orders.device)
+    positions = torch.arange(n, dtype=torch.int32, device=orders.device)
+    inv.scatter_(1, torch.where(valid, o, n), positions.expand(perms, n))
+    inv = inv[:, :n].contiguous()
+    is_perm = valid.all(dim=1) & (inv >= 0).all(dim=1)
+    return inv, (orders & 0xFFFF).to(torch.int16), is_perm.to(torch.int32)
+
+
+def inverse_orders(orders: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(inv, orders16)`` of a (B, n) tile of integer orders: the kernel on
+    a CUDA tensor, the plain version on a CPU tensor. Raises ValueError
+    unless every row is a permutation of 0..n−1; that check synchronises
+    with the card once a call."""
+    if orders.ndim != 2:
+        raise ValueError(f"orders must be (B, n), got {tuple(orders.shape)}")
+    perms, n = orders.shape
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"orders take 1 <= n <= {MAX_N} (a 16-bit copy "
+                         f"is kept), got n={n}")
+    orders = orders.to(torch.int32).contiguous()
+    if orders.device.type == "cuda":
+        inv, orders16, is_perm = inverse_orders_kernel(orders)
+    elif orders.device.type == "cpu":
+        inv, orders16, is_perm = inverse_orders_plain(orders)
+    else:
+        raise ValueError(f"unsupported device {orders.device}")
+    require_permutations(is_perm, n)
+    return inv, orders16
+
+
+def require_permutations(is_perm: torch.Tensor, n: int) -> None:
+    """Raise ValueError unless every flag of ``is_perm`` is set."""
+    if is_perm.numel() and not bool(is_perm.all()):
+        bad = int(torch.nonzero(is_perm == 0)[0, 0])
+        raise ValueError(f"order row {bad} is not a permutation of 0..{n - 1}")

@@ -2,12 +2,14 @@
 (``csrc/mantel_corr.cu``).
 
 Replaces the Pallas kernel ``repro/kernels/mantel_corr.py::mantel_corr``
-and the XLA row and column gathers its wrapper runs before it. A block
-owns one row i of ŷ, loops over the tile's permutations, stages row
-``o_b[i]`` of x in shared memory and walks the row through the order
-(``mantel_corr_partials``, one fp64 partial per (i, b)); a second kernel
-sums the partials over the rows in a fixed order (``mantel_corr_finish``).
-No float atomics, so the result is bitwise reproducible.
+and the XLA row and column gathers its wrapper runs before it.
+Row-stationary: each block holds a row r of x in shared memory for all B
+permutations of the launch and, for each, streams ŷ row ``inv[b, r]`` and
+the 16-bit order row, gathering ``x_row[o_b[j]]`` (``mantel_corr_partials``,
+one fp64 partial per (block, b)); a second kernel sums the partials over
+the blocks in a fixed order (``mantel_corr_finish``). No float atomics, so
+the result is bitwise reproducible. The inverse and 16-bit orders come
+from ``inverse_orders``, which refuses orders that are not permutations.
 """
 
 from __future__ import annotations
@@ -15,36 +17,48 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.inverse_orders import inverse_orders
 
 #: shared memory a block may opt into on an H100 (227 KB).
 MAX_SHARED_BYTES = 232448
-#: widest x whose fp32 row fits beside the block's 16 fp64 warp sums.
-MAX_N = (MAX_SHARED_BYTES - 16 * 8) // 4
+#: widest x whose fp32 row fits in a block's shared memory.
+MAX_N = MAX_SHARED_BYTES // 4
+#: permutations a launch: four fp64 slots a lane.
+MAX_PERMS = 128
 
 
 def mantel_corr_partials(x: torch.Tensor, yhat: torch.Tensor,
-                         orders: torch.Tensor) -> torch.Tensor:
-    """(n, B) fp64 partials: ``Σ_j x[o_b[i], o_b[j]]·ŷ[i, j]`` per row i.
+                         inv: torch.Tensor,
+                         orders16: torch.Tensor) -> torch.Tensor:
+    """(blocks, B) fp64 partials of ``Σ_ij x[o_b[i], o_b[j]]·ŷ[i, j]``, one
+    per block of the launch (as many as the card holds at once, at most n).
 
-    x, yhat: (n, n) fp32; orders: (B, n) int32; all contiguous on one CUDA
-    device, 1 <= n <= MAX_N. Returns without synchronising.
+    x, yhat: (n, n) fp32; inv: (B, n) int32 inverse orders and orders16:
+    (B, n) the 16-bit orders (both from ``inverse_orders``); all contiguous
+    on one CUDA device, 1 <= n <= MAX_N, B <= MAX_PERMS. Returns without
+    synchronising.
     """
-    perms, n = orders.shape
+    perms, n = inv.shape
     if not 1 <= n <= MAX_N:
         raise ValueError(f"mantel_corr takes 1 <= n <= {MAX_N} (a row of x "
                          f"must fit in shared memory), got n={n}")
-    partials = torch.empty((n, perms), dtype=torch.float64, device=x.device)
+    if perms > MAX_PERMS:
+        raise ValueError(f"one launch takes {MAX_PERMS} permutations, got "
+                         f"{perms}")
+    grid = _build.resident_grid("repro_mantel_corr_grid", n, perms)
+    partials = torch.empty((grid, perms), dtype=torch.float64,
+                           device=x.device)
     err = _build.library().repro_mantel_corr_partials(
-        x.data_ptr(), yhat.data_ptr(), orders.data_ptr(), partials.data_ptr(),
-        n, perms, _build.stream_handle(x.device))
+        x.data_ptr(), yhat.data_ptr(), inv.data_ptr(), orders16.data_ptr(),
+        partials.data_ptr(), n, perms, grid, _build.stream_handle(x.device))
     _build.launches["mantel_corr"] += 1
     _build.check(err, "mantel_corr")
     return partials
 
 
 def mantel_corr_finish(partials: torch.Tensor) -> torch.Tensor:
-    """(B,) fp32 sums over the row axis of (n, B) fp64 partials, in a
-    fixed order. Returns without synchronising."""
+    """(B,) fp32 sums over the block axis of (blocks, B) fp64 partials, in
+    a fixed order. Returns without synchronising."""
     rows, perms = partials.shape
     out = torch.empty((perms,), dtype=torch.float32, device=partials.device)
     err = _build.library().repro_mantel_corr_finish(
@@ -57,5 +71,12 @@ def mantel_corr_finish(partials: torch.Tensor) -> torch.Tensor:
 
 def mantel_corr(x: torch.Tensor, yhat: torch.Tensor,
                 orders: torch.Tensor) -> torch.Tensor:
-    """stats[b] = Σ_ij x[o_b[i], o_b[j]]·ŷ[i, j] on the card, (B,) fp32."""
-    return mantel_corr_finish(mantel_corr_partials(x, yhat, orders))
+    """stats[b] = Σ_ij x[o_b[i], o_b[j]]·ŷ[i, j] on the card, (B,) fp32.
+    Refuses orders that are not permutations (one ``inverse_orders`` launch
+    and a sync); above ``MAX_PERMS`` permutations it runs in slabs, each
+    one launch pair."""
+    inv, orders16 = inverse_orders(orders)
+    return torch.cat([
+        mantel_corr_finish(mantel_corr_partials(
+            x, yhat, inv[b0:b0 + MAX_PERMS], orders16[b0:b0 + MAX_PERMS]))
+        for b0 in range(0, orders.shape[0], MAX_PERMS)])

@@ -5,9 +5,11 @@ paper Algorithm 5 over square operands: hoist (x̄, ‖x−x̄‖, ŷ), build th
 full symmetric ŷ with a zero diagonal (so the square sum is twice the
 condensed one), reduce ``perm_batch`` permutations at a time, and scale by
 1/(2‖x−x̄‖). On a CUDA tensor each batch is one launch of the
-``mantel_corr`` kernel, which gathers the permuted rows itself and masks a
-ragged n; on a CPU tensor the plain version runs. Nothing is padded (the
-reference pads n to 128-lane blocks for the TPU).
+``inverse_orders`` kernel and one of the ``mantel_corr`` kernel, which
+gathers the permuted rows itself and masks a ragged n; on a CPU tensor the
+plain version runs. Either way an order that is not a permutation is
+refused. Nothing is padded (the reference pads n to 128-lane blocks for the
+TPU).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.core.distance_matrix import condensed_form, condensed_to_square
 from repro_torch.kernels.dispatch import require, same_device
+from repro_torch.kernels.inverse_orders import inverse_orders
 from repro_torch.kernels.mantel_corr import mantel_corr
 from repro_torch.kernels.mantel_corr_ref import mantel_corr_plain
 
@@ -56,7 +59,12 @@ def mantel_corr_op(x: torch.Tensor, y: torch.Tensor, orders: torch.Tensor,
         raise ValueError(f"permutations ({k_perms}) must be divisible by "
                          f"perm_batch ({perm_batch})")
     orders = orders.to(torch.int32).contiguous()
-    reduce = mantel_corr if device.type == "cuda" else mantel_corr_plain
+    if device.type == "cuda":
+        reduce = mantel_corr                       # refuses each batch itself
+    else:
+        if k_perms:
+            inverse_orders(orders)                 # refuse non-permutations
+        reduce = mantel_corr_plain
     stats = [reduce(x, yhat, orders[b0:b0 + perm_batch])
              for b0 in range(0, k_perms, perm_batch)]
     stats = torch.cat(stats) if stats else \

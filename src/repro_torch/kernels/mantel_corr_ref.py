@@ -7,6 +7,10 @@
   ``stats[b] = Σ_ij x[o_b[i], o_b[j]]·ŷ[i, j]``, gathered a row block at a
   time (peak extra memory one (ROW_CHUNK, n) block) and summed in fp64. The
   CPU path runs it; the card's kernel is held against it.
+* ``mantel_corr_rows`` — the same function by the card kernel's walk: the
+  inverse orders, then row by row of x, ŷ row ``inv[b, r]`` against
+  ``x_row[orders[b, j]]``. It shows the reformulation equals the
+  reference's function.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.distance_matrix import condensed_form
+from repro_torch.kernels.inverse_orders import (inverse_orders_plain,
+                                                require_permutations)
 
 #: rows of the permuted square gathered at once by ``mantel_corr_plain``.
 ROW_CHUNK = 1024
@@ -48,4 +54,21 @@ def mantel_corr_plain(x: torch.Tensor, yhat: torch.Tensor,
         for r0 in range(0, n, ROW_CHUNK):
             rows = x[order[r0:r0 + ROW_CHUNK]][:, order]
             out[b] += torch.sum(rows.double() * yhat[r0:r0 + ROW_CHUNK].double())
+    return out.to(x.dtype)
+
+
+def mantel_corr_rows(x: torch.Tensor, yhat: torch.Tensor,
+                     orders: torch.Tensor) -> torch.Tensor:
+    """stats[b] = Σ_r Σ_j x[r, o_b[j]]·ŷ[π_b(r), j], π_b the inverse of
+    o_b: the row-stationary kernel's loop, one row of x at a time, in fp64.
+    orders (B, n) permutations (refused otherwise). Returns (B,) in ``x``'s
+    dtype."""
+    n = x.shape[0]
+    inv, _, is_perm = inverse_orders_plain(orders)
+    require_permutations(is_perm, n)
+    inv, o = inv.long(), orders.long()
+    out = torch.zeros((orders.shape[0],), dtype=torch.float64,
+                      device=x.device)
+    for r in range(n):
+        out += torch.sum(yhat[inv[:, r]].double() * x[r][o].double(), dim=1)
     return out.to(x.dtype)

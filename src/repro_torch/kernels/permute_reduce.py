@@ -2,13 +2,16 @@
 (``csrc/permute_reduce.cu``).
 
 Replaces the Pallas kernel
-``repro/kernels/permute_reduce.py::permute_reduce_kernel``. A block owns one
-(condensed chunk, permutation) pair, stages that permutation's order row in
-shared memory, gathers ``xc`` through L2 by closed-form triangle indexing
-and writes one fp64 partial per (chunk, s, b) (``permute_reduce_partials``);
-a second kernel sums the partials over the chunks in a fixed order
+``repro/kernels/permute_reduce.py::permute_reduce_kernel``. Row-stationary:
+each block holds a row r of the square x (its condensed run and its column
+down the triangle) in shared memory for all B permutations of the tile and,
+for each, streams the run of ys row ``inv[b, r]`` and the order row past it,
+so ys is read once per permutation, coalesced, and xc once a tile
+(``permute_reduce_partials``, one fp64 partial per (block, s, b)); a
+second kernel sums the partials over the blocks in a fixed order
 (``permute_reduce_finish``). No float atomics, so the result is bitwise
-reproducible. The ragged last chunk is masked in the kernel.
+reproducible. The inverse and 16-bit orders come from
+``inverse_orders``; the ii/jj triangle maps are not read.
 """
 
 from __future__ import annotations
@@ -16,46 +19,47 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.inverse_orders import inverse_orders
 
-#: invariant rows one launch reduces against the same gather (Mantel
-#: streams 1, partial Mantel 2).
+#: invariant rows one launch reduces against the same staged x rows
+#: (Mantel streams 1, partial Mantel 2).
 MAX_ROWS = 2
-#: the CUDA grid's limit on blocks (chunks × permutations).
-MAX_BLOCKS = 2**31 - 1
+#: outputs (rows × permutations) a launch: four fp64 slots a lane.
+MAX_OUTPUTS = 128
 
 
 def permute_reduce_partials(xc: torch.Tensor, ys: torch.Tensor,
-                            ii: torch.Tensor, jj: torch.Tensor,
-                            orders: torch.Tensor, *,
-                            chunk: int) -> torch.Tensor:
-    """(chunks, S, B) fp64 partial sums of the gather-reduce, one per
-    condensed chunk of ``chunk`` entries.
+                            inv: torch.Tensor,
+                            orders16: torch.Tensor) -> torch.Tensor:
+    """(blocks, S, B) fp64 partial sums of the gather-reduce, one per block
+    of the launch (as many as the card holds at once, at most n).
 
-    xc: (m,) fp32; ys: (S, m) fp32 with 1 <= S <= MAX_ROWS; ii/jj: (m,)
-    int32; orders: (B, n) int32; all contiguous on one CUDA device,
-    m = n(n−1)/2 >= 1. Returns without synchronising.
+    xc: (m,) fp32; ys: (S, m) fp32 with 1 <= S <= MAX_ROWS, S·B <=
+    MAX_OUTPUTS; inv: (B, n) int32 inverse orders and orders16: (B, n) the
+    16-bit orders (both from ``inverse_orders``); all contiguous on one
+    CUDA device, 2 <= n <= 46340. Returns without synchronising.
     """
     rows, m = ys.shape
-    perms, n = orders.shape
+    perms, n = inv.shape
     if not 1 <= rows <= MAX_ROWS:
         raise ValueError(f"one launch takes 1..{MAX_ROWS} rows, got {rows}")
-    num_chunks = -(-m // chunk)
-    if num_chunks * perms > MAX_BLOCKS:
-        raise ValueError(f"{num_chunks} chunks x {perms} permutations exceed "
-                         f"the CUDA grid; raise the chunk")
-    partials = torch.empty((num_chunks, rows, perms), dtype=torch.float64,
+    if rows * perms > MAX_OUTPUTS:
+        raise ValueError(f"one launch takes {MAX_OUTPUTS} rows x "
+                         f"permutations, got {rows} x {perms}")
+    grid = _build.resident_grid("repro_permute_reduce_grid", n, rows, perms)
+    partials = torch.empty((grid, rows, perms), dtype=torch.float64,
                            device=xc.device)
     err = _build.library().repro_permute_reduce_partials(
-        xc.data_ptr(), ys.data_ptr(), ii.data_ptr(), jj.data_ptr(),
-        orders.data_ptr(), partials.data_ptr(), n, m, m, rows, perms, chunk,
-        num_chunks, _build.stream_handle(xc.device))
+        xc.data_ptr(), ys.data_ptr(), ys.stride(0), inv.data_ptr(),
+        orders16.data_ptr(), partials.data_ptr(), n, rows, perms, grid,
+        _build.stream_handle(xc.device))
     _build.launches["permute_reduce"] += 1
     _build.check(err, "permute_reduce")
     return partials
 
 
 def permute_reduce_finish(partials: torch.Tensor) -> torch.Tensor:
-    """(S, B) fp32 sums over the chunk axis of (chunks, S, B) fp64
+    """(S, B) fp32 sums over the block axis of (blocks, S, B) fp64
     partials, in a fixed order. Returns without synchronising."""
     num_chunks, rows, perms = partials.shape
     out = torch.empty((rows, perms), dtype=torch.float32,
@@ -69,13 +73,16 @@ def permute_reduce_finish(partials: torch.Tensor) -> torch.Tensor:
 
 
 def permute_reduce_kernel(xc: torch.Tensor, ys: torch.Tensor,
-                          ii: torch.Tensor, jj: torch.Tensor,
-                          orders: torch.Tensor, *, chunk: int) -> torch.Tensor:
-    """out[s, b] = Σ_k ys[s, k]·xc[tri(orders[b, ii[k]], orders[b, jj[k]])]
-    on the card, (S, B) fp32; S above ``MAX_ROWS`` runs in slabs of rows,
-    each one gather."""
-    rows = ys.shape[0]
+                          orders: torch.Tensor) -> torch.Tensor:
+    """out[s, b] = Σ_{i<j} ys[s, tri(i, j)]·xc[tri(o_b[i], o_b[j])] on the
+    card, (S, B) fp32. Refuses orders that are not permutations (one
+    ``inverse_orders`` launch and a sync); S above ``MAX_ROWS``, or S·B
+    above ``MAX_OUTPUTS``, runs in slabs, each one launch pair."""
+    inv, orders16 = inverse_orders(orders)
+    rows, perms = ys.shape[0], orders.shape[0]
+    step = MAX_OUTPUTS // MAX_ROWS if rows > 1 else MAX_OUTPUTS
     return torch.cat([
-        permute_reduce_finish(permute_reduce_partials(
-            xc, ys[s0:s0 + MAX_ROWS], ii, jj, orders, chunk=chunk))
+        torch.cat([permute_reduce_finish(permute_reduce_partials(
+            xc, ys[s0:s0 + MAX_ROWS], inv[b0:b0 + step],
+            orders16[b0:b0 + step])) for b0 in range(0, perms, step)], dim=1)
         for s0 in range(0, rows, MAX_ROWS)])

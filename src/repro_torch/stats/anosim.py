@@ -35,8 +35,7 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.core.distance_matrix import (DistanceMatrix, condensed_form,
-                                              condensed_index,
-                                              triangle_coords)
+                                              permuted_condensed)
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
 from repro_torch.kernels.permute_reduce_ops import permute_reduce
 from repro_torch.stats import engine
@@ -84,16 +83,16 @@ class AnosimStatistic:
         rt = self.pre if self.pre is not None else \
             rank_transform_condensed(_as_condensed(self.dm))
         ranks = rt["ranks"]
-        ii, jj = triangle_coords(self.n, device=ranks.device)
         codes = self.grouping.to(device=ranks.device, dtype=torch.int64)
         # the within-indicator of the ORIGINAL labels: permuting the samples
         # only permutes which pair is looked up
-        within = (codes[ii.long()] == codes[jj.long()]).to(ranks.dtype)
+        within = condensed_form(codes[:, None] == codes[None, :]).to(
+            ranks.dtype)
         sizes = torch.bincount(codes, minlength=self.num_groups).to(
             ranks.dtype)
         m = self.n * (self.n - 1) / 2.0
         within_count = torch.sum(sizes * (sizes - 1)) / 2.0
-        return {"ranks": ranks, "within": within, "ii": ii, "jj": jj,
+        return {"ranks": ranks, "within": within,
                 "total_sum": rt["total_sum"], "within_count": within_count,
                 "between_count": m - within_count,
                 "divisor": self.n * (self.n - 1) / 4.0}
@@ -105,14 +104,12 @@ class AnosimStatistic:
         return (r_b - r_w) / inv["divisor"]
 
     def per_perm(self, inv: dict, order: torch.Tensor) -> torch.Tensor:
-        o = order.to(torch.int32)
-        k = condensed_index(o[inv["ii"].long()], o[inv["jj"].long()], self.n)
-        w_sum = torch.dot(inv["ranks"], inv["within"][k.long()])
+        w_sum = torch.dot(inv["ranks"],
+                          permuted_condensed(inv["within"], order, self.n))
         return self._finish_r(inv, w_sum)
 
     def per_batch(self, inv: dict, orders: torch.Tensor) -> torch.Tensor:
-        w_sums = permute_reduce(inv["within"], inv["ranks"][None, :], orders,
-                                inv["ii"], inv["jj"])
+        w_sums = permute_reduce(inv["within"], inv["ranks"][None, :], orders)
         return self._finish_r(inv, w_sums[0])
 
 

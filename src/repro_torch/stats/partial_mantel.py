@@ -29,8 +29,7 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.core.distance_matrix import (DistanceMatrix, condensed_form,
-                                              condensed_index,
-                                              triangle_coords)
+                                              permuted_condensed)
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
 from repro_torch.kernels.permute_reduce_ops import permute_reduce
 from repro_torch.stats import engine
@@ -67,7 +66,6 @@ class PartialMantelStatistic:
             yhat = condensed_moments_vec(_as_condensed(self.y))["hat"]
             zhat = condensed_moments_vec(_as_condensed(self.z))["hat"]
             inv.update(_residualize(yhat, zhat))
-        inv["ii"], inv["jj"] = triangle_coords(self.n, device=inv["xc"].device)
         return inv
 
     @staticmethod
@@ -77,15 +75,13 @@ class PartialMantelStatistic:
         return (num / inv["normxm"]) / torch.sqrt(1.0 - r_xz * r_xz)
 
     def per_perm(self, inv: dict, order: torch.Tensor) -> torch.Tensor:
-        o = order.to(torch.int32)
-        k = condensed_index(o[inv["ii"].long()], o[inv["jj"].long()], self.n)
-        xg = inv["xc"][k.long()]                     # ONE gather, two dots
+        xg = permuted_condensed(inv["xc"], order, self.n)  # ONE gather, two dots
         return self._finish(inv, torch.dot(xg, inv["y_res"]),
                             torch.dot(xg, inv["z"]))
 
     def per_batch(self, inv: dict, orders: torch.Tensor) -> torch.Tensor:
         ys = torch.stack([inv["y_res"], inv["z"]])
-        stats = permute_reduce(inv["xc"], ys, orders, inv["ii"], inv["jj"])
+        stats = permute_reduce(inv["xc"], ys, orders)
         return self._finish(inv, stats[0], stats[1])
 
 

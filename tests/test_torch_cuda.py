@@ -44,6 +44,9 @@ from repro_torch.kernels.center_ref import (center_distance_matrix_ref,
                                             center_two_pass_ref)
 from repro_torch.kernels.center_matvec_ops import center_matvec_op
 from repro_torch.kernels.center_matvec_ref import center_matvec_ref
+from repro_torch.kernels.inverse_orders import (inverse_orders,
+                                                inverse_orders_kernel,
+                                                inverse_orders_plain)
 from repro_torch.kernels.mantel_corr import mantel_corr
 from repro_torch.kernels.mantel_corr_ops import mantel_corr_op
 from repro_torch.kernels.mantel_corr_ref import mantel_corr_plain
@@ -119,16 +122,18 @@ def test_center_matvec_matches_plain(cuda, n, k):
                                rtol=1e-5, atol=1e-5 * max(scale, 1.0))
 
 
-@pytest.mark.parametrize("n,perms,rows,chunk", [
-    (2, 3, 1, None), (33, 5, 1, 64), (17, 7, 2, 32), (1000, 32, 1, None),
-    (1000, 32, 2, 4096), (40, 3, 6, 100)])
-def test_permute_reduce_matches_plain(cuda, n, perms, rows, chunk):
+@pytest.mark.parametrize("n,perms,rows", [
+    (2, 3, 1), (33, 5, 1), (17, 7, 2), (1000, 32, 1), (1000, 32, 2),
+    (40, 3, 6), (1001, 32, 1), (1001, 32, 2), (1002, 70, 2), (999, 129, 1)])
+def test_permute_reduce_matches_plain(cuda, n, perms, rows):
+    """Ragged n (1001, 1002, 999: the runs start at every alignment) and
+    slabs of rows and of permutations (S·B above 128)."""
     m = n * (n - 1) // 2
     xc = random_distance_matrix(n, n, device=cuda).condensed_form()
     gen = torch.Generator().manual_seed(n)
     ys = torch.randn((rows, m), generator=gen).to(cuda)
     orders = permutation_orders(n + 1, perms, n, cuda)
-    got = permute_reduce(xc, ys, orders, chunk=chunk)
+    got = permute_reduce(xc, ys, orders)
     ii, jj = triangle_coords(n, device=cuda)
     want = permute_reduce_ref(xc, ys, ii, jj, orders, n, 65536)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
@@ -141,9 +146,56 @@ def test_permute_reduce_is_bitwise_reproducible(cuda):
     ys = torch.randn((1, xc.numel()), generator=torch.Generator()
                      .manual_seed(2)).to(cuda)
     orders = permutation_orders(3, 32, n, cuda)
-    a = permute_reduce(xc, ys, orders, chunk=1024)
-    b = permute_reduce(xc, ys, orders, chunk=1024)
+    a = permute_reduce(xc, ys, orders)
+    b = permute_reduce(xc, ys, orders)
     assert torch.equal(a, b)
+
+
+def test_permute_reduce_takes_no_triangle_map_or_chunk_on_the_card(cuda):
+    n = 50
+    xc = random_distance_matrix(2, n, device=cuda).condensed_form()
+    ys = torch.ones((1, xc.numel()), device=cuda)
+    orders = permutation_orders(5, 4, n, cuda)
+    ii, jj = triangle_coords(n, device=cuda)
+    with pytest.raises(ValueError, match="no triangle map"):
+        permute_reduce(xc, ys, orders, ii, jj)
+    with pytest.raises(ValueError, match="no chunk"):
+        permute_reduce(xc, ys, orders, chunk=64)
+
+
+@pytest.mark.parametrize("n,perms", [(1, 1), (2, 3), (1001, 32),
+                                     (16384, 32), (46340, 2)])
+def test_inverse_orders_matches_plain(cuda, n, perms):
+    orders = permutation_orders(n, perms, n, cuda)
+    _build.reset_launches()
+    inv, orders16 = inverse_orders(orders)
+    assert _build.launches["inverse_orders"] == 1
+    want_inv, want16, is_perm = inverse_orders_plain(orders.cpu())
+    assert bool(is_perm.all())
+    assert torch.equal(inv.cpu(), want_inv)
+    assert torch.equal(orders16.cpu(), want16)
+
+
+@pytest.mark.parametrize("fault", ["repeat", "negative", "too_large"])
+def test_non_permutation_orders_are_refused(cuda, fault):
+    n = 257
+    orders = permutation_orders(6, 8, n, cuda)
+    if fault == "repeat":
+        orders[5, 10] = orders[5, 200]
+    elif fault == "negative":
+        orders[5, 10] = -1
+    else:
+        orders[5, 10] = n
+    _, _, flags = inverse_orders_kernel(orders)
+    assert flags.cpu().tolist() == [1] * 5 + [0] + [1] * 2
+    d = random_distance_matrix(7, n, device=cuda)
+    xc = d.condensed_form()
+    with pytest.raises(ValueError, match="order row 5 is not a permutation"):
+        permute_reduce(xc, xc[None], orders)
+    with pytest.raises(ValueError, match="order row 5 is not a permutation"):
+        mantel_corr(d.data, d.data, orders)
+    with pytest.raises(ValueError, match="order row 5 is not a permutation"):
+        permute_reduce(xc.cpu(), xc.cpu()[None], orders.cpu())
 
 
 def test_launch_counts_follow_the_main_path(cuda):
@@ -153,7 +205,7 @@ def test_launch_counts_follow_the_main_path(cuda):
     pcoa(dm, dimensions=4, device=cuda)
     mantel(dm, dm, permutations=40, device=cuda)
     assert _build.launches == {"symhollow": 1, "center_matvec": 4,
-                               "permute_reduce": 2,
+                               "inverse_orders": 2, "permute_reduce": 2,
                                "permute_reduce_finish": 2,
                                "pairwise_panel": 0, "center_pass1": 0,
                                "center_finish": 0, "center_pass2": 0,
@@ -283,18 +335,21 @@ def test_materialized_solves_launch_the_center_pair(cuda):
 
 
 @pytest.mark.parametrize("n,perms", [(1, 1), (2, 3), (33, 5), (999, 27),
-                                     (1000, 27), (1029, 8)])
+                                     (1000, 27), (1029, 8), (1001, 27),
+                                     (1002, 27), (300, 130)])
 def test_mantel_corr_matches_plain(cuda, n, perms):
     """The raw sums against the plain version, with a yhat that is neither
-    symmetric nor hollow, at ragged n (n % 4 != 0 stages scalars)."""
+    symmetric nor hollow, at ragged n (n % 4 != 0 stages and streams
+    scalars), and past 128 permutations (two launch pairs)."""
     x = _matrix(n, n + 3, cuda)
     gen = torch.Generator().manual_seed(n)
     yhat = torch.randn((n, n), generator=gen).to(cuda)
     orders = permutation_orders(n + 4, perms, n, cuda)
     _build.reset_launches()
     got = mantel_corr(x, yhat, orders)
-    assert (_build.launches["mantel_corr"],
-            _build.launches["mantel_corr_finish"]) == (1, 1)
+    pairs = -(-perms // 128)
+    assert (_build.launches["inverse_orders"], _build.launches["mantel_corr"],
+            _build.launches["mantel_corr_finish"]) == (1, pairs, pairs)
     want = mantel_corr_plain(x, yhat, orders)
     scale = want.abs().max().item()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
@@ -351,9 +406,11 @@ def test_battery_card_matches_cpu_with_its_launches(cuda):
     want_launches = {
         "permanova": {"center_pass1": 1, "center_finish": 1,
                       "center_pass2": 1},
-        "anosim": {"permute_reduce": 2, "permute_reduce_finish": 2},
+        "anosim": {"inverse_orders": 2, "permute_reduce": 2,
+                   "permute_reduce_finish": 2},
         "permdisp": {"center_matvec": 4},
-        "partial_mantel": {"permute_reduce": 2, "permute_reduce_finish": 2},
+        "partial_mantel": {"inverse_orders": 2, "permute_reduce": 2,
+                           "permute_reduce_finish": 2},
         "permanova_operator": {"pairwise_panel": 2},
     }
     for name, run in tests.items():

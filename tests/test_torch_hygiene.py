@@ -108,6 +108,7 @@ def test_kernel_modules_import_without_a_toolkit():
             "repro_torch.kernels.center_ops, "
             "repro_torch.kernels.mantel_corr_ops, "
             "repro_torch.kernels.rmsnorm_ops, "
+            "repro_torch.kernels.inverse_orders, "
             "repro_torch.stats, "
             "repro_torch.configs, "
             "repro_torch.models.transformer, "
@@ -122,9 +123,9 @@ def test_build_covers_every_source_and_refuses_without_nvcc(monkeypatch):
     names = {p.name for p in _build._sources()}
     assert {"symhollow.cu", "center_matvec.cu", "permute_reduce.cu",
             "pairwise.cu", "center.cu", "mantel_corr.cu",
-            "rmsnorm.cu"} <= names
+            "rmsnorm.cu", "inverse_orders.cu"} <= names
     assert set(_build.launches) == {
-        "symhollow", "center_matvec", "permute_reduce",
+        "symhollow", "center_matvec", "inverse_orders", "permute_reduce",
         "permute_reduce_finish", "pairwise_panel", "center_pass1",
         "center_finish", "center_pass2", "mantel_corr", "mantel_corr_finish",
         "rmsnorm"}

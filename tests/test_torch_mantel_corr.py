@@ -131,6 +131,7 @@ def test_cpu_runs_launch_nothing_and_the_kernel_refuses_wide_rows():
     mantel_corr_op(x, x, torch.from_numpy(_orders(4, n, 4)), perm_batch=2)
     assert _build.launches["mantel_corr"] == 0
     assert _build.launches["mantel_corr_finish"] == 0
+    assert _build.launches["inverse_orders"] == 0
     wide = torch.zeros((1, MAX_N + 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="shared memory"):
-        mantel_corr_partials(x, x, wide)
+        mantel_corr_partials(x, x, wide, wide.to(torch.int16))
