@@ -10,13 +10,15 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 check fails:
 
 1. environment: the card's name and power limit, versions, build time;
-2. every kernel against its plain PyTorch version on the card, at a ragged
-   small shape (n = 1000) and at the paths' shapes; 2b does the same for
-   the feature path's kernels (``pairwise_panel`` for the five metrics,
-   the ``center`` pair in fp32 and bf16); 2c for ``mantel_corr`` (n = 1000
-   with K = 54, and one batch of 27 at n = 16384), and its identity order
-   against the plain Pearson r; 2d for ``rmsnorm`` at the LM path's shapes
-   in fp32 and bf16, two launches bitwise equal;
+2. every kernel against its plain PyTorch version on the card, at ragged
+   small shapes (n = 1000, 1001) and at the paths' shapes
+   (``center_matvec`` at k = 20 and 128, two launches bitwise equal); 2b
+   does the same for the feature path's kernels (``pairwise_panel`` for
+   the five metrics, the ``center`` pair in fp32 and bf16); 2c for
+   ``mantel_corr`` (n = 1000 with K = 54, and one batch of 27 at
+   n = 16384), and its identity order against the plain Pearson r; 2d for
+   ``rmsnorm`` at the LM path's shapes in fp32 and bf16, two launches
+   bitwise equal;
 3. the main path at n = 16384 (a 1.07 GB fp32 matrix): two validated
    ``DistanceMatrix`` objects, ``pcoa(dimensions=10)`` matrix-free, and
    ``mantel(permutations=999)`` against a noisy copy; 3b the feature path
@@ -39,8 +41,12 @@ check fails:
    materialized solves (``materialize=True`` through the ``center``
    kernels, and ``method="eigh"`` against the CPU); 4d runs the battery at
    n = 512 on the card and on the CPU with the same orders and sketch;
-5. per-kernel times, bounds and plain versions at the paths' shapes; then
-   the analysis paths' tensors are freed and
+5. per-kernel times, bounds and plain versions at the paths' shapes
+   (``center_matvec`` also at k = 128, the square-operator PERMANOVA's
+   tile, kernel and op); one permutation's ``permute_reduce`` (S = 1, 2)
+   and ``mantel_corr`` sums bitwise the same beside other tile-mates and at
+   other positions of the tile; then the analysis paths' tensors are freed
+   and
 6. the LM serving path: qwen3-8b at full width and depth (36 layers,
    d = 4096, 16.4 GB of bf16 weights drawn from a seed on the card),
    four prompts of 512 token ids prefilled (``build_prefill_fn``, 544
@@ -52,6 +58,10 @@ check fails:
    card against the CPU; 5b times ``rmsnorm`` at the
    path's shapes; then one JSON line of per-kernel launches, errors, times
    and bounds.
+
+``python3 chip_smoke.py --center-matvec-op TREE`` times only
+``center_matvec_op`` of the checkout at TREE (phase 5's shapes), so that a
+parent commit's op can be timed in the same call.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it fails before printing any result.
@@ -77,6 +87,7 @@ POINT_DIM = 8        # the samples are points in 8 dimensions: rank-8 spectrum
 DIMS = 10            # PCoA dimensions (sketch width 20)
 PERMUTATIONS = 999   # Mantel permutations: 32 tiles of 32
 SMALL_N = 1000       # the ragged small shape of phase 2
+WIDE_K = 128         # a tile of the square-operator PERMANOVA: 32 orders x 4 groups
 SEED = 2021
 FEATURES = 2048      # features of the feature path's tables (full width)
 COMMUNITIES = 6      # latent communities the samples are mixed from
@@ -110,6 +121,7 @@ L2_BYTES = 50 * 2**20
 FP32_FLOPS = 67e12           # CUDA cores, outside the tensor cores
 FP64_FLOPS = 34e12           # CUDA cores, outside the tensor cores
 FP32_INSTR = FP32_FLOPS / 2  # instructions/s: the sheet counts an FMA as 2
+TF32_FLOPS = 495e12          # tensor cores, TF32 (center_matvec's 3xTF32)
 # fp32 instructions a pair-feature term, as csrc/pairwise.cu writes them:
 # Euclidean a-b and an FMA; Bray-Curtis a-b, a+b and two accumulates (the
 # abs is an operand modifier).
@@ -303,9 +315,6 @@ def phase_kernels(d_main: torch.Tensor, ynorm_main: torch.Tensor) -> dict:
     """Every kernel against its plain version; returns max abs errors at
     the main-path shape."""
     from repro_torch.core import random_distance_matrix
-    from repro_torch.kernels.center_matvec import center_matvec
-    from repro_torch.kernels.center_matvec_ref import (center_corrections,
-                                                       center_matvec_ref)
     from repro_torch.kernels.symhollow import symhollow
     from repro_torch.kernels.symhollow_ref import is_symmetric_and_hollow_ref
 
@@ -322,22 +331,43 @@ def phase_kernels(d_main: torch.Tensor, ynorm_main: torch.Tensor) -> dict:
             check(got == want, f"symhollow {label} {case}: {got} != {want}")
         errors["symhollow"] = 0.0
 
-        gen = torch.Generator().manual_seed(SEED + n)
-        x = torch.randn((n, DIMS + 10), generator=gen).cuda()
-        row_means = -0.5 * torch.mean(d * d, dim=1)
-        gm = torch.mean(row_means)
-        colsum, corr = center_corrections(x, row_means, gm)
-        errors["center_matvec"] = compare(
-            f"center_matvec {label} k={DIMS + 10}",
-            center_matvec(d, x, row_means, colsum, corr),
-            center_matvec_ref(d, x, row_means, gm))
-
-    # the ragged small shape, one more ragged n (each row's run starts at
-    # another alignment), and the main path's
+    # one more ragged n: each row's run starts at another alignment
+    # (permute_reduce), and D takes center_matvec's cp.async copy route
     d_ragged = random_distance_matrix(SEED + 2, SMALL_N + 1, device="cuda").data
+    for d in (d_small, d_ragged, d_main):
+        check_center_matvec(d, errors)
     for d in (d_small, d_ragged, d_main):
         check_permute_reduce(d, ynorm_main if d is d_main else None, errors)
     return errors
+
+
+def check_center_matvec(d: torch.Tensor, errors: dict) -> None:
+    """center_matvec at one n against its plain version, at pcoa's k and at
+    the square-operator PERMANOVA's (one launch each), two launches bitwise
+    equal; a ragged k takes the cp.async copy route for X. ``errors`` takes
+    the main path's (n = N, k = DIMS + 10)."""
+    from repro_torch.kernels.center_matvec import center_matvec
+    from repro_torch.kernels.center_matvec_ref import (center_corrections,
+                                                       center_matvec_ref)
+
+    n = d.shape[0]
+    row_means = -0.5 * torch.mean(d * d, dim=1)
+    gm = torch.mean(row_means)
+    widths = (DIMS + 10, WIDE_K) if n == N else (DIMS + 10, WIDE_K, 45)
+    for k in widths:
+        gen = torch.Generator().manual_seed(SEED + n + k)
+        x = torch.randn((n, k), generator=gen).cuda()
+        colsum, corr = center_corrections(x, row_means, gm)
+        got = center_matvec(d, x, row_means, colsum, corr)
+        err = compare(f"center_matvec n={n} k={k}", got,
+                      center_matvec_ref(d, x, row_means, gm))
+        check(torch.equal(got, center_matvec(d, x, row_means, colsum, corr)),
+              f"center_matvec n={n} k={k}: two launches differ")
+        if n == N:
+            errors["center_matvec" if k == DIMS + 10
+                   else "center_matvec_wide"] = err
+    print(f"  center_matvec n={n}: two launches bitwise equal at k = "
+          f"{', '.join(map(str, widths))}")
 
 
 def check_inverse_orders(orders: torch.Tensor, label: str) -> float:
@@ -1432,19 +1462,28 @@ def phase_pcoa_split(main: dict, card: str) -> None:
     print(f"  solver first calls in a fresh process (ms): {first}")
 
 
+def bound_ms(bytes_: float, flops: float, peak: float,
+             tf32_flops: float = 0.0) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of ``bytes_`` over the HBM
+    rate and the operations over their peak rates, ``flops`` at ``peak``
+    plus ``tf32_flops`` on the tensor cores at the TF32 rate."""
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = (flops / peak + tf32_flops / TF32_FLOPS) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  error: float, ms: float, plain_ms: float, bytes_: float,
                  flops: float, peak: float, library_ms=None,
-                 **yardsticks) -> dict:
+                 tf32_flops: float = 0.0, **yardsticks) -> dict:
     """One kernel of the ``kernels`` line: its bound is the larger of its
-    bytes over the HBM rate and its operations over ``peak``."""
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    bytes over the HBM rate and its operations over their rates (``flops``
+    at ``peak``, ``tf32_flops`` at the TF32 tensor-core rate)."""
+    bound, bound_by = bound_ms(bytes_, flops, peak, tf32_flops)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": error,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, **yardsticks}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": library_ms, **yardsticks}
 
 
 def print_kernel_times(kernels: list) -> None:
@@ -1453,6 +1492,15 @@ def print_kernel_times(kernels: list) -> None:
               f"{kern['plain_ms']:.4f} ms, bound {kern['bound_ms']:.4f} ms "
               f"({kern['bound_by']}), {kern['launches']} launches")
     by_name = {kern["name"]: kern for kern in kernels}
+    cm = by_name["center_matvec"]
+    print(f"  center_matvec k={DIMS + 10}: {cm['bound_ms'] / cm['ms']:.4f} "
+          f"of its bound ({cm['bound_by']}); op {cm['op_ms']:.4f} ms; "
+          f"torch.matmul on a formed E {cm['yardstick_matmul_preformed_e_ms']:.4f} ms")
+    print(f"  center_matvec k={WIDE_K}: {cm['k128_ms']:.4f} ms, bound "
+          f"{cm['k128_bound_ms']:.4f} ms ({cm['k128_bound_by']}), "
+          f"{cm['k128_bound_ms'] / cm['k128_ms']:.4f} of it; op "
+          f"{cm['k128_op_ms']:.4f} ms; torch.matmul on a formed E "
+          f"{cm['k128_yardstick_matmul_preformed_e_ms']:.4f} ms")
     pr = by_name["permute_reduce"]
     print(f"  permute_reduce: {pr['bound_ms'] / pr['ms']:.4f} of its bound; "
           f"S=2 {pr['rows2_ms']:.4f} ms; B=2 {pr['perms2_ms']:.4f} ms")
@@ -1514,21 +1562,50 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
           cuda_ms(lambda: is_symmetric_and_hollow_ref(d), reps=5),
           4 * n * n + 8, n * n, FP32_FLOPS)
 
-    gen = torch.Generator().manual_seed(SEED)
-    x = torch.randn((n, k), generator=gen).cuda()
+    # center_matvec at pcoa's k and at the square-operator PERMANOVA's tile
+    # (k = 128, one launch). The bound counts D, X, the row means, the two
+    # correction vectors and the output once, E's formation (2 n^2) at the
+    # fp32 rate and the 3xTF32 products (3 x 2 n^2 k) at the TF32
+    # tensor-core rate. Its yardstick: torch.matmul on an E formed
+    # beforehand (E@X without the corrections, not the same function).
+    # ``op_ms`` times the public op, corrections and all, as
+    # ``--center-matvec-op`` times another checkout's.
+    from repro_torch.kernels.center_matvec_ops import center_matvec_op
     row_means = -0.5 * torch.mean(d * d, dim=1)
     gm = torch.mean(row_means)
-    colsum, corr = center_corrections(x, row_means, gm)
     e = -0.5 * d * d
-    matmul_ms = cuda_ms(lambda: torch.matmul(e, x), reps=20)
+    widths = {}
+    for width in (k, WIDE_K):
+        gen = torch.Generator().manual_seed(SEED + width)
+        x = torch.randn((n, width), generator=gen).cuda()
+        colsum, corr = center_corrections(x, row_means, gm)
+        cm_bytes = 4 * (n * n + 2 * n * width + n + 2 * width)
+        widths[width] = {
+            "ms": cuda_ms(lambda: center_matvec(d, x, row_means, colsum,
+                                                corr), reps=20),
+            "op_ms": cuda_ms(lambda: center_matvec_op(d, x, row_means, gm),
+                             reps=20),
+            "matmul_ms": cuda_ms(lambda: torch.matmul(e, x), reps=20),
+            "bound": bound_ms(cm_bytes, 2 * n * n, FP32_FLOPS,
+                              3 * 2 * n * n * width),
+            "x": x}
     del e
+    wide = widths[WIDE_K]
     entry("center_matvec", "src/repro_torch/csrc/center_matvec.cu",
-          "src/repro/kernels/center_matvec.py:59",
-          cuda_ms(lambda: center_matvec(d, x, row_means, colsum, corr),
-                  reps=20),
-          cuda_ms(lambda: center_matvec_ref(d, x, row_means, gm), reps=5),
-          4 * (n * n + 2 * n * k + n + 2 * k), 2 * n * n * k + 2 * n * n,
-          FP32_FLOPS, yardstick_matmul_preformed_e_ms=matmul_ms)
+          "src/repro/kernels/center_matvec.py:59", widths[k]["ms"],
+          cuda_ms(lambda: center_matvec_ref(d, widths[k]["x"], row_means,
+                                            gm), reps=5),
+          4 * (n * n + 2 * n * k + n + 2 * k), 2 * n * n, FP32_FLOPS,
+          tf32_flops=3 * 2 * n * n * k,
+          rate="3xTF32 products on the tensor cores (495 TFLOP/s), E's "
+               "formation on the fp32 cores (67 TFLOP/s)",
+          yardstick_matmul_preformed_e_ms=widths[k]["matmul_ms"],
+          op_ms=widths[k]["op_ms"], k128_ms=wide["ms"],
+          k128_bound_ms=wide["bound"][0], k128_bound_by=wide["bound"][1],
+          k128_max_abs_err=errors["center_matvec_wide"],
+          k128_yardstick_matmul_preformed_e_ms=wide["matmul_ms"],
+          k128_op_ms=wide["op_ms"])
+    del widths, wide
 
     # the inverse orders of one tile, as each tile of the main path forms
     # them; its one-call yardstick is the argsort, which inverts a
@@ -1676,9 +1753,59 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
                                  reps=20),
           library_host_launch_ms=cuda_ms(lambda: torch.sum(partials, dim=0),
                                          reps=20))
-    del yhat, partials
+    del partials
+    check_tile_mates(d, ynorm, yhat)
+    del yhat
     print_kernel_times(kernels)
     return kernels
+
+
+def check_tile_mates(d: torch.Tensor, ynorm: torch.Tensor,
+                     yhat: torch.Tensor) -> None:
+    """One permutation's fp64 partials and fp32 outputs bitwise the same
+    beside three sets of tile-mates and at positions 0, 17 and 31 of a tile
+    of 32 (the walk pairs 0 with 1, 17 with 16, 31 with 30):
+    ``permute_reduce`` at S = 1 and 2, and ``mantel_corr``, at n = N."""
+    from repro_torch.core.distance_matrix import condensed_form
+    from repro_torch.kernels.inverse_orders import inverse_orders
+    from repro_torch.kernels.mantel_corr import (mantel_corr_finish,
+                                                 mantel_corr_partials)
+    from repro_torch.kernels.permute_reduce import (permute_reduce_finish,
+                                                    permute_reduce_partials)
+    from repro_torch.stats.engine import permutation_orders
+
+    def bits(t):
+        return t.cpu().numpy().tobytes()
+
+    n = d.shape[0]
+    xc = condensed_form(d)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    ys = torch.cat([ynorm[None, :],
+                    torch.randn((1, xc.numel()), generator=gen).cuda()])
+    target = permutation_orders(SEED + 6, 1, n, "cuda")
+    seen = {"permute_reduce S=1": set(), "permute_reduce S=2": set(),
+            "mantel_corr": set()}
+    for partners in range(3):
+        others = permutation_orders(SEED + 7 + partners, 31, n, "cuda")
+        for pos in (0, 17, 31):
+            orders = torch.cat([others[:pos], target, others[pos:]])
+            inv, orders16 = inverse_orders(orders)
+            for rows in (1, 2):
+                part = permute_reduce_partials(xc, ys[:rows], inv, orders16)
+                seen[f"permute_reduce S={rows}"].add(
+                    (bits(part[:, :, pos]),
+                     bits(permute_reduce_finish(part)[:, pos])))
+            part = mantel_corr_partials(d, yhat, inv, orders16)
+            seen["mantel_corr"].add((bits(part[:, pos]),
+                                     bits(mantel_corr_finish(part)[pos])))
+    for name, values in seen.items():
+        check(len(values) == 1, f"{name} n={n}: one permutation's sums "
+                                f"depend on its tile-mates ({len(values)} "
+                                f"different results in 9 placements)")
+    print(f"  {', '.join(seen)} n={n}: one permutation's partials and "
+          f"outputs bitwise equal beside 3 sets of tile-mates at positions "
+          f"0, 17, 31")
+    del xc, ys
 
 
 def rmsnorm_entry(launches: int, error: float, card: str) -> dict:
@@ -1746,6 +1873,33 @@ def rmsnorm_entry(launches: int, error: float, card: str) -> dict:
     return main
 
 
+def center_matvec_op_times() -> dict:
+    """``center_matvec_op`` of the ``repro_torch`` first on the path, at
+    n = N (the main path's matrix) and k = DIMS + 10 and WIDE_K, as phase 5
+    times it: ms a call and the kernel launches a call makes. So a parent
+    tree's op, which cut k = 128 into slabs, is timed in the same call."""
+    import repro_torch
+    from repro_torch.core import random_distance_matrix
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.center_matvec_ops import center_matvec_op
+
+    d = random_distance_matrix(SEED, N, dim=POINT_DIM).data
+    row_means = -0.5 * torch.mean(d * d, dim=1)
+    gm = torch.mean(row_means)
+    out = {"tree": str(Path(repro_torch.__file__).resolve().parents[2]),
+           "card": torch.cuda.get_device_name(0)}
+    for width in (DIMS + 10, WIDE_K):
+        gen = torch.Generator().manual_seed(SEED + width)
+        x = torch.randn((N, width), generator=gen).cuda()
+        _build.reset_launches()
+        center_matvec_op(d, x, row_means, gm)
+        sync()
+        out[f"k{width}_launches"] = _build.launches["center_matvec"]
+        out[f"k{width}_op_ms"] = cuda_ms(
+            lambda: center_matvec_op(d, x, row_means, gm), reps=20)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -1755,6 +1909,11 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--center-matvec-op"] and len(sys.argv) == 3:
+        # another tree's center_matvec_op, timed as phase 5 times this one's
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
+        print(json.dumps(center_matvec_op_times()))
+        return 0
     sys.path.insert(0, str(ROOT / "src"))
     if sys.argv[1:] == ["--solver-first-calls"]:     # phase 4b's fresh process
         torch.zeros(1, device="cuda")

@@ -10,176 +10,492 @@
 // Replaces: src/repro/kernels/center_matvec.py::center_matvec
 // (_center_matvec_kernel).
 //
-// Bound on an H100: bytes, narrowly. D is read once: 4 n^2 bytes, 1.07 GB
-// at n = 16384, 0.32 ms at 3.35 TB/s. The product is 2 n^2 k flops, 1.1e10
-// at k = 20, 0.16 ms at the 67 TFLOP/s fp32 rate of the CUDA cores. So the
-// FMA loop has to run at about half the fp32 peak for memory to be the
-// limit, and the design spends its effort on keeping shared-memory traffic
-// per FMA low.
+// Bound on an H100: D is read once, 4 n^2 bytes, 1.07 GB at n = 16384, 0.32 ms
+// at 3.35 TB/s. The products run on the tensor cores in 3xTF32: 3 x 2 n^2 k
+// operations at 495 TFLOP/s, 0.07 ms at k = 20 (bytes bound there) and 0.42
+// ms at k = 128 (operations bound). On the CUDA cores in fp32 the same
+// products would take 1.03 ms at k = 128.
 //
-// Design: the Pallas kernel accumulates the output strip across the column
-// grid axis, which relies on the TPU's in-order grid. Here one block owns
-// BM = 64 output rows and sweeps every column itself, so no sum crosses
-// blocks and the result is deterministic. Per step a BM x BN tile of D is
-// read coalesced (prefetched into registers one step ahead), squared and
-// halved on the way into shared memory, stored transposed so that each
-// lane reads its two rows with one 8-byte load; the BN x k tile of X sits
-// beside it and is read as float4 broadcasts. Each lane keeps 2 x KP fp32
-// accumulators (KP = k rounded up to 4, a template parameter, at most 32),
-// fed once per step by a step-local sum, so the long fp32 addition chain is
-// n / 64 terms; the four warps split each tile's columns and their partial
-// strips are added in a fixed warp order in the epilogue, which then applies
-// the rank-1 corrections. fp32 FMA on the CUDA cores, no TF32: tensor-core TF32
-// keeps about three digits and the tolerance is 1e-5. Ragged n and k are
-// masked (zeros into shared memory, masked stores), never padded in memory.
+// Design. One block owns BM = 128 output rows and sweeps every column of D
+// itself, so no sum crosses blocks and the result is deterministic (n / 128
+// blocks, one an SM). A producer warp keeps a ring of 4 to 6 stages full,
+// each a 128 x 32 tile of D and the 32 x k rows of X beside it: one tensor
+// copy (TMA) for the D tile and one bulk copy for the X rows where their rows
+// are 16-byte multiples, 4-byte cp.async copies otherwise (the copy engine
+// moves a tile for one instruction; one warp issuing cp.async copies of D
+// could not keep enough bytes in flight). Each stage arrives on an mbarrier
+// ("full"). Three splitter warps split the stage's X tile, once, into tf32
+// hi and lo parts in a double-buffered buffer, one stage ahead of the MMA
+// warps, with their own mbarrier pair (split by the MMA warps themselves,
+// between barriers, the X tile held every MMA warp up each stage).
+// Eight MMA warps square and halve their D values as they read them out of
+// shared memory, split them in registers and run mma.sync m16n8k8 tf32:
+// e_lo x_hi + e_hi x_lo + e_hi x_hi (3xTF32, about fp32's accuracy; plain
+// TF32 keeps three digits and misses the 1e-5 tolerance). The MMA and
+// splitter warps release each stage to the producer ("empty"). An MMA warp
+// owns 16 rows and every column up to 64 columns; above that 32 rows and
+// half the columns, so that each B fragment it loads from shared memory
+// serves two MMA row tiles. A stage's 12 products accumulate in fp32 from
+// zero and are added to running sums, so the long fp32 chain has n / 32
+// terms. Every output element is summed in an order that depends only on n:
+// two launches give the same bits. Up to 128 columns a launch; k is padded
+// to the MMA width in registers and shared memory only (masked loads and
+// stores), never in device memory.
+//
+// Within each 8-column k-step the kernel maps the MMA's k index t to column
+// 2t and t + 4 to 2t + 1 (A and B alike, so the product is the same): a lane
+// then reads its four A values as two float2 and its B values, hi and lo of
+// both rows, as one float4. The D tile's row pitch (40 floats: the tensor
+// copy's box is 8 columns wider than the stage) and the split buffer's (k
+// padded + 2 float4) make those loads free of bank conflicts.
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBM = 64;                    // output rows per block (2 per lane)
-constexpr int kBN = 64;                    // D columns per step
-constexpr int kWarps = 4;                  // each warp takes kBN / kWarps columns
-constexpr int kThreads = kWarps * 32;
-constexpr int kColsPerWarp = kBN / kWarps;
-constexpr int kPitch = kBM + 2;            // even, so float2 reads stay aligned
-constexpr int kLoads = kBM * kBN / kThreads;  // D values each thread stages per step
+constexpr int kBM = 128;                      // output rows a block
+constexpr int kBN = 32;                       // D columns (X rows) a stage
+constexpr int kMmaWarps = kBM / 16;           // 16 rows a warp at narrow k
+constexpr int kSplitWarps = 3;                // warps that split the X tiles
+constexpr int kSplitters = kSplitWarps * 32;
+constexpr int kProducerWarp = kMmaWarps + kSplitWarps;
+constexpr int kThreads = (kProducerWarp + 1) * 32;
+constexpr int kPitch = kBN + 8;               // D tile row pitch, floats
+constexpr int kPairs = kBN / 2;               // X row pairs (2t, 2t + 1) a stage
 
-template <int KP>
-__global__ void __launch_bounds__(kThreads)
-center_matvec_kernel(const float* __restrict__ d, const float* __restrict__ x,
-                     const float* __restrict__ row_means,
-                     const float* __restrict__ colsum,
-                     const float* __restrict__ corr, float* __restrict__ out,
-                     int n, int k) {
-  __shared__ __align__(16) float et[kBN][kPitch];  // E tile, transposed: et[j][i]
-  __shared__ __align__(16) float xs[kBN][KP];      // X tile
-  __shared__ float strip[kBM][KP];                 // epilogue: the block's rows
+// MMA row tiles (16 rows) an MMA warp owns at NT n-tiles: two above 8
+// n-tiles, where pairs of warps then split the n-tiles evenly.
+__host__ __device__ constexpr int m_tiles(int nt) { return nt > 8 ? 2 : 1; }
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+// Stages of the ring at NT n-tiles: as many as shared memory holds.
+__host__ __device__ constexpr int ring_stages(int nt) { return nt > 8 ? 4 : 6; }
+
+// Byte offsets into dynamic shared memory, for k columns padded to kp and a
+// ring of `stages`.
+struct Layout {
+  int d_ring, x_ring, x_split, total;
+  __host__ __device__ Layout(int k, int kp, int stages) {
+    d_ring = 128;                               // after 2 stages + 4 mbarriers
+    x_ring = d_ring + stages * kBM * kPitch * 4;
+    x_split = x_ring + stages * kBN * k * 4;                   // multiple of 16
+    total = x_split + 2 * kPairs * (kp + 2) * 16;
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Arrive on `bar` once every cp.async this thread has issued has landed.
+__device__ __forceinline__ void mbar_arrive_on_copies(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Expect `bytes` of bulk copies on `bar`, and arrive.
+__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// A bulk copy (the copy engine, no thread's registers) of `bytes`, a
+// multiple of 16, between 16-byte aligned addresses; completes on `bar`.
+__device__ __forceinline__ void copy_bulk(uint32_t dst, const float* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The box of `map` at (column c, row r) into shared memory at `dst` (128-byte
+// aligned) by the copy engine, zeros where the box leaves the tensor;
+// completes on `bar`.
+__device__ __forceinline__ void copy_tile(uint32_t dst, const CUtensorMap& map, int c, int r,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(&map)), "r"(c), "r"(r), "r"(bar)
+      : "memory");
+}
+
+// A copy of 4 bytes by this thread; `valid` false writes a zero and reads
+// nothing.
+__device__ __forceinline__ void copy4(uint32_t dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// v = hi + lo with hi = tf32(v) and lo = tf32(v - hi), both rounded to
+// nearest (ties away from zero); v - hi is exact in fp32.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
+  const float rest = __fsub_rn(v, __uint_as_float(hi));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+// c += a (16 x 8, row) x b (8 x 8, col) on the tensor cores, fp32 sums.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The producer warp: stage t of the ring holds D[i0:i0+128, 32t:32t+40]
+// (8 columns more than the stage uses, the row pitch that keeps the MMA
+// warps' loads free of bank conflicts) and X[32t:32t+32, :]. Two routes
+// for each operand, chosen per launch:
+// - "tma": where its rows are a multiple of 16 bytes at a 16-byte aligned
+//   address. D by one tensor copy a stage (n % 4 == 0), zeros past n; X by
+//   one bulk copy a stage (k % 4 == 0), its rows being contiguous.
+// - "cp.async": 4-byte copies by the warp's lanes otherwise, D zero-filled
+//   past n.
+// X rows past n are left stale and masked by the splitters. Each stage's
+// "full" barrier counts 33 arrivals: lane 0's, which also expects the bytes
+// of the stage's copy-engine copies, and one from each lane when its cp.async
+// copies have landed.
+template <int S>
+__device__ __forceinline__ void produce(const CUtensorMap& dmap, const float* __restrict__ d,
+                                        const float* __restrict__ x, unsigned char* smem,
+                                        const Layout& lay, int n, int k, int i0, bool d_tma,
+                                        bool x_tma) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t bars = smem_addr(smem);
+  const int steps = (n + kBN - 1) / kBN;
+  for (int t = 0; t < steps; ++t) {
+    const int slot = t % S;
+    if (t >= S) mbar_wait(bars + 8 * (S + slot), ((t / S) - 1) & 1);
+    const uint32_t full = bars + 8 * slot;
+    const int j0 = t * kBN;
+    const int cols = min(kBN, n - j0);   // D columns, and X rows, of the stage
+    const uint32_t dt = smem_addr(smem + lay.d_ring) + slot * kBM * kPitch * 4;
+    const uint32_t xt = smem_addr(smem + lay.x_ring) + slot * kBN * k * 4;
+    const float* xs = x + static_cast<size_t>(j0) * k;
+    if (lane == 0) {
+      const uint32_t d_bytes = d_tma ? kBM * kPitch * 4 : 0;
+      const uint32_t x_bytes = x_tma ? cols * k * 4 : 0;
+      mbar_arrive_expect(full, d_bytes + x_bytes);
+      if (d_tma) copy_tile(dt, dmap, j0, i0, full);
+      if (x_tma) copy_bulk(xt, xs, x_bytes, full);
+    }
+    if (!d_tma) {
+      // a warp copies 32 consecutive floats of a row at a time
+      for (int q = lane; q < kBM * kBN; q += 32) {
+        const int row = q / kBN;
+        const int c = q % kBN;
+        const bool valid = i0 + row < n && c < cols;
+        copy4(dt + (row * kPitch + c) * 4,
+              valid ? d + static_cast<size_t>(i0 + row) * n + j0 + c : d, valid);
+      }
+    }
+    if (!x_tma) {
+      for (int v = lane; v < cols * k; v += 32) copy4(xt + 4 * v, xs + v, true);
+    }
+    mbar_arrive_on_copies(full);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1)
+center_matvec_kernel(const __grid_constant__ CUtensorMap dmap, const float* __restrict__ d,
+                     const float* __restrict__ x,
+                     const float* __restrict__ row_means, const float* __restrict__ colsum,
+                     const float* __restrict__ corr, float* __restrict__ out, int n, int k,
+                     int d_tma, int x_tma) {
+  constexpr int KP = 8 * NT;          // columns padded to the MMA width
+  constexpr int kSplitPitch = KP + 2;  // float4 a row pair of the split X tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int S = ring_stages(NT);
+  const Layout lay(k, KP, S);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const int i0 = blockIdx.x * kBM;
+  // mbarriers: full[S] and empty[S] of the D/X ring, then
+  // split_full[2] and split_empty[2] of the split X tiles
+  const uint32_t bars = smem_addr(smem);
+  const uint32_t split_bars = bars + 16 * S;
 
-  float acc0[KP];
-  float acc1[KP];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 8 * s, 33);                             // see produce()
+      mbar_init(bars + 8 * (S + s), kMmaWarps + kSplitWarps);  // a warp each
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(split_bars + 8 * s, kSplitWarps);
+      mbar_init(split_bars + 8 * (2 + s), kMmaWarps);
+    }
+  }
+  __syncthreads();
+
+  const int steps = (n + kBN - 1) / kBN;
+  const float* d_ring = reinterpret_cast<const float*>(smem + lay.d_ring);
+  const float* x_ring = reinterpret_cast<const float*>(smem + lay.x_ring);
+  float4* x_split = reinterpret_cast<float4*>(smem + lay.x_split);
+
+  if (warp == kProducerWarp) {
+    produce<S>(dmap, d, x, smem, lay, n, k, i0, d_tma != 0, x_tma != 0);
+    return;
+  }
+  if (warp >= kMmaWarps) {
+    // the splitters: stage t's X tile into split buffer t % 2, entry (p, c)
+    // holding hi(X[2p, c]), hi(X[2p+1, c]), lo(X[2p, c]), lo(X[2p+1, c]),
+    // zero past n and k; one stage ahead of the MMA warps
+    const int stid = threadIdx.x - kMmaWarps * 32;
+    const bool x_vec = k % 4 == 0;
+    for (int t = 0; t < steps; ++t) {
+      const int slot = t % S;
+      const int j0 = t * kBN;
+      mbar_wait(bars + 8 * slot, (t / S) & 1);
+      if (t >= 2) mbar_wait(split_bars + 8 * (2 + (t & 1)), ((t >> 1) - 1) & 1);
+      const float* xr = x_ring + slot * kBN * k;
+      float4* xs = x_split + (t & 1) * kPairs * kSplitPitch;
+      // four columns at a time: one float4 of each of the two rows where k
+      // % 4 == 0 (the rows then start 16-byte aligned), scalars otherwise
+      constexpr int kQuads = kPairs * KP / 4;
+#pragma unroll 4
+      for (int q = stid; q < kQuads; q += kSplitters) {
+        const int p = q / (KP / 4);
+        const int c = 4 * (q - p * (KP / 4));
+        const int j = j0 + 2 * p;
+        float v[2][4];
 #pragma unroll
-  for (int c = 0; c < KP; ++c) {
-    acc0[c] = 0.0f;
-    acc1[c] = 0.0f;
+        for (int h = 0; h < 2; ++h) {
+          const float* row = xr + (2 * p + h) * k + c;
+          if (j + h < n && x_vec && c < k) {
+            const float4 f = *reinterpret_cast<const float4*>(row);
+            v[h][0] = f.x, v[h][1] = f.y, v[h][2] = f.z, v[h][3] = f.w;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) v[h][e] = (j + h < n && c + e < k) ? row[e] : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          uint32_t h0, l0, h1, l1;
+          split_tf32(v[0][e], h0, l0);
+          split_tf32(v[1][e], h1, l1);
+          xs[p * kSplitPitch + c + e] = make_float4(__uint_as_float(h0), __uint_as_float(h1),
+                                                    __uint_as_float(l0), __uint_as_float(l1));
+        }
+      }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(bars + 8 * (S + slot));   // done with the X rows of the ring
+        mbar_arrive(split_bars + 8 * (t & 1));   // split tile t is ready
+      }
+    }
+    return;
   }
 
-  // D tile (kBM x kBN) at column j0: a warp reads 32 consecutive columns of
-  // one row, so every load is one 128-byte line.
-  float pre[kLoads];
-  auto load_tile = [&](int j0) {
-#pragma unroll
-    for (int t = 0; t < kLoads; ++t) {
-      const int idx = tid + t * kThreads;
-      const int row = i0 + idx / kBN;
-      const int col = j0 + idx % kBN;
-      pre[t] = (row < n && col < n) ? __ldg(d + static_cast<size_t>(row) * n + col) : 0.0f;
-    }
-  };
+  // the MMA warps: warp (rg, cg) owns rows 16 MT rg .. + 16 MT of the block
+  // and n-tiles WNT cg .. + WNT: one MMA row tile a warp at narrow k, two
+  // (each B fragment loaded once for both) at wide k, where the split X
+  // tile's reads from shared memory would otherwise dominate
+  constexpr int MT = m_tiles(NT);
+  constexpr int WNT = NT / MT;
+  const int rg = warp / MT;
+  const int cg = warp % MT;
+  const int g = lane >> 2;   // MMA group: rows g and g + 8, column g of B
+  const int tq = lane & 3;   // thread in group: k indices tq and tq + 4
 
-  load_tile(0);
-  for (int j0 = 0; j0 < n; j0 += kBN) {
+  float acc[MT][WNT][4];
 #pragma unroll
-    for (int t = 0; t < kLoads; ++t) {
-      const int idx = tid + t * kThreads;
-      const float v = pre[t];
-      et[idx % kBN][idx / kBN] = -0.5f * v * v;
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int nt = 0; nt < WNT; ++nt) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[m][nt][r] = 0.0f;
     }
-    for (int idx = tid; idx < kBN * KP; idx += kThreads) {
-      const int jj = idx / KP;
-      const int c = idx % KP;
-      const int col = j0 + jj;
-      xs[jj][c] = (col < n && c < k) ? __ldg(x + static_cast<size_t>(col) * k + c) : 0.0f;
-    }
-    __syncthreads();
+  }
 
-    if (j0 + kBN < n) load_tile(j0 + kBN);  // in flight while this step computes
+  for (int t = 0; t < steps; ++t) {
+    const int slot = t % S;
+    mbar_wait(bars + 8 * slot, (t / S) & 1);
+    mbar_wait(split_bars + 8 * (t & 1), (t >> 1) & 1);
+    const float4* xs = x_split + (t & 1) * kPairs * kSplitPitch;
 
-    // This step's 16 columns are summed on their own, then added to the
-    // running sums: the long fp32 chain has n/64 terms, not n/4.
-    float step0[KP];
-    float step1[KP];
+    // this warp's rows against the stage's 32 columns: 4 k-steps of 8
+    const float* dt = d_ring + slot * kBM * kPitch + (rg * 16 * MT + g) * kPitch + 2 * tq;
+    const float4* xb = xs + tq * kSplitPitch + cg * WNT * 8 + g;
+    float step[MT][WNT][4];
 #pragma unroll
-    for (int c = 0; c < KP; ++c) {
-      step0[c] = 0.0f;
-      step1[c] = 0.0f;
-    }
-    const int jbeg = warp * kColsPerWarp;
-#pragma unroll 2
-    for (int jj = jbeg; jj < jbeg + kColsPerWarp; ++jj) {
-      const float2 e = *reinterpret_cast<const float2*>(&et[jj][2 * lane]);
+    for (int m = 0; m < MT; ++m) {
 #pragma unroll
-      for (int c = 0; c < KP; c += 4) {
-        const float4 xv = *reinterpret_cast<const float4*>(&xs[jj][c]);
-        step0[c + 0] = fmaf(e.x, xv.x, step0[c + 0]);
-        step0[c + 1] = fmaf(e.x, xv.y, step0[c + 1]);
-        step0[c + 2] = fmaf(e.x, xv.z, step0[c + 2]);
-        step0[c + 3] = fmaf(e.x, xv.w, step0[c + 3]);
-        step1[c + 0] = fmaf(e.y, xv.x, step1[c + 0]);
-        step1[c + 1] = fmaf(e.y, xv.y, step1[c + 1]);
-        step1[c + 2] = fmaf(e.y, xv.z, step1[c + 2]);
-        step1[c + 3] = fmaf(e.y, xv.w, step1[c + 3]);
+      for (int nt = 0; nt < WNT; ++nt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) step[m][nt][r] = 0.0f;
       }
     }
 #pragma unroll
-    for (int c = 0; c < KP; ++c) {
-      acc0[c] += step0[c];
-      acc1[c] += step1[c];
-    }
-    __syncthreads();
-  }
-
-  // Partial strips of the four warps, added in warp order 0, 1, 2, 3.
-  for (int w = 0; w < kWarps; ++w) {
-    if (warp == w) {
+    for (int ks = 0; ks < kBN / 8; ++ks) {
+      uint32_t ahi[MT][4], alo[MT][4];
 #pragma unroll
-      for (int c = 0; c < KP; ++c) {
-        strip[2 * lane][c] = (w == 0 ? 0.0f : strip[2 * lane][c]) + acc0[c];
-        strip[2 * lane + 1][c] = (w == 0 ? 0.0f : strip[2 * lane + 1][c]) + acc1[c];
+      for (int m = 0; m < MT; ++m) {
+        const float* a = dt + 16 * m * kPitch + 8 * ks;
+        const float2 top = *reinterpret_cast<const float2*>(a);
+        const float2 bot = *reinterpret_cast<const float2*>(a + 8 * kPitch);
+        // a0 (g, tq), a1 (g + 8, tq), a2 (g, tq + 4), a3 (g + 8, tq + 4)
+        const float dv[4] = {top.x, bot.x, top.y, bot.y};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          split_tf32(__fmul_rn(__fmul_rn(-0.5f, dv[r]), dv[r]), ahi[m][r], alo[m][r]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < WNT; ++nt) {
+        const float4 b = xb[ks * 4 * kSplitPitch + 8 * nt];
+        const uint32_t bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
+        const uint32_t bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          mma_tf32(step[m][nt], alo[m], bh0, bh1);
+          mma_tf32(step[m][nt], ahi[m], bl0, bl1);
+          mma_tf32(step[m][nt], ahi[m], bh0, bh1);
+        }
       }
     }
-    __syncthreads();
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(bars + 8 * (S + slot));   // the ring slot may be refilled
+      mbar_arrive(split_bars + 8 * (2 + (t & 1)));   // and the split tile
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int nt = 0; nt < WNT; ++nt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[m][nt][r] = __fadd_rn(acc[m][nt][r], step[m][nt][r]);
+      }
+    }
   }
 
-  for (int idx = tid; idx < kBM * k; idx += kThreads) {
-    const int r = idx / k;
-    const int c = idx % k;
-    const int row = i0 + r;
-    if (row < n) {
-      out[static_cast<size_t>(row) * k + c] = strip[r][c] + (corr[c] - row_means[row] * colsum[c]);
+  // c0, c1: row g, columns 2 tq and 2 tq + 1 of each n-tile; c2, c3: row g + 8
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = i0 + rg * 16 * MT + 16 * m + 8 * half + g;
+      if (row >= n) continue;
+      const float rm = row_means[row];
+#pragma unroll
+      for (int nt = 0; nt < WNT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = (cg * WNT + nt) * 8 + 2 * tq + e;
+          if (c < k) {
+            out[static_cast<size_t>(row) * k + c] = __fadd_rn(
+                acc[m][nt][2 * half + e], __fsub_rn(corr[c], __fmul_rn(rm, colsum[c])));
+          }
+        }
+      }
     }
   }
 }
 
-template <int KP>
-void launch(const float* d, const float* x, const float* rm, const float* colsum,
-            const float* corr, float* out, int n, int k, cudaStream_t stream) {
+// cuTensorMapEncodeTiled from the driver, found through the runtime so that
+// the library needs no link to libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || ptr == nullptr) return cudaErrorNotSupported;
+    cached = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// D (n x n fp32, row pitch 4n bytes) as a tensor of boxes of kBM rows by
+// kPitch columns.
+cudaError_t d_tensor_map(const float* d, int n, CUtensorMap* map) {
+  EncodeTiled encode = nullptr;
+  const cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n) * sizeof(float)};
+  const cuuint32_t box[2] = {kPitch, kBM};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(d), dims,
+                              strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int NT>
+int launch(const float* d, const float* x, const float* rm, const float* colsum,
+           const float* corr, float* out, int n, int k, cudaStream_t stream) {
+  const Layout lay(k, 8 * NT, ring_stages(NT));
+  cudaError_t err = cudaFuncSetAttribute(center_matvec_kernel<NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int d_tma = n % 4 == 0 && reinterpret_cast<uintptr_t>(d) % 16 == 0;
+  const int x_tma = k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  CUtensorMap dmap = {};
+  if (d_tma && (err = d_tensor_map(d, n, &dmap)) != cudaSuccess) return static_cast<int>(err);
   const int blocks = (n + kBM - 1) / kBM;
-  center_matvec_kernel<KP><<<blocks, kThreads, 0, stream>>>(d, x, rm, colsum, corr, out, n, k);
+  center_matvec_kernel<NT><<<blocks, kThreads, lay.total, stream>>>(
+      dmap, d, x, rm, colsum, corr, out, n, k, d_tma, x_tma);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // d: (n, n), x: (n, k), row_means: (n,), colsum/corr: (k,), out: (n, k);
-// all fp32, contiguous, on the device. 1 <= k <= 32.
+// all fp32, contiguous, on the device. 1 <= k <= 128.
 REPRO_EXPORT int repro_center_matvec(const float* d, const float* x, const float* row_means,
                                      const float* colsum, const float* corr, float* out,
                                      int n, int k, cudaStream_t stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  switch ((k + 3) / 4) {
-    case 1: launch<4>(d, x, row_means, colsum, corr, out, n, k, stream); break;
-    case 2: launch<8>(d, x, row_means, colsum, corr, out, n, k, stream); break;
-    case 3: launch<12>(d, x, row_means, colsum, corr, out, n, k, stream); break;
-    case 4: launch<16>(d, x, row_means, colsum, corr, out, n, k, stream); break;
-    case 5: launch<20>(d, x, row_means, colsum, corr, out, n, k, stream); break;
-    case 6: launch<24>(d, x, row_means, colsum, corr, out, n, k, stream); break;
-    case 7: launch<28>(d, x, row_means, colsum, corr, out, n, k, stream); break;
-    case 8: launch<32>(d, x, row_means, colsum, corr, out, n, k, stream); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (k < 1 || k > 128) return static_cast<int>(cudaErrorInvalidValue);
+  // n-tiles of 8 columns; instantiated widths, the next one up
+  const int tiles = (k + 7) / 8;
+  if (tiles <= 1) return launch<1>(d, x, row_means, colsum, corr, out, n, k, stream);
+  if (tiles <= 2) return launch<2>(d, x, row_means, colsum, corr, out, n, k, stream);
+  if (tiles <= 3) return launch<3>(d, x, row_means, colsum, corr, out, n, k, stream);
+  if (tiles <= 4) return launch<4>(d, x, row_means, colsum, corr, out, n, k, stream);
+  if (tiles <= 6) return launch<6>(d, x, row_means, colsum, corr, out, n, k, stream);
+  if (tiles <= 8) return launch<8>(d, x, row_means, colsum, corr, out, n, k, stream);
+  if (tiles <= 12) return launch<12>(d, x, row_means, colsum, corr, out, n, k, stream);
+  return launch<16>(d, x, row_means, colsum, corr, out, n, k, stream);
 }

@@ -37,10 +37,15 @@
 //
 // The runs are short (n / 2 on average, 16 steps of 512 threads at
 // n = 16384), so a thread walks 2 / S permutations' runs together, from the
-// earlier start, the other run masked until it begins, and issues the loads
-// of 4 steps before it multiplies: 8 loads of ys and 8 of the orders in
-// flight a thread at S = 1. Two blocks of 512 threads fit an SM (64
-// registers a thread, 64 KB of shared memory a block at n = 16384).
+// earlier start, each run masked until it begins. Thread t takes the
+// positions j = t (mod 512), in increasing j, whatever that start: a
+// thread's share of a run, and so the fp64 grouping of its sum, must not
+// depend on the partner's start, or a row's sums would depend on the other
+// rows of its tile. At S = 2 a thread issues the loads of 4
+// steps before it multiplies (8 loads of ys and 4 of the orders in flight);
+// at S = 1 one step (2 and 2), which measured faster there with this
+// assignment. Two blocks of 512 threads fit an SM (64 registers a thread,
+// 64 KB of shared memory a block at n = 16384).
 //
 // Index arithmetic is int32, exact for n <= 46340 (the wrapper refuses
 // larger n). Products and sums are fp64: an fp32 product rounds each of the
@@ -60,7 +65,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxOutputs = 128;   // S * B a launch: four slots a lane
 constexpr int kSlots = kMaxOutputs / 32;
 constexpr int kWalked = 2;         // S * (permutations walked together)
-constexpr int kSteps = 4;          // steps of the walk whose loads go out together
 constexpr int kFinishThreads = 256;
 
 // tri(i, i + 1): where row i's run starts in xc. int32-exact for n <= 46340.
@@ -72,6 +76,7 @@ partials_kernel(const float* __restrict__ xc, const float* __restrict__ ys, long
                 const int* __restrict__ inv, const unsigned short* __restrict__ orders,
                 double* __restrict__ partials, int n, int num_perms) {
   constexpr int G = kWalked / S;   // permutations walked together
+  constexpr int kSteps = S == 1 ? 1 : 4;   // steps of the walk whose loads go out together
   extern __shared__ __align__(16) unsigned char smem[];
   float* x_row = reinterpret_cast<float*>(smem);
   const int lane = threadIdx.x & 31;
@@ -95,8 +100,9 @@ partials_kernel(const float* __restrict__ xc, const float* __restrict__ ys, long
 
     for (int b0 = 0; b0 < num_perms; b0 += G) {
       // G runs at once, so that G S loads a thread are in flight together:
-      // run g covers j > i_g = pi_b(r); the loop starts at the earliest run
-      // and masks the others until theirs begin
+      // run g covers j > i_g = pi_b(r); thread t walks the positions
+      // j = t (mod kThreads) from the earliest run's start, each run masked
+      // until it begins (a masked lane adds an exact 0)
       int begin[G], off[G], order_row[G];
       int first = n;
 #pragma unroll
@@ -119,7 +125,9 @@ partials_kernel(const float* __restrict__ xc, const float* __restrict__ ys, long
       // kSteps steps of the walk at a time: every load of them is issued
       // before the first product; a masked lane loads nothing and adds an
       // exact 0
-      for (int j0 = first + threadIdx.x; j0 < n; j0 += kSteps * kThreads) {
+      int start = (first & ~(kThreads - 1)) + threadIdx.x;
+      if (start < first) start += kThreads;
+      for (int j0 = start; j0 < n; j0 += kSteps * kThreads) {
         bool live[kSteps][G];
         unsigned short o[kSteps][G];
         float y[kSteps][S][G];

@@ -2,9 +2,12 @@
 
 Replaces the Pallas kernel ``repro/kernels/center_matvec.py::center_matvec``:
 ``F @ X`` for the Gower-centred F with ``E = −½D∘D`` formed in registers
-from each D tile, fp32 FMA against the X tile in shared memory, and the
-rank-1 corrections ``−r_i·colsumᵀ + corrᵀ`` in the epilogue. One block owns
-64 output rows and sweeps all columns, so no sum crosses blocks.
+from each D tile as it leaves shared memory, products on the tensor cores in
+3xTF32 (each operand split into tf32 hi and lo parts; about fp32's
+accuracy), and the rank-1 corrections ``−r_i·colsumᵀ + corrᵀ`` in the
+epilogue. A producer warp keeps a ring of D and X tiles in flight; one block
+owns 128 output rows and sweeps all columns, so no sum crosses blocks and
+two launches give the same bits.
 """
 
 from __future__ import annotations
@@ -13,8 +16,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: widest X block one launch takes (the kernel's accumulators per row).
-KMAX = 32
+#: widest X block one launch takes: the square-operator PERMANOVA's tile
+#: of 32 permutations x 4 groups.
+KMAX = 128
 
 
 def center_matvec(d: torch.Tensor, x: torch.Tensor, row_means: torch.Tensor,

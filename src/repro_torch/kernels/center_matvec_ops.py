@@ -4,8 +4,8 @@ The counterpart of ``repro/kernels/center_matvec_ops.py``. It hoists the
 O(k) correction vectors on the unpadded operands and dispatches: the CUDA
 kernel on a CUDA tensor, the plain version on a CPU tensor. The kernel
 masks a ragged n and k itself, so nothing is padded (the reference pads n
-to its blocks and k to 128 lanes). An X wider than the kernel's 32 columns
-goes through in slabs of 32.
+to its blocks and k to 128 lanes). An X wider than the kernel's 128
+columns goes through in slabs of 128, each a launch that reads D again.
 """
 
 from __future__ import annotations

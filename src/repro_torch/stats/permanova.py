@@ -97,7 +97,7 @@ class PermanovaOperatorStatistic:
     The quadratic forms touch G only through products with the skinny
     permuted design, and ``SS_total = tr(G)`` comes from the operator's
     hoisted means. ``op`` is a ``core.operators.CenteredGramOperator`` (on
-    the card, ``center_matvec`` launches, 32 columns each) or a
+    the card, one ``center_matvec`` launch a tile of up to 128 columns) or a
     ``CondensedCenteredGramOperator`` over a production's condensed
     distances, where the square Gower matrix never exists."""
 

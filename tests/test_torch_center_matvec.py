@@ -19,6 +19,8 @@ from repro_torch.core.centering import (center_distance_matrix,
                                         center_distance_matrix_ref)
 from repro_torch.core.operators import CenteredGramOperator
 from repro_torch.kernels.center_matvec_ops import center_matvec_op
+from repro_torch.kernels.center_matvec_ref import (center_corrections,
+                                                   center_matvec_ref)
 
 
 def _inputs(n, k, seed):
@@ -39,7 +41,7 @@ def _close(got, want):
 
 
 @pytest.mark.parametrize("n,k", [(16, 4), (77, 7), (128, 20), (200, 3),
-                                 (64, 40)])
+                                 (64, 40), (96, 128), (70, 130)])
 def test_plain_version_matches_pallas_kernel(n, k):
     d, x = _inputs(n, k, seed=n)
     jop = JaxOperator.from_distance(jnp.asarray(d))
@@ -86,3 +88,106 @@ def test_wrapper_checks_operands():
     with pytest.raises(ValueError, match="contiguous"):
         center_matvec_op(op.d, torch.zeros(3, 10).T, op.row_means,
                          op.global_mean)
+
+
+# --- 3xTF32 tolerance study --------------------------------------------
+# The card's kernel (csrc/center_matvec.cu) multiplies on the tensor cores
+# in 3xTF32. The study below runs its arithmetic here, in torch, in its
+# order: E = -1/2 d d in fp32; each of E and X split into hi = tf32(v) and
+# lo = tf32(v - hi), rounded to nearest (ties away from zero) on the
+# mantissa; for every stage of 32 columns, from zero, per 8-column k-step
+# the MMAs e_lo x_hi, e_hi x_lo, e_hi x_hi, each adding its 8 exact products
+# to the fp32 stage sum with one rounding; the stage sum added to the fp32
+# running sum; then the rank-1 corrections in fp32. (The tensor cores'
+# adder may round otherwise inside an MMA; the emulation models one
+# rounding to nearest an MMA.) It must stay within the shipped tolerance of
+# the fp64 plain version; plain TF32 (e_hi x_hi alone) must not.
+
+STUDY_N = 2048
+STAGE = 32      # D columns a stage of the kernel
+KSTEP = 8       # columns an MMA
+
+
+def _tf32(v):
+    """fp32 rounded to tf32's 10 mantissa bits, to nearest, ties away from
+    zero (``cvt.rna.tf32.f32``)."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(v):
+    hi = _tf32(v)
+    return hi, _tf32(v - hi)
+
+
+def _emulate_kernel(d, x, row_means, global_mean, products=3):
+    """The kernel's result, computed in its order (``products=3``), or
+    with plain TF32 products (``products=1``)."""
+    n, k = x.shape
+    colsum, corr = center_corrections(x, row_means, global_mean)
+    e_hi, e_lo = _split(-0.5 * d * d)
+    x_hi, x_lo = _split(x)
+    terms = [(e_lo, x_hi), (e_hi, x_lo), (e_hi, x_hi)][3 - products:]
+    acc = torch.zeros((n, k), dtype=torch.float32)
+    for j0 in range(0, n, STAGE):
+        step = torch.zeros((n, k), dtype=torch.float32)
+        for s in range(j0, min(j0 + STAGE, n), KSTEP):
+            cols = slice(s, min(s + KSTEP, n))
+            for a, b in terms:
+                step = (step.double()
+                        + a[:, cols].double() @ b[cols].double()).float()
+        acc = acc + step
+    return acc + (corr[None, :] - row_means[:, None] * colsum[None, :])
+
+
+def _study_inputs(k):
+    rng = np.random.default_rng(k)
+    pts = rng.normal(size=(STUDY_N, 6))
+    sq = (pts ** 2).sum(1)
+    d = np.sqrt(np.maximum(sq[:, None] + sq[None, :] - 2 * pts @ pts.T, 0))
+    d = (0.5 * (d + d.T)).astype(np.float32)
+    np.fill_diagonal(d, 0.0)
+    x = rng.normal(size=(STUDY_N, k)).astype(np.float32)
+    d, x = torch.from_numpy(d), torch.from_numpy(x)
+    row_means = -0.5 * torch.mean(d * d, dim=1)
+    return d, x, row_means, torch.mean(row_means)
+
+
+def _use_of_tolerance(got, want):
+    """max |got - want| / (atol + rtol·|want|) with the shipped rtol 1e-5,
+    atol 1e-5·max(scale, 1): at most 1 passes."""
+    got, want = got.double(), want.double()
+    atol = 1e-5 * max(float(want.abs().max()), 1.0)
+    return float(((got - want).abs() / (atol + 1e-5 * want.abs())).max())
+
+
+def test_tf32_rounding_matches_the_hardware_rule():
+    v = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -11 + 2.0 ** -20,
+                      -(1.0 + 3 * 2.0 ** -11), 1.0 + 2.0 ** -12],
+                     dtype=torch.float32)
+    want = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                         -(1.0 + 2.0 ** -9), 1.0], dtype=torch.float32)
+    assert torch.equal(_tf32(v), want)
+    hi, lo = _split(torch.tensor([np.float32(np.pi)]))
+    assert float(hi + lo) == pytest.approx(float(np.float32(np.pi)),
+                                          rel=2.0 ** -21)
+
+
+@pytest.mark.parametrize("k", [20, 128])
+def test_3xtf32_emulation_is_within_the_shipped_tolerance(k):
+    d, x, row_means, gm = _study_inputs(k)
+    want = center_matvec_ref(d, x, row_means, gm)
+    use = _use_of_tolerance(_emulate_kernel(d, x, row_means, gm), want)
+    print(f"3xTF32 n={STUDY_N} k={k}: {use:.4f} of the tolerance "
+          f"(margin {1 / use:.1f}x)")
+    assert use <= 1.0
+
+
+@pytest.mark.parametrize("k", [20, 128])
+def test_plain_tf32_would_miss_the_tolerance(k):
+    d, x, row_means, gm = _study_inputs(k)
+    want = center_matvec_ref(d, x, row_means, gm)
+    use = _use_of_tolerance(_emulate_kernel(d, x, row_means, gm, products=1),
+                            want)
+    print(f"plain TF32 n={STUDY_N} k={k}: {use:.4f} of the tolerance")
+    assert use > 1.0

@@ -47,12 +47,15 @@ from repro_torch.kernels.center_matvec_ref import center_matvec_ref
 from repro_torch.kernels.inverse_orders import (inverse_orders,
                                                 inverse_orders_kernel,
                                                 inverse_orders_plain)
-from repro_torch.kernels.mantel_corr import mantel_corr
+from repro_torch.kernels.mantel_corr import (mantel_corr, mantel_corr_finish,
+                                             mantel_corr_partials)
 from repro_torch.kernels.mantel_corr_ops import mantel_corr_op
 from repro_torch.kernels.mantel_corr_ref import mantel_corr_plain
 from repro_torch.kernels.pairwise_ops import pairwise_panel_op
 from repro_torch.kernels.pairwise_ref import pairwise_panel_ref
 from repro_torch.configs import get_arch
+from repro_torch.kernels.permute_reduce import (permute_reduce_finish,
+                                                permute_reduce_partials)
 from repro_torch.kernels.permute_reduce_ops import permute_reduce
 from repro_torch.kernels.permute_reduce_ref import permute_reduce_ref
 from repro_torch.kernels.rmsnorm_ops import rmsnorm_op
@@ -107,19 +110,88 @@ def test_symhollow_matches_plain(cuda, n, case):
     assert got == is_symmetric_and_hollow_ref(mat.cpu())
 
 
-@pytest.mark.parametrize("n,k", [(1, 1), (7, 3), (100, 20), (1000, 20),
-                                 (257, 32), (130, 45)])
-def test_center_matvec_matches_plain(cuda, n, k):
+def _center_matvec_operands(n, k, cuda):
     d = _matrix(n, n + 1, cuda)
     gen = torch.Generator().manual_seed(n)
     x = torch.randn((n, k), generator=gen).to(cuda)
     row_means = -0.5 * torch.mean(d * d, dim=1)
-    gm = torch.mean(row_means)
+    return d, x, row_means, torch.mean(row_means)
+
+
+@pytest.mark.parametrize("n,k", [
+    (1, 1), (7, 3), (100, 20), (1000, 20), (257, 32), (130, 45),
+    (1, 128), (7, 129), (257, 64), (257, 128), (1001, 1), (1001, 20),
+    (1001, 64), (1001, 128), (1001, 129), (1001, 200), (1000, 128),
+    (130, 200)])
+def test_center_matvec_matches_plain(cuda, n, k):
+    """Ragged n (4-byte copies of D) and k (4-byte copies of X, k padded to
+    the MMA width in the kernel); up to 128 columns in one launch, slabs of
+    128 above."""
+    d, x, row_means, gm = _center_matvec_operands(n, k, cuda)
+    _build.reset_launches()
     got = center_matvec_op(d, x, row_means, gm)
+    assert _build.launches["center_matvec"] == -(-k // 128)
     want = center_matvec_ref(d, x, row_means, gm)
     scale = want.abs().max().item()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-5, atol=1e-5 * max(scale, 1.0))
+
+
+def test_center_matvec_is_bitwise_reproducible(cuda):
+    d, x, row_means, gm = _center_matvec_operands(1001, 128, cuda)
+    a = center_matvec_op(d, x, row_means, gm)
+    b = center_matvec_op(d, x, row_means, gm)
+    assert torch.equal(a, b)
+
+
+def _bits(t):
+    return t.cpu().numpy().tobytes()
+
+
+def _tiles_around(target, n, seed, cuda):
+    """Tiles of 32 order rows with ``target`` beside three sets of partners
+    and at positions 0, 17 and 31 (the walk pairs 0 with 1, 17 with 16 and
+    31 with 30): ``(position, orders)``."""
+    for partners in range(3):
+        others = permutation_orders(seed + partners, 31, n, cuda)
+        for pos in (0, 17, 31):
+            yield pos, torch.cat([others[:pos], target, others[pos:]])
+
+
+@pytest.mark.parametrize("n", [700, 1500])
+@pytest.mark.parametrize("rows", [1, 2])
+def test_permute_reduce_rows_are_independent_of_tile_mates(cuda, n, rows):
+    """One permutation's fp64 partials (each block's sum) and fp32 outputs
+    are bitwise the same whatever the other rows of its tile and wherever
+    it stands in it: a request's draws do not depend on its tile-mates."""
+    xc = random_distance_matrix(n + 5, n, device=cuda).condensed_form()
+    ys = torch.randn((rows, xc.numel()), generator=torch.Generator()
+                     .manual_seed(n)).to(cuda)
+    target = permutation_orders(n + 6, 1, n, cuda)
+    partials, outputs = set(), set()
+    for pos, orders in _tiles_around(target, n, n + 7, cuda):
+        inv, orders16 = inverse_orders(orders)
+        part = permute_reduce_partials(xc, ys, inv, orders16)
+        partials.add(_bits(part[:, :, pos]))
+        outputs.add(_bits(permute_reduce_finish(part)[:, pos]))
+        outputs.add(_bits(permute_reduce(xc, ys, orders)[:, pos]))
+    assert len(partials) == 1 and len(outputs) == 1
+
+
+@pytest.mark.parametrize("n", [700, 1500])
+def test_mantel_corr_rows_are_independent_of_tile_mates(cuda, n):
+    x = _matrix(n, n + 8, cuda)
+    yhat = torch.randn((n, n), generator=torch.Generator()
+                       .manual_seed(n)).to(cuda)
+    target = permutation_orders(n + 9, 1, n, cuda)
+    partials, outputs = set(), set()
+    for pos, orders in _tiles_around(target, n, n + 10, cuda):
+        inv, orders16 = inverse_orders(orders)
+        part = mantel_corr_partials(x, yhat, inv, orders16)
+        partials.add(_bits(part[:, pos]))
+        outputs.add(_bits(mantel_corr_finish(part)[pos]))
+        outputs.add(_bits(mantel_corr(x, yhat, orders)[pos]))
+    assert len(partials) == 1 and len(outputs) == 1
 
 
 @pytest.mark.parametrize("n,perms,rows", [
