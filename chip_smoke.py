@@ -22,7 +22,8 @@ check fails:
 3. the main path at n = 16384 (a 1.07 GB fp32 matrix): two validated
    ``DistanceMatrix`` objects, ``pcoa(dimensions=10)`` matrix-free, and
    ``mantel(permutations=999)`` against a noisy copy; 3b the feature path
-   at full width: two n = 16384 by d = 2048 abundance tables → condensed
+   at full width: two n = 16384 by d = 2048 abundance tables, each a
+   feature-backed ``Workspace.from_features`` session → condensed
    Bray–Curtis distances (``pairwise_condensed``) → operator-only
    ``pcoa`` → Mantel (K = 999, B = 32); 3c the statistics battery on the
    main path's matrices (K = 999, B = 32, 4 groups of 4096): PERMANOVA,
@@ -30,9 +31,18 @@ check fails:
    matrix, PERMANOVA over the feature path's condensed operator (timed
    also before the others, and once under the profiler), and the
    materialized Mantel baseline ``mantel_corr_op`` (27 a launch) on
-   ``mantel``'s orders, its draws held against ``mantel``'s. Each path,
-   and each test of the battery, runs with the kernels' launch counts set
-   to 0 just before it and read just after;
+   ``mantel``'s orders, its draws held against ``mantel``'s; 3d the
+   session API: one square-backed ``Workspace`` over phase 3's matrices
+   runs ``pcoa``, PERMANOVA, PERMDISP, ANOSIM, Mantel and partial Mantel,
+   and phase 3b's feature-backed session goes on with ANOSIM and the
+   operator-form PERMANOVA; each call's launches and seconds read, each
+   hoist built once, 11 hoist passes against 16 for one-shot sessions, no
+   n×n square on the feature side, and every statistic and p-value bitwise
+   the free functions' of phases 3 and 3c (the feature ANOSIM against the
+   free ``anosim`` on the square of the same distances, the operator-form
+   PERMANOVA against phase 3c's); it prints the ``session`` JSON line.
+   Each path, each test of the battery and each session runs with the
+   kernels' launch counts set to 0 just before it and read just after;
 4. checks of the answers (and of small runs on the card against the CPU)
    and per-phase times; 4b takes pcoa's time apart: the main path's cold
    call beside warm calls, a warm call step by step, and the solver's
@@ -57,7 +67,8 @@ check fails:
    cache's state must fail the check; and the smoke widths in fp32 on the
    card against the CPU; 5b times ``rmsnorm`` at the
    path's shapes; then one JSON line of per-kernel launches, errors, times
-   and bounds.
+   and bounds (``session_launches``: each kernel's launches in phase 3d),
+   and one of each phase's host seconds (``phase_walls_s``).
 
 ``python3 chip_smoke.py --center-matvec-op TREE`` times only
 ``center_matvec_op`` of the checkout at TREE (phase 5's shapes), so that a
@@ -204,14 +215,17 @@ def graph_ms(fn, reps: int = 100) -> float:
     return start.elapsed_time(end) / (3 * reps)
 
 
-def device_breakdown(what: str, fn, card: str, top: int = 8) -> None:
+def device_breakdown(what: str, fn, card: str, top: int = 8):
     """Run ``fn`` under ``torch.profiler`` and print the device's busy time
-    against the host clock, and the kernels that took most of it."""
+    against the host clock, and the kernels that took most of it. Returns
+    ``{"wall_ms", "busy_ms", "busy_share", "kernels"}``, or ``None`` when the
+    profiler saw no device time. Only the device is traced: the host's
+    operator events are not read, and a call of tens of thousands of small
+    kernels would take seconds to aggregate them."""
     from torch.profiler import ProfilerActivity, profile
 
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         sync()
@@ -221,7 +235,7 @@ def device_breakdown(what: str, fn, card: str, top: int = 8) -> None:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not busy_ms:
         print(f"  {what}: the profiler saw no device time: not measured")
-        return
+        return None
     print(f"  {what}: wall {wall_ms:.4f} ms, device busy {busy_ms:.4f} ms "
           f"({busy_ms / wall_ms:.4f} of the wall; idle "
           f"{1 - busy_ms / wall_ms:.4f}), {sum(e.count for e in kernels)} "
@@ -230,6 +244,9 @@ def device_breakdown(what: str, fn, card: str, top: int = 8) -> None:
         ms = e.self_device_time_total / 1e3
         print(f"    {ms:.4f} ms ({ms / busy_ms:.4f}) x{e.count} "
               f"{e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms,
+            "kernels": sum(e.count for e in kernels)}
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -791,13 +808,16 @@ def phase_rmsnorm_kernel() -> dict:
 def run_feature_path(x: torch.Tensor, y: torch.Tensor, device,
                      omega=None, orders=None,
                      permutations: int = PERMUTATIONS) -> dict:
-    """Feature tables X and Y → Bray–Curtis productions → operator-only
-    PCoA of X → Mantel of X (permuted) against Y, on ``device``, with
-    host seconds for each step. ``omega`` and ``orders`` replace the
-    sketch and the orders that ``pcoa`` and the engine draw by default."""
-    from repro_torch.core import CondensedCenteredGramOperator, pcoa
-    from repro_torch.dist import pairwise_condensed, production_mantel
+    """Feature tables X and Y → one observed ``Workspace.from_features``
+    session each → the two Bray–Curtis productions → operator-only PCoA of
+    X → Mantel of X (permuted) against Y, on ``device``, with host seconds
+    for each step. ``omega`` and ``orders`` replace the sketch and the
+    orders that ``pcoa`` and the engine draw by default."""
+    from repro_torch.api import ExecConfig, Workspace
+    from repro_torch.obs import ObsConfig
 
+    config = ExecConfig(device=device, block=PANEL,
+                        obs=ObsConfig(enabled=True))
     marks = [time.perf_counter()]
 
     def mark():
@@ -805,18 +825,20 @@ def run_feature_path(x: torch.Tensor, y: torch.Tensor, device,
             sync()
         marks.append(time.perf_counter())
 
-    prod_x = pairwise_condensed(x, METRIC, block=PANEL, device=device)
-    prod_y = pairwise_condensed(y, METRIC, block=PANEL, device=device)
+    fx = Workspace.from_features(x, METRIC, config=config)
+    fy = Workspace.from_features(y, METRIC, config=config)
+    fx.condensed()
+    fy.condensed()
     mark()
-    op = CondensedCenteredGramOperator.from_production(prod_x)
-    res = pcoa(None, dimensions=DIMS, operator=op, omega=omega,
-               device=device)
+    res = fx.pcoa(DIMS, omega=omega)
     mark()
-    mantel_res = production_mantel(prod_x, prod_y, permutations,
-                                   orders=orders, device=device)
+    mantel_res = fx.mantel(fy, permutations, orders=orders)
     mark()
+    means = fx.cache.get("dist_means", lambda: None)
     steps = ("productions_2x_s", "pcoa_operator_s", "mantel_s")
-    return {"prod_x": prod_x, "op": op, "pcoa": res, "mantel": mantel_res,
+    return {"ws_x": fx, "ws_y": fy,
+            "prod_x": {"condensed": fx.condensed(), **means},
+            "op": fx.operator(), "pcoa": res, "mantel": mantel_res,
             "times": {name: b - a for name, a, b in
                       zip(steps, marks, marks[1:])}}
 
@@ -824,12 +846,12 @@ def run_feature_path(x: torch.Tensor, y: torch.Tensor, device,
 def phase_feature_path(x: torch.Tensor, y: torch.Tensor) -> dict:
     """The feature path at full width on the card, with the launch counts
     set to 0 just before and read just after."""
-    from repro_torch.core.mantel import MANTEL_BATCH
     from repro_torch.kernels import _build
+    from repro_torch.stats.engine import WORKSPACE_BATCH
 
-    print(f"== phase 3b: feature path at n={N}, d={FEATURES} ({METRIC}, "
-          f"block {PANEL}; pcoa dims={DIMS}; mantel K={PERMUTATIONS}, "
-          f"B={MANTEL_BATCH})")
+    print(f"== phase 3b: feature path at n={N}, d={FEATURES} "
+          f"(Workspace.from_features, {METRIC}, block {PANEL}; pcoa "
+          f"dims={DIMS}; mantel K={PERMUTATIONS}, B={WORKSPACE_BATCH})")
     sync()
     _build.reset_launches()
     feat = run_feature_path(x, y, "cuda")
@@ -1040,7 +1062,7 @@ def phase_battery(main: dict, op, card: str) -> dict:
     z = random_distance_matrix(SEED + 12, N, dim=POINT_DIM, device="cuda")
     # the orders mantel drew on the main path (key None: seed 0)
     orders = engine.permutation_orders(None, PERMUTATIONS, N, "cuda")
-    launches_by_test, draws = {}, None
+    launches_by_test, results, seconds_by_test, draws = {}, {}, {}, None
     tests = battery_tests(x, y, z, op, groups, orders, "cuda")
     # the operator-form PERMANOVA also runs first, before the kernel
     # tests, so that each run reads it in both places
@@ -1055,6 +1077,8 @@ def phase_battery(main: dict, op, card: str) -> dict:
         seconds = time.perf_counter() - t0
         launches = {k: v for k, v in _build.launches.items() if v}
         launches_by_test[name] = dict(_build.launches)
+        seconds_by_test[name] = seconds
+        results[name] = res
         if name == "mantel_corr":
             draws = res
             shown = f"{res.numel()} draws"
@@ -1085,7 +1109,204 @@ def phase_battery(main: dict, op, card: str) -> dict:
     check(p_corr.p_value == p_mantel.p_value == main["p"],
           "mantel_corr: p-value differs from mantel's")
     del z, xc, ynorm, inv, want
-    return {"launches": launches_by_test, "groups": groups}
+    return {"launches": launches_by_test, "groups": groups,
+            "results": results, "seconds": seconds_by_test}
+
+
+def phase_session(main: dict, feat: dict, battery: dict,
+                  card: str) -> dict:
+    """Phase 3d: the session API on the card. A square-backed ``Workspace``
+    over phase 3's matrices runs PCoA and the battery (K = PERMUTATIONS,
+    B = 32, phase 3c's groups and default seeds), and phase 3b's
+    feature-backed session goes on with ANOSIM and the operator-form
+    PERMANOVA; launch counts set to 0 at each part's start, each call's
+    launches and seconds read around it. Checks the launches, that each
+    hoist is built at most once, the hoist passes (11 in the session, 16
+    as one-shot sessions), that no feature-backed session builds an n×n
+    square, and that every statistic and p-value is bitwise the free
+    functions' of phases 3 and 3c, the feature ANOSIM's the free
+    ``anosim``'s on the square of the same distances. Returns the
+    ``session`` line."""
+    from repro_torch.api import ExecConfig, Workspace
+    from repro_torch.core import DistanceMatrix, random_distance_matrix
+    from repro_torch.core.distance_matrix import condensed_to_square
+    from repro_torch.kernels import _build
+    from repro_torch.obs import ObsConfig
+    from repro_torch.stats import anosim
+    from repro_torch.stats.engine import permutation_orders
+
+    print(f"== phase 3d: one session on the card, n={N}, K={PERMUTATIONS} "
+          f"(square-backed, then feature-backed d={FEATURES})")
+    observed = ExecConfig(obs=ObsConfig(enabled=True))
+    groups = battery["groups"]
+    times, launches = {}, {}
+
+    def timed(name, fn):
+        before = dict(_build.launches)
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times[name] = time.perf_counter() - t0
+        launches[name] = {k: v - before[k] for k, v in _build.launches.items()
+                          if v != before[k]}
+        print(f"  {name}: {times[name]:.4f} s ({card}); launches "
+              f"{launches[name]}")
+        return out
+
+    def check_launches(name, want):
+        check(launches[name] == want,
+              f"session {name}: launches {launches[name]} != {want}")
+
+    tiles = -(-PERMUTATIONS // 32)
+    per_tile = {"inverse_orders": tiles, "permute_reduce": tiles,
+                "permute_reduce_finish": tiles}
+    # each test of a session draws its orders (phase 3c's were drawn once
+    # and given to every test): the draw alone, for the comparison
+    timed("order draw", lambda: permutation_orders(None, PERMUTATIONS, N,
+                                                   "cuda"))
+    z = random_distance_matrix(SEED + 12, N, dim=POINT_DIM,
+                               device="cuda").data   # phase 3c's z
+    sync()
+    _build.reset_launches()
+    ws = timed("admit x", lambda: Workspace(main["dm"].data,
+                                           config=observed))
+    wy = timed("admit y", lambda: Workspace(main["dm2"].data))
+    wz = timed("admit z", lambda: Workspace(z))
+    del z
+    got = {"pcoa": timed("pcoa", lambda: ws.pcoa(DIMS)),
+           "permanova": timed("permanova",
+                              lambda: ws.permanova(groups, PERMUTATIONS)),
+           "permdisp": timed("permdisp", lambda: ws.permdisp(
+               groups, PERMUTATIONS, dimensions=DIMS)),
+           "anosim": timed("anosim", lambda: ws.anosim(groups, PERMUTATIONS))}
+    passes = ws.report().hoist_passes
+    got["mantel"] = timed("mantel", lambda: ws.mantel(wy, PERMUTATIONS))
+    got["partial_mantel"] = timed("partial_mantel", lambda: ws.partial_mantel(
+        wy, wz, PERMUTATIONS))
+    square_launches = dict(_build.launches)
+    for name in ("admit x", "admit y", "admit z"):
+        check_launches(name, {"symhollow": 1})
+    check_launches("pcoa", {"center_matvec": 4})
+    check_launches("permanova", {"center_pass1": 1, "center_finish": 1,
+                                 "center_pass2": 1})
+    check_launches("permdisp", {})
+    for name in ("anosim", "mantel", "partial_mantel"):
+        check_launches(name, per_tile)
+    builds = {w: {a: wsn.cache.build_count(a) for a in
+                  ("operator", "gram", "condensed", "ranks", "moments",
+                   "coords", "square")}
+              for w, wsn in (("x", ws), ("y", wy), ("z", wz))}
+    print(f"  builds: {builds}")
+    check(all(c <= 1 for b in builds.values() for c in b.values()),
+          "session: an artifact was built twice")
+
+    # the same four analyses as one-shot sessions (the free functions'
+    # accounting), each observed, after the session's launches were read
+    standalone = 0.0
+    for name, run in (
+            ("pcoa", lambda w: w.pcoa(DIMS)),
+            ("permanova", lambda w: w.permanova(groups, PERMUTATIONS)),
+            ("permdisp", lambda w: w.permdisp(groups, PERMUTATIONS,
+                                              dimensions=DIMS)),
+            ("anosim", lambda w: w.anosim(groups, PERMUTATIONS))):
+        one_shot = Workspace(main["dm"], config=observed)
+        run(one_shot)
+        standalone += one_shot.report().hoist_passes
+    print(f"  hoist passes of pcoa + permanova + permdisp + anosim: "
+          f"{passes} in the session, {standalone} as one-shot sessions")
+    check(passes == 11.0 and standalone == 16.0,
+          "session: hoist passes are not 11 against 16")
+
+    # bitwise the free functions' answers on the same seeds
+    free = {name: (r.statistic, r.p_value)
+            for name, r in battery["results"].items()
+            if name in ("permanova", "anosim", "permdisp", "partial_mantel")}
+    free["mantel"] = (main["stat"], main["p"])
+    for name, want in free.items():
+        have = (got[name].statistic, got[name].p_value)
+        print(f"  {name}: session {have} vs free function {want}")
+        check(have == want, f"session {name}: not bitwise the free function")
+    ev = got["pcoa"].eigenvalues
+    check(torch.equal(ev, main["pcoa"].eigenvalues),
+          "session pcoa: eigenvalues not bitwise the free pcoa's")
+    square = {"times_s": dict(times), "launches": dict(launches),
+              "launches_total": {k: v for k, v in square_launches.items()
+                                 if v},
+              "builds": builds, "hoist_passes": passes,
+              "hoist_passes_standalone": standalone,
+              "free_times_s": {**{k: battery["seconds"][k] for k in
+                                  ("permanova", "anosim", "permdisp",
+                                   "partial_mantel")},
+                               "pcoa": main["times"]["pcoa_s"],
+                               "mantel": main["times"]["mantel_s"]},
+              "tiles": ws.resolved_tiles()}
+    del ws, wy, wz, got
+
+    # phase 3b's feature-backed session (productions, pcoa, mantel) goes
+    # on with ANOSIM and the operator-form PERMANOVA
+    fx, fy = feat["ws_x"], feat["ws_y"]
+    times.clear()
+    launches.clear()
+    _build.reset_launches()
+    fanosim = timed("anosim", lambda: fx.anosim(groups, PERMUTATIONS))
+    fperm = timed("permanova", lambda: fx.permanova(groups, PERMUTATIONS))
+    feature_launches = {k: v + feat["launches"][k]
+                        for k, v in _build.launches.items()}
+    check_launches("anosim", per_tile)
+    check_launches("permanova", {})
+    busy = device_breakdown("feature session permanova again, profiled",
+                            lambda: fx.permanova(groups, PERMUTATIONS), card)
+    fbuilds = {w: {a: wsn.cache.build_count(a) for a in
+                   ("condensed", "dist_means", "operator", "ranks",
+                    "moments", "coords", "square")}
+               for w, wsn in (("x", fx), ("y", fy))}
+    print(f"  feature builds: {fbuilds}; cache keys x "
+          f"{sorted(map(str, fx.cache.keys()))}")
+    check(all("square" not in w.cache and w._dm is None for w in (fx, fy)),
+          "feature session: an n x n square was built")
+    check(all(c <= 1 for b in fbuilds.values() for c in b.values()),
+          "feature session: an artifact was built twice")
+    # the operator-form PERMANOVA is phase 3c's statistic on the same
+    # operator and orders; ANOSIM is the free anosim's on the square of
+    # the same distances (the same condensed values, so the same ranks)
+    sq = DistanceMatrix(condensed_to_square(fx.condensed(), N))
+    sync()
+    t0 = time.perf_counter()
+    free_anosim = anosim(sq, groups, PERMUTATIONS)
+    sync()
+    free_anosim_s = time.perf_counter() - t0
+    del sq
+    for name, r, w in (
+            ("anosim", fanosim, free_anosim),
+            ("permanova", fperm, battery["results"]["permanova_operator"])):
+        have, want = (r.statistic, r.p_value), (w.statistic, w.p_value)
+        print(f"  feature {name}: session {have} vs free {want}")
+        check(np.isfinite(r.statistic) and 0 < r.p_value <= 1
+              and r.sample_size == N, f"feature session {name}: {r}")
+        check(have == want, f"feature session {name}: not bitwise the "
+              f"free function's")
+    feature = {"times_s": {**feat["times"], **times},
+               "launches": {"productions, pcoa and mantel (phase 3b)": {
+                   k: v for k, v in feat["launches"].items() if v},
+                   **launches},
+               "launches_total": {k: v for k, v in feature_launches.items()
+                                  if v},
+               "builds": fbuilds, "hoist_passes": fx.report().hoist_passes,
+               "permanova_profiled": busy,
+               "free_times_s": {
+                   "anosim_on_the_square": free_anosim_s,
+                   "permanova_operator": battery["seconds"][
+                       "permanova_operator"]},
+               "tiles": fx.resolved_tiles()}
+    del fx, fy
+    launches_total = {k: square["launches_total"].get(k, 0)
+                      + feature["launches_total"].get(k, 0)
+                      for k in _build.launches}
+    line = {"session": {"card": card, "square": square, "feature": feature,
+                        "launches_total": launches_total}}
+    print(json.dumps(line))
+    return line
 
 
 def phase_battery_vs_cpu(main: dict, x_feat: torch.Tensor, groups) -> None:
@@ -1923,7 +2144,15 @@ def main() -> int:
     from repro_torch.core.mantel import condensed_moments
 
     t_start = time.perf_counter()
-    env = phase_environment()
+    walls = {}                    # host seconds of each phase function
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    env = run("1 environment", phase_environment)
     card = env["card"]
 
     dm0 = random_distance_matrix(SEED, N, dim=POINT_DIM)
@@ -1937,19 +2166,26 @@ def main() -> int:
 
     x, y = abundance_tables(N, FEATURES, SEED + 4)
 
-    errors = phase_kernels(dm0.data, ynorm)
-    errors.update(phase_feature_kernels(x, dm0.data))
-    errors.update(phase_mantel_corr_kernel(dm0.data, d2))
-    errors.update(phase_rmsnorm_kernel())
-    main_path = phase_main_path(dm0, d2)
-    feature = phase_feature_path(x, y)
-    phase_checks(main_path, card)
-    phase_pcoa_split(main_path, card)
-    materialized = phase_feature_checks(feature, x, y, card)
-    battery = phase_battery(main_path, feature["op"], card)
+    errors = run("2 kernels", phase_kernels, dm0.data, ynorm)
+    errors.update(run("2b feature kernels", phase_feature_kernels, x,
+                      dm0.data))
+    errors.update(run("2c mantel_corr", phase_mantel_corr_kernel, dm0.data,
+                      d2))
+    errors.update(run("2d rmsnorm", phase_rmsnorm_kernel))
+    main_path = run("3 main path", phase_main_path, dm0, d2)
+    feature = run("3b feature path", phase_feature_path, x, y)
+    run("4 checks", phase_checks, main_path, card)
+    run("4b pcoa split", phase_pcoa_split, main_path, card)
+    materialized = run("4c feature checks", phase_feature_checks, feature,
+                       x, y, card)
+    battery = run("3c battery", phase_battery, main_path, feature["op"],
+                  card)
+    session = run("3d session", phase_session, main_path, feature, battery,
+                  card)
     feature_launches = feature["launches"]
     del feature
-    phase_battery_vs_cpu(main_path, x, battery["groups"])
+    run("4d battery vs CPU", phase_battery_vs_cpu, main_path, x,
+        battery["groups"])
     # each kernel's launches on the path that runs it
     launches = {**main_path["launches"],
                 "pairwise_panel": feature_launches["pairwise_panel"]}
@@ -1958,14 +2194,20 @@ def main() -> int:
     launches.update({k: battery["launches"]["mantel_corr"][k] for k in
                      ("mantel_corr", "mantel_corr_finish")})
     del battery, main_path
-    kernels = phase_kernel_line(launches, errors, dm0.data, ynorm, x, card)
+    kernels = run("5 kernel times", phase_kernel_line, launches, errors,
+                  dm0.data, ynorm, x, card)
     # phase 6 holds 16.4 GB of weights: free the analysis paths' tensors
     del dm0, d2, ynorm, x, y
     gc.collect()
     torch.cuda.empty_cache()
-    lm = phase_lm(card)
-    kernels.append(rmsnorm_entry(lm["launches"], errors["rmsnorm"], card))
+    lm = run("6 LM serving", phase_lm, card)
+    kernels.append(run("5b rmsnorm times", rmsnorm_entry, lm["launches"],
+                       errors["rmsnorm"], card))
+    for kern in kernels:        # each kernel's launches on the session path
+        kern["session_launches"] = \
+            session["session"]["launches_total"].get(kern["name"], 0)
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"phase_walls_s": walls}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

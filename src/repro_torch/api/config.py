@@ -1,0 +1,175 @@
+"""ExecConfig: one home for every execution knob in the analysis stack.
+
+The counterpart of ``repro/api/config.py``: a frozen dataclass (the port
+has no pytrees) with the reference's field names, defaults and
+validation, threaded through ``api.Workspace``, ``core.pcoa`` and
+``stats.engine``. Two configs compare and hash equal iff every knob
+matches, so a reference user's config carries across.
+
+What the knobs mean here. The device decides the route: on the card
+every path runs the hand-written CUDA kernels, on the CPU their plain
+PyTorch versions, and nothing falls back from one to the other. Six
+fields are accepted, validated as in the reference and then read by no
+route of the port, so that a reference user's config carries across:
+``matvec_impl``, ``pairwise_impl`` and ``kernel`` (each path has one
+kernel; ``kernel="pallas"`` only names the partial-Mantel statistic
+``PartialMantelPallasStatistic``, the same route), and ``interpret``,
+``chunk`` and ``feature_block`` (Pallas dispatch and tiles; the CUDA
+kernels own their geometry). ``centering_impl`` is read on the CPU only:
+``"ref"`` is the eager Algorithm 1, ``"fused"`` the ``center`` pair's
+plain version; on the card both run the ``center`` kernel pair.
+``block`` sets the production's row panels and the condensed operator's
+strips, as in the reference, and changes nothing inside a kernel.
+
+Refused by name with ``NotImplementedError`` until their items are
+ported: a ``mesh`` and ``centering_impl="distributed"`` (the distributed
+paths), and ``auto=True``, ``tune_profile`` and every ``"auto"`` knob
+(the tuner, which needs a cost model of the CUDA kernels' geometry).
+
+This module imports nothing of ``repro_torch`` except ``obs.config``, so
+any layer can import it without cycles.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Union
+
+import torch
+
+from repro_torch.obs.config import ObsConfig
+
+# mirror of repro_torch.dist.METRICS, kept literal because this module
+# imports nothing of the package (pinned in sync by tests/test_torch_api.py)
+_KNOWN_METRICS = ("braycurtis", "canberra", "cityblock", "euclidean",
+                  "jaccard")
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not yet ported to repro_torch "
+                               f"({item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecConfig:
+    """Execution configuration shared by every analysis entry point.
+
+    Fields (the reference's; see the module docstring for what each
+    does in the port)
+    ------
+    matvec_impl, pairwise_impl, kernel:
+        ``"xla"`` (default) or ``"pallas"``. Read by no route: the
+        operator matvec runs ``center_matvec``, the production
+        ``pairwise_panel`` and the condensed reductions of the Mantel
+        family and ANOSIM ``permute_reduce`` on the card, their plain
+        versions on the CPU; ``kernel="pallas"`` names the partial-Mantel
+        statistic ``PartialMantelPallasStatistic``, as in the reference.
+    interpret, chunk, feature_block:
+        The reference's Pallas dispatch mode (``None``, ``True`` or
+        ``False``), condensed-stream chunk (``None`` or an int >= 1) and
+        feature tile (an int >= 1, default 128). Validated, read by no
+        route; ``"auto"`` is refused.
+    centering_impl:
+        ``"ref"`` or ``"fused"`` (default) for the materialized Gower
+        matrix: the ``center`` kernel pair on the card either way; on the
+        CPU the eager Algorithm 1 or the pair's plain version.
+        ``"distributed"`` is refused (not yet ported).
+    materialize:
+        ``True`` runs PCoA through the materialized Gower matrix;
+        ``False`` (default) matrix-free through the operator.
+    block:
+        An int >= 1 (default 256): the rows of a production panel and of
+        a condensed-operator strip. ``"auto"`` is refused.
+    batch_size:
+        Permutations per engine tile: an int >= 1, or ``None`` for each
+        test's default (32). ``"auto"`` is refused.
+    mesh:
+        Must be ``None``: the distributed paths are not yet ported.
+    device:
+        Where a Workspace holds its data: ``None`` (default) is the card,
+        ``"cpu"`` the CPU (the plain versions); a string or a
+        ``torch.device`` of type cuda or cpu.
+    metric:
+        Default metric of ``Workspace.from_features``.
+    auto, tune_profile:
+        Must be ``False`` and ``None``: the tuner is not yet ported.
+    obs:
+        Observability switchboard (``repro_torch.obs.ObsConfig``);
+        ``None`` coerces to the disabled default.
+    """
+
+    matvec_impl: str = "xla"
+    centering_impl: str = "fused"
+    materialize: bool = False
+    interpret: Optional[bool] = None
+    block: Union[int, str] = 256
+    batch_size: Union[int, str, None] = None
+    kernel: str = "xla"
+    mesh: Optional[Any] = None
+    device: Union[str, torch.device, None] = None
+    metric: str = "braycurtis"
+    pairwise_impl: str = "xla"
+    feature_block: Union[int, str] = 128
+    chunk: Union[int, str, None] = None
+    auto: bool = False
+    tune_profile: Optional[str] = None
+    obs: Optional[ObsConfig] = ObsConfig()
+
+    def __post_init__(self):
+        if self.obs is None:
+            object.__setattr__(self, "obs", ObsConfig())
+        if not isinstance(self.obs, ObsConfig):
+            raise ValueError(f"obs must be an ObsConfig (or None), "
+                             f"got {self.obs!r}")
+        if self.matvec_impl not in ("xla", "pallas"):
+            raise ValueError(f"unknown matvec_impl {self.matvec_impl!r}")
+        if self.centering_impl not in ("ref", "fused", "distributed"):
+            raise ValueError(f"unknown centering_impl "
+                             f"{self.centering_impl!r}")
+        if self.kernel not in ("xla", "pallas"):
+            raise ValueError(f"unknown kernel {self.kernel!r}")
+        if self.centering_impl == "distributed":
+            raise _not_ported("centering_impl='distributed'",
+                              "the distributed paths")
+        if self.mesh is not None:
+            raise _not_ported("a device mesh", "the distributed paths")
+        if self.auto or self.tune_profile is not None:
+            raise _not_ported("auto-tuning (auto, tune_profile)",
+                              "the tuner")
+        for knob in ("block", "feature_block"):
+            v = getattr(self, knob)
+            if v == "auto":
+                raise _not_ported(f"{knob}='auto'", "the tuner")
+            if not (isinstance(v, int) and v >= 1):
+                raise ValueError(f"{knob} must be an int >= 1 or 'auto', "
+                                 f"got {v!r}")
+        for knob in ("batch_size", "chunk"):
+            v = getattr(self, knob)
+            if v == "auto":
+                raise _not_ported(f"{knob}='auto'", "the tuner")
+            if not (v is None or (isinstance(v, int) and v >= 1)):
+                raise ValueError(f"{knob} must be an int >= 1, 'auto' or "
+                                 f"None, got {v!r}")
+        if self.metric not in _KNOWN_METRICS:
+            raise ValueError(f"unknown metric {self.metric!r}; "
+                             f"available: {list(_KNOWN_METRICS)}")
+        if self.pairwise_impl not in ("xla", "pallas"):
+            raise ValueError(f"unknown pairwise_impl "
+                             f"{self.pairwise_impl!r}")
+        if self.device is not None and \
+                torch.device(self.device).type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {self.device!r}")
+
+    def replace(self, **changes) -> "ExecConfig":
+        """A copy with ``changes`` applied (``dataclasses.replace``)."""
+        return dataclasses.replace(self, **changes)
+
+    def resolve_batch_size(self, explicit: Optional[int],
+                           default: int) -> int:
+        """Precedence: explicit call-site arg > config > per-test
+        default."""
+        if explicit is not None:
+            return explicit
+        if self.batch_size is not None:
+            return self.batch_size
+        return default

@@ -13,9 +13,8 @@ The counterpart of ``repro/core/mantel.py``.
       condensed(X_p)[k] = xc[tri(order[i_k], order[j_k])],
 
   batched B permutations at a time through ``permute_reduce`` — on the card
-  one launch of its kernel per tile. Until the session API is ported,
-  ``mantel`` calls the engine directly (the reference goes through a
-  one-shot ``Workspace``, whose Mantel uses B = 32).
+  one launch of its kernel per tile. ``mantel`` wraps a one-shot
+  ``api.Workspace``, as in the reference (B = 32).
 """
 
 from __future__ import annotations
@@ -27,12 +26,9 @@ import torch
 
 from repro_torch.core.distance_matrix import (DistanceMatrix, condensed_form,
                                               permuted_condensed)
-from repro_torch.kernels.dispatch import DeviceLike, resolve_device
+from repro_torch.kernels.dispatch import DeviceLike
 from repro_torch.kernels.permute_reduce_ops import permute_reduce
 from repro_torch.stats import engine
-
-#: permutations per tile of ``mantel`` (``Workspace.mantel`` in the reference).
-MANTEL_BATCH = 32
 
 
 def pearsonr_ref(x_flat: torch.Tensor, y_flat: torch.Tensor) -> torch.Tensor:
@@ -94,6 +90,10 @@ class MantelStatistic:
     carries the hoist (``{"normxm": ..., "ynorm": ...}``, ``ynorm`` the
     condensed centred-normalized y), and then ``y`` may be ``None``."""
 
+    #: the ledger's per-permutation traffic model of this loop
+    #: (``obs.ledger.perm_traffic_floats``)
+    ledger_model = "condensed_fused"
+
     x: torch.Tensor
     y: Optional[torch.Tensor]
     n: int
@@ -128,37 +128,17 @@ def mantel(x: DistanceMatrix, y: DistanceMatrix, permutations: int = 999,
     """Cache-optimized Mantel test (paper Algorithm 5) on ``device``
     (``None``: the card). Returns ``(stat, p, n)`` like the reference.
 
-    ``key`` seeds the permutation orders (seed 0 by default, not
-    key-compatible with JAX); ``orders`` replaces the draw with given
-    (K, n) orders, as the parity tests pass the reference's."""
-    dev = resolve_device(device)
-    n = len(x)
-    if len(y) != n:
-        raise ValueError("x and y must have the same shape")
-    xc = condensed_form(x.data.to(dev))
-    r = mantel_condensed(xc, condensed_moments_vec(xc)["norm"],
-                         condensed_moments(y.data.to(dev), n)["hat"], n,
-                         permutations, key, alternative, orders, dev)
+    A thin wrapper over a one-shot ``api.Workspace`` (B = 32 a tile): a
+    study testing one matrix against several should hold its own
+    Workspace so the normalization hoists are shared. ``key`` seeds the
+    permutation orders (seed 0 by default, not key-compatible with JAX);
+    ``orders`` replaces the draw with given (K, n) orders, as the parity
+    tests pass the reference's."""
+    from repro_torch.api.config import ExecConfig
+    from repro_torch.api.workspace import Workspace
+    # validate=False: trust the DistanceMatrix as constructed
+    r = Workspace(x, config=ExecConfig(device=device),
+                  validate=False).mantel(y, permutations=permutations,
+                                         key=key, alternative=alternative,
+                                         orders=orders)
     return r.statistic, r.p_value, r.sample_size
-
-
-def mantel_condensed(xc: torch.Tensor, x_norm: torch.Tensor,
-                     y_hat: torch.Tensor, n: int, permutations: int = 999,
-                     key: Union[int, torch.Generator, None] = None,
-                     alternative: str = "two-sided",
-                     orders: Optional[torch.Tensor] = None,
-                     device: DeviceLike = None) -> engine.PermutationTestResult:
-    """Mantel test over condensed operands on ``device`` (``None``: the
-    card): ``xc`` is the permuted side, ``x_norm`` its centred norm, and
-    ``y_hat`` the fixed side's centred-normalized condensed vector (as
-    ``Workspace.statistic("mantel")`` of the reference builds it). Runs
-    B = ``MANTEL_BATCH`` permutations a tile and returns the engine's
-    result."""
-    dev = resolve_device(device)
-    stat = MantelStatistic(xc.to(dev), None, n,
-                           pre={"normxm": x_norm.to(dev),
-                                "ynorm": y_hat.to(dev)})
-    return engine.permutation_test(stat, permutations, key,
-                                   alternative=alternative,
-                                   batch_size=MANTEL_BATCH, orders=orders,
-                                   method="mantel", device=dev)

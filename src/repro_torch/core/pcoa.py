@@ -13,7 +13,10 @@ The counterpart of ``repro/core/pcoa.py``.
 
 ``pcoa(None, operator=op)`` is the fully matrix-free entry: a prebuilt
 operator (the condensed-backed one a feature-table production gives)
-stands in for the square matrix, on the matrix-free fsvd path only.
+stands in for the square matrix, on the matrix-free fsvd path only. A
+``Workspace`` passes its cached ``operator`` or ``gram`` so the O(n²)
+hoists run once a session, and its ``ExecConfig``; the solve runs in a
+``pcoa.<method>`` span of the ambient observing session.
 
 The sketch Ω is ``omega`` when given (the parity tests pass the
 reference's ``jax.random.normal(key, (n, p))``, which torch cannot
@@ -32,6 +35,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from repro_torch.api.config import ExecConfig
 from repro_torch.api.results import OrdinationResult
 from repro_torch.core import centering
 from repro_torch.core.distance_matrix import DistanceMatrix, as_generator
@@ -39,6 +43,7 @@ from repro_torch.core.operators import (CenteredGramOperator,
                                         CondensedCenteredGramOperator)
 from repro_torch.core.validation import ensure_finite
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
+from repro_torch.obs.trace import current_obs
 
 #: extra sketch columns beyond the requested dimensions, and power steps.
 OVERSAMPLE = 10
@@ -89,13 +94,16 @@ def _exact_eigh(a: torch.Tensor, k: int):
 
 def materialized_gram(dm_data: torch.Tensor,
                       centering_impl: str = "fused") -> torch.Tensor:
-    """The full Gower-centred matrix by the selected centering."""
-    if centering_impl == "ref":
+    """The full Gower-centred matrix. On the card every accepted
+    ``centering_impl`` runs the ``center`` kernel pair; on the CPU
+    ``"ref"`` is the eager Algorithm 1 and ``"fused"`` the pair's plain
+    version."""
+    if centering_impl not in ("ref", "fused"):
+        raise ValueError(f"unknown centering_impl {centering_impl!r} "
+                         f"(the distributed centering is not ported yet)")
+    if centering_impl == "ref" and dm_data.device.type == "cpu":
         return centering.center_distance_matrix_ref(dm_data)
-    if centering_impl == "fused":
-        return centering.center_distance_matrix(dm_data)
-    raise ValueError(f"unknown centering_impl {centering_impl!r} "
-                     f"(the distributed centering is not ported yet)")
+    return centering.center_distance_matrix(dm_data)
 
 
 def pcoa(dm: Optional[DistanceMatrix], dimensions: int = 10,
@@ -104,21 +112,30 @@ def pcoa(dm: Optional[DistanceMatrix], dimensions: int = 10,
          check_finite: bool = True, omega: Optional[torch.Tensor] = None,
          operator: Union[CenteredGramOperator,
                          CondensedCenteredGramOperator, None] = None,
-         device: DeviceLike = None) -> OrdinationResult:
+         device: DeviceLike = None, config: Optional[ExecConfig] = None,
+         gram: Optional[torch.Tensor] = None) -> OrdinationResult:
     """Principal Coordinates Analysis of a distance matrix, on ``device``
     (``None``: the card).
 
     ``method="fsvd"`` runs matrix-free against a ``CenteredGramOperator``
     unless ``materialize=True``; ``method="eigh"`` is the exact oracle.
-    ``operator`` replaces the operator built from ``dm`` on the
-    matrix-free path, and with ``dm=None`` stands in for the matrix
-    altogether (the eigh and materialized solves then refuse: they need
-    the square). ``key`` seeds the sketch (see the module docstring);
-    ``omega`` replaces the draw with a given (n, min(k + 10, n)) sketch.
-    Non-finite input is rejected up front unless ``check_finite=False``.
+    ``config`` (an ``ExecConfig``), when given, supplies
+    ``centering_impl``, ``materialize`` and the device, and those
+    arguments are ignored. ``operator`` replaces the operator built from
+    ``dm`` on the matrix-free path, and with ``dm=None`` stands in for the
+    matrix altogether (the eigh and materialized solves then refuse: they
+    need the square); ``gram`` replaces the materialized Gower matrix on
+    those solves. A prebuilt artifact the taken path would ignore is an
+    error. ``key`` seeds the sketch (see the module docstring); ``omega``
+    replaces the draw with a given (n, min(k + 10, n)) sketch. Non-finite
+    input is rejected up front unless ``check_finite=False``.
     """
     if method not in ("eigh", "fsvd"):
         raise ValueError(f"unknown method {method!r}")
+    if config is not None:
+        centering_impl, materialize = config.centering_impl, \
+            config.materialize
+        device = config.device
     dev = resolve_device(device)
     needs_gram = method == "eigh" or materialize
     if dm is None:
@@ -129,10 +146,14 @@ def pcoa(dm: Optional[DistanceMatrix], dimensions: int = 10,
             raise ValueError("dm=None (operator-only) is limited to the "
                              "matrix-free fsvd path; eigh/materialized "
                              "solves need the square matrix")
+    if gram is not None and not needs_gram:
+        raise ValueError("a prebuilt gram is only consumed by eigh / "
+                         "materialized paths; this call runs matrix-free "
+                         "(pass operator= instead)")
     if operator is not None:
         if needs_gram:
             raise ValueError("a prebuilt operator is only consumed by the "
-                             "matrix-free fsvd path")
+                             "matrix-free fsvd path (pass gram= instead)")
         if operator.row_means.device.type != dev.type:
             raise ValueError(f"the operator lies on "
                              f"{operator.row_means.device}, not on {dev}")
@@ -147,34 +168,40 @@ def pcoa(dm: Optional[DistanceMatrix], dimensions: int = 10,
         n = operator.n
     k = resolve_dimensions(dimensions, n)
 
-    if method == "eigh":
-        centered = materialized_gram(data, centering_impl)
-        evals, evecs = _exact_eigh(centered, k)
-        total = torch.trace(centered)
-        seed = None
-    else:
-        p = sketch_width(k, n)
-        if omega is None:
-            seed = DEFAULT_SEED if key is None else \
-                (None if isinstance(key, torch.Generator) else int(key))
-            omega = torch.randn((n, p), generator=as_generator(
-                key, DEFAULT_SEED), dtype=torch.float32)
-        else:
-            seed = None
-            if tuple(omega.shape) != (n, p):
-                raise ValueError(f"omega must be ({n}, {p}), got "
-                                 f"{tuple(omega.shape)}")
-        omega = omega.to(device=dev, dtype=torch.float32)
-        if materialize:
-            centered = materialized_gram(data, centering_impl)
-            evals, evecs = _subspace_iteration(lambda x: centered @ x,
-                                               omega, k)
+    def _gram():
+        return (gram.to(dev) if gram is not None
+                else materialized_gram(data, centering_impl))
+
+    with current_obs().span(f"pcoa.{method}", phase="solve", n=n, k=k,
+                            materialize=materialize):
+        if method == "eigh":
+            centered = _gram()
+            evals, evecs = _exact_eigh(centered, k)
             total = torch.trace(centered)
+            seed = None
         else:
-            op = operator if operator is not None else \
-                CenteredGramOperator.from_distance(data)
-            evals, evecs = _subspace_iteration(op.matvec, omega, k)
-            total = op.trace()
+            p = sketch_width(k, n)
+            if omega is None:
+                seed = DEFAULT_SEED if key is None else \
+                    (None if isinstance(key, torch.Generator) else int(key))
+                omega = torch.randn((n, p), generator=as_generator(
+                    key, DEFAULT_SEED), dtype=torch.float32)
+            else:
+                seed = None
+                if tuple(omega.shape) != (n, p):
+                    raise ValueError(f"omega must be ({n}, {p}), got "
+                                     f"{tuple(omega.shape)}")
+            omega = omega.to(device=dev, dtype=torch.float32)
+            if materialize:
+                centered = _gram()
+                evals, evecs = _subspace_iteration(lambda x: centered @ x,
+                                                   omega, k)
+                total = torch.trace(centered)
+            else:
+                op = operator if operator is not None else \
+                    CenteredGramOperator.from_distance(data)
+                evals, evecs = _subspace_iteration(op.matvec, omega, k)
+                total = op.trace()
 
     pos = torch.clamp_min(evals, 0.0)
     coordinates = evecs * torch.sqrt(pos)[None, :]

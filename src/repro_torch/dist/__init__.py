@@ -2,9 +2,7 @@
 
 from repro_torch.dist.metrics import METRICS, Metric, get_metric
 from repro_torch.dist.driver import (condensed_size, pairwise_condensed,
-                                     pairwise_distances, production_mantel,
-                                     production_moments)
+                                     pairwise_distances)
 
 __all__ = ["METRICS", "Metric", "condensed_size", "get_metric",
-           "pairwise_condensed", "pairwise_distances", "production_mantel",
-           "production_moments"]
+           "pairwise_condensed", "pairwise_distances"]

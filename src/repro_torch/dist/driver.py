@@ -22,17 +22,24 @@ m = n(n−1)/2; the square is never allocated. Each panel is one
 moments are summed in fp64 from the n fp32 row sums and rounded to fp32
 (the reference sums in fp32): ``Σd² − m·mean²`` cancels, and fp64 keeps
 the card and the CPU within 1e-5 of each other.
+
+Under an observing session the sweep runs in a ``dist.pairwise_condensed``
+span and charges the ledger's feature reads; each panel step notes its
+call as ``dist.panel_stats``. ``Workspace.from_features`` is the session
+that consumes a production: its condensed vector, operator means and
+Mantel moments.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.mantel import mantel_condensed
 from repro_torch.dist.metrics import get_metric
 from repro_torch.kernels.dispatch import (DeviceLike, clamp_block,
                                           resolve_device)
 from repro_torch.kernels.pairwise_ops import pairwise_panel_op
+from repro_torch.obs.compile import note_trace
+from repro_torch.obs.trace import current_obs
 
 DEFAULT_BLOCK = 256
 
@@ -58,6 +65,8 @@ def _table(x, device: torch.device) -> torch.Tensor:
 
 def _panel_stats(xi: torch.Tensor, x: torch.Tensor, metric):
     """One row strip and its running sums: (strip, Σ_j d, Σ_j d²)."""
+    note_trace("dist.panel_stats", (tuple(xi.shape), tuple(x.shape),
+                                    metric.name, x.device.type))
     strip = pairwise_panel_op(xi, x, metric)
     return strip, torch.sum(strip, dim=1), torch.sum(strip * strip, dim=1)
 
@@ -78,20 +87,24 @@ def pairwise_condensed(x, metric="braycurtis", *, block: int = DEFAULT_BLOCK,
     metric = get_metric(metric)
     dev = resolve_device(device)
     x = _table(x, dev)
-    n = x.shape[0]
+    n, d = x.shape
     b = clamp_block(n, block)
     m = condensed_size(n)
+    obs = current_obs()          # the ambient session (NULL_OBS when none)
     condensed = torch.empty((m,), dtype=torch.float32, device=dev)
     rowsum_d = torch.empty((n,), dtype=torch.float32, device=dev)
     rowsum_d2 = torch.empty((n,), dtype=torch.float32, device=dev)
     cols = torch.arange(n, device=dev)
-    for i0 in range(0, n, b):
-        i1 = min(i0 + b, n)
-        strip, rs1, rs2 = _panel_stats(x[i0:i1], x, metric)
-        rowsum_d[i0:i1] = rs1
-        rowsum_d2[i0:i1] = rs2
-        upper = cols[None, :] > torch.arange(i0, i1, device=dev)[:, None]
-        condensed[row_start(n, i0):row_start(n, i1)] = strip[upper]
+    with obs.span("dist.pairwise_condensed", phase="production", n=n, d=d,
+                  block=b, metric=metric.name, panels=-(-n // b)):
+        for i0 in range(0, n, b):
+            i1 = min(i0 + b, n)
+            strip, rs1, rs2 = _panel_stats(x[i0:i1], x, metric)
+            rowsum_d[i0:i1] = rs1
+            rowsum_d2[i0:i1] = rs2
+            upper = cols[None, :] > torch.arange(i0, i1, device=dev)[:, None]
+            condensed[row_start(n, i0):row_start(n, i1)] = strip[upper]
+    obs.charge_production(n, d, b, metric=metric.name)
 
     row_means = -0.5 * rowsum_d2 / n
     sum_c = 0.5 * torch.sum(rowsum_d.double())
@@ -129,28 +142,3 @@ def pairwise_distances(x, metric="braycurtis", *, out: str = "square",
     for i0 in range(0, n, b):
         square[i0:i0 + b] = pairwise_panel_op(x[i0:i0 + b], x, metric)
     return square
-
-
-def production_moments(prod: dict) -> dict:
-    """The condensed Mantel moments of a production: its fused ``norm``
-    and the centred-normalized ``hat`` vector, one O(m) pass. The
-    permuted side of a Mantel test consumes ``norm``, a fixed side its
-    ``hat`` (``Workspace.moments`` of the reference, feature branch)."""
-    return {"norm": prod["norm"],
-            "hat": (prod["condensed"] - prod["mean"]) / prod["norm"]}
-
-
-def production_mantel(prod_x: dict, prod_y: dict, permutations: int = 999,
-                      key=None, alternative: str = "two-sided",
-                      orders=None, device: DeviceLike = None):
-    """Mantel test of two productions on ``device`` (``None``: the card):
-    X permuted through its condensed vector and fused ``norm``, Y held
-    fixed as its ``hat`` (``Workspace.mantel`` of the reference, feature
-    branch). Returns the engine's ``PermutationTestResult``."""
-    if prod_x["n"] != prod_y["n"]:
-        raise ValueError(f"productions of {prod_x['n']} and {prod_y['n']} "
-                         f"samples")
-    return mantel_condensed(prod_x["condensed"],
-                            production_moments(prod_x)["norm"],
-                            production_moments(prod_y)["hat"], prod_x["n"],
-                            permutations, key, alternative, orders, device)

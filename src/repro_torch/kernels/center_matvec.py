@@ -19,6 +19,9 @@ from repro_torch.kernels import _build
 #: widest X block one launch takes: the square-operator PERMANOVA's tile
 #: of 32 permutations x 4 groups.
 KMAX = 128
+#: output rows one block owns and sweeps every column for (``kBM`` of
+#: ``csrc/center_matvec.cu``): a launch runs ceil(n / STRIP_ROWS) blocks.
+STRIP_ROWS = 128
 
 
 def center_matvec(d: torch.Tensor, x: torch.Tensor, row_means: torch.Tensor,

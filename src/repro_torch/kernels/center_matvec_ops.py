@@ -16,6 +16,7 @@ from repro_torch.kernels.center_matvec import KMAX, center_matvec
 from repro_torch.kernels.center_matvec_ref import (center_corrections,
                                                    center_matvec_ref)
 from repro_torch.kernels.dispatch import require, same_device
+from repro_torch.obs.compile import note_trace
 
 
 def center_matvec_op(d: torch.Tensor, x: torch.Tensor,
@@ -31,6 +32,8 @@ def center_matvec_op(d: torch.Tensor, x: torch.Tensor,
     require(row_means, "row_means", torch.float32, (n,))
     require(global_mean, "global_mean", torch.float32, ())
     device = same_device(d, x, row_means, global_mean)
+    note_trace("kernels.center_matvec",
+               (n, x.shape[1], d.dtype, device.type))
     if device.type == "cpu":
         return center_matvec_ref(d, x, row_means, global_mean)
     if device.type != "cuda":

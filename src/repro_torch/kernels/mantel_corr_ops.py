@@ -21,6 +21,7 @@ from repro_torch.kernels.dispatch import require, same_device
 from repro_torch.kernels.inverse_orders import inverse_orders
 from repro_torch.kernels.mantel_corr import mantel_corr
 from repro_torch.kernels.mantel_corr_ref import mantel_corr_plain
+from repro_torch.obs.compile import note_trace
 
 
 def mantel_corr_hoist(x: torch.Tensor, y: torch.Tensor
@@ -48,6 +49,7 @@ def mantel_corr_op(x: torch.Tensor, y: torch.Tensor, orders: torch.Tensor,
     device = same_device(x, y, orders)
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
+    note_trace("kernels.mantel_corr", (n, perm_batch, x.dtype, device.type))
     k_perms = orders.shape[0]
     if orders.ndim != 2 or orders.shape[1] != n:
         raise ValueError(f"orders must be (K, {n}), got {tuple(orders.shape)}")

@@ -15,6 +15,7 @@ from repro_torch.dist.metrics import Metric, get_metric
 from repro_torch.kernels.dispatch import require, same_device
 from repro_torch.kernels.pairwise import pairwise_panel
 from repro_torch.kernels.pairwise_ref import pairwise_panel_ref
+from repro_torch.obs.compile import note_trace
 
 
 def pairwise_panel_op(xi: torch.Tensor, x: torch.Tensor,
@@ -28,6 +29,9 @@ def pairwise_panel_op(xi: torch.Tensor, x: torch.Tensor,
     require(xi, "xi", torch.float32)
     require(x, "x", torch.float32)
     device = same_device(xi, x)
+    note_trace("kernels.pairwise_panel",
+               (tuple(xi.shape), tuple(x.shape), metric.name, x.dtype,
+                device.type))
     if device.type == "cpu":
         return pairwise_panel_ref(xi, x, metric)
     if device.type != "cuda":

@@ -25,6 +25,7 @@ from repro_torch.kernels.dispatch import require, same_device, snap_chunk
 from repro_torch.kernels.inverse_orders import inverse_orders
 from repro_torch.kernels.permute_reduce import permute_reduce_kernel
 from repro_torch.kernels.permute_reduce_ref import permute_reduce_ref
+from repro_torch.obs.compile import note_trace
 
 #: condensed entries per chunk of the plain version: one (B, chunk) gather
 #: tile on the CPU.
@@ -60,6 +61,10 @@ def permute_reduce(xc: torch.Tensor, ys: torch.Tensor, orders: torch.Tensor,
     require(xc, "xc", torch.float32)
     require(ys, "ys", torch.float32)
     device = same_device(xc, ys, orders)
+    # one call of THE padded per_batch entry: one signature per (n, S, B)
+    # whatever K the engine runs
+    note_trace("kernels.permute_reduce",
+               (n, ys.shape[0], perms, xc.dtype, device.type))
     if m == 0:                                     # n < 2: empty triangle
         return torch.zeros((ys.shape[0], perms), dtype=torch.float32,
                            device=device)

@@ -1,0 +1,43 @@
+"""repro_torch.obs — observability for the analysis stack.
+
+The counterpart of ``repro/obs``, five of its seven modules:
+
+* ``obs.config``  — ``ObsConfig``, the switchboard ``ExecConfig`` carries;
+* ``obs.trace``   — nested span tracer with phase tags, JSON and Chrome
+  ``trace_event`` export, an optional ``torch.profiler`` bridge, and a
+  zero-overhead no-op path when disabled;
+* ``obs.ledger``  — the audited analytic-traffic registry (hoist pass
+  tables, Mantel per-permutation models, production feature reads),
+  charged live by the instrumented stack;
+* ``obs.compile`` — the call sentinel: calls and specializations per
+  instrumented entry point, with a runtime guard for the "one program
+  serves any K" invariant;
+* ``obs.report``  — ``ObsSession`` (one run's tracer + ledger + sentinel
+  window) and ``RunReport`` (one JSON per run).
+
+``obs/probe.py`` and ``obs/drift.py`` measure XLA's compiled HLO and have
+no counterpart yet; ``obs/metrics.py`` serves the reference's serving
+layer, which is not ported.
+
+Enable per session with ``ExecConfig(obs=ObsConfig(enabled=True))`` and
+read the result with ``Workspace.report()``.
+"""
+
+from repro_torch.obs.compile import (CompileSentinel, RecompileError,
+                                     note_trace, sentinel)
+from repro_torch.obs.config import ObsConfig
+from repro_torch.obs.ledger import (FEATURE_HOIST_PASSES, HOIST_PASSES,
+                                    Ledger, LedgerEntry, hoist_floats,
+                                    perm_traffic_floats, production_floats)
+from repro_torch.obs.report import ObsSession, RunReport, build_report
+from repro_torch.obs.trace import (NULL_OBS, NULL_SPAN, PHASES, Span, Tracer,
+                                   current_obs)
+
+__all__ = [
+    "CompileSentinel", "RecompileError", "note_trace", "sentinel",
+    "ObsConfig",
+    "FEATURE_HOIST_PASSES", "HOIST_PASSES", "Ledger", "LedgerEntry",
+    "hoist_floats", "perm_traffic_floats", "production_floats",
+    "ObsSession", "RunReport", "build_report",
+    "NULL_OBS", "NULL_SPAN", "PHASES", "Span", "Tracer", "current_obs",
+]

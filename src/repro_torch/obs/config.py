@@ -1,0 +1,65 @@
+"""ObsConfig: the observability switchboard carried by ``ExecConfig``.
+
+The counterpart of ``repro/obs/config.py``, with the same fields and
+validation. A frozen, hashable dataclass: it rides inside
+``api.ExecConfig``, so it compares and hashes by value and holds no
+mutable state. The mutable side (the span tree, the ledger entries) lives
+in ``obs.report.ObsSession``, which a ``Workspace`` builds from this
+config.
+
+``enabled=False`` (the default) is the zero-overhead contract: a
+Workspace built with it never constructs a session, every ``span()``
+resolves to the shared no-op ``obs.trace.NULL_SPAN`` and every ledger
+charge is a no-op of ``obs.trace.NULL_OBS``. The call-count sentinel
+(``obs.compile``) is the one always-on piece.
+
+This module imports nothing of ``repro_torch``, so ``api.config`` can
+import it without cycles.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ObsConfig:
+    """What the observability layer collects for one session.
+
+    Fields
+    ------
+    enabled:
+        Master switch. ``False`` (default): no session is created, every
+        span and charge takes the no-op path.
+    spans:
+        Collect the nested span tree (``obs.trace.Tracer``).
+    ledger:
+        Charge the analytic traffic ledger (``obs.ledger.Ledger``) at the
+        instrumented call sites: hoist builds, permutation batches, the
+        distance production sweep.
+    annotate_xla:
+        Open a ``torch.profiler.record_function(name)`` around each span,
+        so spans line up with the kernels in a torch profile (the
+        reference bridges into ``jax.profiler.TraceAnnotation``; the name
+        is kept so a config carries across). Off by default: it adds a
+        profiler call per span even when no profile is being taken.
+    probe:
+        Kept for the reference's configs. The reference measures its
+        jitted entry points from XLA's compiled HLO at report time
+        (``obs/probe.py``, ``obs/drift.py``); those modules are not
+        ported, so a port report's ``measured`` and ``drift`` sections
+        are ``None`` whatever this says.
+    """
+
+    enabled: bool = False
+    spans: bool = True
+    ledger: bool = True
+    annotate_xla: bool = False
+    probe: bool = True
+
+    def __post_init__(self):
+        for f in ("enabled", "spans", "ledger", "annotate_xla", "probe"):
+            v = getattr(self, f)
+            if not isinstance(v, bool):
+                raise ValueError(f"ObsConfig.{f} must be a bool, "
+                                 f"got {v!r}")

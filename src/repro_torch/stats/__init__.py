@@ -14,8 +14,9 @@ The counterpart of ``repro/stats``:
 * ``partial_mantel`` — three-matrix partial correlation, ŷ residualized
                        once; each tile is one S = 2 ``permute_reduce``.
 
-``core.mantel.mantel`` is a client of the same engine. Each test has an
-eager ``*_ref`` oracle in scikit-bio's evaluation order.
+``core.mantel.mantel`` is a client of the same engine. The free test
+functions wrap a one-shot ``api.Workspace``, as in the reference. Each
+test has an eager ``*_ref`` oracle in scikit-bio's evaluation order.
 """
 
 from repro_torch.stats.engine import (PermutationTestResult, Statistic,
@@ -24,7 +25,8 @@ from repro_torch.stats.engine import (PermutationTestResult, Statistic,
 from repro_torch.stats.anosim import (AnosimStatistic, anosim, anosim_ref,
                                       rank_transform,
                                       rank_transform_condensed)
-from repro_torch.stats.partial_mantel import (PartialMantelStatistic,
+from repro_torch.stats.partial_mantel import (PartialMantelPallasStatistic,
+                                              PartialMantelStatistic,
                                               partial_mantel,
                                               partial_mantel_ref)
 from repro_torch.stats.permanova import (PermanovaOperatorStatistic,
@@ -38,7 +40,8 @@ __all__ = [
     "permutation_orders", "permutation_test",
     "AnosimStatistic", "anosim", "anosim_ref", "rank_transform",
     "rank_transform_condensed",
-    "PartialMantelStatistic", "partial_mantel", "partial_mantel_ref",
+    "PartialMantelPallasStatistic", "PartialMantelStatistic",
+    "partial_mantel", "partial_mantel_ref",
     "PermanovaOperatorStatistic", "PermanovaStatistic", "permanova",
     "permanova_ref",
     "PermdispStatistic", "permdisp", "permdisp_ref",

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.core.distance_matrix import (DistanceMatrix, condensed_form,
                                               permuted_condensed)
-from repro_torch.kernels.dispatch import DeviceLike, resolve_device
+from repro_torch.kernels.dispatch import DeviceLike
 from repro_torch.kernels.permute_reduce_ops import permute_reduce
 from repro_torch.stats import engine
 from repro_torch.stats.engine import PermutationTestResult
@@ -70,6 +70,10 @@ class AnosimStatistic:
     ``dm`` may be a square (n, n) matrix, a condensed (m,) vector, or
     ``None`` when ``pre`` carries the ``rank_transform`` dict. ``grouping``
     holds the int codes in [0, num_groups) on the device of the data."""
+
+    #: the ledger's per-permutation traffic model of this loop
+    #: (``obs.ledger.perm_traffic_floats``)
+    ledger_model = "condensed_fused"
 
     dm: Optional[torch.Tensor]
     grouping: torch.Tensor
@@ -120,15 +124,16 @@ def anosim(dm: DistanceMatrix, grouping, permutations: int = 999,
            device: DeviceLike = None) -> PermutationTestResult:
     """Hoisted+fused ANOSIM on ``device`` (``None``: the card); one-sided
     (greater), like scikit-bio. ``key`` and ``orders`` as in
-    ``engine.permutation_test``."""
-    dev = resolve_device(device)
-    codes, num_groups = engine.grouping_codes(grouping, len(dm), dev)
-    pre = rank_transform_condensed(condensed_form(dm.data.to(dev)))
-    stat = AnosimStatistic(None, codes, len(dm), num_groups, pre=pre)
-    return engine.permutation_test(stat, permutations, key,
-                                   alternative="greater",
-                                   batch_size=batch_size, orders=orders,
-                                   method="anosim", device=dev)
+    ``engine.permutation_test``. A thin wrapper over a one-shot
+    ``api.Workspace``: a study running several tests should hold its own
+    Workspace so the rank hoist is shared."""
+    from repro_torch.api.config import ExecConfig
+    from repro_torch.api.workspace import Workspace
+    # validate=False: trust the DistanceMatrix as constructed
+    return Workspace(dm, config=ExecConfig(device=device),
+                     validate=False).anosim(grouping, permutations, key,
+                                            batch_size=batch_size,
+                                            orders=orders)
 
 
 # --------------------------------------------------------------------------

@@ -8,7 +8,13 @@ primary path. ``permutation_test`` pads the (K, n) orders up to full
 ``batch_size`` tiles by wrapping real permutations (``engine.py:226-246``
 of the reference), hands each tile to ``per_batch`` — for the Mantel
 family one launch of the ``permute_reduce`` kernel per tile on the card —
-and drops the padded tail before finishing.
+and drops the padded tail before finishing. Under an observing session
+(``repro_torch.obs``) the test runs in an ``engine.<method>`` span and,
+for a statistic that names its ``ledger_model`` (the condensed gathers of
+the Mantel family and ANOSIM, the statistics the reference batches),
+charges that per-permutation model for every row of the padded tiles;
+each loop function notes its calls under the reference's sentinel
+names (``stats.engine.*``).
 
 Orders are the argsort of uint32-range random words from a CPU
 ``torch.Generator`` (the reference draws threefry bits in JAX, which torch
@@ -25,8 +31,11 @@ from typing import Any, Optional, Protocol, Union, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch.api.config import ExecConfig
 from repro_torch.core.distance_matrix import as_generator
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
+from repro_torch.obs.compile import note_trace
+from repro_torch.obs.trace import current_obs
 
 ALTERNATIVES = ("two-sided", "greater", "less")
 #: permutations per tile of the battery's tests (``Workspace``'s default
@@ -97,6 +106,8 @@ def finish(orig_stat: torch.Tensor, permuted_stats: torch.Tensor,
 def hoist_and_observe(stat: Statistic, device: torch.device):
     """``(invariants, observed)``: the hoist, and the statistic at the
     identity order."""
+    note_trace("stats.engine.hoist_and_observe",
+               (type(stat).__name__, stat.n))
     inv = stat.hoist()
     identity = torch.arange(stat.n, dtype=torch.int32, device=device)
     return inv, stat.per_perm(inv, identity)
@@ -105,6 +116,8 @@ def hoist_and_observe(stat: Statistic, device: torch.device):
 def tile_statistics(stat: Statistic, invariants, orders: torch.Tensor
                     ) -> torch.Tensor:
     """(B,) null statistics for one tile of permutation orders."""
+    note_trace("stats.engine.tile",
+               (type(stat).__name__, stat.n, orders.shape[0]))
     per_batch = getattr(stat, "per_batch", None)
     if per_batch is not None:
         return per_batch(invariants, orders)
@@ -116,8 +129,15 @@ def null_distribution(stat: Statistic, invariants, orders: torch.Tensor,
     """(K,) null draws: the padded-tile loop, one ``tile_statistics`` call
     per full tile of ``batch_size`` orders, the wrapped tail dropped."""
     permutations = orders.shape[0]
+    note_trace("stats.engine.null_distribution",
+               (type(stat).__name__, stat.n, permutations, batch_size))
     if permutations == 0:
         return torch.zeros((0,), dtype=torch.float32, device=orders.device)
+    if getattr(stat, "per_batch", None) is not None:
+        # K is not in this signature: one padded per_batch program per
+        # (statistic, n, B) serves every K
+        note_trace("stats.engine.per_batch",
+                   (type(stat).__name__, stat.n, batch_size))
     num_tiles = -(-permutations // batch_size)
     total = num_tiles * batch_size
     if total != permutations:
@@ -153,17 +173,22 @@ def grouping_codes(grouping, n: int, device: torch.device
 
 def permutation_test(stat: Statistic, permutations: int = 999,
                      key: Union[int, torch.Generator, None] = None,
-                     alternative: str = "two-sided", batch_size: int = 8,
+                     alternative: str = "two-sided",
+                     batch_size: Optional[int] = None,
                      orders: Optional[torch.Tensor] = None, method: str = "",
-                     device: DeviceLike = None) -> PermutationTestResult:
+                     device: DeviceLike = None,
+                     config: Optional[ExecConfig] = None
+                     ) -> PermutationTestResult:
     """Run a hoisted + fused Monte-Carlo permutation test of ``stat``,
     whose tensors lie on ``device`` (``None``: the card).
 
     ``key`` seeds the orders (an int, ``None`` for seed 0, or a CPU
     generator); ``orders`` replaces the draw with given (K, n) orders.
+    ``batch_size`` resolves as explicit arg > ``config.batch_size`` > 8.
     """
     if alternative not in ALTERNATIVES:
         raise ValueError(f"unknown alternative {alternative!r}")
+    batch_size = (config or ExecConfig()).resolve_batch_size(batch_size, 8)
     if batch_size < 1:
         raise ValueError(f"batch_size must be positive, got {batch_size}")
     dev = resolve_device(device)
@@ -180,7 +205,18 @@ def permutation_test(stat: Statistic, permutations: int = 999,
                              f"{tuple(orders.shape)}")
         if permutations and (int(orders.min()) < 0 or int(orders.max()) >= n):
             raise ValueError(f"orders must hold indices in [0, {n})")
-    invariants, observed = hoist_and_observe(stat, dev)
-    permuted = null_distribution(stat, invariants, orders, batch_size)
+    obs = current_obs()          # the ambient session (NULL_OBS when none)
+    batched = getattr(stat, "per_batch", None) is not None
+    tiles = -(-permutations // batch_size) if permutations else 0
+    with obs.span(f"engine.{method or type(stat).__name__}",
+                  phase="per_perm", n=n, permutations=permutations,
+                  batch_size=batch_size, tiles=tiles, batched=batched):
+        invariants, observed = hoist_and_observe(stat, dev)
+        permuted = null_distribution(stat, invariants, orders, batch_size)
+    model = getattr(stat, "ledger_model", None)
+    if model is not None and permutations:
+        # the padded tail rows are real gathers, so they are charged too
+        obs.charge_perm_batch(method or type(stat).__name__, n,
+                              tiles * batch_size, batch_size, model=model)
     return finish(observed, permuted, permutations, alternative, n,
                   method=method, key=seed)

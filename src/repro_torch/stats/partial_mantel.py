@@ -28,9 +28,9 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.core.distance_matrix import (DistanceMatrix, condensed_form,
+from repro_torch.core.distance_matrix import (DistanceMatrix,
                                               permuted_condensed)
-from repro_torch.kernels.dispatch import DeviceLike, resolve_device
+from repro_torch.kernels.dispatch import DeviceLike
 from repro_torch.kernels.permute_reduce_ops import permute_reduce
 from repro_torch.stats import engine
 from repro_torch.stats.engine import PermutationTestResult
@@ -48,6 +48,10 @@ class PartialMantelStatistic:
     ``x``/``y``/``z`` may be square (n, n) or condensed (m,). ``pre``
     optionally carries the hoist (``{"normxm", "r_yz", "y_res", "z"}``, all
     condensed), and then ``y`` and ``z`` may be ``None``."""
+
+    #: the ledger's per-permutation traffic model of this loop
+    #: (``obs.ledger.perm_traffic_floats``)
+    ledger_model = "condensed_fused"
 
     x: torch.Tensor                 # permuted side
     y: Optional[torch.Tensor]       # held fixed
@@ -85,6 +89,15 @@ class PartialMantelStatistic:
         return self._finish(inv, stats[0], stats[1])
 
 
+@dataclasses.dataclass
+class PartialMantelPallasStatistic(PartialMantelStatistic):
+    """The same statistic under the name the reference gives it with its
+    Pallas ``permute_reduce`` backend pinned; ``Workspace`` builds it when
+    ``config.kernel == "pallas"``. In the port both names run the same
+    route: each tile one S = 2 ``permute_reduce`` (the CUDA kernel on the
+    card, its plain version on the CPU)."""
+
+
 def _residualize(yhat: torch.Tensor, zhat: torch.Tensor) -> dict:
     """``{"r_yz", "y_res", "z"}`` from the centred-normalized fixed sides."""
     r_yz = torch.dot(yhat, zhat)
@@ -102,29 +115,16 @@ def partial_mantel(x: DistanceMatrix, y: DistanceMatrix, z: DistanceMatrix,
                    device: DeviceLike = None) -> PermutationTestResult:
     """Hoisted+fused partial Mantel on ``device`` (``None``: the card),
     x permuted, y and z held fixed. Raises when y and z are (nearly)
-    collinear. ``key`` and ``orders`` as in ``engine.permutation_test``."""
-    from repro_torch.core.mantel import condensed_moments_vec
-    dev = resolve_device(device)
-    n = len(x)
-    if not len(y) == len(z) == n:
-        raise ValueError("x, y and z must have the same shape")
-    xc = condensed_form(x.data.to(dev))
-    yhat = condensed_moments_vec(condensed_form(y.data.to(dev)))["hat"]
-    zhat = condensed_moments_vec(condensed_form(z.data.to(dev)))["hat"]
-    pre = _residualize(yhat, zhat)
-    # checked eagerly: |r_yz| -> 1 makes the residualization 0/0 and NaNs
-    # the whole null distribution
-    r = float(pre["r_yz"])
-    if 1.0 - r * r < COLLINEAR_TOL:
-        raise ValueError(
-            f"y and z are (nearly) collinear (r_yz={r:.6f}); the partial "
-            f"correlation is undefined — use the plain Mantel test")
-    pre["normxm"] = condensed_moments_vec(xc)["norm"]
-    stat = PartialMantelStatistic(xc, None, None, n, pre=pre)
-    return engine.permutation_test(stat, permutations, key,
-                                   alternative=alternative,
-                                   batch_size=batch_size, orders=orders,
-                                   method="partial_mantel", device=dev)
+    collinear. ``key`` and ``orders`` as in ``engine.permutation_test``.
+    A thin wrapper over a one-shot ``api.Workspace``: sessions hold their
+    own Workspace to share the normalization hoists."""
+    from repro_torch.api.config import ExecConfig
+    from repro_torch.api.workspace import Workspace
+    # validate=False: trust the DistanceMatrix as constructed
+    return Workspace(x, config=ExecConfig(device=device),
+                     validate=False).partial_mantel(
+        y, z, permutations, key, alternative=alternative,
+        batch_size=batch_size, orders=orders)
 
 
 # --------------------------------------------------------------------------

@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.core.centering import center_distance_matrix
 from repro_torch.core.distance_matrix import DistanceMatrix
-from repro_torch.kernels.dispatch import DeviceLike, resolve_device
+from repro_torch.kernels.dispatch import DeviceLike
 from repro_torch.stats import engine
 from repro_torch.stats.engine import PermutationTestResult
 
@@ -130,14 +130,16 @@ def permanova(dm: DistanceMatrix, grouping, permutations: int = 999,
               device: DeviceLike = None) -> PermutationTestResult:
     """Hoisted+fused PERMANOVA with the materialized G on ``device``
     (``None``: the card); one-sided (greater), like scikit-bio. ``key`` and
-    ``orders`` as in ``engine.permutation_test``."""
-    dev = resolve_device(device)
-    codes, num_groups = engine.grouping_codes(grouping, len(dm), dev)
-    stat = PermanovaStatistic(dm.data.to(dev), codes, len(dm), num_groups)
-    return engine.permutation_test(stat, permutations, key,
-                                   alternative="greater",
-                                   batch_size=batch_size, orders=orders,
-                                   method="permanova", device=dev)
+    ``orders`` as in ``engine.permutation_test``. A thin wrapper over a
+    one-shot ``api.Workspace``: a study running several tests should hold
+    its own Workspace so the centering hoist is shared."""
+    from repro_torch.api.config import ExecConfig
+    from repro_torch.api.workspace import Workspace
+    # validate=False: trust the DistanceMatrix as constructed
+    return Workspace(dm, config=ExecConfig(device=device),
+                     validate=False).permanova(grouping, permutations, key,
+                                               batch_size=batch_size,
+                                               orders=orders)
 
 
 # --------------------------------------------------------------------------

@@ -27,7 +27,7 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.core.distance_matrix import DistanceMatrix
-from repro_torch.kernels.dispatch import DeviceLike, resolve_device
+from repro_torch.kernels.dispatch import DeviceLike
 from repro_torch.stats import engine
 from repro_torch.stats.engine import PermutationTestResult
 
@@ -83,21 +83,20 @@ def permdisp(dm: DistanceMatrix, grouping, permutations: int = 999,
     axes, exact but a full-rank range finder; a small ``dimensions`` keeps
     the skinny-block cost). ``omega`` replaces the fsvd sketch, which pcoa
     otherwise draws from its fixed seed; ``key`` and ``orders`` drive only
-    the permutation orders, as in ``engine.permutation_test``.
+    the permutation orders, as in ``engine.permutation_test``. A thin
+    wrapper over a one-shot ``api.Workspace``: a study should hold its own
+    Workspace so the ordination hoist is shared with ``ws.pcoa()``.
     """
-    # deferred: core.pcoa sits under core.mantel, which imports this package
-    from repro_torch.core.pcoa import pcoa, resolve_dimensions
-    dev = resolve_device(device)
-    n = len(dm)
-    codes, num_groups = engine.grouping_codes(grouping, n, dev)
-    coords = pcoa(dm, dimensions=resolve_dimensions(dimensions, n),
-                  method=method, check_finite=False, omega=omega,
-                  device=dev).coordinates
-    stat = PermdispStatistic(coords, codes, n, num_groups)
-    return engine.permutation_test(stat, permutations, key,
-                                   alternative="greater",
-                                   batch_size=batch_size, orders=orders,
-                                   method="permdisp", device=dev)
+    # deferred: the workspace imports core and stats
+    from repro_torch.api.config import ExecConfig
+    from repro_torch.api.workspace import Workspace
+    # validate=False: trust the DistanceMatrix as constructed
+    return Workspace(dm, config=ExecConfig(device=device),
+                     validate=False).permdisp(grouping, permutations, key,
+                                              dimensions=dimensions,
+                                              method=method,
+                                              batch_size=batch_size,
+                                              orders=orders, omega=omega)
 
 
 # --------------------------------------------------------------------------

@@ -31,11 +31,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.api import ExecConfig, Workspace
 from repro_torch.core import (CondensedCenteredGramOperator, mantel, pcoa,
                               random_distance_matrix)
 from repro_torch.core.distance_matrix import DistanceMatrix, triangle_coords
-from repro_torch.dist import (METRICS, pairwise_condensed, pairwise_distances,
-                              production_mantel)
+from repro_torch.dist import METRICS, pairwise_condensed, pairwise_distances
 from repro_torch.kernels import _build
 from repro_torch.kernels.center import (center_finish, center_pass1,
                                         center_pass2)
@@ -372,12 +372,14 @@ def test_feature_path_launches_and_matches_cpu(cuda):
     orders = permutation_orders(4, 49, n)
     results = {}
     for dev in ("cpu", cuda):
+        config = ExecConfig(block=128, device=dev)
         _build.reset_launches()
-        px = pairwise_condensed(x, block=128, device=dev)
-        py = pairwise_condensed(y, block=128, device=dev)
-        op = CondensedCenteredGramOperator.from_production(px)
-        r = pcoa(None, dimensions=4, operator=op, omega=omega, device=dev)
-        m = production_mantel(px, py, 49, orders=orders, device=dev)
+        wx = Workspace.from_features(x, config=config)
+        wy = Workspace.from_features(y, config=config)
+        r = wx.pcoa(dimensions=4, omega=omega)
+        m = wx.mantel(wy, 49, orders=orders)
+        px = {"condensed": wx.condensed(),
+              **wx.cache.get("dist_means", lambda: None)}
         results[str(dev)] = (px, r.eigenvalues.cpu(), m,
                              dict(_build.launches))
     (p_cpu, ev_cpu, m_cpu, l_cpu), (p_gpu, ev_gpu, m_gpu, l_gpu) = \
@@ -505,6 +507,149 @@ def test_battery_card_matches_cpu_with_its_launches(cuda):
                                                                    1e-5)
         assert abs(gpu.statistic - cpu.statistic) <= tol, name
         assert gpu.p_value == cpu.p_value, name
+
+
+
+def _session_battery(ws, y, z, groups, k, omega, orders):
+    """The four grouping tests and the Mantel pair on one session."""
+    return {"pcoa": ws.pcoa(dimensions=10, omega=omega),
+            "permanova": ws.permanova(groups, k, orders=orders),
+            "permdisp": ws.permdisp(groups, k, dimensions=10,
+                                    orders=orders, omega=omega),
+            "anosim": ws.anosim(groups, k, orders=orders),
+            "mantel": ws.mantel(y, k, orders=orders),
+            "partial_mantel": ws.partial_mantel(y, z, k, orders=orders)}
+
+
+@pytest.mark.parametrize("n", [700, 1500])
+def test_session_battery_is_bitwise_the_free_functions(cuda, n):
+    """A square-backed session on the card gives bitwise the statistics
+    and p-values of the free functions on the same orders and sketch;
+    admission launches ``symhollow`` once a matrix, ``pcoa`` the four
+    ``center_matvec`` launches, PERMDISP none, and the center pair once."""
+    k = 99
+    d, y, z = (random_distance_matrix(s, n, dim=5, device=cuda).data
+               for s in (21, 22, 23))
+    groups = np.arange(n) % 4
+    omega = torch.randn((n, 20), generator=torch.Generator().manual_seed(3))
+    orders = permutation_orders(5, k, n)
+    _build.reset_launches()
+    ws = Workspace(d)
+    wy, wz = Workspace(y), Workspace(z)
+    assert _build.launches["symhollow"] == 3
+    got = _session_battery(ws, wy, wz, groups, k, omega, orders)
+    launches = {key: v for key, v in _build.launches.items() if v}
+    tiles = -(-k // 32)
+    assert launches == {"symhollow": 3, "center_matvec": 4,
+                        "center_pass1": 1, "center_finish": 1,
+                        "center_pass2": 1, "inverse_orders": 3 * tiles,
+                        "permute_reduce": 3 * tiles,
+                        "permute_reduce_finish": 3 * tiles}
+    assert all(ws.cache.build_count(a) == 1 for a in
+               ("operator", "gram", "condensed", "ranks", "moments",
+                "coords"))
+    x_dm, y_dm, z_dm = ws.dm, wy.dm, wz.dm
+    want = {"permanova": permanova(x_dm, groups, k, orders=orders),
+            "permdisp": permdisp(x_dm, groups, k, dimensions=10,
+                                 orders=orders, omega=omega),
+            "anosim": anosim(x_dm, groups, k, orders=orders),
+            "partial_mantel": partial_mantel(x_dm, y_dm, z_dm, k,
+                                             orders=orders)}
+    for name, w in want.items():
+        assert (got[name].statistic, got[name].p_value) == \
+            (w.statistic, w.p_value), name
+    stat, p, _ = mantel(x_dm, y_dm, k, orders=orders)
+    assert (got["mantel"].statistic, got["mantel"].p_value) == (stat, p)
+    assert torch.equal(got["pcoa"].eigenvalues, pcoa(
+        x_dm, dimensions=10, omega=omega).eigenvalues)
+
+
+@pytest.mark.parametrize("n", [700, 1500])
+def test_session_admission_launches_symhollow_once(cuda, n):
+    """A raw matrix is validated by one ``symhollow`` launch on the card;
+    a validated DistanceMatrix is trusted; an invalid one is refused."""
+    d = random_distance_matrix(24, n, dim=5, device=cuda)
+    _build.reset_launches()
+    ws = Workspace(d.data)
+    assert _build.launches["symhollow"] == 1
+    assert ws.data.device.type == "cuda" and ws.dm._validated
+    Workspace(d)
+    Workspace(d.data.cpu().numpy().astype(np.float64))
+    assert _build.launches["symhollow"] == 2
+    bad = d.data.clone()
+    bad[0, 1] += 1.0
+    with pytest.raises(ValueError, match="symmetric"):
+        Workspace(bad)
+
+
+@pytest.mark.parametrize("impl", ["ref", "fused"])
+@pytest.mark.parametrize("n", [700, 1500])
+def test_every_centering_impl_runs_the_center_pair(cuda, n, impl):
+    """On the card each accepted ``centering_impl`` forms the Gower matrix
+    with the ``center`` kernel pair, once a session, and the statistic
+    agrees with the CPU session run by the same knob."""
+    k = 49
+    d = random_distance_matrix(25, n, dim=5, device=cuda).data
+    groups = np.arange(n) % 3
+    orders = permutation_orders(7, k, n)
+    results = {}
+    for dev in ("cpu", cuda):
+        ws = Workspace(d, config=ExecConfig(device=dev, centering_impl=impl))
+        _build.reset_launches()
+        results[str(dev)] = ws.permanova(groups, k, orders=orders)
+        ws.pcoa(dimensions=5, method="eigh")
+        launches = {key: v for key, v in _build.launches.items() if v}
+        assert launches == ({} if dev == "cpu" else {
+            "center_pass1": 1, "center_finish": 1, "center_pass2": 1})
+    _build.reset_launches()
+    pcoa(DistanceMatrix(d, device=cuda), dimensions=5, method="eigh",
+         centering_impl=impl)
+    assert (_build.launches["center_pass1"], _build.launches["center_finish"],
+            _build.launches["center_pass2"]) == (1, 1, 1)
+    cpu, gpu = results["cpu"], results["cuda"]
+    assert abs(gpu.statistic - cpu.statistic) <= 1e-5
+    assert gpu.p_value == cpu.p_value
+
+
+@pytest.mark.parametrize("n", [700, 1500])
+def test_feature_session_builds_no_square(cuda, n):
+    """A feature-backed session runs the battery on the card without an
+    n×n buffer: no ``"square"`` key, PCoA and PERMANOVA through the
+    condensed operator (no ``center_matvec``), and its answers match the
+    same session on the CPU."""
+    k = 49
+    x = _abundances(n, 40, 31)
+    y = _abundances(n, 40, 32)
+    groups = np.arange(n) % 3
+    omega = torch.randn((n, 13), generator=torch.Generator().manual_seed(4))
+    orders = permutation_orders(6, k, n)
+    results = {}
+    for dev in ("cpu", cuda):
+        config = ExecConfig(device=dev)
+        _build.reset_launches()
+        ws = Workspace.from_features(x, config=config)
+        wy = Workspace.from_features(y, config=config)
+        r = {"pcoa": ws.pcoa(dimensions=3, omega=omega),
+             "mantel": ws.mantel(wy, k, orders=orders),
+             "anosim": ws.anosim(groups, k, orders=orders),
+             "permanova": ws.permanova(groups, k, orders=orders)}
+        for w in (ws, wy):
+            assert "square" not in w.cache and w._dm is None
+            assert w.cache.build_count("square") == 0
+        results[str(dev)] = (r, dict(_build.launches))
+    (cpu, l_cpu), (gpu, l_gpu) = results["cpu"], results["cuda"]
+    assert set(l_cpu.values()) == {0}
+    panels = 2 * -(-n // 256)
+    assert {key: v for key, v in l_gpu.items() if v} == {
+        "pairwise_panel": panels, "inverse_orders": 4,
+        "permute_reduce": 4, "permute_reduce_finish": 4}
+    np.testing.assert_allclose(gpu["pcoa"].eigenvalues.cpu().numpy(),
+                               cpu["pcoa"].eigenvalues.numpy(), rtol=1e-4)
+    for name in ("mantel", "anosim", "permanova"):
+        tol = 1e-4 * abs(cpu[name].statistic) if name == "permanova" \
+            else 1e-5
+        assert abs(gpu[name].statistic - cpu[name].statistic) <= tol, name
+        assert gpu[name].p_value == cpu[name].p_value, name
 
 
 # the phase-2d shapes of chip_smoke.py, and edges of both kernels and paths

@@ -20,10 +20,10 @@ from repro.dist import METRICS as JAX_METRICS
 from repro.dist import pairwise_condensed as jax_condensed
 from repro.dist import pairwise_distances as jax_distances
 from repro.dist.driver import _panel_condensed_indices
+from repro_torch.api import ExecConfig, Workspace
 from repro_torch.core import DistanceMatrix
 from repro_torch.dist import (METRICS, condensed_size, get_metric,
-                              pairwise_condensed, pairwise_distances,
-                              production_moments)
+                              pairwise_condensed, pairwise_distances)
 from repro_torch.dist.driver import row_start
 
 CPU = "cpu"
@@ -104,7 +104,8 @@ def test_fused_hoists_match_square_recomputation():
     flat = sq[np.triu_indices(31, 1)]
     np.testing.assert_allclose(float(prod["norm"]),
                                np.linalg.norm(flat - flat.mean()), rtol=1e-4)
-    moments = production_moments(prod)
+    moments = Workspace.from_features(
+        x, "braycurtis", config=ExecConfig(block=8, device=CPU)).moments()
     np.testing.assert_allclose(moments["hat"].numpy(),
                                (flat - flat.mean()) / np.linalg.norm(
                                    flat - flat.mean()), rtol=1e-4, atol=1e-6)

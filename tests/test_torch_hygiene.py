@@ -14,16 +14,17 @@ import torch
 
 import repro_torch
 from repro_torch import convert
+from repro_torch.api import ExecConfig, Workspace
 from repro_torch.configs import get_arch
 from repro_torch.core import (CondensedCenteredGramOperator, DistanceMatrix,
                               mantel, pcoa, random_distance_matrix)
 from repro_torch.core.mantel import MantelStatistic
-from repro_torch.dist import (pairwise_condensed, pairwise_distances,
-                              production_mantel)
+from repro_torch.dist import pairwise_condensed, pairwise_distances
 from repro_torch.kernels import _build
 from repro_torch.kernels.mantel_corr_ops import mantel_corr_op
 from repro_torch.models.transformer import (Transformer, init_cache,
                                             init_params)
+from repro_torch.obs import ObsConfig
 from repro_torch.runtime.serve import build_decode_fn, build_prefill_fn
 from repro_torch.stats import (PermanovaOperatorStatistic, anosim,
                                partial_mantel, permanova, permdisp)
@@ -57,6 +58,16 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_session_modules_are_checked():
+    """The session API and the observability layer are among the files
+    the import check above walks."""
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES if "repro_torch" in p.parts}
+    assert {"api/config.py", "api/workspace.py", "api/__init__.py",
+            "obs/config.py", "obs/trace.py", "obs/ledger.py",
+            "obs/compile.py", "obs/report.py", "obs/__init__.py"} <= names
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     d = random_distance_matrix(0, 12, device="cpu")
@@ -80,7 +91,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: pairwise_distances(x),
         lambda: pairwise_distances(x, out="condensed"),
         lambda: pcoa(None, dimensions=2, operator=op),
-        lambda: production_mantel(prod, prod, permutations=9),
+        lambda: Workspace(d.data),
+        lambda: Workspace(d),
+        lambda: Workspace.from_features(x),
+        lambda: Workspace(d.data, config=ExecConfig(device="cuda")),
         lambda: permanova(d, groups, permutations=9),
         lambda: anosim(d, groups, permutations=9),
         lambda: permdisp(d, groups, permutations=9, dimensions=2),
@@ -160,7 +174,8 @@ def test_cpu_feature_path_launches_nothing():
     prod = pairwise_condensed(x, device="cpu")
     op = CondensedCenteredGramOperator.from_production(prod)
     pcoa(None, dimensions=2, operator=op, device="cpu")
-    production_mantel(prod, prod, 9, device="cpu")
+    ws = Workspace.from_features(x, config=ExecConfig(device="cpu"))
+    ws.mantel(ws, 9)
     dm = DistanceMatrix(pairwise_distances(x, device="cpu"), device="cpu")
     pcoa(dm, dimensions=2, materialize=True, device="cpu")
     pcoa(dm, dimensions=2, method="eigh", device="cpu")
@@ -206,3 +221,27 @@ def test_cpu_lm_serving_launches_nothing():
     assert set(_build.launches.values()) == {0}
     assert "rmsnorm" in _build.launches
     assert bool(torch.isfinite(logits).all()) and cache.pos == 6
+
+
+def test_cpu_session_launches_nothing():
+    """A session on the CPU (admission, the whole battery square- and
+    feature-backed, eigh, the report) runs the kernels' plain versions:
+    no launch is counted."""
+    cpu = ExecConfig(device="cpu", obs=ObsConfig(enabled=True))
+    d, y, z = (random_distance_matrix(s, 24, device="cpu").data
+               for s in (7, 8, 9))
+    x = np.abs(np.random.default_rng(3).normal(size=(24, 6))).astype(
+        np.float32)
+    groups = np.arange(24) % 3
+    _build.reset_launches()
+    for ws in (Workspace(d, config=cpu),
+               Workspace.from_features(x, config=cpu)):
+        ws.pcoa(dimensions=3)
+        ws.pcoa(dimensions=3, method="eigh")
+        ws.permanova(groups, 9)
+        ws.permdisp(groups, 9, dimensions=3)
+        ws.anosim(groups, 9)
+        ws.mantel(y, 9)
+        ws.partial_mantel(y, z, 9)
+        assert ws.report().meta["tiles"]["device"] == "cpu"
+    assert set(_build.launches.values()) == {0}
