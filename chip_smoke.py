@@ -1230,6 +1230,9 @@ def phase_session(main: dict, feat: dict, battery: dict,
     ev = got["pcoa"].eigenvalues
     check(torch.equal(ev, main["pcoa"].eigenvalues),
           "session pcoa: eigenvalues not bitwise the free pcoa's")
+    square_results = {name: (r.statistic, r.p_value)
+                      for name, r in got.items() if name != "pcoa"}
+    square_results["pcoa"] = ev
     square = {"times_s": dict(times), "launches": dict(launches),
               "launches_total": {k: v for k, v in square_launches.items()
                                  if v},
@@ -1305,6 +1308,326 @@ def phase_session(main: dict, feat: dict, battery: dict,
                       for k in _build.launches}
     line = {"session": {"card": card, "square": square, "feature": feature,
                         "launches_total": launches_total}}
+    print(json.dumps(line))
+    return {**line, "square_results": square_results}
+
+
+def phase_session_auto(main: dict, battery: dict, session: dict,
+                       card: str) -> dict:
+    """Phase 3d-auto: phase 3d's square session again with
+    ``ExecConfig(auto=True)``: the tuner reads the card's budget and
+    solves the session's tiles (B = 64 at S = 2 on an H100), and every
+    statistic, p-value and eigenvalue must be bitwise phase 3d's."""
+    from repro_torch.api import ExecConfig, Workspace
+    from repro_torch.core import random_distance_matrix
+
+    print(f"== phase 3d-auto: phase 3d's square session with "
+          f"ExecConfig(auto=True), n={N}, K={PERMUTATIONS}")
+    auto = ExecConfig(auto=True)
+    groups = battery["groups"]
+    z = random_distance_matrix(SEED + 12, N, dim=POINT_DIM,
+                               device="cuda").data   # phase 3c's z
+    ws = Workspace(main["dm"].data, config=auto)
+    wy = Workspace(main["dm2"].data, config=auto)
+    wz = Workspace(z, config=auto)
+    del z
+    tuned = ws.tuned.to_dict()
+    print(json.dumps({"tuned": tuned, "card": card}))
+    check(ws.tuned.budget.backend == "cuda" and ws.config.batch_size
+          == tuned["batch_size"], f"3d-auto: not solved on the card: {tuned}")
+    times = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    ev = timed("pcoa", lambda: ws.pcoa(DIMS)).eigenvalues
+    got = {"permanova": timed("permanova", lambda: ws.permanova(
+               groups, PERMUTATIONS)),
+           "permdisp": timed("permdisp", lambda: ws.permdisp(
+               groups, PERMUTATIONS, dimensions=DIMS)),
+           "anosim": timed("anosim", lambda: ws.anosim(groups,
+                                                      PERMUTATIONS)),
+           "mantel": timed("mantel", lambda: ws.mantel(wy, PERMUTATIONS)),
+           "partial_mantel": timed("partial_mantel", lambda: ws.partial_mantel(
+               wy, wz, PERMUTATIONS))}
+    want = session["square_results"]
+    check(torch.equal(ev, want["pcoa"]),
+          "3d-auto pcoa: eigenvalues not bitwise phase 3d's")
+    for name, r in got.items():
+        have = (r.statistic, r.p_value)
+        print(f"  {name}: auto {have} vs phase 3d {want[name]}; "
+              f"{times[name]:.4f} s ({card})")
+        check(have == want[name], f"3d-auto {name}: not bitwise phase 3d's")
+    print(f"  tiles {ws.resolved_tiles()}")
+    del ws, wy, wz
+    return {"tuned": tuned, "times_s": times}
+
+
+#: phase 3e's requests: the twelve Ks of BENCH_serve.json's request_ks
+#: (999, 499, 249, 99, 49, 17, twice), one permutation test each, six on a
+#: square study and six on a feature study, and one pcoa a study kind
+SERVE_KS = (999, 17, 499, 249, 99, 49)
+SERVE_TESTS = ("mantel", "mantel", "anosim", "permanova", "permdisp",
+               "partial_mantel")
+
+
+def serve_requests(groups) -> list:
+    """``(study, method, kwargs)`` of phase 3e, keyed 0..11 in order: on
+    the square study x (against y, controlling for z) and on the feature
+    study fx (against fy, controlling for the square z)."""
+    plan = []
+    for x, y in (("x", "y"), ("fx", "fy")):
+        for method, k in zip(SERVE_TESTS, SERVE_KS):
+            kw = {"permutations": k}
+            if method in ("anosim", "permanova", "permdisp"):
+                kw["grouping"] = groups
+            if method == "permdisp":
+                kw["dimensions"] = DIMS
+            if method in ("mantel", "partial_mantel"):
+                kw["other"] = y
+            if method == "partial_mantel":
+                kw["control"] = "z"
+            plan.append((x, method, kw))
+    return plan
+
+
+def phase_service(main: dict, battery: dict, tables, card: str) -> dict:
+    """Phase 3e: the analysis service at n = N on one card. One
+    ``AnalysisService(ServeConfig())`` (B = 32, every study tuned at
+    upload) takes phase 3's two squares and phase 3c's third, uploaded as
+    squares, and phase 3b's two abundance tables, uploaded as features;
+    twelve permutation tests at BENCH_serve.json's Ks and two pcoa
+    requests run coalesced. Checks: every request done with no fault,
+    retry or breaker trip; ceil(ΣK/B) tiles a lane; each hoist built once;
+    K adds no ``permute_reduce`` signature; every result bitwise the same
+    request run alone through a default ``Workspace`` with the same seed;
+    every last streamed frame collapsed onto the p-value. Prints the
+    ``service`` line."""
+    from repro_torch.api import Workspace
+    from repro_torch.core import random_distance_matrix
+    from repro_torch.kernels import _build
+    from repro_torch.obs import sentinel
+    from repro_torch.serve import AnalysisService, ServeConfig
+
+    print(f"== phase 3e: the analysis service at n={N}: 3 square and 2 "
+          f"feature studies (d={FEATURES}), 12 tests at K {SERVE_KS} x 2 "
+          f"and 2 pcoa, B=32")
+    groups = battery["groups"]
+    fx, fy = tables
+    z = random_distance_matrix(SEED + 12, N, dim=POINT_DIM,
+                               device="cuda").data   # phase 3c's z
+    studies = {"x": main["dm"].data, "y": main["dm2"].data, "z": z}
+    plan = serve_requests(groups)
+    sync()
+    snap = sentinel.snapshot()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    svc = AnalysisService(ServeConfig())
+    for sid, data in studies.items():
+        svc.upload(sid, data)
+    svc.upload("fx", features=fx)
+    svc.upload("fy", features=fy)
+    t_uploads = time.perf_counter() - t0
+    handles = [svc.submit(x, m, key=i, **kw)
+               for i, (x, m, kw) in enumerate(plan)]
+    pcoas = [svc.submit(x, "pcoa", dimensions=DIMS) for x in ("x", "fx")]
+    t1 = time.perf_counter()
+    svc.run()
+    sync()
+    t_run = time.perf_counter() - t1
+    launches = {k: v for k, v in _build.launches.items() if v}
+    signatures = sentinel.since(snap)
+    report = svc.report()
+    m = svc.metrics
+    print(f"  uploads {t_uploads:.4f} s, run {t_run:.4f} s ({card}); "
+          f"launches {launches}")
+    every = handles + pcoas
+    check(all(h.status == "done" for h in every),
+          f"service: not every request done: "
+          f"{[h.payload() for h in every if h.status != 'done']}")
+    check(not m.faults and m.retries == 0 and m.breaker_trips == 0
+          and not m.tile_failures, f"service: faults {m.faults_report()}")
+    lanes = {}
+    for (x, method, kw), h in zip(plan, handles):
+        lanes[x, method] = lanes.get((x, method), 0) + kw["permutations"]
+    coalesced = sum(-(-k // 32) for k in lanes.values())
+    per_request = sum(-(-kw["permutations"] // 32) for _, _, kw in plan)
+    print(f"  tiles {svc.scheduler.tiles_run} (ceil(ΣK/B) a lane: "
+          f"{coalesced}; one request at a time: {per_request})")
+    check(svc.scheduler.tiles_run == coalesced,
+          "service: a lane ran more than ceil(ΣK/B) tiles")
+    builds = {sid: {str(k): v for k, v in svc.pool.get(sid).cache.misses
+                    .items()} for sid in svc.pool.studies()}
+    check(all(v == 1 for b in builds.values() for v in b.values()),
+          f"service: a hoist was built twice: {builds}")
+    pr = signatures.get("kernels.permute_reduce", {})
+    print(f"  kernels.permute_reduce in the run: {pr}; hoist builds "
+          f"{builds}")
+    # every tile of the mixed-K run has B = 32, so the run adds no
+    # permute_reduce signature to those of phases 3c and 3d: one a value
+    # of S (Mantel and ANOSIM 1, partial Mantel 2) serves every K
+    check(svc.scheduler.batch_size == 32 and all(
+        svc.pool.get(sid).config.batch_size == 32
+        for sid in svc.pool.studies()), "service: B is not 32 everywhere")
+    gather_tiles = sum(-(-k // 32) for (_, method), k in lanes.items()
+                       if method in ("mantel", "anosim", "partial_mantel"))
+    check(pr.get("programs") == 0 and pr.get("traces") == gather_tiles,
+          f"service: K added permute_reduce signatures: {pr}")
+    for h in handles:
+        last = h.updates[-1]
+        check(last.p_lo == last.p_hi == h.result.p_value and last.done,
+              f"service {h.request_id}: last frame {last}")
+
+    # each request alone through a default Workspace, same seed
+    alone = {sid: Workspace(data) for sid, data in studies.items()}
+    alone["fx"] = Workspace.from_features(fx)
+    alone["fy"] = Workspace.from_features(fy)
+    for i, ((x, method, kw), h) in enumerate(zip(plan, handles)):
+        args = {k: (alone[v] if k in ("other", "control") else v)
+                for k, v in kw.items()}
+        want = getattr(alone[x], method)(key=i, **args)
+        have = (h.result.statistic, h.result.p_value)
+        check(have == (want.statistic, want.p_value),
+              f"service {x} {method} K={kw['permutations']}: {have} not "
+              f"bitwise alone {(want.statistic, want.p_value)}")
+    for x, h in zip(("x", "fx"), pcoas):
+        want = alone[x].pcoa(DIMS, key=0)
+        check(torch.equal(h.result.eigenvalues, want.eigenvalues),
+              f"service pcoa {x}: eigenvalues not bitwise alone")
+    print("  every result bitwise the request alone through a default "
+          "Workspace")
+    del alone
+    requests = [{"id": h.request_id, "study": x, "method": method,
+                 "K": kw.get("permutations"),
+                 "statistic": getattr(h.result, "statistic", None),
+                 "p": getattr(h.result, "p_value", None),
+                 "seconds": h.t_done - h.t_submit,
+                 "queue_wait_s": h.t_active - h.t_submit}
+                for (x, method, kw), h in zip(
+                    plan + [("x", "pcoa", {}), ("fx", "pcoa", {})], every)]
+    line = {"service": {
+        "card": card, "n": N, "batch": 32, "requests": requests,
+        "uploads_s": t_uploads, "run_s": t_run,
+        "requests_per_s": len(every) / t_run,
+        "tiles": {"coalesced": svc.scheduler.tiles_run,
+                  "per_request": per_request,
+                  "tile_ratio": per_request / svc.scheduler.tiles_run},
+        "launches": launches,
+        "permute_reduce_signatures": pr,
+        "tuned_batch_size": {sid: svc.pool.get(sid).tuned.batch_size
+                             for sid in svc.pool.studies()},
+        "latency": report["latency"], "monitor": report["monitor"]}}
+    print(json.dumps(line))
+    del svc, studies, z
+    return line
+
+
+#: phase 3f: BENCH_serve.json's chaos soak (benchmarks/bench_serve.py)
+CHAOS_RATES = dict(tile_error=0.10, oom=0.03, nan=0.03, slow=0.0,
+                   compile_rate=0.20)
+
+
+def phase_chaos(card: str) -> dict:
+    """Phase 3f: the reference soak's configuration on the card: n = 256,
+    B = 16, six Mantel requests (K = 199, 199, 199, 99, 49, 17) on two
+    feature studies, ``FaultPlan.chaos(seed)`` for seeds 0-2, then a crash
+    after tile 16 of 48 and ``recover`` from the journal. Checks: every
+    completed request bitwise the fault-free run, retry amplification <=
+    2.0, 32 tiles left after recovery with 0 re-hoists; prints the counts
+    beside BENCH_serve.json's."""
+    import tempfile
+    from repro_torch.faults import FaultPlan
+    from repro_torch.serve import AnalysisService, ServeConfig
+
+    bench = json.loads((ROOT / "BENCH_serve.json").read_text())["chaos"]
+    n, batch, ks = bench["n"], bench["batch"], bench["per_request_k"]
+    print(f"== phase 3f: chaos on the card, n={n}, B={batch}, K={ks}, "
+          f"seeds {list(bench['seeds'])}")
+
+    def pair(**cfg):
+        rng = np.random.default_rng(0)
+        svc = AnalysisService(ServeConfig(batch_size=batch, timeout_s=None,
+                                          max_active=len(ks),
+                                          auto_tune=False, **cfg))
+        svc.upload("x", features=rng.random((n, 32)).astype(np.float32))
+        svc.upload("y", features=rng.random((n, 32)).astype(np.float32))
+        return svc, [svc.submit("x", "mantel", other="y", permutations=k,
+                                key=i) for i, k in enumerate(ks)]
+
+    ref, ref_handles = pair()
+    ref.run()
+    check(all(h.status == "done" for h in ref_handles), "chaos: reference")
+    ref_p = {h.request_id: h.result.p_value for h in ref_handles}
+    seeds = {}
+    for seed, want in bench["seeds"].items():
+        svc, handles = pair(fault_plan=FaultPlan.chaos(seed=int(seed),
+                                                       **CHAOS_RATES))
+        t0 = time.perf_counter()
+        svc.run()
+        wall = time.perf_counter() - t0
+        m = svc.metrics
+        got = {"statuses": {s: sum(h.status == s for h in handles)
+                            for s in ("done", "degraded", "rejected")},
+               "injected": dict(m.faults),
+               "tile_failures": dict(m.tile_failures),
+               "retries": m.retries,
+               "retry_amplification": m.retry_amplification,
+               "breaker_trips": m.breaker_trips,
+               "pool_sheds": m.pool_sheds,
+               "bitwise_completed": sum(
+                   h.status == "done"
+                   and h.result.p_value == ref_p[h.request_id]
+                   for h in handles),
+               "wall_s": wall}
+        print(f"  seed {seed}: {json.dumps(got)}")
+        print(f"  BENCH_serve.json: {json.dumps(want)}")
+        check(all(h.done for h in handles), f"chaos seed {seed}: a hang")
+        check(got["bitwise_completed"] == got["statuses"]["done"],
+              f"chaos seed {seed}: a completed request not bitwise")
+        check(got["retry_amplification"] <= bench["retry_amplification_cap"],
+              f"chaos seed {seed}: amplification {m.retry_amplification}")
+        seeds[seed] = got
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "serve.journal")
+        svc, _ = pair(journal_path=path)
+        total = -(-sum(ks) // batch)
+        crash = bench["recovery"]["crash_after_tiles"]
+        while svc.scheduler.tiles_run < crash:
+            svc.step()
+        pool = svc.pool
+        svc.journal.close()
+        before = {sid: dict(pool._sessions[sid].cache.misses)
+                  for sid in pool.studies()}
+        svc2, handles = AnalysisService.recover(path, pool=pool, config=(
+            ServeConfig(batch_size=batch, timeout_s=None,
+                        max_active=len(ks), auto_tune=False)))
+        svc2.run()
+        svc2.journal.close()
+        rehoists = sum(dict(pool._sessions[sid].cache.misses) != before[sid]
+                       for sid in pool.studies())
+        recovery = {"tiles_total": total, "crash_after_tiles": crash,
+                    "tiles_after_recovery": svc2.scheduler.tiles_run,
+                    "rehoists": rehoists,
+                    "resumed_requests": svc2.metrics.resumes,
+                    "resumed_rows": svc2.metrics.resumed_rows,
+                    "already_terminal": len(ks) - len(handles),
+                    "recovered_bitwise": sum(
+                        h.status == "done" and h.result.p_value == ref_p[rid]
+                        for rid, h in handles.items())}
+    print(f"  recovery: {json.dumps(recovery)}")
+    print(f"  BENCH_serve.json: {json.dumps(bench['recovery'])}")
+    check(recovery["tiles_after_recovery"] == total - crash
+          and rehoists == 0 and recovery["recovered_bitwise"]
+          == len(handles), f"chaos recovery: {recovery}")
+    line = {"chaos": {"card": card, "seeds": seeds, "recovery": recovery,
+                      "bench_serve": {"seeds": bench["seeds"],
+                                      "recovery": bench["recovery"]}}}
     print(json.dumps(line))
     return line
 
@@ -2184,6 +2507,10 @@ def main() -> int:
                   card)
     feature_launches = feature["launches"]
     del feature
+    run("3d-auto", phase_session_auto, main_path, battery, session, card)
+    service = run("3e service", phase_service, main_path, battery, (x, y),
+                  card)
+    run("3f chaos", phase_chaos, card)
     run("4d battery vs CPU", phase_battery_vs_cpu, main_path, x,
         battery["groups"])
     # each kernel's launches on the path that runs it
@@ -2206,6 +2533,8 @@ def main() -> int:
     for kern in kernels:        # each kernel's launches on the session path
         kern["session_launches"] = \
             session["session"]["launches_total"].get(kern["name"], 0)
+        kern["service_launches"] = \
+            service["service"]["launches"].get(kern["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"phase_walls_s": walls}))
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -21,13 +21,19 @@ plain version; on the card both run the ``center`` kernel pair.
 ``block`` sets the production's row panels and the condensed operator's
 strips, as in the reference, and changes nothing inside a kernel.
 
-Refused by name with ``NotImplementedError`` until their items are
-ported: a ``mesh`` and ``centering_impl="distributed"`` (the distributed
-paths), and ``auto=True``, ``tune_profile`` and every ``"auto"`` knob
-(the tuner, which needs a cost model of the CUDA kernels' geometry).
+``auto=True``, ``tune_profile`` and every ``"auto"`` knob are resolved
+by ``repro_torch.tune`` against the admitted data's (n, d): ``Workspace``
+calls ``resolve(n, d)`` at admission. The budget is the config device's
+(``None``: the card, whose solve follows the CUDA kernels' geometry;
+``"cpu"``: the reference's CPU column, so the solve gives the
+reference's tiles), or the ``tune_profile`` JSON.
 
-This module imports nothing of ``repro_torch`` except ``obs.config``, so
-any layer can import it without cycles.
+Refused by name with ``NotImplementedError`` until their item is ported:
+a ``mesh`` and ``centering_impl="distributed"`` (the distributed paths).
+
+This module imports nothing of ``repro_torch`` except ``obs.config`` (and
+the tuner, lazily, in ``resolve``), so any layer can import it without
+cycles.
 """
 
 from __future__ import annotations
@@ -66,9 +72,9 @@ class ExecConfig:
         statistic ``PartialMantelPallasStatistic``, as in the reference.
     interpret, chunk, feature_block:
         The reference's Pallas dispatch mode (``None``, ``True`` or
-        ``False``), condensed-stream chunk (``None`` or an int >= 1) and
-        feature tile (an int >= 1, default 128). Validated, read by no
-        route; ``"auto"`` is refused.
+        ``False``), condensed-stream chunk (``None``, ``"auto"`` or an
+        int >= 1) and feature tile (``"auto"`` or an int >= 1, default
+        128). Validated, resolved, read by no route.
     centering_impl:
         ``"ref"`` or ``"fused"`` (default) for the materialized Gower
         matrix: the ``center`` kernel pair on the card either way; on the
@@ -79,10 +85,12 @@ class ExecConfig:
         ``False`` (default) matrix-free through the operator.
     block:
         An int >= 1 (default 256): the rows of a production panel and of
-        a condensed-operator strip. ``"auto"`` is refused.
+        a condensed-operator strip. ``"auto"``: solved shrink-only from
+        the default, so auto keeps the default geometry whenever it fits.
     batch_size:
         Permutations per engine tile: an int >= 1, or ``None`` for each
-        test's default (32). ``"auto"`` is refused.
+        test's default (32). ``"auto"``: solved from (n, budget), never
+        from K, so one padded per-batch program serves every K.
     mesh:
         Must be ``None``: the distributed paths are not yet ported.
     device:
@@ -91,8 +99,12 @@ class ExecConfig:
         ``torch.device`` of type cuda or cpu.
     metric:
         Default metric of ``Workspace.from_features``.
-    auto, tune_profile:
-        Must be ``False`` and ``None``: the tuner is not yet ported.
+    auto:
+        ``True`` turns every knob still at its default into ``"auto"``;
+        knobs set to concrete values are honored.
+    tune_profile:
+        Optional path of a ``tune.save_profile`` JSON: auto-solving fits
+        against that budget instead of the device's.
     obs:
         Observability switchboard (``repro_torch.obs.ObsConfig``);
         ``None`` coerces to the disabled default.
@@ -133,21 +145,15 @@ class ExecConfig:
                               "the distributed paths")
         if self.mesh is not None:
             raise _not_ported("a device mesh", "the distributed paths")
-        if self.auto or self.tune_profile is not None:
-            raise _not_ported("auto-tuning (auto, tune_profile)",
-                              "the tuner")
         for knob in ("block", "feature_block"):
             v = getattr(self, knob)
-            if v == "auto":
-                raise _not_ported(f"{knob}='auto'", "the tuner")
-            if not (isinstance(v, int) and v >= 1):
+            if not (v == "auto" or (isinstance(v, int) and v >= 1)):
                 raise ValueError(f"{knob} must be an int >= 1 or 'auto', "
                                  f"got {v!r}")
         for knob in ("batch_size", "chunk"):
             v = getattr(self, knob)
-            if v == "auto":
-                raise _not_ported(f"{knob}='auto'", "the tuner")
-            if not (v is None or (isinstance(v, int) and v >= 1)):
+            if not (v is None or v == "auto"
+                    or (isinstance(v, int) and v >= 1)):
                 raise ValueError(f"{knob} must be an int >= 1, 'auto' or "
                                  f"None, got {v!r}")
         if self.metric not in _KNOWN_METRICS:
@@ -165,11 +171,31 @@ class ExecConfig:
         return dataclasses.replace(self, **changes)
 
     def resolve_batch_size(self, explicit: Optional[int],
-                           default: int) -> int:
+                           default: int) -> Union[int, str]:
         """Precedence: explicit call-site arg > config > per-test
-        default."""
+        default. An unresolved ``"auto"`` falls through to the engine,
+        which solves it against the statistic's n."""
         if explicit is not None:
             return explicit
         if self.batch_size is not None:
             return self.batch_size
         return default
+
+    @property
+    def needs_resolution(self) -> bool:
+        """True when some knob still carries auto semantics, i.e.
+        ``resolve()`` would change this config."""
+        return bool(self.auto or "auto" in (self.block, self.feature_block,
+                                            self.batch_size, self.chunk))
+
+    def resolve(self, n: int, d: Optional[int] = None
+                ) -> "tuple[ExecConfig, Optional[Any]]":
+        """Materialize the auto knobs against a problem of n observations
+        (and d features): ``(resolved_config, tuned)``, ``tuned`` the
+        ``tune.TunedTiles`` record or ``None`` when nothing asked for
+        tuning. The import is lazy, so a config that never opts in loads
+        nothing of the tuner."""
+        if not self.needs_resolution:
+            return self, None
+        from repro_torch.tune.solve import resolve_exec_config
+        return resolve_exec_config(self, n, d)

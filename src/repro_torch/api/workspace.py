@@ -17,7 +17,11 @@ that lets each O(n²) hoist run once for all of them:
   analysis of the session;
 * every analysis threads the session's one ``ExecConfig`` through
   ``core.pcoa`` and ``stats.engine`` and returns ``OrdinationResult`` or
-  ``PermutationTestResult``.
+  ``PermutationTestResult``. A config with auto knobs
+  (``ExecConfig(auto=True)``) is resolved by ``repro_torch.tune`` against
+  the admitted data's (n, d) at admission and on ``refresh``:
+  ``config_requested`` keeps what was asked for, ``config`` the concrete
+  knobs, ``tuned`` the solver's record (``report()`` carries it).
 
 The free functions (``core.mantel.mantel``, ``stats.permanova``,
 ``stats.anosim``, ``stats.permdisp``, ``stats.partial_mantel``) are thin
@@ -224,6 +228,10 @@ class Workspace:
                  config: Optional[ExecConfig] = None, validate: bool = True,
                  *, features=None, metric=None):
         self.config = config if config is not None else ExecConfig()
+        # the requested config survives resolution, so refresh() (a new n)
+        # re-solves from what was asked for, not from a previous solution
+        self.config_requested = self.config
+        self.tuned = None
         self.device = resolve_device(self.config.device)
         self.generation = 0
         self.cache = HoistCache()
@@ -242,6 +250,7 @@ class Workspace:
                 raise ValueError("Workspace needs a distance matrix (or "
                                  "features= — see Workspace.from_features)")
             self._admit_dm(dm, validate)
+        self._resolve_config()
         self._bind_cache()
 
     @classmethod
@@ -326,8 +335,18 @@ class Workspace:
             # feature-backed: a square built from the dropped production
             # goes with it
             self._dm = None
+        self._resolve_config()
         self._bind_cache()
         return self
+
+    def _resolve_config(self) -> None:
+        """Resolve the requested config's auto knobs against the admitted
+        data's (n, d) through ``repro_torch.tune``: ``config`` is concrete
+        after admission, ``tuned`` the solver's record (``None`` when
+        nothing asked for tuning)."""
+        d = (int(self._features.shape[1]) if self._features is not None
+             else None)
+        self.config, self.tuned = self.config_requested.resolve(self.n, d)
 
     def _bind_cache(self) -> None:
         """Point the (fresh) HoistCache at the session's observability
@@ -362,6 +381,7 @@ class Workspace:
         from repro_torch.kernels.permute_reduce import MAX_OUTPUTS, MAX_ROWS
         b = self.config.resolve_batch_size(None, WORKSPACE_BATCH)
         tiles = {"device": self.device.type, "batch_size": b,
+                 "auto": self.tuned is not None,
                  "production_panel_rows": (
                      clamp_block(self.n, self.config.block)
                      if self._features is not None else None)}
@@ -394,9 +414,10 @@ class Workspace:
         """The session's ``RunReport``: span tree, ledger totals, cache
         counters and resident bytes, the call sentinel's deltas for this
         session's window, and the geometry it ran
-        (``resolved_tiles``). With observability disabled the report
-        still carries the cache counters and the sentinel's process
-        snapshot, with empty spans and ledger. ``measured`` and
+        (``resolved_tiles``), with the tuner's record under ``"tune"``
+        when the config was auto-solved. With observability disabled the
+        report still carries the cache counters and the sentinel's
+        process snapshot, with empty spans and ledger. ``measured`` and
         ``drift`` are ``None``: the reference's HLO probes are not
         ported."""
         by_key = self.cache.nbytes_by_key()
@@ -409,6 +430,8 @@ class Workspace:
                 "cache_nbytes": {"total": sum(by_key.values()),
                                  "by_key": {str(k): v
                                             for k, v in by_key.items()}}}
+        if self.tuned is not None:
+            base["tune"] = self.tuned.to_dict()
         if meta:
             base.update(meta)
         return build_report(self._obs if self._obs.enabled else None,

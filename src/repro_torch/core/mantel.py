@@ -90,9 +90,11 @@ class MantelStatistic:
     carries the hoist (``{"normxm": ..., "ynorm": ...}``, ``ynorm`` the
     condensed centred-normalized y), and then ``y`` may be ``None``."""
 
-    #: the ledger's per-permutation traffic model of this loop
-    #: (``obs.ledger.perm_traffic_floats``)
+    #: the ledger's per-permutation traffic model of this loop on the CPU
+    #: (``obs.ledger.perm_traffic_floats``), and the invariant rows S it
+    #: streams through ``permute_reduce`` (the card's row-stationary model)
     ledger_model = "condensed_fused"
+    ledger_rows = 1
 
     x: torch.Tensor
     y: Optional[torch.Tensor]

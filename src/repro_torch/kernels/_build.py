@@ -13,6 +13,11 @@ C functions bound with ``ctypes``: every pointer and the stream is a
 Nothing here runs at import time, so the CPU tests import every kernel
 module without ``nvcc``.
 
+A missing ``nvcc``, a failed compile or link, and any CUDA error a launch
+reports raise :class:`KernelError`, which callers that retry transient
+failures (the serve scheduler) re-raise: a kernel that cannot build or
+launch fails the run, it never degrades an answer.
+
 ``launches`` counts kernel launches by name. Each kernel module adds one
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels: set the counts to 0 with
@@ -79,6 +84,13 @@ _SIGNATURES = {
     "repro_rmsnorm": [_P, _P, _P, _L, _I, _I, _I, _F, _P],
 }
 
+
+class KernelError(RuntimeError):
+    """A kernel could not be built or launched: ``nvcc`` missing, a failed
+    compile or link, or a CUDA error a launch reported. A CUDA error is
+    sticky, so no retry can succeed."""
+
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
@@ -107,8 +119,8 @@ def _nvcc() -> str:
     fallback = Path("/usr/local/cuda/bin/nvcc")
     if fallback.exists():
         return str(fallback)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                       "build the repro_torch kernels")
+    raise KernelError("nvcc not found: the CUDA toolkit is needed to "
+                      "build the repro_torch kernels")
 
 
 def build() -> Path:
@@ -135,15 +147,15 @@ def build() -> Path:
             if proc.returncode:
                 failed.append(src.name)
         if failed:
-            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
-                               + "\n".join(log))
+            raise KernelError(f"nvcc failed on {', '.join(failed)}:\n"
+                              + "\n".join(log))
         link = subprocess.run(
             [nvcc, *ARCH, "-shared", "-o", str(tmp / LIB_NAME),
              *[str(obj) for _, obj, _ in procs]],
             capture_output=True, text=True)
         if link.returncode:
-            raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
-                               f"{link.stderr}")
+            raise KernelError(f"nvcc link failed:\n{link.stdout}"
+                              f"{link.stderr}")
         (tmp / "ptxas.log").write_text("\n".join(log))
         out_dir.mkdir(parents=True, exist_ok=True)
         os.replace(tmp / "ptxas.log", out_dir / "ptxas.log")
@@ -177,7 +189,7 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err:
         name = library().repro_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err} ({name})")
+        raise KernelError(f"{what}: CUDA error {err} ({name})")
 
 
 @functools.lru_cache(maxsize=None)

@@ -8,9 +8,11 @@ port (Workspace hoist builds, the engine's permutation batches, the
 ``repro_torch.dist`` production sweep) charges a per-session ``Ledger``
 with the same terms, so a ``RunReport`` carries its own accounting.
 
-These are the reference's models. The port's row-stationary
-``permute_reduce`` moves other bytes than ``condensed_fused`` below —
-4m(B·S + 1) + 8nB a tile — and its entry waits for the tuner's port.
+Beside the reference's models stands the port's own: the row-stationary
+``permute_reduce`` of the card moves other bytes than ``condensed_fused``
+— 4m(S·B + L) + 8nB a tile of B permutations in L launches
+(``row_stationary_floats``). The engine and the serve scheduler charge it
+for tiles that run on the card, the reference's model on the CPU.
 
 Registry layout
 ---------------
@@ -21,6 +23,8 @@ Registry layout
   builds get cheaper or free).
 * ``perm_traffic_floats(n, batch)`` — audited fp32 floats moved PER
   PERMUTATION by each formulation of the Mantel-family inner loop.
+* ``row_stationary_floats(n, batch, s)`` — the same per-permutation
+  figure for the card's row-stationary ``permute_reduce``.
 * ``production_floats(n, d, block)`` — feature reads of the tiled
   distance production sweep (identical for fused and materialized
   modes, which is why the pass tables exclude it).
@@ -113,6 +117,32 @@ def perm_traffic_floats(n: int, batch: int) -> dict:
     }
 
 
+#: outputs (rows × permutations) one ``permute_reduce`` launch takes on
+#: the card (``kernels.permute_reduce.MAX_OUTPUTS``, pinned equal by the
+#: tests): a tile of S·B above it runs in several launches
+ROW_STATIONARY_OUTPUTS = 128
+
+
+def row_stationary_launches(batch: int, s: int = 1) -> tuple[int, int]:
+    """(P, L): permutations a launch, P = min(B, 128/S), and launches a
+    tile, L = ⌈B/P⌉, of the card's ``permute_reduce``."""
+    per_launch = max(min(batch, ROW_STATIONARY_OUTPUTS // s), 1)
+    return per_launch, -(-batch // per_launch)
+
+
+def row_stationary_floats(n: int, batch: int, s: int = 1) -> float:
+    """fp32 floats moved PER PERMUTATION by the card's row-stationary
+    ``permute_reduce`` (``csrc/permute_reduce.cu``) on a tile of B
+    permutations with S invariant rows: each launch reads the condensed x
+    once (m), each permutation reads the S rows of ys once (S·m), and its
+    order rows take 8n bytes (2n floats), PERF.md's model of a tile,
+    4m(S·B + L) + 8nB bytes: (m·(S·B + L) + 2nB) / B floats a
+    permutation, L = ⌈B/P⌉ launches a tile."""
+    m = n * (n - 1) // 2
+    _, launches = row_stationary_launches(batch, s)
+    return (float(m) * (s * batch + launches) + 2.0 * n * batch) / batch
+
+
 def production_floats(n: int, d: int, block: int) -> float:
     """Feature reads of the tiled pairwise production: each of the
     ⌈n/b⌉ row panels streams the full (n, d) table against its own
@@ -176,8 +206,13 @@ class Ledger:
                           batch: int, model: str = "condensed_fused",
                           **params) -> LedgerEntry:
         """One permutation run of ``permutations`` draws in B=``batch``
-        tiles, per the audited per-permutation model."""
-        per_perm = perm_traffic_floats(n, batch)[model]
+        tiles, per the audited per-permutation model
+        (``model="row_stationary"`` reads the invariant rows ``s``, default
+        1, from ``params``)."""
+        if model == "row_stationary":
+            per_perm = row_stationary_floats(n, batch, params.get("s", 1))
+        else:
+            per_perm = perm_traffic_floats(n, batch)[model]
         return self.charge(f"perm:{op}", per_perm * permutations, n=n,
                            permutations=permutations, batch=batch,
                            model=model, floats_per_perm=per_perm, **params)

@@ -14,8 +14,9 @@ HoistCache hit/miss snapshot and sentinel deltas. Its ``measured`` and
 ``drift`` sections are ``None`` in the port: the reference fills them
 from XLA's compiled HLO (``obs/probe.py``, ``obs/drift.py``), which has
 no counterpart here yet. Its ledger's ``perm:*`` entries charge the
-reference's per-permutation models, and the section says so under
-``perm_model``.
+reference's per-permutation model for tiles run on the CPU and the
+row-stationary model for tiles run on the card, and the section says so
+under ``perm_model``.
 """
 
 from __future__ import annotations
@@ -30,10 +31,11 @@ from repro_torch.obs.ledger import Ledger
 from repro_torch.obs.trace import NULL_SPAN, Tracer
 
 #: What a report's ``perm:*`` ledger entries measure, stated in the report.
-PERM_MODEL = ("reference model (Pallas), not the port's traffic: perm:* "
-              "entries charge the reference's per-permutation gathers "
-              "(condensed_fused); the port's row-stationary permute_reduce "
-              "moves 4m(B*S + 1) + 8nB bytes a tile, not charged yet")
+PERM_MODEL = ("reference model (Pallas) on the CPU: perm:* entries of "
+              "tiles run there charge the reference's per-permutation "
+              "gathers (condensed_fused); tiles run on the card charge the "
+              "port's row-stationary permute_reduce, 4m(S*B + L) + 8nB "
+              "bytes a tile of L launches (row_stationary)")
 
 
 class ObsSession:

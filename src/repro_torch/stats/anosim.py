@@ -71,9 +71,11 @@ class AnosimStatistic:
     ``None`` when ``pre`` carries the ``rank_transform`` dict. ``grouping``
     holds the int codes in [0, num_groups) on the device of the data."""
 
-    #: the ledger's per-permutation traffic model of this loop
-    #: (``obs.ledger.perm_traffic_floats``)
+    #: the ledger's per-permutation traffic model of this loop on the CPU
+    #: (``obs.ledger.perm_traffic_floats``), and the invariant rows S it
+    #: streams through ``permute_reduce`` (the card's row-stationary model)
     ledger_model = "condensed_fused"
+    ledger_rows = 1
 
     dm: Optional[torch.Tensor]
     grouping: torch.Tensor

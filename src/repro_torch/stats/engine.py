@@ -12,7 +12,8 @@ and drops the padded tail before finishing. Under an observing session
 (``repro_torch.obs``) the test runs in an ``engine.<method>`` span and,
 for a statistic that names its ``ledger_model`` (the condensed gathers of
 the Mantel family and ANOSIM, the statistics the reference batches),
-charges that per-permutation model for every row of the padded tiles;
+charges a per-permutation model for every row of the padded tiles: that
+model on the CPU, the card's row-stationary model on the card;
 each loop function notes its calls under the reference's sentinel
 names (``stats.engine.*``).
 
@@ -68,6 +69,27 @@ class PermutationTestResult:
     key: Optional[int] = dataclasses.field(default=None, compare=False)
 
 
+def fixed_products(fn, orders: torch.Tensor) -> torch.Tensor:
+    """``fn(orders)`` for a tile's (B, n) orders, computed on the card in
+    products of exactly ``WORKSPACE_BATCH`` rows (a short last one padded
+    by repeating its rows, the padding cut off). The batched statistics
+    that run library products (PERMANOVA's ``G @ Z``, PERMDISP's batched
+    centroids) would otherwise give a row other bits in a tile of
+    another B: cuBLAS picks its algorithm by a product's shape. With the
+    shape fixed, a row's statistic depends on that row alone, so tiles of
+    any B, coalesced or not, agree bitwise. On the CPU, ``fn(orders)``."""
+    rows = orders.shape[0]
+    if orders.device.type != "cuda" or rows == WORKSPACE_BATCH:
+        return fn(orders)
+    pad = -rows % WORKSPACE_BATCH
+    if pad:
+        orders = torch.cat([orders, orders[torch.arange(
+            pad, device=orders.device) % rows]])
+    return torch.cat([fn(orders[b:b + WORKSPACE_BATCH])
+                      for b in range(0, orders.shape[0],
+                                     WORKSPACE_BATCH)])[:rows]
+
+
 def permutation_orders(generator: Union[int, torch.Generator, None],
                        permutations: int, n: int,
                        device: DeviceLike = "cpu") -> torch.Tensor:
@@ -101,6 +123,23 @@ def finish(orig_stat: torch.Tensor, permuted_stats: torch.Tensor,
     return PermutationTestResult(
         stat, float("nan") if np.isnan(stat) else float(p_value), n,
         permutations, method, key)
+
+
+def charge_tiles(obs, op: str, stat: Statistic, device: torch.device,
+                 rows: int, batch_size: int) -> None:
+    """Charge ``rows`` permutations run in tiles of ``batch_size`` to the
+    observing session: on the card the row-stationary ``permute_reduce``
+    model with the statistic's S invariant rows (``ledger_rows``, 1 when
+    unnamed), on the CPU the statistic's reference model
+    (``ledger_model``, the condensed gather when unnamed)."""
+    if device.type == "cuda":
+        obs.charge_perm_batch(op, stat.n, rows, batch_size,
+                              model="row_stationary",
+                              s=getattr(stat, "ledger_rows", 1))
+    else:
+        obs.charge_perm_batch(op, stat.n, rows, batch_size,
+                              model=getattr(stat, "ledger_model",
+                                            "condensed_fused"))
 
 
 def hoist_and_observe(stat: Statistic, device: torch.device):
@@ -184,14 +223,20 @@ def permutation_test(stat: Statistic, permutations: int = 999,
 
     ``key`` seeds the orders (an int, ``None`` for seed 0, or a CPU
     generator); ``orders`` replaces the draw with given (K, n) orders.
-    ``batch_size`` resolves as explicit arg > ``config.batch_size`` > 8.
+    ``batch_size`` resolves as explicit arg > ``config.batch_size`` > 8; a
+    still-unresolved ``"auto"`` (a config that never went through
+    ``ExecConfig.resolve``) is solved here against the statistic's n on
+    ``device``'s budget, never against K.
     """
     if alternative not in ALTERNATIVES:
         raise ValueError(f"unknown alternative {alternative!r}")
+    dev = resolve_device(device)
     batch_size = (config or ExecConfig()).resolve_batch_size(batch_size, 8)
+    if batch_size == "auto":
+        from repro_torch.tune.solve import solve_tiles
+        batch_size = solve_tiles(stat.n, device=dev).batch_size
     if batch_size < 1:
         raise ValueError(f"batch_size must be positive, got {batch_size}")
-    dev = resolve_device(device)
     n = stat.n
     if orders is None:
         seed = 0 if key is None else \
@@ -213,10 +258,9 @@ def permutation_test(stat: Statistic, permutations: int = 999,
                   batch_size=batch_size, tiles=tiles, batched=batched):
         invariants, observed = hoist_and_observe(stat, dev)
         permuted = null_distribution(stat, invariants, orders, batch_size)
-    model = getattr(stat, "ledger_model", None)
-    if model is not None and permutations:
+    if getattr(stat, "ledger_model", None) is not None and permutations:
         # the padded tail rows are real gathers, so they are charged too
-        obs.charge_perm_batch(method or type(stat).__name__, n,
-                              tiles * batch_size, batch_size, model=model)
+        charge_tiles(obs, method or type(stat).__name__, stat, dev,
+                     tiles * batch_size, batch_size)
     return finish(observed, permuted, permutations, alternative, n,
                   method=method, key=seed)

@@ -49,9 +49,11 @@ class PartialMantelStatistic:
     optionally carries the hoist (``{"normxm", "r_yz", "y_res", "z"}``, all
     condensed), and then ``y`` and ``z`` may be ``None``."""
 
-    #: the ledger's per-permutation traffic model of this loop
-    #: (``obs.ledger.perm_traffic_floats``)
+    #: the ledger's per-permutation traffic model of this loop on the CPU
+    #: (``obs.ledger.perm_traffic_floats``), and the invariant rows S it
+    #: streams through ``permute_reduce`` (the card's row-stationary model)
     ledger_model = "condensed_fused"
+    ledger_rows = 2
 
     x: torch.Tensor                 # permuted side
     y: Optional[torch.Tensor]       # held fixed

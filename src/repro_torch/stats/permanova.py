@@ -84,6 +84,9 @@ class PermanovaStatistic:
         return _pseudo_f(inv, s, self.n, self.num_groups)
 
     def per_batch(self, inv: dict, orders: torch.Tensor) -> torch.Tensor:
+        return engine.fixed_products(lambda o: self._batch(inv, o), orders)
+
+    def _batch(self, inv: dict, orders: torch.Tensor) -> torch.Tensor:
         zc = _permuted_designs(inv["z"], orders)
         s = torch.sum(zc * torch.matmul(inv["g"], zc), dim=0)
         return _pseudo_f(inv, s.reshape(orders.shape[0], self.num_groups),
@@ -117,6 +120,9 @@ class PermanovaOperatorStatistic:
         return _pseudo_f(inv, s, self.n, self.num_groups)
 
     def per_batch(self, inv: dict, orders: torch.Tensor) -> torch.Tensor:
+        return engine.fixed_products(lambda o: self._batch(inv, o), orders)
+
+    def _batch(self, inv: dict, orders: torch.Tensor) -> torch.Tensor:
         zc = _permuted_designs(inv["z"], orders)
         s = torch.sum(zc * self.op.matvec(zc), dim=0)
         return _pseudo_f(inv, s.reshape(orders.shape[0], self.num_groups),

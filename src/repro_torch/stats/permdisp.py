@@ -66,7 +66,8 @@ class PermdispStatistic:
         return self._f(inv, inv["z"][order.long()])
 
     def per_batch(self, inv: dict, orders: torch.Tensor) -> torch.Tensor:
-        return self._f(inv, inv["z"][orders.long()])
+        return engine.fixed_products(
+            lambda o: self._f(inv, inv["z"][o.long()]), orders)
 
 
 def permdisp(dm: DistanceMatrix, grouping, permutations: int = 999,

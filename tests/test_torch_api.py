@@ -276,16 +276,10 @@ def test_execconfig_validates():
 @pytest.mark.parametrize("changes,what", [
     ({"mesh": object()}, "mesh"),
     ({"centering_impl": "distributed"}, "distributed"),
-    ({"auto": True}, "auto"),
-    ({"tune_profile": "budget.json"}, "auto"),
-    ({"block": "auto"}, "block='auto'"),
-    ({"feature_block": "auto"}, "feature_block='auto'"),
-    ({"batch_size": "auto"}, "batch_size='auto'"),
-    ({"chunk": "auto"}, "chunk='auto'"),
 ])
 def test_execconfig_refuses_what_is_not_ported(changes, what):
-    """The distributed paths and the tuner are refused by name, never
-    run in some other way."""
+    """The distributed paths are refused by name, never run in some other
+    way."""
     with pytest.raises(NotImplementedError, match="not yet ported") as err:
         ExecConfig(**changes)
     assert what in str(err.value)
@@ -468,7 +462,7 @@ def test_resolved_tiles_report_the_cpu_geometry():
     ws = Workspace.from_features(_features(41), config=ExecConfig(
         device="cpu", batch_size=16, block=8))
     tiles = ws.report().meta["tiles"]
-    assert tiles == {"device": "cpu", "batch_size": 16,
+    assert tiles == {"device": "cpu", "batch_size": 16, "auto": False,
                      "production_panel_rows": 8,
                      "permute_reduce_plain_chunk": 440}
 

@@ -720,3 +720,156 @@ def test_lm_smoke_path_card_matches_cpu(cuda):
     scale = float(out["cpu"].abs().max())
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-5,
                                atol=1e-5 * max(scale, 1.0))
+
+
+# --------------------------------------------------------------------------
+# the tuner and the analysis service on the card
+# --------------------------------------------------------------------------
+def _around(target, others, pos):
+    return torch.cat([others[:pos], target, others[pos:]])
+
+
+@pytest.mark.parametrize("n", [700, 1500, 16384])
+def test_permute_reduce_rows_do_not_depend_on_b(cuda, n):
+    """One permutation's S = 1 and S = 2 outputs are bitwise the same in
+    tiles of B = 32, of the card solver's B and of 128/S: a launch's grid
+    comes from the occupancy its shared memory allows, which S·B sets, so
+    the tuner may change B only if the grid, and with it the grouping of
+    the fp64 partials, does not move."""
+    from repro_torch.tune import solve_tiles
+    xc = random_distance_matrix(n + 11, n, device=cuda).condensed_form()
+    ys = torch.randn((2, xc.numel()), generator=torch.Generator()
+                     .manual_seed(n)).to(cuda)
+    target = permutation_orders(n + 12, 1, n, cuda)
+    solved = solve_tiles(n).batch_size
+    for rows in (1, 2):
+        sizes = sorted({32, solved, 128 // rows})
+        grids = {_build.resident_grid("repro_permute_reduce_grid", n, rows,
+                                      min(b, 128 // rows)) for b in sizes}
+        outs = set()
+        for b in sizes:
+            others = permutation_orders(n + 13, b - 1, n, cuda)
+            outs.add(_bits(permute_reduce(xc, ys[:rows],
+                                          _around(target, others, 5))[:, 5]))
+        assert len(outs) == 1, (rows, sizes, grids)
+        assert len(grids) == 1, (rows, sizes, grids)
+
+
+@pytest.mark.parametrize("method", ["mantel", "partial_mantel", "anosim",
+                                    "permanova", "permdisp"])
+def test_tile_statistics_do_not_depend_on_b(cuda, method):
+    """A permutation's statistic is bitwise the same in a tile of 32, of
+    the card solver's 64 and of 128 rows, for every test of the battery:
+    what lets ``ExecConfig(auto=True)`` change B and keep the default
+    session's bits."""
+    from repro_torch.stats import engine
+    n = 700
+    d, y, z = (random_distance_matrix(s, n, dim=5, device=cuda).data
+               for s in (31, 32, 33))
+    ws = Workspace(d)
+    kw = {"mantel": {"other": Workspace(y)},
+          "partial_mantel": {"other": Workspace(y), "control": Workspace(z)},
+          "permdisp": {"grouping": np.arange(n) % 4, "dimensions": 10}
+          }.get(method, {"grouping": np.arange(n) % 4})
+    stat, _ = ws.statistic(method, **kw)
+    inv, _ = engine.hoist_and_observe(stat, cuda)
+    target = permutation_orders(41, 1, n, cuda)
+    got = set()
+    for b in (32, 64, 128):
+        others = permutation_orders(42 + b, b - 1, n, cuda)
+        got.add(_bits(engine.tile_statistics(
+            stat, inv, _around(target, others, 7))[7]))
+    assert len(got) == 1, method
+
+
+class _FailingPermuteReduce:
+    """The bound library, except that ``permute_reduce``'s partials launch
+    reports a CUDA error (``cudaErrorInvalidValue``) without launching."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def repro_permute_reduce_partials(self, *args):
+        return 1
+
+
+def test_a_failing_launch_fails_the_service_run(cuda, monkeypatch):
+    """A kernel launch that reports a CUDA error leaves ``step()`` as a
+    ``KernelError``: no retry, no breaker, no degraded answer."""
+    from repro_torch.serve import AnalysisService, ServeConfig
+    n = 300
+    svc = AnalysisService(ServeConfig(timeout_s=None))
+    svc.upload("x", random_distance_matrix(51, n, device=cuda).data)
+    svc.upload("y", random_distance_matrix(52, n, device=cuda).data)
+    h = svc.submit("x", "mantel", other="y", permutations=99, key=3)
+    lib = _build.library()
+    monkeypatch.setattr(_build, "library", lambda: _FailingPermuteReduce(lib))
+    with pytest.raises(_build.KernelError, match="permute_reduce"):
+        svc.run()
+    assert h.status == "active" and not h.done
+    m = svc.metrics
+    assert (m.retries, m.breaker_trips, m.degraded, sum(
+        m.tile_failures.values())) == (0, 0, 0, 0)
+
+
+def test_service_is_bitwise_standalone_workspaces(cuda):
+    """The service on the card (B = 32, auto-tuned sessions): a dozen
+    mixed requests on square and feature studies, coalesced, each bitwise
+    the same request run alone through a default ``Workspace`` with the
+    same seed; each lane ran ceil(ΣK/B) tiles, each hoist was built once,
+    and the ledgers charge the row-stationary model."""
+    from repro_torch.serve import AnalysisService, ServeConfig
+    n = 700
+    rng = np.random.default_rng(5)
+    feats = [rng.random((n, 64)).astype(np.float32) for _ in range(2)]
+    squares = [random_distance_matrix(s, n, dim=5, device=cuda).data
+               for s in (61, 62, 63)]
+    groups = np.arange(n) % 4
+    svc = AnalysisService(ServeConfig())
+    for i, sq in enumerate(squares):
+        svc.upload(f"s{i}", sq)
+    for i, f in enumerate(feats):
+        svc.upload(f"f{i}", features=f)
+    assert svc.pool.get("s0").tuned.budget.backend == "cuda"
+    ks = iter((999, 17, 499, 249, 99, 49) * 2)
+    plan = []
+    for x, y, z in (("s0", "s1", "s2"), ("f0", "f1", "s2")):
+        plan += [(x, "mantel", {"other": y}), (x, "mantel", {"other": y}),
+                 (x, "anosim", {"grouping": groups}),
+                 (x, "permanova", {"grouping": groups}),
+                 (x, "permdisp", {"grouping": groups, "dimensions": 10}),
+                 (x, "partial_mantel", {"other": y, "control": z})]
+    _build.reset_launches()
+    handles = [(x, m, kw, k, svc.submit(x, m, permutations=k, key=i, **kw))
+               for i, ((x, m, kw), k) in enumerate(zip(plan, ks))]
+    svc.run()
+    launched = {k for k, v in _build.launches.items() if v}
+    assert {"inverse_orders", "permute_reduce", "permute_reduce_finish",
+            "center_matvec", "center_pass1", "center_finish",
+            "center_pass2"} <= launched
+    lanes = {}
+    for x, m, kw, k, h in handles:
+        assert h.status == "done", h.payload()
+        lanes[x, m] = lanes.get((x, m), 0) + k
+    assert svc.scheduler.tiles_run == sum(-(-k // 32)
+                                          for k in lanes.values())
+    alone = {"s0": Workspace(squares[0]), "s1": Workspace(squares[1]),
+             "s2": Workspace(squares[2]),
+             "f0": Workspace.from_features(feats[0]),
+             "f1": Workspace.from_features(feats[1])}
+    for i, (x, m, kw, k, h) in enumerate(handles):
+        args = {key: (alone[v] if key in ("other", "control") else v)
+                for key, v in kw.items()}
+        want = getattr(alone[x], m)(permutations=k, key=i, **args)
+        assert (h.result.statistic, h.result.p_value) == \
+            (want.statistic, want.p_value), (x, m, k)
+        assert h.updates[-1].p_lo == h.updates[-1].p_hi == h.result.p_value
+    for sid in ("s0", "f0"):
+        ws = svc.pool.get(sid)
+        assert all(v == 1 for v in ws.cache.misses.values()), sid
+        models = {e.params["model"] for e in ws.obs.ledger.entries
+                  if e.op.startswith("perm:")}
+        assert models == {"row_stationary"}

@@ -29,6 +29,9 @@ from repro_torch.runtime.serve import build_decode_fn, build_prefill_fn
 from repro_torch.stats import (PermanovaOperatorStatistic, anosim,
                                partial_mantel, permanova, permdisp)
 from repro_torch.stats.engine import permutation_test
+from repro_torch.launch import serve as serve_launcher
+from repro_torch.serve import AnalysisService, ServeConfig
+from repro_torch.tune import detect_budget, solve_tiles
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -59,13 +62,22 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(path):
 
 
 def test_session_modules_are_checked():
-    """The session API and the observability layer are among the files
-    the import check above walks."""
+    """The session API, the observability layer, the tuner and the
+    analysis service are among the files the import check above walks."""
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
              for p in PORT_FILES if "repro_torch" in p.parts}
     assert {"api/config.py", "api/workspace.py", "api/__init__.py",
             "obs/config.py", "obs/trace.py", "obs/ledger.py",
-            "obs/compile.py", "obs/report.py", "obs/__init__.py"} <= names
+            "obs/compile.py", "obs/report.py", "obs/__init__.py",
+            "obs/metrics.py",
+            "tune/__init__.py", "tune/budget.py", "tune/model.py",
+            "tune/solve.py",
+            "serve/__init__.py", "serve/admission.py", "serve/pool.py",
+            "serve/metrics.py", "serve/scheduler.py", "serve/service.py",
+            "faults/__init__.py", "faults/plan.py",
+            "checkpoint/__init__.py", "checkpoint/journal.py",
+            "runtime/monitor.py", "launch/__init__.py",
+            "launch/serve.py"} <= names
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -107,6 +119,14 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: build_prefill_fn(lm, 8),
         lambda: build_decode_fn(lm),
         lambda: convert.lm_params_from_reference({}, lm),
+        lambda: AnalysisService(),
+        lambda: AnalysisService(ServeConfig(auto_tune=False)),
+        lambda: detect_budget(),
+        lambda: solve_tiles(12),
+        lambda: Workspace(d.data, config=ExecConfig(auto=True)),
+        lambda: permutation_test(MantelStatistic(d.data, d.data, 12), 9,
+                                 config=ExecConfig(batch_size="auto")),
+        lambda: serve_launcher.main(["--smoke"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -183,6 +203,32 @@ def test_cpu_feature_path_launches_nothing():
     assert set(_build.launches.values()) == {0}
     assert {"pairwise_panel", "center_pass1", "center_finish",
             "center_pass2"} <= set(_build.launches)
+
+
+def test_cpu_service_launches_nothing():
+    """The analysis service on the CPU (tuned at admission, every method,
+    coalesced tiles) and the launcher run the kernels' plain versions: no
+    launch is counted."""
+    rng = np.random.default_rng(3)
+    svc = AnalysisService(ServeConfig(device="cpu", batch_size=8))
+    svc.upload("x", features=rng.random((20, 5)).astype(np.float32))
+    svc.upload("y", random_distance_matrix(7, 20, device="cpu").data)
+    svc.upload("z", features=rng.random((20, 4)).astype(np.float32))
+    groups = np.arange(20) % 2
+    _build.reset_launches()
+    handles = [svc.submit("x", "pcoa", dimensions=2)]
+    for study in ("x", "y"):
+        handles += [svc.submit(study, m, grouping=groups, permutations=9)
+                    for m in ("permanova", "anosim", "permdisp")]
+    handles += [svc.submit("x", "mantel", other="y", permutations=17),
+                svc.submit("y", "partial_mantel", other="x", control="z",
+                           permutations=9)]
+    svc.run()
+    assert all(h.status == "done" for h in handles)
+    assert svc.pool.get("x").tuned.budget.backend == "cpu"
+    assert serve_launcher.main(["--smoke", "--device", "cpu",
+                                "--show", "0"]) == 0
+    assert set(_build.launches.values()) == {0}
 
 
 def test_cpu_battery_launches_nothing():
