@@ -18,7 +18,11 @@ check fails:
    ``mantel_corr`` (n = 1000 with K = 54, and one batch of 27 at
    n = 16384), and its identity order against the plain Pearson r; 2d for
    ``rmsnorm`` at the LM path's shapes in fp32 and bf16, two launches
-   bitwise equal;
+   bitwise equal; phases 2, 2b and 2c also hold the distributed paths'
+   modes against their plain versions: ``center_matvec`` and the
+   ``center`` pair on an (8192, 8192) block of the main path's matrix and
+   a ragged (1000, 700) one, ``mantel_corr`` over the columns [8192,
+   16384) at n = 16384 and a ragged, unaligned range (c0 = 3, c = 700);
 3. the main path at n = 16384 (a 1.07 GB fp32 matrix): two validated
    ``DistanceMatrix`` objects, ``pcoa(dimensions=10)`` matrix-free, and
    ``mantel(permutations=999)`` against a noisy copy; 3b the feature path
@@ -51,9 +55,18 @@ check fails:
    materialized solves (``materialize=True`` through the ``center``
    kernels, and ``method="eigh"`` against the CPU); 4d runs the battery at
    n = 512 on the card and on the CPU with the same orders and sketch;
+7. the distributed paths at n = 16384 on phase 3's matrices: (a) a 1 x 1
+   NCCL mesh in this process (the centering bitwise the square kernels'
+   F; the matvec, pcoa, the Mantel null and test at K = 999 on
+   ``mantel``'s orders; the engine's Mantel and PERMANOVA nulls bitwise
+   the single-process engine's), (b) a 2 x 2 mesh of four processes
+   (``--distributed-rank``; gloo with CUDA tensors on one card, NCCL with
+   four), the same checks at K = 1000 against the single-process results,
+   each rank killed past DIST_TIMEOUT_S; a ``distributed`` JSON line;
 5. per-kernel times, bounds and plain versions at the paths' shapes
    (``center_matvec`` also at k = 128, the square-operator PERMANOVA's
-   tile, kernel and op); one permutation's ``permute_reduce`` (S = 1, 2)
+   tile, kernel and op; the block and column-range modes at the 2 x 2
+   mesh's shapes); one permutation's ``permute_reduce`` (S = 1, 2)
    and ``mantel_corr`` sums bitwise the same beside other tile-mates and at
    other positions of the tile; then the analysis paths' tensors are freed
    and
@@ -72,7 +85,10 @@ check fails:
 
 ``python3 chip_smoke.py --center-matvec-op TREE`` times only
 ``center_matvec_op`` of the checkout at TREE (phase 5's shapes), so that a
-parent commit's op can be timed in the same call.
+parent commit's op can be timed in the same call. ``--square-bits TREE
+OUT`` saves the square calls' outputs of the ``center`` pair,
+``center_matvec`` and ``mantel_corr`` of the checkout at TREE at fixed
+seeds, and ``--same-bits A B`` compares two such files bitwise.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it fails before printing any result.
@@ -84,6 +100,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -116,6 +133,12 @@ LM_PROMPT = 512       # prompt tokens a request
 LM_STEPS = 32         # greedy decode steps
 LM_MAX_LEN = 544      # cache slots: prompt + steps
 LM_CHECK_STEP = 16    # the decode step held against a prefill of its tokens
+BLOCK = N // 2        # a block of phase 7's 2 x 2 mesh: (8192, 8192)
+RAGGED_BLOCK = (1000, 700)  # phases 2, 2b and 2c's ragged block
+RAGGED_C0 = 3         # and phase 2c's unaligned column offset
+DIST_MESH = (2, 2)    # phase 7(b): four processes
+DIST_PERMUTATIONS = 1000  # K of phase 7(b): it must divide over 2 devices
+DIST_TIMEOUT_S = 600  # phase 7(b)'s ranks are killed past this
 # phase 2d: rmsnorm's inputs on the LM path, x dtype: the prefill block and
 # final norms (B·S rows), q- and k-norms (32·B·S and 8·B·S rows of
 # head_dim), the decode block norm, the decode q- and k-norms in the
@@ -353,6 +376,7 @@ def phase_kernels(d_main: torch.Tensor, ynorm_main: torch.Tensor) -> dict:
     d_ragged = random_distance_matrix(SEED + 2, SMALL_N + 1, device="cuda").data
     for d in (d_small, d_ragged, d_main):
         check_center_matvec(d, errors)
+    check_center_matvec_blocks(d_main, d_ragged, errors)
     for d in (d_small, d_ragged, d_main):
         check_permute_reduce(d, ynorm_main if d is d_main else None, errors)
     return errors
@@ -385,6 +409,40 @@ def check_center_matvec(d: torch.Tensor, errors: dict) -> None:
                    else "center_matvec_wide"] = err
     print(f"  center_matvec n={n}: two launches bitwise equal at k = "
           f"{', '.join(map(str, widths))}")
+
+
+def block_operands(r: int, c: int, k: int, seed: int):
+    """Random fp32 row means (r,), column means (c,), a global mean (1,),
+    an X of (c, k) and two k-vectors on the card, drawn from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).cuda()
+            for shape in ((r,), (c,), (1,), (c, k), (k,), (k,))]
+
+
+def check_center_matvec_blocks(d_main: torch.Tensor, d_ragged: torch.Tensor,
+                               errors: dict) -> None:
+    """center_matvec's block mode (the distributed matvec's) against its
+    plain version: an off-diagonal (BLOCK, BLOCK) block of the main path's
+    matrix, as a 2 x 2 mesh's rank holds, and a ragged (1000, 700) block,
+    at k = DIMS + 10; two launches bitwise equal."""
+    from repro_torch.kernels.center_matvec import center_matvec
+    from repro_torch.kernels.center_matvec_ref import center_matvec_block_ref
+
+    k = DIMS + 10
+    rr, rc = RAGGED_BLOCK
+    for label, d in ((f"({BLOCK}, {BLOCK})", d_main[:BLOCK, BLOCK:]),
+                     (f"({rr}, {rc})", d_ragged[:rr, :rc])):
+        d = d.contiguous()
+        r, c = d.shape
+        rm, _, _, x, colsum, corr = block_operands(r, c, k, SEED + r + c)
+        got = center_matvec(d, x, rm, colsum, corr)
+        err = compare(f"center_matvec block {label} k={k}", got,
+                      center_matvec_block_ref(d, x, rm, colsum, corr))
+        check(torch.equal(got, center_matvec(d, x, rm, colsum, corr)),
+              f"center_matvec block {label}: two launches differ")
+        if r == BLOCK:
+            errors["center_matvec_block"] = err
+    print("  center_matvec block mode: two launches bitwise equal")
 
 
 def check_inverse_orders(orders: torch.Tensor, label: str) -> float:
@@ -476,6 +534,21 @@ def check_permute_reduce(d: torch.Tensor, ynorm, errors: dict) -> None:
         raise SmokeFailure(f"permute_reduce {label}: a repeated order index "
                            f"was not refused")
     del xc, ys, ii, jj
+
+
+def main_inputs():
+    """Phase 3's matrices, made from SEED on the card: an n = N validated
+    ``DistanceMatrix`` of points in POINT_DIM dimensions, and a noisy copy
+    of its data (the Mantel test's y)."""
+    from repro_torch.core import random_distance_matrix
+
+    dm0 = random_distance_matrix(SEED, N, dim=POINT_DIM)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    noise = torch.triu(0.01 * torch.randn((N, N), generator=gen,
+                                          device="cuda").abs_(), 1)
+    d2 = dm0.data + noise + noise.T
+    del noise
+    return dm0, d2
 
 
 def phase_main_path(dm0, d2) -> dict:
@@ -669,6 +742,25 @@ def phase_feature_kernels(x: torch.Tensor, d_main: torch.Tensor) -> dict:
         compare(f"center, both passes, {label} fp32, vs Algorithm 1", f,
                 center_distance_matrix_ref(d), **CENTER_TOL)
         del f
+    # block mode (the distributed centering's): a (BLOCK, BLOCK) block of
+    # the main path's matrix and a ragged (1000, 700) one
+    rr, rc = RAGGED_BLOCK
+    for label, d in ((f"({BLOCK}, {BLOCK})", d_main[:BLOCK, BLOCK:]),
+                     (f"({rr}, {rc})", d_small[:rr, :rc])):
+        d = d.contiguous()
+        r, c = d.shape
+        rm, cm, gm = block_operands(r, c, 1, SEED + r)[:3]
+        pass1_err = compare(f"center_pass1 block {label}", center_pass1(d),
+                            center_pass1_ref(d), **CENTER_TOL)
+        f = center_pass2(d, rm, gm, cm)
+        pass2_err = compare(f"center_pass2 block {label}", f,
+                            center_pass2_ref(d, rm, gm, cm), **CENTER_TOL)
+        check(torch.equal(f, center_pass2(d, rm, gm, cm)),
+              f"center_pass2 block {label}: two launches differ")
+        if r == BLOCK:
+            errors["center_pass1_block"] = pass1_err
+            errors["center_pass2_block"] = pass2_err
+        del f
     got = center_distance_matrix_op(d_small.bfloat16()).float()
     want = center_distance_matrix_ref(d_small)
     err = float((got - want).abs().max())
@@ -734,6 +826,28 @@ def phase_mantel_corr_kernel(d_main: torch.Tensor, d2: torch.Tensor) -> dict:
                 err, finish_err
         del yhat, partials
     print("  mantel_corr: two launches bitwise equal at every input")
+    # column-range mode (the distributed Mantel's): the columns a 2 x 2
+    # mesh's rank holds at n = N, and a ragged, unaligned range
+    rr, rc = RAGGED_BLOCK
+    for label, x, y, c0, c in ((f"n={N} c0={BLOCK} c={BLOCK}", d_main, d2,
+                                BLOCK, BLOCK),
+                               (f"n={rr} c0={RAGGED_C0} c={rc}", small,
+                                small_y, RAGGED_C0, rc)):
+        n = x.shape[0]
+        orders = permutation_orders(SEED + 13, CORR_BATCH, n, "cuda")
+        normxm, yhat = mantel_corr_hoist(x, y)
+        ycols = yhat[:, c0:c0 + c].contiguous()
+        del yhat
+        got = mantel_corr(x, ycols, orders, c0)
+        err = compare(f"mantel_corr columns {label} B={CORR_BATCH}, as r",
+                      got / (2 * normxm),
+                      mantel_corr_plain(x, ycols, orders, c0) / (2 * normxm),
+                      **CORR_TOL)
+        check(torch.equal(got, mantel_corr(x, ycols, orders, c0)),
+              f"mantel_corr columns {label}: two launches differ")
+        if n == N:
+            errors["mantel_corr_cols"] = err
+        del ycols
     bad = permutation_orders(SEED + 9, CORR_BATCH, SMALL_N, "cuda")
     bad[3, 100] = bad[3, 200]
     try:
@@ -982,6 +1096,12 @@ def phase_feature_checks(feat: dict, x: torch.Tensor, y: torch.Tensor,
     return {"launches": mat_launches, "times": times}
 
 
+def battery_groups() -> np.ndarray:
+    """The battery's grouping: GROUPS groups of N / GROUPS, from a seed."""
+    return np.random.default_rng(SEED + 11).permutation(
+        np.repeat(np.arange(GROUPS), N // GROUPS))
+
+
 def battery_tests(x, y, z, op, groups, orders, device, omega=None,
                   corr_batch: int = CORR_BATCH) -> dict:
     """The battery's tests on ``device`` as ``{name: (the launches each
@@ -1056,8 +1176,7 @@ def phase_battery(main: dict, op, card: str) -> dict:
     print(f"== phase 3c: the statistics battery at n={N}, K={PERMUTATIONS}, "
           f"B={WORKSPACE_BATCH}, {GROUPS} groups of {N // GROUPS} "
           f"(mantel_corr B={CORR_BATCH})")
-    groups = np.random.default_rng(SEED + 11).permutation(
-        np.repeat(np.arange(GROUPS), N // GROUPS))
+    groups = battery_groups()
     x, y = main["dm"], main["dm2"]
     z = random_distance_matrix(SEED + 12, N, dim=POINT_DIM, device="cuda")
     # the orders mantel drew on the main path (key None: seed 0)
@@ -1905,6 +2024,366 @@ def phase_lm(card: str) -> dict:
     return {"launches": launches["rmsnorm"]}
 
 
+def synced(fn):
+    """``(fn(), host seconds)``, the card synchronised on both sides."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def distributed_calls(mesh, dm, dm2, codes, orders, permutations: int,
+                      draw: bool, perm_axes=("data",)) -> dict:
+    """The distributed paths of one rank, in order, each timed with the
+    launch counts set to 0 just before it and read just after: the
+    centering (cold, the group's first collectives, then warm), the matvec
+    at k = DIMS + 10, pcoa (matrix-free, DIMS), the
+    Mantel null and test, and the engine's null and test for Mantel and
+    PERMANOVA (B = 32). The nulls run on ``orders`` (the mesh's global
+    orders); the tests too, or with ``draw`` their own by the rank seed
+    (key None). Returns ``{"out", "seconds", "launches"}``."""
+    from repro_torch.core import (centered_gram_matvec_distributed,
+                                  center_distance_matrix_distributed,
+                                  mantel_distributed, pcoa)
+    from repro_torch.core.mantel import (MantelStatistic,
+                                         mantel_null_distributed)
+    from repro_torch.kernels import _build
+    from repro_torch.stats.engine import (WORKSPACE_BATCH,
+                                          hoist_and_observe,
+                                          null_distribution_distributed,
+                                          permutation_test_distributed)
+    from repro_torch.stats.permanova import PermanovaStatistic
+
+    x = torch.randn((N, DIMS + 10),
+                    generator=torch.Generator().manual_seed(SEED + 20)).cuda()
+    mantel_stat = MantelStatistic(dm.data, dm2.data, N)
+    permanova_stat = PermanovaStatistic(dm.data, codes, N, GROUPS)
+    device = torch.device("cuda")
+    given = None if draw else orders
+    calls = {
+        "center_distance_matrix_distributed":
+            lambda: center_distance_matrix_distributed(dm.data, mesh),
+        "center_distance_matrix_distributed_warm":
+            lambda: center_distance_matrix_distributed(dm.data, mesh),
+        "centered_gram_matvec_distributed":
+            lambda: centered_gram_matvec_distributed(dm.data, x, mesh),
+        "pcoa_distributed": lambda: pcoa(dm, dimensions=DIMS,
+                                         centering_impl="distributed",
+                                         mesh=mesh),
+        "mantel_null_distributed": lambda: mantel_null_distributed(
+            dm, dm2, mesh, permutations, perm_axes=perm_axes, orders=orders),
+        "mantel_distributed": lambda: mantel_distributed(
+            dm, dm2, mesh, permutations, perm_axes=perm_axes, orders=given),
+        "engine_mantel_null": lambda: null_distribution_distributed(
+            mantel_stat, hoist_and_observe(mantel_stat, device)[0], mesh,
+            permutations, perm_axes=perm_axes, batch_size=WORKSPACE_BATCH,
+            orders=orders),
+        "engine_mantel": lambda: permutation_test_distributed(
+            mantel_stat, mesh, permutations, perm_axes=perm_axes,
+            batch_size=WORKSPACE_BATCH, orders=given),
+        "engine_permanova_null": lambda: null_distribution_distributed(
+            permanova_stat, hoist_and_observe(permanova_stat, device)[0],
+            mesh, permutations, perm_axes=perm_axes,
+            batch_size=WORKSPACE_BATCH, orders=orders),
+        "engine_permanova": lambda: permutation_test_distributed(
+            permanova_stat, mesh, permutations, alternative="greater",
+            perm_axes=perm_axes, batch_size=WORKSPACE_BATCH, orders=given),
+    }
+    out, seconds, launches = {}, {}, {}
+    for name, call in calls.items():
+        _build.reset_launches()
+        out[name], seconds[name] = synced(call)
+        launches[name] = {k: v for k, v in _build.launches.items() if v}
+    out["x"] = x
+    return {"out": out, "seconds": seconds, "launches": launches}
+
+
+def total_launches(by_call: dict) -> dict:
+    total = {}
+    for counts in by_call.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+#: the calls of phase 7 whose center and mantel_corr launches are the
+#: block and column-range modes (the engine's PERMANOVA hoist centres the
+#: square)
+BLOCK_MODE_CALLS = ("center_distance_matrix_distributed",
+                    "center_distance_matrix_distributed_warm",
+                    "centered_gram_matvec_distributed", "pcoa_distributed",
+                    "mantel_null_distributed", "mantel_distributed")
+
+
+def block_mode_launches(by_call: dict) -> dict:
+    return total_launches({k: v for k, v in by_call.items()
+                           if k in BLOCK_MODE_CALLS})
+
+
+def single_process_nulls(dm, dm2, codes, orders) -> dict:
+    """The single-process engine's Mantel and PERMANOVA nulls and results
+    (B = 32) on ``orders``: what the distributed engine is held to."""
+    from repro_torch.core.mantel import MantelStatistic
+    from repro_torch.stats.engine import (WORKSPACE_BATCH, finish,
+                                          hoist_and_observe,
+                                          null_distribution)
+    from repro_torch.stats.permanova import PermanovaStatistic
+
+    out = {}
+    for name, stat, alternative in (
+            ("mantel", MantelStatistic(dm.data, dm2.data, N), "two-sided"),
+            ("permanova", PermanovaStatistic(dm.data, codes, N, GROUPS),
+             "greater")):
+        inv, observed = hoist_and_observe(stat, torch.device("cuda"))
+        null = null_distribution(stat, inv, orders, WORKSPACE_BATCH)
+        out[name] = (null, finish(observed, null, orders.shape[0],
+                                  alternative, N))
+    return out
+
+
+def check_distributed(got: dict, got_evals: torch.Tensor, want: dict,
+                      evals: torch.Tensor, what: str) -> dict:
+    """Hold one mesh's Mantel and engine nulls and results, and its
+    eigenvalues, against the single-process ones (``want`` from
+    ``single_process_nulls`` on the same orders, ``evals`` phase 3's):
+    the Mantel null within rtol 1e-5 with equal p-values, the engine's
+    nulls bitwise. Returns max errors."""
+    from repro_torch.stats.engine import finish
+
+    errors = {}
+    check_spectrum(got_evals, evals, f"{what}: pcoa eigenvalues vs phase 3's")
+    observed, null = got["mantel_null_distributed"]
+    want_null, want_result = want["mantel"]
+    errors["mantel_null"] = compare(f"{what}: mantel_distributed null vs "
+                                    f"the single-process engine's", null,
+                                    want_null, rtol=1e-5)
+    p_null = finish(observed, null, null.shape[0], "two-sided", N).p_value
+    stat, p, _ = got["mantel_distributed"]
+    print(f"  {what}: mantel_distributed stat {stat:.6f} p {p}; on the "
+          f"given orders p {p_null}; single process stat "
+          f"{want_result.statistic:.6f} p {want_result.p_value}")
+    check(p_null == want_result.p_value and p == want_result.p_value
+          and abs(stat - want_result.statistic) <= 1e-5,
+          f"{what}: mantel_distributed p-value or statistic differs")
+    for name in ("mantel", "permanova"):
+        null = got[f"engine_{name}_null"]
+        want_null, want_result = want[name]
+        result = got[f"engine_{name}"]
+        same = torch.equal(null.cpu(), want_null.cpu())
+        errors[f"engine_{name}_null"] = float(
+            (null.cpu().double() - want_null.cpu().double()).abs().max())
+        print(f"  {what}: permutation_test_distributed {name}: null "
+              f"bitwise the single-process engine's: {same}; stat "
+              f"{result.statistic:.6f} p {result.p_value}")
+        check(same, f"{what}: the distributed {name} null is not bitwise "
+                    f"the single-process engine's")
+        check((result.statistic, result.p_value)
+              == (want_result.statistic, want_result.p_value),
+              f"{what}: permutation_test_distributed {name} differs")
+    return errors
+
+
+def distributed_rank(rank: int, init: str, out_dir: str) -> int:
+    """One rank of phase 7(b): a 2 x 2 mesh over four processes (NCCL with
+    four cards, gloo with CUDA tensors on one), phase 3's matrices made
+    from the seed again, the distributed calls, and each rank's blocks
+    held against the single-process centering and matvec. Writes its
+    JSON report; rank 0 also the nulls and eigenvalues."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import DistanceMatrix, center_distance_matrix
+    from repro_torch.core.operators import CenteredGramOperator
+    from repro_torch.launch.mesh import gathered, make_host_mesh, reset_gathered
+    from repro_torch.stats import rank_orders
+
+    cards = torch.cuda.device_count()
+    torch.cuda.set_device(rank % cards)
+    backend = "nccl" if cards >= 4 else "gloo"
+    world = DIST_MESH[0] * DIST_MESH[1]
+    dist.init_process_group(backend, init_method=f"file://{init}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    mesh = make_host_mesh(DIST_MESH, device_type="cuda")
+    dm0, d2 = main_inputs()
+    dm, dm2 = DistanceMatrix(dm0.data), DistanceMatrix(d2)
+    codes = torch.as_tensor(battery_groups()).cuda()
+    orders = rank_orders(None, mesh, ("data",), DIST_PERMUTATIONS, N, "cuda")
+    reset_gathered()
+    run = distributed_calls(mesh, dm, dm2, codes, orders, DIST_PERMUTATIONS,
+                            draw=True)
+    gathered_bytes = dict(gathered)
+    out = run["out"]
+    # this rank's blocks against the single-process centering and matvec,
+    # at the CPU tests' tolerances: centering 2e-4, the matvec 1e-4 (its
+    # atol scaled by max(scale, 1), as ``compare`` scales its own: the
+    # products reach 2e3 here, where one fp32 ulp is 1.2e-4)
+    f = out["center_distance_matrix_distributed"].to_local()
+    r, c = f.shape
+    i0, j0 = r * mesh.get_local_rank("data"), c * mesh.get_local_rank("model")
+    want = center_distance_matrix(dm.data)[i0:i0 + r, j0:j0 + c]
+    center_err = float((f - want).abs().max())
+    center_ok = bool(((f - want).abs() <= 2e-4 + 2e-4 * want.abs()).all())
+    del want, f
+    rows = out["centered_gram_matvec_distributed"].to_local()
+    want = CenteredGramOperator.from_distance(dm.data).matvec(
+        out["x"])[i0:i0 + r]
+    matvec_err = float((rows - want).abs().max())
+    matvec_atol = 1e-4 * max(float(want.abs().max()), 1.0)
+    matvec_ok = bool(((rows - want).abs()
+                      <= matvec_atol + 1e-4 * want.abs()).all())
+    report = {"rank": rank, "backend": backend, "cards": cards,
+              "seconds": run["seconds"], "launches": run["launches"],
+              "gathered": gathered_bytes,
+              "center_max_abs_err": center_err, "center_ok": center_ok,
+              "matvec_max_abs_err": matvec_err, "matvec_atol": matvec_atol,
+              "matvec_ok": matvec_ok}
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
+    if rank == 0:
+        torch.save({name: out[name] for name in (
+            "mantel_null_distributed", "mantel_distributed",
+            "engine_mantel_null", "engine_mantel", "engine_permanova_null",
+            "engine_permanova")} | {"pcoa_evals": out[
+                "pcoa_distributed"].eigenvalues.cpu()},
+            Path(out_dir, "rank0.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(out_dir: Path) -> list:
+    """Phase 7(b)'s four ranks, each ``chip_smoke.py --distributed-rank``;
+    every rank is killed past DIST_TIMEOUT_S. Returns their reports."""
+    world = DIST_MESH[0] * DIST_MESH[1]
+    init = out_dir / "store"
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--distributed-rank",
+         str(rank), str(init), str(out_dir)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(world)]
+    logs = []
+    try:
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        for proc in procs:
+            logs.append(proc.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    codes = [proc.returncode for proc in procs]
+    if any(codes) or len(logs) < world:
+        for rank, log in enumerate(logs):
+            print(f"  rank {rank}:\n{log[-3000:]}")
+        raise SmokeFailure(f"phase 7(b): ranks exited {codes}")
+    return [json.loads((out_dir / f"rank{rank}.json").read_text())
+            for rank in range(world)]
+
+
+def phase_distributed(main: dict, groups: np.ndarray, card: str) -> dict:
+    """Phase 7: the distributed paths at n = N on phase 3's matrices. (a) a
+    1 x 1 NCCL mesh in this process: the centering bitwise the square
+    kernels' F, the matvec within 1e-5 of ``center_matvec_op``, pcoa's
+    eigenvalues within 1e-4 of phase 3's, the Mantel null within 1e-5 of
+    the single-process engine's with the same p-value, the engine's
+    Mantel and PERMANOVA nulls bitwise; K = PERMUTATIONS on ``mantel``'s
+    orders. (b) a 2 x 2 mesh over four processes, the same checks against
+    the single-process results at K = DIST_PERMUTATIONS. Prints the
+    ``distributed`` line; returns the kernels' launches over both."""
+    from repro_torch.core import center_distance_matrix
+    from repro_torch.core.operators import CenteredGramOperator
+    from repro_torch.kernels.center_matvec_ops import center_matvec_op
+    from repro_torch.launch.mesh import (full_tensor, gathered,
+                                         make_host_mesh, reset_gathered)
+    from repro_torch.stats.engine import (permutation_orders, rank_seed)
+
+    print(f"== phase 7: distributed paths at n={N} ({card})")
+    dm, dm2 = main["dm"], main["dm2"]
+    codes = torch.as_tensor(groups).cuda()
+    evals = main["pcoa"].eigenvalues
+
+    # (a) one rank: the square path's bits
+    mesh = make_host_mesh((1, 1), device_type="cuda")
+    orders = permutation_orders(None, PERMUTATIONS, N, "cuda")
+    reset_gathered()
+    run = distributed_calls(mesh, dm, dm2, codes, orders, PERMUTATIONS,
+                            draw=False)
+    gathered_a = dict(gathered)
+    out = run["out"]
+    f = full_tensor(out["center_distance_matrix_distributed"])
+    same_f = torch.equal(f, center_distance_matrix(dm.data))
+    print(f"  1x1 nccl: centering bitwise the square kernels' F: {same_f}")
+    check(same_f, "phase 7(a): the distributed centering differs from the "
+                  "square kernels' F")
+    del f
+    op = CenteredGramOperator.from_distance(dm.data)
+    errors = {"matvec_1x1": compare(
+        f"1x1 nccl: distributed matvec k={DIMS + 10} vs center_matvec_op",
+        full_tensor(out["centered_gram_matvec_distributed"]),
+        center_matvec_op(dm.data, out["x"], op.row_means, op.global_mean),
+        rtol=1e-5)}
+    want = single_process_nulls(dm, dm2, codes, orders)
+    errors.update({f"{k}_1x1": v for k, v in check_distributed(
+        out, out["pcoa_distributed"].eigenvalues, want, evals,
+        "1x1 nccl").items()})
+    seconds = {"1x1": run["seconds"]}
+    launches_a = total_launches(run["launches"])
+    block_a = block_mode_launches(run["launches"])
+    print(f"  1x1 nccl launches: {launches_a}")
+    del run, out, want
+    torch.distributed.destroy_process_group()
+
+    # (b) four ranks on a 2 x 2 mesh
+    out_dir = ROOT / "build" / "phase7"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    reports = spawn_ranks(out_dir)
+    wall_b = time.perf_counter() - t0
+    got = torch.load(out_dir / "rank0.pt", weights_only=False)
+    per_dev = DIST_PERMUTATIONS // DIST_MESH[0]
+    orders = torch.cat([permutation_orders(rank_seed(None, dev), per_dev, N,
+                                           "cuda")
+                        for dev in range(DIST_MESH[0])])
+    want = single_process_nulls(dm, dm2, codes, orders)
+    errors.update({f"{k}_2x2": v for k, v in check_distributed(
+        got, got["pcoa_evals"], want, evals,
+        "2x2 " + reports[0]["backend"]).items()})
+    for rep in reports:
+        print(f"  2x2 rank {rep['rank']}: centering block max abs err "
+              f"{rep['center_max_abs_err']:.3e} (2e-4), matvec rows "
+              f"{rep['matvec_max_abs_err']:.3e} (rtol 1e-4, atol "
+              f"{rep['matvec_atol']:.3g}); gathered "
+              f"{rep['gathered']['bytes']} B in {rep['gathered']['calls']} "
+              f"gathers")
+        check(rep["center_ok"] and rep["matvec_ok"],
+              f"phase 7(b) rank {rep['rank']}: a block disagrees")
+    errors["center_2x2"] = max(r["center_max_abs_err"] for r in reports)
+    errors["matvec_2x2"] = max(r["matvec_max_abs_err"] for r in reports)
+    launches_b = total_launches(
+        {r["rank"]: total_launches(r["launches"]) for r in reports})
+    block_b = total_launches(
+        {r["rank"]: block_mode_launches(r["launches"]) for r in reports})
+    print(f"  2x2 launches, all ranks: {launches_b}; ranks' wall {wall_b:.1f} s")
+    seconds.update({f"2x2_rank{r['rank']}": r["seconds"] for r in reports})
+    line = {"backend": {"1x1": "nccl", "2x2": reports[0]["backend"]},
+            "mesh": {"1x1": [1, 1], "2x2": list(DIST_MESH)},
+            "cards": reports[0]["cards"], "n": N,
+            "permutations": {"1x1": PERMUTATIONS, "2x2": DIST_PERMUTATIONS},
+            "seconds": seconds, "ranks_wall_s": wall_b,
+            "max_abs_err": errors,
+            "gathered_bytes_per_rank": {
+                "1x1": gathered_a["bytes"],
+                **{f"2x2_rank{r['rank']}": r["gathered"]["bytes"]
+                   for r in reports}},
+            "launches": {"1x1": launches_a, "2x2": launches_b},
+            "card": card}
+    print(json.dumps({"distributed": line}))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"block_launches": total_launches({"a": block_a, "b": block_b})}
+
+
 def pcoa_steps(dm) -> dict:
     """One ``pcoa(dm, dimensions=DIMS)`` taken apart: its steps in the order
     ``core/pcoa.py`` runs them, each timed on the host clock between two
@@ -2298,6 +2777,53 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
           library_host_launch_ms=cuda_ms(lambda: torch.sum(partials, dim=0),
                                          reps=20))
     del partials
+
+    # the block and column-range modes at a 2 x 2 mesh's shapes: an
+    # off-diagonal (BLOCK, BLOCK) block of D; mantel_corr over ŷ's columns
+    # [BLOCK, N) with one launch's MAX_PERMS orders, as the distributed
+    # Mantel runs it. The bounds count every input once (each operand,
+    # the means, X, the orders) and every output once.
+    from repro_torch.kernels.center_matvec_ref import center_matvec_block_ref
+    from repro_torch.kernels.mantel_corr import MAX_PERMS
+    r = c = BLOCK
+    blk = d[:BLOCK, BLOCK:].contiguous()
+    rm, cm, gmb, xb = block_operands(r, c, k, SEED + 30)[:4]
+    zero_r = torch.zeros(r, device="cuda")
+    zero_k = torch.zeros(k, device="cuda")
+    entry("center_pass1_block", "src/repro_torch/csrc/center.cu",
+          "src/repro/kernels/center.py:67",
+          cuda_ms(lambda: center_pass1(blk), reps=20),
+          cuda_ms(lambda: center_pass1_ref(blk), reps=5),
+          4 * r * c + 4 * r, 2 * r * c, FP32_FLOPS, shape=[r, c])
+    entry("center_pass2_block", "src/repro_torch/csrc/center.cu",
+          "src/repro/kernels/center.py:90",
+          cuda_ms(lambda: center_pass2(blk, rm, gmb, cm), reps=20),
+          cuda_ms(lambda: center_pass2_ref(blk, rm, gmb, cm), reps=5),
+          8 * r * c + 4 * r + 4 * c + 4, 5 * r * c, FP32_FLOPS, shape=[r, c])
+    entry("center_matvec_block", "src/repro_torch/csrc/center_matvec.cu",
+          "src/repro/kernels/center_matvec.py:59",
+          cuda_ms(lambda: center_matvec(blk, xb, zero_r, zero_k, zero_k),
+                  reps=20),
+          cuda_ms(lambda: center_matvec_block_ref(blk, xb, zero_r, zero_k,
+                                                  zero_k), reps=5),
+          4 * (r * c + c * k + r * k + r + 2 * k), 2 * r * c, FP32_FLOPS,
+          tf32_flops=3 * 2 * r * c * k, shape=[r, c, k])
+    del blk, xb
+    ycols = yhat[:, BLOCK:].contiguous()
+    orders = permutation_orders(SEED + 3, MAX_PERMS, n, "cuda")
+    inv, orders16 = inverse_orders(orders)
+    partials = mantel_corr_partials(d, ycols, inv, orders16, BLOCK)
+    blocks = partials.shape[0]
+    entry("mantel_corr_cols", "src/repro_torch/csrc/mantel_corr.cu",
+          "src/repro/kernels/mantel_corr.py:59",
+          cuda_ms(lambda: mantel_corr_partials(d, ycols, inv, orders16,
+                                               BLOCK), reps=3),
+          cuda_ms(lambda: mantel_corr_plain(d, ycols, orders, BLOCK), reps=1),
+          4 * n * n + 4 * n * BLOCK * MAX_PERMS + 4 * MAX_PERMS * n
+          + 2 * MAX_PERMS * BLOCK + 8 * blocks * MAX_PERMS,
+          2 * MAX_PERMS * n * BLOCK, FP32_FLOPS, shape=[n, BLOCK],
+          c0=BLOCK, perms=MAX_PERMS)
+    del ycols, partials
     check_tile_mates(d, ynorm, yhat)
     del yhat
     print_kernel_times(kernels)
@@ -2444,6 +2970,61 @@ def center_matvec_op_times() -> dict:
     return out
 
 
+def square_call_outputs() -> dict:
+    """The square calls of the ``center`` pair (fp32 and bf16),
+    ``center_matvec`` (k = 20, 45, 128) and ``mantel_corr`` (27 orders) at
+    n = 1000, 1001 and 4096, from fixed seeds, by the ``repro_torch``
+    first on the path: so a parent tree's bits can be held against this
+    tree's (``--square-bits``, then ``--same-bits``)."""
+    from repro_torch.core import random_distance_matrix
+    from repro_torch.kernels.center import (center_finish, center_pass1,
+                                            center_pass2)
+    from repro_torch.kernels.center_matvec import center_matvec
+    from repro_torch.kernels.center_matvec_ref import center_corrections
+    from repro_torch.kernels.inverse_orders import inverse_orders
+    from repro_torch.kernels.mantel_corr import (mantel_corr_finish,
+                                                 mantel_corr_partials)
+    from repro_torch.stats.engine import permutation_orders
+
+    out = {}
+    for n in (1000, 1001, 4096):
+        d = random_distance_matrix(SEED + n, n, device="cuda").data
+        row_sums = center_pass1(d)
+        row_means, gm = center_finish(row_sums)
+        out[f"center_pass1 n={n}"] = row_sums
+        out[f"center_finish n={n}"] = torch.cat([row_means, gm])
+        out[f"center_pass2 n={n}"] = center_pass2(d, row_means, gm)
+        out[f"center_pass1 bf16 n={n}"] = center_pass1(d.bfloat16())
+        out[f"center_pass2 bf16 n={n}"] = center_pass2(d.bfloat16(),
+                                                       row_means, gm)
+        for k in (DIMS + 10, 45, WIDE_K):
+            x = torch.randn((n, k), generator=torch.Generator().manual_seed(
+                n + k)).cuda()
+            colsum, corr = center_corrections(x, row_means, gm)
+            out[f"center_matvec n={n} k={k}"] = center_matvec(
+                d, x, row_means, colsum, corr)
+        yhat = torch.randn((n, n), generator=torch.Generator().manual_seed(
+            n)).cuda()
+        inv, orders16 = inverse_orders(permutation_orders(SEED, CORR_BATCH,
+                                                          n, "cuda"))
+        partials = mantel_corr_partials(d, yhat, inv, orders16)
+        out[f"mantel_corr partials n={n}"] = partials
+        out[f"mantel_corr n={n}"] = mantel_corr_finish(partials)
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def same_bits(a: str, b: str) -> int:
+    """Compare two ``--square-bits`` files output by output, bitwise."""
+    got, want = torch.load(a), torch.load(b)
+    differ = [k for k in want if k not in got or not torch.equal(got[k],
+                                                                 want[k])]
+    print(json.dumps({"square_bits": {"outputs": len(want),
+                                      "bitwise_equal": len(want) - len(differ),
+                                      "differ": differ,
+                                      "card": torch.cuda.get_device_name(0)}}))
+    return 1 if differ or set(got) != set(want) else 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -2458,12 +3039,20 @@ def main() -> int:
         sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
         print(json.dumps(center_matvec_op_times()))
         return 0
+    if sys.argv[1:2] == ["--square-bits"] and len(sys.argv) == 4:
+        # the square calls' outputs of another (or this) tree, saved
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
+        torch.save(square_call_outputs(), sys.argv[3])
+        return 0
+    if sys.argv[1:2] == ["--same-bits"] and len(sys.argv) == 4:
+        return same_bits(sys.argv[2], sys.argv[3])
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:2] == ["--distributed-rank"] and len(sys.argv) == 5:
+        return distributed_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if sys.argv[1:] == ["--solver-first-calls"]:     # phase 4b's fresh process
         torch.zeros(1, device="cuda")
         print(json.dumps(solver_first_calls()))
         return 0
-    from repro_torch.core import random_distance_matrix
     from repro_torch.core.mantel import condensed_moments
 
     t_start = time.perf_counter()
@@ -2478,12 +3067,7 @@ def main() -> int:
     env = run("1 environment", phase_environment)
     card = env["card"]
 
-    dm0 = random_distance_matrix(SEED, N, dim=POINT_DIM)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    noise = torch.triu(0.01 * torch.randn((N, N), generator=gen,
-                                          device="cuda").abs_(), 1)
-    d2 = dm0.data + noise + noise.T
-    del noise
+    dm0, d2 = main_inputs()
     ynorm = condensed_moments(d2, N)["hat"]
     sync()
 
@@ -2513,6 +3097,8 @@ def main() -> int:
     run("3f chaos", phase_chaos, card)
     run("4d battery vs CPU", phase_battery_vs_cpu, main_path, x,
         battery["groups"])
+    distributed = run("7 distributed", phase_distributed, main_path,
+                      battery["groups"], card)
     # each kernel's launches on the path that runs it
     launches = {**main_path["launches"],
                 "pairwise_panel": feature_launches["pairwise_panel"]}
@@ -2520,6 +3106,12 @@ def main() -> int:
                      ("center_pass1", "center_finish", "center_pass2")})
     launches.update({k: battery["launches"]["mantel_corr"][k] for k in
                      ("mantel_corr", "mantel_corr_finish")})
+    # the block and column-range modes: their launches in phase 7
+    launches.update({f"{k}_block": distributed["block_launches"].get(k, 0)
+                     for k in ("center_pass1", "center_pass2",
+                               "center_matvec")})
+    launches["mantel_corr_cols"] = \
+        distributed["block_launches"].get("mantel_corr", 0)
     del battery, main_path
     kernels = run("5 kernel times", phase_kernel_line, launches, errors,
                   dm0.data, ynorm, x, card)

@@ -15,9 +15,13 @@ route of the port, so that a reference user's config carries across:
 kernel; ``kernel="pallas"`` only names the partial-Mantel statistic
 ``PartialMantelPallasStatistic``, the same route), and ``interpret``,
 ``chunk`` and ``feature_block`` (Pallas dispatch and tiles; the CUDA
-kernels own their geometry). ``centering_impl`` is read on the CPU only:
-``"ref"`` is the eager Algorithm 1, ``"fused"`` the ``center`` pair's
-plain version; on the card both run the ``center`` kernel pair.
+kernels own their geometry). ``centering_impl`` chooses the route of
+the materialized Gower matrix: ``"ref"`` is the eager Algorithm 1 on the
+CPU, ``"fused"`` the ``center`` pair's plain version there (on the card
+both run the ``center`` kernel pair), and ``"distributed"`` centres over
+``mesh`` (a ``torch.distributed`` ``DeviceMesh``, see
+``repro_torch.launch.mesh``), where it also routes matrix-free PCoA
+through the distributed matvec.
 ``block`` sets the production's row panels and the condensed operator's
 strips, as in the reference, and changes nothing inside a kernel.
 
@@ -27,9 +31,6 @@ calls ``resolve(n, d)`` at admission. The budget is the config device's
 (``None``: the card, whose solve follows the CUDA kernels' geometry;
 ``"cpu"``: the reference's CPU column, so the solve gives the
 reference's tiles), or the ``tune_profile`` JSON.
-
-Refused by name with ``NotImplementedError`` until their item is ported:
-a ``mesh`` and ``centering_impl="distributed"`` (the distributed paths).
 
 This module imports nothing of ``repro_torch`` except ``obs.config`` (and
 the tuner, lazily, in ``resolve``), so any layer can import it without
@@ -49,11 +50,6 @@ from repro_torch.obs.config import ObsConfig
 # imports nothing of the package (pinned in sync by tests/test_torch_api.py)
 _KNOWN_METRICS = ("braycurtis", "canberra", "cityblock", "euclidean",
                   "jaccard")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to repro_torch "
-                               f"({item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,10 +72,12 @@ class ExecConfig:
         int >= 1) and feature tile (``"auto"`` or an int >= 1, default
         128). Validated, resolved, read by no route.
     centering_impl:
-        ``"ref"`` or ``"fused"`` (default) for the materialized Gower
-        matrix: the ``center`` kernel pair on the card either way; on the
-        CPU the eager Algorithm 1 or the pair's plain version.
-        ``"distributed"`` is refused (not yet ported).
+        ``"ref"``, ``"fused"`` (default) or ``"distributed"`` for the
+        materialized Gower matrix: the ``center`` kernel pair on the card
+        for the first two, on the CPU the eager Algorithm 1 or the pair's
+        plain version; ``"distributed"`` centres over ``mesh`` (and runs
+        matrix-free PCoA through the distributed matvec). It requires a
+        mesh.
     materialize:
         ``True`` runs PCoA through the materialized Gower matrix;
         ``False`` (default) matrix-free through the operator.
@@ -92,7 +90,10 @@ class ExecConfig:
         test's default (32). ``"auto"``: solved from (n, budget), never
         from K, so one padded per-batch program serves every K.
     mesh:
-        Must be ``None``: the distributed paths are not yet ported.
+        Optional ``torch.distributed`` ``DeviceMesh`` for the distributed
+        paths (``centering_impl="distributed"``), with the reference's
+        axis names (``repro_torch.launch.mesh.make_host_mesh``). A
+        session's permutation tests do not use it, as in the reference.
     device:
         Where a Workspace holds its data: ``None`` (default) is the card,
         ``"cpu"`` the CPU (the plain versions); a string or a
@@ -140,11 +141,8 @@ class ExecConfig:
                              f"{self.centering_impl!r}")
         if self.kernel not in ("xla", "pallas"):
             raise ValueError(f"unknown kernel {self.kernel!r}")
-        if self.centering_impl == "distributed":
-            raise _not_ported("centering_impl='distributed'",
-                              "the distributed paths")
-        if self.mesh is not None:
-            raise _not_ported("a device mesh", "the distributed paths")
+        if self.centering_impl == "distributed" and self.mesh is None:
+            raise ValueError("centering_impl='distributed' requires a mesh")
         for knob in ("block", "feature_block"):
             v = getattr(self, knob)
             if not (v == "auto" or (isinstance(v, int) and v >= 1)):

@@ -504,7 +504,7 @@ class Workspace:
         """The materialized Gower-centred matrix (PERMANOVA's hoist; the
         eigh and materialized solves), by ``config.centering_impl``."""
         return self.cache.get("gram", lambda: materialized_gram(
-            self.data, self.config.centering_impl))
+            self.data, self.config.centering_impl, self.config.mesh))
 
     def ranks(self) -> dict:
         """ANOSIM's rank transform of the shared ``"condensed"`` artifact:
@@ -560,8 +560,12 @@ class Workspace:
                              omega=omega, config=self.config,
                              check_finite=False, gram=self.gram())
             # matrix-free; a feature-backed session passes dm=None and
-            # solves off the condensed operator alone
-            return _pcoa(self._dm, dimensions=k, method=method, key=key,
+            # solves off the condensed operator alone, except through the
+            # distributed matvec, which needs the square (its trace comes
+            # off the operator's means)
+            dm = self.dm if self.config.centering_impl == "distributed" \
+                else self._dm
+            return _pcoa(dm, dimensions=k, method=method, key=key,
                          omega=omega, config=self.config,
                          check_finite=False, operator=self.operator())
 

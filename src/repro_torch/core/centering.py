@@ -12,13 +12,22 @@ materialized fsvd); the matrix-free path never forms F.
 * ``center_distance_matrix_blocked`` — Algorithm 2's two loops with
   explicit row-block tiling, in plain PyTorch: the structural reference
   for the kernels' tiling.
+* ``center_distance_matrix_distributed`` — the same two passes over a
+  matrix block-sharded on a device mesh: each rank reads its block twice
+  and only O(n) row sums cross the interconnect.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels.center_ops import center_distance_matrix_op
+from repro_torch.kernels.center_ops import (center_block_op,
+                                            center_distance_matrix_op,
+                                            center_means_op,
+                                            center_row_sums_op)
+from repro_torch.launch.mesh import (all_gather_tiled, local_block,
+                                     placements, psum)
 
 
 def center_distance_matrix_ref(distance_matrix: torch.Tensor) -> torch.Tensor:
@@ -63,3 +72,32 @@ def center_distance_matrix_blocked(distance_matrix: torch.Tensor,
         - row_means[None, :]
         for i0, e_rows in zip(range(0, n_padded, block), e_blocks)])
     return out[:n, :n] if pad else out
+
+
+def center_distance_matrix_distributed(distance_matrix, mesh,
+                                       row_axis: str = "data",
+                                       col_axis: str = "model") -> DTensor:
+    """Gower centering of an (n, n) matrix block-sharded over ``mesh``:
+    rows over ``row_axis``, columns over ``col_axis``.
+
+    ``distance_matrix`` is a plain tensor every rank holds, or a DTensor
+    placed ``Shard(0)`` on ``row_axis`` and ``Shard(1)`` on ``col_axis``;
+    n must divide over both. Each rank runs pass 1 on its (n/Pr, n/Pc)
+    block; its rows' sums are completed by a psum over ``col_axis``, and an
+    all_gather over ``row_axis`` gives every rank all n row sums (O(n)
+    bytes). The fixed-order finish then gives every rank the same row means
+    and global mean, bit for bit, and pass 2 writes the block of F from its
+    rows' and its columns' means (D symmetric: the column means are the row
+    means). Returns a DTensor with the input's placements; on a 1 x 1 mesh
+    its block is exactly what ``center_distance_matrix`` computes.
+    """
+    block, i0, j0, n = local_block(distance_matrix, mesh, row_axis, col_axis)
+    rows, cols = block.shape
+    row_sums = psum(center_row_sums_op(block), mesh, col_axis)
+    row_means, global_mean = center_means_op(
+        all_gather_tiled(row_sums, mesh, row_axis))
+    f = center_block_op(block, row_means[i0:i0 + rows].contiguous(),
+                        row_means[j0:j0 + cols].contiguous(), global_mean)
+    return DTensor.from_local(f, mesh,
+                              placements(mesh, {row_axis: 0, col_axis: 1}),
+                              run_check=False, shape=(n, n), stride=(n, 1))

@@ -15,6 +15,11 @@ The counterpart of ``repro/core/mantel.py``.
   batched B permutations at a time through ``permute_reduce`` — on the card
   one launch of its kernel per tile. ``mantel`` wraps a one-shot
   ``api.Workspace``, as in the reference (B = 32).
+* ``mantel_distributed`` — permutations over the perm axes of a device
+  mesh, ŷ's columns over ``"model"``: each rank reduces its permutations
+  against its column block of the square ŷ (``hat_square``) with the
+  ``mantel_corr`` kernel in column-range mode, then a fixed-order fp64 sum
+  over the column axis.
 """
 
 from __future__ import annotations
@@ -25,9 +30,13 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.core.distance_matrix import (DistanceMatrix, condensed_form,
+                                              condensed_to_square,
                                               permuted_condensed)
 from repro_torch.kernels.dispatch import DeviceLike
+from repro_torch.kernels.mantel_corr_ops import mantel_corr_sums_op
 from repro_torch.kernels.permute_reduce_ops import permute_reduce
+from repro_torch.launch.mesh import (all_gather_tiled, axis_index, axis_size,
+                                     check_device, psum)
 from repro_torch.stats import engine
 
 
@@ -74,6 +83,13 @@ def condensed_moments(data: torch.Tensor, n: int) -> dict:
         raise ValueError(f"expected an ({n}, {n}) matrix, got "
                          f"{tuple(data.shape)}")
     return condensed_moments_vec(condensed_form(data))
+
+
+def hat_square(moments: dict, n: int) -> torch.Tensor:
+    """Square symmetric form (zero diagonal) of the centred-normalized
+    condensed vector ``moments["hat"]``: the one consumer is
+    ``mantel_distributed``, whose ``"model"`` axis shards its columns."""
+    return condensed_to_square(moments["hat"], n)
 
 
 def _as_condensed(mat: torch.Tensor) -> torch.Tensor:
@@ -143,4 +159,58 @@ def mantel(x: DistanceMatrix, y: DistanceMatrix, permutations: int = 999,
                   validate=False).mantel(y, permutations=permutations,
                                          key=key, alternative=alternative,
                                          orders=orders)
+    return r.statistic, r.p_value, r.sample_size
+
+
+def mantel_null_distributed(x: DistanceMatrix, y: DistanceMatrix, mesh,
+                            permutations: int = 1024,
+                            key: Union[int, None] = None,
+                            perm_axes=("data",), col_axis: str = "model",
+                            orders: Optional[torch.Tensor] = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(observed, null)`` of ``mantel_distributed``: the statistic and
+    the (K,) null draws, the same on every rank."""
+    n = len(x)
+    check_device(mesh, x.data, y.data)
+    device = x.data.device
+    stat = MantelStatistic(x.data, y.data, n)
+    inv, observed = engine.hoist_and_observe(stat, device)
+    cols = axis_size(mesh, col_axis)
+    if n % cols:
+        raise ValueError(f"n = {n} must divide over the {cols} ranks of "
+                         f"{col_axis!r}")
+    c = n // cols
+    c0 = axis_index(mesh, col_axis) * c
+    y_cols = hat_square({"hat": inv["ynorm"]}, n)[:, c0:c0 + c].contiguous()
+    mine = engine.local_orders(key, mesh, perm_axes, permutations, n, device,
+                               orders)
+    sums = mantel_corr_sums_op(x.data.contiguous(), y_cols, mine, c0)
+    total = psum(sums, mesh, col_axis, dtype=torch.float64).float()
+    return observed, all_gather_tiled(total / (2.0 * inv["normxm"]), mesh,
+                                      perm_axes)
+
+
+def mantel_distributed(x: DistanceMatrix, y: DistanceMatrix, mesh,
+                       permutations: int = 1024,
+                       key: Union[int, None] = None,
+                       alternative: str = "two-sided",
+                       perm_axes=("data",), col_axis: str = "model",
+                       orders: Optional[torch.Tensor] = None):
+    """Permutation-parallel Mantel test over ``mesh``. Returns
+    ``(stat, p, n)`` like ``mantel``.
+
+    x is replicated; the square ŷ is sharded by columns over ``col_axis``.
+    Each perm device (row-major over ``perm_axes``) owns K / P
+    permutations, drawn from ``engine.rank_seed(key, dev)`` or taken from
+    the given global (K, n) ``orders``, and reduces them against its column
+    block with the ``mantel_corr`` kernel in column-range mode; a
+    fixed-order fp64 sum over ``col_axis`` completes each draw, scaled by
+    1/(2‖x−x̄‖). K must divide over the perm devices and n over
+    ``col_axis``.
+    """
+    if alternative not in engine.ALTERNATIVES:
+        raise ValueError(f"unknown alternative {alternative!r}")
+    observed, null = mantel_null_distributed(x, y, mesh, permutations, key,
+                                             perm_axes, col_axis, orders)
+    r = engine.finish(observed, null, permutations, alternative, len(x))
     return r.statistic, r.p_value, r.sample_size

@@ -17,6 +17,11 @@ condensed distances of a feature-table production
 Its matvec gathers each row strip of D from the condensed vector and
 multiplies with ``torch.matmul``: the reference has no kernel there, and a
 condensed-input ``center_matvec`` kernel is later work.
+
+``centered_gram_matvec_distributed`` is ``F @ X`` over a D block-sharded on
+a device mesh, as ``core.centering``'s distributed centering lays it out:
+each rank's product is the ``center_matvec`` kernel on its block, and
+only O(n·k) bytes cross the interconnect.
 """
 
 from __future__ import annotations
@@ -24,11 +29,17 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.centering import center_distance_matrix
 from repro_torch.core.distance_matrix import (MAX_TRIANGLE_N, condensed_index,
                                               condensed_to_square)
-from repro_torch.kernels.center_matvec_ops import center_matvec_op
+from repro_torch.kernels.center_matvec_ops import (block_product_op,
+                                                   center_matvec_op)
+from repro_torch.kernels.center_ops import center_row_sums_op
+from repro_torch.kernels.dispatch import require
+from repro_torch.launch.mesh import (check_device, full_tensor, local_block,
+                                     placements, psum)
 
 
 @dataclasses.dataclass
@@ -163,3 +174,43 @@ class CondensedCenteredGramOperator:
         """The full Gower-centred F (the eigh oracle path): the ``center``
         kernel pair on the card."""
         return center_distance_matrix(self.to_square())
+
+
+def centered_gram_matvec_distributed(d, x: torch.Tensor, mesh,
+                                     row_axis: str = "data",
+                                     col_axis: str = "model") -> DTensor:
+    """``F @ x`` over a block-sharded D, no n² tensor anywhere.
+
+    The mesh layout of ``center_distance_matrix_distributed``: ``d`` is a
+    plain (n, n) tensor every rank holds or a DTensor placed ``Shard(0)``
+    on ``row_axis`` and ``Shard(1)`` on ``col_axis``; ``x`` is the (n, k)
+    fp32 block every rank holds (a DTensor is assembled first). Each rank
+    contracts its block against its column slice of x with the
+    ``center_matvec`` kernel (no E block is formed), and a psum over
+    ``col_axis`` assembles the row strip of E@X. The corrections need
+    O(n)+O(k) collectives, as in the reference: the row sums over the
+    column axis, the global sum over both, 1ᵀX and rᵀX over the row axis.
+    The means are recomputed each call (each rank's pass over its block),
+    which keeps the call self-contained. Returns an (n, k) DTensor sharded
+    on rows over ``row_axis``.
+    """
+    block, i0, j0, n = local_block(d, mesh, row_axis, col_axis)
+    rows, cols = block.shape
+    x = full_tensor(x).contiguous()
+    if x.ndim != 2 or x.shape[0] != n:
+        raise ValueError(f"x must be ({n}, k), got {tuple(x.shape)}")
+    require(x, "x", torch.float32)
+    check_device(mesh, x)
+    x_row, x_col = x[i0:i0 + rows], x[j0:j0 + cols].contiguous()
+    part = psum(block_product_op(block, x_col), mesh, col_axis)
+    local_row_sums = center_row_sums_op(block)
+    row_means = psum(local_row_sums, mesh, col_axis) / n
+    global_mean = (psum(local_row_sums.double().sum(), mesh,
+                        (row_axis, col_axis)) / n / n).float()
+    colsum = psum(x_row.sum(dim=0), mesh, row_axis)
+    rmx = psum(row_means @ x_row, mesh, row_axis)
+    out = part - row_means[:, None] * colsum[None, :] \
+        + (global_mean * colsum - rmx)[None, :]
+    k = x.shape[1]
+    return DTensor.from_local(out, mesh, placements(mesh, {row_axis: 0}),
+                              run_check=False, shape=(n, k), stride=(k, 1))

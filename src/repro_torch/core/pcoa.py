@@ -10,6 +10,10 @@ The counterpart of ``repro/core/pcoa.py``.
   ``materialize=True`` keeps the materialize-then-solve path.
 * ``method="eigh"`` — exact symmetric eigendecomposition, the oracle; it
   always materializes the centred matrix.
+* ``centering_impl="distributed"`` with a ``mesh`` — the materialized
+  Gower matrix comes from ``center_distance_matrix_distributed``, and the
+  matrix-free solve runs over ``centered_gram_matvec_distributed``: every
+  rank holds the square and its block's work goes through the kernels.
 
 ``pcoa(None, operator=op)`` is the fully matrix-free entry: a prebuilt
 operator (the condensed-backed one a feature-table production gives)
@@ -40,9 +44,11 @@ from repro_torch.api.results import OrdinationResult
 from repro_torch.core import centering
 from repro_torch.core.distance_matrix import DistanceMatrix, as_generator
 from repro_torch.core.operators import (CenteredGramOperator,
-                                        CondensedCenteredGramOperator)
+                                        CondensedCenteredGramOperator,
+                                        centered_gram_matvec_distributed)
 from repro_torch.core.validation import ensure_finite
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
+from repro_torch.launch.mesh import full_tensor
 from repro_torch.obs.trace import current_obs
 
 #: extra sketch columns beyond the requested dimensions, and power steps.
@@ -92,15 +98,20 @@ def _exact_eigh(a: torch.Tensor, k: int):
     return evals[order], evecs[:, order]
 
 
-def materialized_gram(dm_data: torch.Tensor,
-                      centering_impl: str = "fused") -> torch.Tensor:
+def materialized_gram(dm_data: torch.Tensor, centering_impl: str = "fused",
+                      mesh=None) -> torch.Tensor:
     """The full Gower-centred matrix. On the card every accepted
-    ``centering_impl`` runs the ``center`` kernel pair; on the CPU
-    ``"ref"`` is the eager Algorithm 1 and ``"fused"`` the pair's plain
-    version."""
+    ``centering_impl`` runs the ``center`` kernels; on the CPU ``"ref"`` is
+    the eager Algorithm 1 and ``"fused"`` the pair's plain version.
+    ``"distributed"`` centres over ``mesh`` and returns the whole matrix on
+    every rank (eigh and PERMANOVA consume it whole)."""
+    if centering_impl == "distributed":
+        if mesh is None:
+            raise ValueError("distributed centering requires a mesh")
+        return full_tensor(centering.center_distance_matrix_distributed(
+            dm_data, mesh))
     if centering_impl not in ("ref", "fused"):
-        raise ValueError(f"unknown centering_impl {centering_impl!r} "
-                         f"(the distributed centering is not ported yet)")
+        raise ValueError(f"unknown centering_impl {centering_impl!r}")
     if centering_impl == "ref" and dm_data.device.type == "cpu":
         return centering.center_distance_matrix_ref(dm_data)
     return centering.center_distance_matrix(dm_data)
@@ -113,15 +124,16 @@ def pcoa(dm: Optional[DistanceMatrix], dimensions: int = 10,
          operator: Union[CenteredGramOperator,
                          CondensedCenteredGramOperator, None] = None,
          device: DeviceLike = None, config: Optional[ExecConfig] = None,
-         gram: Optional[torch.Tensor] = None) -> OrdinationResult:
+         gram: Optional[torch.Tensor] = None, mesh=None) -> OrdinationResult:
     """Principal Coordinates Analysis of a distance matrix, on ``device``
     (``None``: the card).
 
     ``method="fsvd"`` runs matrix-free against a ``CenteredGramOperator``
     unless ``materialize=True``; ``method="eigh"`` is the exact oracle.
     ``config`` (an ``ExecConfig``), when given, supplies
-    ``centering_impl``, ``materialize`` and the device, and those
-    arguments are ignored. ``operator`` replaces the operator built from
+    ``centering_impl``, ``materialize``, ``mesh`` and the device, and those
+    arguments are ignored. ``centering_impl="distributed"`` runs over
+    ``mesh``, whose device type must be the device's. ``operator`` replaces the operator built from
     ``dm`` on the matrix-free path, and with ``dm=None`` stands in for the
     matrix altogether (the eigh and materialized solves then refuse: they
     need the square); ``gram`` replaces the materialized Gower matrix on
@@ -135,17 +147,17 @@ def pcoa(dm: Optional[DistanceMatrix], dimensions: int = 10,
     if config is not None:
         centering_impl, materialize = config.centering_impl, \
             config.materialize
-        device = config.device
+        device, mesh = config.device, config.mesh
     dev = resolve_device(device)
     needs_gram = method == "eigh" or materialize
     if dm is None:
         if operator is None:
             raise ValueError("pcoa needs a DistanceMatrix or a prebuilt "
                              "operator")
-        if needs_gram:
+        if needs_gram or centering_impl == "distributed":
             raise ValueError("dm=None (operator-only) is limited to the "
-                             "matrix-free fsvd path; eigh/materialized "
-                             "solves need the square matrix")
+                             "matrix-free fsvd path; eigh/materialized/"
+                             "distributed solves need the square matrix")
     if gram is not None and not needs_gram:
         raise ValueError("a prebuilt gram is only consumed by eigh / "
                          "materialized paths; this call runs matrix-free "
@@ -170,7 +182,7 @@ def pcoa(dm: Optional[DistanceMatrix], dimensions: int = 10,
 
     def _gram():
         return (gram.to(dev) if gram is not None
-                else materialized_gram(data, centering_impl))
+                else materialized_gram(data, centering_impl, mesh))
 
     with current_obs().span(f"pcoa.{method}", phase="solve", n=n, k=k,
                             materialize=materialize):
@@ -197,6 +209,14 @@ def pcoa(dm: Optional[DistanceMatrix], dimensions: int = 10,
                 evals, evecs = _subspace_iteration(lambda x: centered @ x,
                                                    omega, k)
                 total = torch.trace(centered)
+            elif centering_impl == "distributed":
+                if mesh is None:
+                    raise ValueError("distributed matvec requires a mesh")
+                evals, evecs = _subspace_iteration(
+                    lambda x: full_tensor(centered_gram_matvec_distributed(
+                        data, x, mesh)), omega, k)
+                total = (operator if operator is not None else
+                         CenteredGramOperator.from_distance(data)).trace()
             else:
                 op = operator if operator is not None else \
                     CenteredGramOperator.from_distance(data)

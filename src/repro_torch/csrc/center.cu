@@ -29,6 +29,12 @@
 //    means once and walks 8 rows. E never reaches device memory.
 // A ragged n (not a multiple of the vector width) or a misaligned pointer
 // takes the same kernels with scalar accesses; nothing is padded.
+//
+// Block mode, for the distributed centering: both passes take an (r, c)
+// contiguous block of D, pass 1 giving its r row sums and pass 2 its F
+// block from r row means and c column means apart. The square call is
+// r = c = n with the row means as the column means: the same loops, so
+// the same bits.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -106,16 +112,16 @@ __device__ __forceinline__ void load_means(const float* p, float (&v)[V]) {
 
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-pass1_kernel(const T* __restrict__ d, float* __restrict__ row_sums, int n) {
+pass1_kernel(const T* __restrict__ d, float* __restrict__ row_sums, int rows, int cols) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= n) return;                    // warp-uniform: the whole warp leaves
-  const T* src = d + static_cast<size_t>(row) * n;
+  if (row >= rows) return;                 // warp-uniform: the whole warp leaves
+  const T* src = d + static_cast<size_t>(row) * cols;
   float acc[V];
 #pragma unroll
   for (int q = 0; q < V; ++q) acc[q] = 0.0f;
 #pragma unroll 4
-  for (int c = lane * V; c < n; c += 32 * V) {
+  for (int c = lane * V; c < cols; c += 32 * V) {
     float v[V];
     load_vec(src + c, v);
 #pragma unroll
@@ -154,17 +160,18 @@ finish_kernel(const float* __restrict__ row_sums, float* __restrict__ row_means,
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 pass2_kernel(const T* __restrict__ d, const float* __restrict__ row_means,
-             const float* __restrict__ global_mean, T* __restrict__ f, int n) {
+             const float* __restrict__ col_means, const float* __restrict__ global_mean,
+             T* __restrict__ f, int rows, int cols) {
   const int col = (blockIdx.x * kThreads + threadIdx.x) * V;
-  if (col >= n) return;
+  if (col >= cols) return;
   float rj[V];
-  load_means<V>(row_means + col, rj);
+  load_means<V>(col_means + col, rj);
   const float gm = __ldg(global_mean);
   const int row0 = static_cast<int>(blockIdx.y) * kRowsPerBlock;
-  const int row_end = min(n, row0 + kRowsPerBlock);
+  const int row_end = min(rows, row0 + kRowsPerBlock);
   for (int row = row0; row < row_end; ++row) {
     const float ri = __ldg(row_means + row);
-    const size_t at = static_cast<size_t>(row) * n + col;
+    const size_t at = static_cast<size_t>(row) * cols + col;
     float v[V];
     load_vec(d + at, v);
 #pragma unroll
@@ -189,44 +196,47 @@ bool vectorizable(int n) {
 }
 
 template <typename T>
-int pass1(const void* d, float* row_sums, int n, cudaStream_t stream) {
+int pass1(const void* d, float* row_sums, int rows, int cols, cudaStream_t stream) {
   constexpr int kV = vector_width<T>();
   const T* src = static_cast<const T*>(d);
-  const int blocks = (n + kWarps - 1) / kWarps;
-  if (vectorizable<T>(n) && aligned16(d)) {
-    pass1_kernel<T, kV><<<blocks, kThreads, 0, stream>>>(src, row_sums, n);
+  const int blocks = (rows + kWarps - 1) / kWarps;
+  if (vectorizable<T>(cols) && aligned16(d)) {
+    pass1_kernel<T, kV><<<blocks, kThreads, 0, stream>>>(src, row_sums, rows, cols);
   } else {
-    pass1_kernel<T, 1><<<blocks, kThreads, 0, stream>>>(src, row_sums, n);
+    pass1_kernel<T, 1><<<blocks, kThreads, 0, stream>>>(src, row_sums, rows, cols);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int pass2(const void* d, const float* row_means, const float* global_mean, void* f, int n,
-          cudaStream_t stream) {
+int pass2(const void* d, const float* row_means, const float* col_means,
+          const float* global_mean, void* f, int rows, int cols, cudaStream_t stream) {
   constexpr int kV = vector_width<T>();
   const T* src = static_cast<const T*>(d);
   T* dst = static_cast<T*>(f);
-  const unsigned row_blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
+  const unsigned row_blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   if (row_blocks > 65535u) return static_cast<int>(cudaErrorInvalidValue);
-  if (vectorizable<T>(n) && aligned16(d) && aligned16(f) && aligned16(row_means)) {
-    const dim3 grid((n / kV + kThreads - 1) / kThreads, row_blocks);
-    pass2_kernel<T, kV><<<grid, kThreads, 0, stream>>>(src, row_means, global_mean, dst, n);
+  if (vectorizable<T>(cols) && aligned16(d) && aligned16(f) && aligned16(col_means)) {
+    const dim3 grid((cols / kV + kThreads - 1) / kThreads, row_blocks);
+    pass2_kernel<T, kV><<<grid, kThreads, 0, stream>>>(src, row_means, col_means, global_mean,
+                                                       dst, rows, cols);
   } else {
-    const dim3 grid((n + kThreads - 1) / kThreads, row_blocks);
-    pass2_kernel<T, 1><<<grid, kThreads, 0, stream>>>(src, row_means, global_mean, dst, n);
+    const dim3 grid((cols + kThreads - 1) / kThreads, row_blocks);
+    pass2_kernel<T, 1><<<grid, kThreads, 0, stream>>>(src, row_means, col_means, global_mean,
+                                                      dst, rows, cols);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// d: (n, n) fp32 (bf16 = 0) or bf16 (bf16 = 1), contiguous; row_sums: (n,)
-// fp32, the row sums of E.
-REPRO_EXPORT int repro_center_pass1(const void* d, float* row_sums, int n, int bf16,
-                                    cudaStream_t stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  return bf16 ? pass1<__nv_bfloat16>(d, row_sums, n, stream) : pass1<float>(d, row_sums, n, stream);
+// d: (rows, cols) fp32 (bf16 = 0) or bf16 (bf16 = 1), contiguous; row_sums:
+// (rows,) fp32, the row sums of its E. The square matrix is rows = cols = n.
+REPRO_EXPORT int repro_center_pass1(const void* d, float* row_sums, int rows, int cols,
+                                    int bf16, cudaStream_t stream) {
+  if (rows <= 0 || cols < 0) return static_cast<int>(cudaGetLastError());
+  return bf16 ? pass1<__nv_bfloat16>(d, row_sums, rows, cols, stream)
+              : pass1<float>(d, row_sums, rows, cols, stream);
 }
 
 // row_sums: (n,) fp32 in; row_means: (n,) fp32 and global_mean: (1,) fp32 out.
@@ -237,12 +247,13 @@ REPRO_EXPORT int repro_center_finish(const float* row_sums, float* row_means, fl
   return static_cast<int>(cudaGetLastError());
 }
 
-// d and f: (n, n) of one dtype (fp32, or bf16 when bf16 = 1), contiguous;
-// row_means (n,) and global_mean (1,) fp32.
+// d and f: (rows, cols) of one dtype (fp32, or bf16 when bf16 = 1),
+// contiguous; row_means (rows,), col_means (cols,) and global_mean (1,) fp32.
+// The square matrix is rows = cols = n with col_means = row_means.
 REPRO_EXPORT int repro_center_pass2(const void* d, const float* row_means,
-                                    const float* global_mean, void* f, int n, int bf16,
-                                    cudaStream_t stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  return bf16 ? pass2<__nv_bfloat16>(d, row_means, global_mean, f, n, stream)
-              : pass2<float>(d, row_means, global_mean, f, n, stream);
+                                    const float* col_means, const float* global_mean, void* f,
+                                    int rows, int cols, int bf16, cudaStream_t stream) {
+  if (rows <= 0 || cols <= 0) return static_cast<int>(cudaGetLastError());
+  return bf16 ? pass2<__nv_bfloat16>(d, row_means, col_means, global_mean, f, rows, cols, stream)
+              : pass2<float>(d, row_means, col_means, global_mean, f, rows, cols, stream);
 }

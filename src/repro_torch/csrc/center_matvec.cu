@@ -7,6 +7,11 @@
 // with colsum = 1^T X and corr = m 1^T X - r^T X hoisted by the caller on the
 // unpadded operands.
 //
+// Block mode, for the distributed matvec: D may be an (r, c) block, X then
+// (c, k) and out (r, k); with r, colsum and corr zero the kernel gives the
+// block's E_blk @ X_col and nothing else. The square call is r = c = n, the
+// same loops, so the same bits.
+//
 // Replaces: src/repro/kernels/center_matvec.py::center_matvec
 // (_center_matvec_kernel).
 //
@@ -182,17 +187,17 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
 template <int S>
 __device__ __forceinline__ void produce(const CUtensorMap& dmap, const float* __restrict__ d,
                                         const float* __restrict__ x, unsigned char* smem,
-                                        const Layout& lay, int n, int k, int i0, bool d_tma,
-                                        bool x_tma) {
+                                        const Layout& lay, int rows, int cols_d, int k, int i0,
+                                        bool d_tma, bool x_tma) {
   const int lane = threadIdx.x & 31;
   const uint32_t bars = smem_addr(smem);
-  const int steps = (n + kBN - 1) / kBN;
+  const int steps = (cols_d + kBN - 1) / kBN;
   for (int t = 0; t < steps; ++t) {
     const int slot = t % S;
     if (t >= S) mbar_wait(bars + 8 * (S + slot), ((t / S) - 1) & 1);
     const uint32_t full = bars + 8 * slot;
     const int j0 = t * kBN;
-    const int cols = min(kBN, n - j0);   // D columns, and X rows, of the stage
+    const int cols = min(kBN, cols_d - j0);   // D columns, and X rows, of the stage
     const uint32_t dt = smem_addr(smem + lay.d_ring) + slot * kBM * kPitch * 4;
     const uint32_t xt = smem_addr(smem + lay.x_ring) + slot * kBN * k * 4;
     const float* xs = x + static_cast<size_t>(j0) * k;
@@ -208,9 +213,9 @@ __device__ __forceinline__ void produce(const CUtensorMap& dmap, const float* __
       for (int q = lane; q < kBM * kBN; q += 32) {
         const int row = q / kBN;
         const int c = q % kBN;
-        const bool valid = i0 + row < n && c < cols;
+        const bool valid = i0 + row < rows && c < cols;
         copy4(dt + (row * kPitch + c) * 4,
-              valid ? d + static_cast<size_t>(i0 + row) * n + j0 + c : d, valid);
+              valid ? d + static_cast<size_t>(i0 + row) * cols_d + j0 + c : d, valid);
       }
     }
     if (!x_tma) {
@@ -226,8 +231,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 center_matvec_kernel(const __grid_constant__ CUtensorMap dmap, const float* __restrict__ d,
                      const float* __restrict__ x,
                      const float* __restrict__ row_means, const float* __restrict__ colsum,
-                     const float* __restrict__ corr, float* __restrict__ out, int n, int k,
-                     int d_tma, int x_tma) {
+                     const float* __restrict__ corr, float* __restrict__ out, int rows,
+                     int cols, int k, int d_tma, int x_tma) {
   constexpr int KP = 8 * NT;          // columns padded to the MMA width
   constexpr int kSplitPitch = KP + 2;  // float4 a row pair of the split X tile
   extern __shared__ __align__(128) unsigned char smem[];
@@ -253,19 +258,19 @@ center_matvec_kernel(const __grid_constant__ CUtensorMap dmap, const float* __re
   }
   __syncthreads();
 
-  const int steps = (n + kBN - 1) / kBN;
+  const int steps = (cols + kBN - 1) / kBN;
   const float* d_ring = reinterpret_cast<const float*>(smem + lay.d_ring);
   const float* x_ring = reinterpret_cast<const float*>(smem + lay.x_ring);
   float4* x_split = reinterpret_cast<float4*>(smem + lay.x_split);
 
   if (warp == kProducerWarp) {
-    produce<S>(dmap, d, x, smem, lay, n, k, i0, d_tma != 0, x_tma != 0);
+    produce<S>(dmap, d, x, smem, lay, rows, cols, k, i0, d_tma != 0, x_tma != 0);
     return;
   }
   if (warp >= kMmaWarps) {
     // the splitters: stage t's X tile into split buffer t % 2, entry (p, c)
     // holding hi(X[2p, c]), hi(X[2p+1, c]), lo(X[2p, c]), lo(X[2p+1, c]),
-    // zero past n and k; one stage ahead of the MMA warps
+    // zero past the D columns and k; one stage ahead of the MMA warps
     const int stid = threadIdx.x - kMmaWarps * 32;
     const bool x_vec = k % 4 == 0;
     for (int t = 0; t < steps; ++t) {
@@ -287,12 +292,12 @@ center_matvec_kernel(const __grid_constant__ CUtensorMap dmap, const float* __re
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const float* row = xr + (2 * p + h) * k + c;
-          if (j + h < n && x_vec && c < k) {
+          if (j + h < cols && x_vec && c < k) {
             const float4 f = *reinterpret_cast<const float4*>(row);
             v[h][0] = f.x, v[h][1] = f.y, v[h][2] = f.z, v[h][3] = f.w;
           } else {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) v[h][e] = (j + h < n && c + e < k) ? row[e] : 0.0f;
+            for (int e = 0; e < 4; ++e) v[h][e] = (j + h < cols && c + e < k) ? row[e] : 0.0f;
           }
         }
 #pragma unroll
@@ -401,7 +406,7 @@ center_matvec_kernel(const __grid_constant__ CUtensorMap dmap, const float* __re
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = i0 + rg * 16 * MT + 16 * m + 8 * half + g;
-      if (row >= n) continue;
+      if (row >= rows) continue;
       const float rm = row_means[row];
 #pragma unroll
       for (int nt = 0; nt < WNT; ++nt) {
@@ -445,14 +450,14 @@ cudaError_t encode_tiled(EncodeTiled* fn) {
   return cudaSuccess;
 }
 
-// D (n x n fp32, row pitch 4n bytes) as a tensor of boxes of kBM rows by
-// kPitch columns.
-cudaError_t d_tensor_map(const float* d, int n, CUtensorMap* map) {
+// D (rows x cols fp32, row pitch 4 cols bytes) as a tensor of boxes of kBM
+// rows by kPitch columns.
+cudaError_t d_tensor_map(const float* d, int rows, int cols, CUtensorMap* map) {
   EncodeTiled encode = nullptr;
   const cudaError_t err = encode_tiled(&encode);
   if (err != cudaSuccess) return err;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(n)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n) * sizeof(float)};
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(float)};
   const cuuint32_t box[2] = {kPitch, kBM};
   const cuuint32_t steps[2] = {1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(d), dims,
@@ -464,38 +469,41 @@ cudaError_t d_tensor_map(const float* d, int n, CUtensorMap* map) {
 
 template <int NT>
 int launch(const float* d, const float* x, const float* rm, const float* colsum,
-           const float* corr, float* out, int n, int k, cudaStream_t stream) {
+           const float* corr, float* out, int rows, int cols, int k, cudaStream_t stream) {
   const Layout lay(k, 8 * NT, ring_stages(NT));
   cudaError_t err = cudaFuncSetAttribute(center_matvec_kernel<NT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int d_tma = n % 4 == 0 && reinterpret_cast<uintptr_t>(d) % 16 == 0;
+  const int d_tma = cols % 4 == 0 && reinterpret_cast<uintptr_t>(d) % 16 == 0;
   const int x_tma = k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   CUtensorMap dmap = {};
-  if (d_tma && (err = d_tensor_map(d, n, &dmap)) != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n + kBM - 1) / kBM;
+  if (d_tma && (err = d_tensor_map(d, rows, cols, &dmap)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int blocks = (rows + kBM - 1) / kBM;
   center_matvec_kernel<NT><<<blocks, kThreads, lay.total, stream>>>(
-      dmap, d, x, rm, colsum, corr, out, n, k, d_tma, x_tma);
+      dmap, d, x, rm, colsum, corr, out, rows, cols, k, d_tma, x_tma);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// d: (n, n), x: (n, k), row_means: (n,), colsum/corr: (k,), out: (n, k);
-// all fp32, contiguous, on the device. 1 <= k <= 128.
+// d: (rows, cols), x: (cols, k), row_means: (rows,), colsum/corr: (k,),
+// out: (rows, k); all fp32, contiguous, on the device. 1 <= k <= 128. The
+// square matrix is rows = cols = n.
 REPRO_EXPORT int repro_center_matvec(const float* d, const float* x, const float* row_means,
                                      const float* colsum, const float* corr, float* out,
-                                     int n, int k, cudaStream_t stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
+                                     int rows, int cols, int k, cudaStream_t stream) {
+  if (rows <= 0 || cols <= 0) return static_cast<int>(cudaGetLastError());
   if (k < 1 || k > 128) return static_cast<int>(cudaErrorInvalidValue);
   // n-tiles of 8 columns; instantiated widths, the next one up
   const int tiles = (k + 7) / 8;
-  if (tiles <= 1) return launch<1>(d, x, row_means, colsum, corr, out, n, k, stream);
-  if (tiles <= 2) return launch<2>(d, x, row_means, colsum, corr, out, n, k, stream);
-  if (tiles <= 3) return launch<3>(d, x, row_means, colsum, corr, out, n, k, stream);
-  if (tiles <= 4) return launch<4>(d, x, row_means, colsum, corr, out, n, k, stream);
-  if (tiles <= 6) return launch<6>(d, x, row_means, colsum, corr, out, n, k, stream);
-  if (tiles <= 8) return launch<8>(d, x, row_means, colsum, corr, out, n, k, stream);
-  if (tiles <= 12) return launch<12>(d, x, row_means, colsum, corr, out, n, k, stream);
-  return launch<16>(d, x, row_means, colsum, corr, out, n, k, stream);
+  if (tiles <= 1) return launch<1>(d, x, row_means, colsum, corr, out, rows, cols, k, stream);
+  if (tiles <= 2) return launch<2>(d, x, row_means, colsum, corr, out, rows, cols, k, stream);
+  if (tiles <= 3) return launch<3>(d, x, row_means, colsum, corr, out, rows, cols, k, stream);
+  if (tiles <= 4) return launch<4>(d, x, row_means, colsum, corr, out, rows, cols, k, stream);
+  if (tiles <= 6) return launch<6>(d, x, row_means, colsum, corr, out, rows, cols, k, stream);
+  if (tiles <= 8) return launch<8>(d, x, row_means, colsum, corr, out, rows, cols, k, stream);
+  if (tiles <= 12) return launch<12>(d, x, row_means, colsum, corr, out, rows, cols, k, stream);
+  return launch<16>(d, x, row_means, colsum, corr, out, rows, cols, k, stream);
 }

@@ -36,6 +36,16 @@
 // slot b / 32), and at the end the block sums its warps in a fixed order and
 // writes one partial per (block, b); a second kernel sums the blocks in a
 // fixed order in fp64. No float atomics: the draws are bitwise reproducible.
+//
+// Column-range mode, for the distributed Mantel test, whose ranks each hold
+// the columns [c0, c0 + c) of yhat as an (n, c) block:
+//
+//   stats[b] = sum_i sum_{j in [c0, c0 + c)} x[o_b[i], o_b[j]] * yhat_blk[i, j - c0]
+//
+// The same walk: row r of x staged whole, yhat_blk row pi_b(r) of length c
+// streamed, o_b[c0 : c0 + c] read. The vector path needs c % 4 == 0 and
+// c0 % 4 == 0 (16-byte yhat rows, 8-byte order runs); otherwise the scalar
+// path runs. The full square is c0 = 0, c = n: the same loops, the same bits.
 #include <cstdint>
 
 #include "common.cuh"
@@ -51,12 +61,13 @@ constexpr int kFinishThreads = 256;
 __global__ void __launch_bounds__(kThreads)
 partials_kernel(const float* __restrict__ x, const float* __restrict__ yhat,
                 const int* __restrict__ inv, const unsigned short* __restrict__ orders,
-                double* __restrict__ partials, int n, int num_perms) {
+                double* __restrict__ partials, int n, int cols, int c0, int num_perms) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* x_row = reinterpret_cast<float*>(smem);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const bool vec = (n & 3) == 0 && (reinterpret_cast<uintptr_t>(yhat) & 15) == 0 &&
+  const bool vec = (cols & 3) == 0 && (c0 & 3) == 0 && (n & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(yhat) & 15) == 0 &&
                    (reinterpret_cast<uintptr_t>(orders) & 7) == 0;
 
   double acc[kSlots];
@@ -71,14 +82,14 @@ partials_kernel(const float* __restrict__ x, const float* __restrict__ yhat,
     for (int b = 0; b < num_perms; ++b) {
       const size_t row = static_cast<size_t>(b) * n;
       const int i = __ldg(inv + row + r);
-      const float* y_row = yhat + static_cast<size_t>(i) * n;
-      const unsigned short* order = orders + row;
+      const float* y_row = yhat + static_cast<size_t>(i) * cols;
+      const unsigned short* order = orders + row + c0;
       float f = 0.0f;
       if (vec) {
         const float4* y4 = reinterpret_cast<const float4*>(y_row);
         const ushort4* o4 = reinterpret_cast<const ushort4*>(order);
 #pragma unroll 4
-        for (int q = threadIdx.x; q < n / 4; q += kThreads) {
+        for (int q = threadIdx.x; q < cols / 4; q += kThreads) {
           const float4 y = __ldg(y4 + q);
           const ushort4 o = __ldg(o4 + q);
           f = fmaf(y.x, x_row[o.x], f);
@@ -88,7 +99,7 @@ partials_kernel(const float* __restrict__ x, const float* __restrict__ yhat,
         }
       } else {
 #pragma unroll 4
-        for (int j = threadIdx.x; j < n; j += kThreads) {
+        for (int j = threadIdx.x; j < cols; j += kThreads) {
           f = fmaf(__ldg(y_row + j), x_row[__ldg(order + j)], f);
         }
       }
@@ -141,22 +152,24 @@ REPRO_EXPORT int repro_mantel_corr_grid(int n, int num_perms, int* grid) {
                                                shared_bytes(n, num_perms), n, grid));
 }
 
-// x, yhat: (n, n) fp32, contiguous; inv: (B, n) int32 inverse orders;
-// orders: (B, n) 16-bit orders; partials: (grid, B) fp64 scratch, grid from
-// repro_mantel_corr_grid. 4 n bytes of shared memory must fit the opt-in
-// limit.
+// x: (n, n) fp32; yhat: (n, cols) fp32, the columns [c0, c0 + cols) of the
+// square (cols = n, c0 = 0 for the square itself); both contiguous; inv:
+// (B, n) int32 inverse orders; orders: (B, n) 16-bit orders; partials:
+// (grid, B) fp64 scratch, grid from repro_mantel_corr_grid. 4 n bytes of
+// shared memory must fit the opt-in limit.
 REPRO_EXPORT int repro_mantel_corr_partials(const float* x, const float* yhat, const int* inv,
                                             const unsigned short* orders, double* partials,
-                                            int n, int num_perms, int grid,
+                                            int n, int cols, int c0, int num_perms, int grid,
                                             cudaStream_t stream) {
   if (n <= 0 || num_perms <= 0 || grid <= 0) return static_cast<int>(cudaGetLastError());
+  if (cols < 0 || c0 < 0 || c0 + cols > n) return static_cast<int>(cudaErrorInvalidValue);
   if (num_perms > kMaxPerms) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = shared_bytes(n, num_perms);
   const cudaError_t err = cudaFuncSetAttribute(
       partials_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  partials_kernel<<<grid, kThreads, smem, stream>>>(x, yhat, inv, orders, partials, n,
-                                                    num_perms);
+  partials_kernel<<<grid, kThreads, smem, stream>>>(x, yhat, inv, orders, partials, n, cols,
+                                                    c0, num_perms);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -68,18 +68,19 @@ _F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "repro_symhollow": [_P, _I, _P, _P],
-    "repro_center_matvec": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "repro_center_matvec": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "repro_inverse_orders": [_P, _P, _P, _P, _I, _I, _P],
     "repro_permute_reduce_grid": [_I, _I, _I, _IP],
     "repro_permute_reduce_partials": [_P, _P, _L, _P, _P, _P, _I, _I, _I,
                                       _I, _P],
     "repro_permute_reduce_finish": [_P, _P, _I, _I, _P],
     "repro_pairwise_panel": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "repro_center_pass1": [_P, _P, _I, _I, _P],
+    "repro_center_pass1": [_P, _P, _I, _I, _I, _P],
     "repro_center_finish": [_P, _P, _P, _I, _P],
-    "repro_center_pass2": [_P, _P, _P, _P, _I, _I, _P],
+    "repro_center_pass2": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "repro_mantel_corr_grid": [_I, _I, _IP],
-    "repro_mantel_corr_partials": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_mantel_corr_partials": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _P],
     "repro_mantel_corr_finish": [_P, _P, _I, _I, _P],
     "repro_rmsnorm": [_P, _P, _P, _L, _I, _I, _I, _F, _P],
 }

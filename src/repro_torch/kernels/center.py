@@ -13,9 +13,16 @@ the global sum across an in-order grid; here
 
 No atomics anywhere, so F is reproducible bit for bit. D and F are fp32,
 or bf16 with fp32 arithmetic inside.
+
+Both passes also take an (r, c) block of D (block mode, for the
+distributed centering): pass 1 its r row sums, pass 2 its F block from
+its r row means and c column means. The square call is r = c = n with
+the row means as the column means, and gives the same bits.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -23,13 +30,14 @@ from repro_torch.kernels import _build
 
 
 def center_pass1(d: torch.Tensor) -> torch.Tensor:
-    """(n,) fp32 row sums of ``E = −½ d∘d`` for a square fp32 or bf16
-    ``d`` on the card. Returns without synchronising."""
-    n = d.shape[0]
-    row_sums = torch.empty((n,), dtype=torch.float32, device=d.device)
+    """(r,) fp32 row sums of ``E = −½ d∘d`` for an (r, c) contiguous fp32
+    or bf16 ``d`` on the card: the square matrix, or a block of it.
+    Returns without synchronising."""
+    rows, cols = d.shape
+    row_sums = torch.empty((rows,), dtype=torch.float32, device=d.device)
     err = _build.library().repro_center_pass1(
-        d.data_ptr(), row_sums.data_ptr(), n, int(d.dtype == torch.bfloat16),
-        _build.stream_handle(d.device))
+        d.data_ptr(), row_sums.data_ptr(), rows, cols,
+        int(d.dtype == torch.bfloat16), _build.stream_handle(d.device))
     _build.launches["center_pass1"] += 1
     _build.check(err, "center_pass1")
     return row_sums
@@ -53,16 +61,20 @@ def center_finish(row_sums: torch.Tensor
 
 
 def center_pass2(d: torch.Tensor, row_means: torch.Tensor,
-                 global_mean: torch.Tensor) -> torch.Tensor:
-    """F = E − r_i − r_j + m, of ``d``'s dtype, for a square fp32 or bf16
-    ``d`` on the card, given fp32 row means (n,) and global mean (1,).
-    Returns without synchronising."""
-    n = d.shape[0]
+                 global_mean: torch.Tensor,
+                 col_means: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """F = E − r_i − c_j + m, of ``d``'s dtype, for an (r, c) contiguous
+    fp32 or bf16 ``d`` on the card, given fp32 row means (r,), column means
+    (c,) and global mean (1,). ``col_means=None`` is the square matrix's
+    call, whose column means are its row means. Returns without
+    synchronising."""
+    rows, cols = d.shape
+    col_means = row_means if col_means is None else col_means
     f = torch.empty_like(d)
     err = _build.library().repro_center_pass2(
-        d.data_ptr(), row_means.data_ptr(), global_mean.data_ptr(),
-        f.data_ptr(), n, int(d.dtype == torch.bfloat16),
-        _build.stream_handle(d.device))
+        d.data_ptr(), row_means.data_ptr(), col_means.data_ptr(),
+        global_mean.data_ptr(), f.data_ptr(), rows, cols,
+        int(d.dtype == torch.bfloat16), _build.stream_handle(d.device))
     _build.launches["center_pass2"] += 1
     _build.check(err, "center_pass2")
     return f

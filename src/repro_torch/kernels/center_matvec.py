@@ -7,7 +7,9 @@ from each D tile as it leaves shared memory, products on the tensor cores in
 accuracy), and the rank-1 corrections ``−r_i·colsumᵀ + corrᵀ`` in the
 epilogue. A producer warp keeps a ring of D and X tiles in flight; one block
 owns 128 output rows and sweeps all columns, so no sum crosses blocks and
-two launches give the same bits.
+two launches give the same bits. D may also be an (r, c) block with X of
+(c, k) (block mode, for the distributed matvec); the square call is
+r = c = n and keeps its bits.
 """
 
 from __future__ import annotations
@@ -26,22 +28,26 @@ STRIP_ROWS = 128
 
 def center_matvec(d: torch.Tensor, x: torch.Tensor, row_means: torch.Tensor,
                   colsum: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
-    """(n, k) ``E@X − r·colsumᵀ + corrᵀ`` on the card, 1 <= k <= KMAX.
+    """(r, k) ``E@X − r·colsumᵀ + corrᵀ`` on the card, 1 <= k <= KMAX.
 
-    All operands fp32, contiguous, on one CUDA device: d (n, n), x (n, k),
-    row_means (n,), colsum and corr (k,). Returns without synchronising.
+    All operands fp32, contiguous, on one CUDA device: d (r, c), the
+    square matrix or a block of it, x (c, k), row_means (r,), colsum and
+    corr (k,). Returns without synchronising.
     """
-    n, k = x.shape
+    rows, cols = d.shape
+    k = x.shape[1]
+    if x.shape[0] != cols:
+        raise ValueError(f"x must have {cols} rows, got {tuple(x.shape)}")
     if not 1 <= k <= KMAX:
         raise ValueError(f"center_matvec takes 1 <= k <= {KMAX}, got {k}")
-    out = torch.empty((n, k), dtype=torch.float32, device=d.device)
-    if n == 0:
+    out = torch.empty((rows, k), dtype=torch.float32, device=d.device)
+    if rows == 0:
         return out
     lib = _build.library()
     err = lib.repro_center_matvec(d.data_ptr(), x.data_ptr(),
                                   row_means.data_ptr(), colsum.data_ptr(),
-                                  corr.data_ptr(), out.data_ptr(), n, k,
-                                  _build.stream_handle(d.device))
+                                  corr.data_ptr(), out.data_ptr(), rows,
+                                  cols, k, _build.stream_handle(d.device))
     _build.launches["center_matvec"] += 1
     _build.check(err, "center_matvec")
     return out

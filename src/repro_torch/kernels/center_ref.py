@@ -8,9 +8,13 @@
   its arithmetic: E in fp32 whatever the input dtype, the global sum in
   fp64, F rounded to the input dtype at the end. ``center_two_pass_ref``
   chains them; it is what the kernels' wrapper runs on a CPU tensor.
+  Passes 1 and 2 take an (r, c) block of D as the kernels' block mode
+  does (pass 2 with its column means apart).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -30,7 +34,7 @@ def _e(d: torch.Tensor) -> torch.Tensor:
 
 
 def center_pass1_ref(d: torch.Tensor) -> torch.Tensor:
-    """(n,) fp32 row sums of E = −½ d∘d."""
+    """(r,) fp32 row sums of E = −½ d∘d for an (r, c) ``d``."""
     return torch.sum(_e(d), dim=1)
 
 
@@ -43,9 +47,13 @@ def center_finish_ref(row_sums: torch.Tensor
 
 
 def center_pass2_ref(d: torch.Tensor, row_means: torch.Tensor,
-                     global_mean: torch.Tensor) -> torch.Tensor:
-    """F = E − r_i − r_j + m, rounded to ``d``'s dtype."""
-    f = _e(d) - row_means[:, None] - row_means[None, :] + global_mean
+                     global_mean: torch.Tensor,
+                     col_means: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """F = E − r_i − c_j + m for an (r, c) ``d``, rounded to its dtype;
+    ``col_means=None`` takes the row means (the square matrix)."""
+    col_means = row_means if col_means is None else col_means
+    f = _e(d) - row_means[:, None] - col_means[None, :] + global_mean
     return f.to(d.dtype)
 
 

@@ -10,6 +10,10 @@ one fp64 partial per (block, b)); a second kernel sums the partials over
 the blocks in a fixed order (``mantel_corr_finish``). No float atomics, so
 the result is bitwise reproducible. The inverse and 16-bit orders come
 from ``inverse_orders``, which refuses orders that are not permutations.
+
+Column-range mode (``c0``), for the distributed Mantel test: ŷ is the
+(n, c) block of the square's columns [c0, c0 + c), and the sum runs over
+those columns only. The square call is c0 = 0, c = n and keeps its bits.
 """
 
 from __future__ import annotations
@@ -28,15 +32,17 @@ MAX_PERMS = 128
 
 
 def mantel_corr_partials(x: torch.Tensor, yhat: torch.Tensor,
-                         inv: torch.Tensor,
-                         orders16: torch.Tensor) -> torch.Tensor:
-    """(blocks, B) fp64 partials of ``Σ_ij x[o_b[i], o_b[j]]·ŷ[i, j]``, one
-    per block of the launch (as many as the card holds at once, at most n).
+                         inv: torch.Tensor, orders16: torch.Tensor,
+                         c0: int = 0) -> torch.Tensor:
+    """(blocks, B) fp64 partials of ``Σ_i Σ_{j∈[c0, c0+c)} x[o_b[i],
+    o_b[j]]·ŷ[i, j − c0]``, one per block of the launch (as many as the
+    card holds at once, at most n).
 
-    x, yhat: (n, n) fp32; inv: (B, n) int32 inverse orders and orders16:
-    (B, n) the 16-bit orders (both from ``inverse_orders``); all contiguous
-    on one CUDA device, 1 <= n <= MAX_N, B <= MAX_PERMS. Returns without
-    synchronising.
+    x: (n, n) fp32; yhat: (n, c) fp32, the square's columns [c0, c0 + c)
+    (the square itself: c = n, c0 = 0); inv: (B, n) int32 inverse orders
+    and orders16: (B, n) the 16-bit orders (both from ``inverse_orders``);
+    all contiguous on one CUDA device, 1 <= n <= MAX_N, B <= MAX_PERMS.
+    Returns without synchronising.
     """
     perms, n = inv.shape
     if not 1 <= n <= MAX_N:
@@ -45,12 +51,17 @@ def mantel_corr_partials(x: torch.Tensor, yhat: torch.Tensor,
     if perms > MAX_PERMS:
         raise ValueError(f"one launch takes {MAX_PERMS} permutations, got "
                          f"{perms}")
+    cols = yhat.shape[1]
+    if yhat.shape[0] != n or not (0 <= c0 and c0 + cols <= n):
+        raise ValueError(f"yhat must be columns [c0, c0 + c) of an ({n}, "
+                         f"{n}) square, got {tuple(yhat.shape)} at c0={c0}")
     grid = _build.resident_grid("repro_mantel_corr_grid", n, perms)
     partials = torch.empty((grid, perms), dtype=torch.float64,
                            device=x.device)
     err = _build.library().repro_mantel_corr_partials(
         x.data_ptr(), yhat.data_ptr(), inv.data_ptr(), orders16.data_ptr(),
-        partials.data_ptr(), n, perms, grid, _build.stream_handle(x.device))
+        partials.data_ptr(), n, cols, c0, perms, grid,
+        _build.stream_handle(x.device))
     _build.launches["mantel_corr"] += 1
     _build.check(err, "mantel_corr")
     return partials
@@ -69,14 +80,16 @@ def mantel_corr_finish(partials: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def mantel_corr(x: torch.Tensor, yhat: torch.Tensor,
-                orders: torch.Tensor) -> torch.Tensor:
-    """stats[b] = Σ_ij x[o_b[i], o_b[j]]·ŷ[i, j] on the card, (B,) fp32.
-    Refuses orders that are not permutations (one ``inverse_orders`` launch
-    and a sync); above ``MAX_PERMS`` permutations it runs in slabs, each
-    one launch pair."""
+def mantel_corr(x: torch.Tensor, yhat: torch.Tensor, orders: torch.Tensor,
+                c0: int = 0) -> torch.Tensor:
+    """stats[b] = Σ_i Σ_{j∈[c0, c0+c)} x[o_b[i], o_b[j]]·ŷ[i, j − c0] on
+    the card, (B,) fp32, for ŷ the (n, c) columns from c0 (the square:
+    c0 = 0, c = n). Refuses orders that are not permutations (one
+    ``inverse_orders`` launch and a sync); above ``MAX_PERMS`` permutations
+    it runs in slabs, each one launch pair."""
     inv, orders16 = inverse_orders(orders)
     return torch.cat([
         mantel_corr_finish(mantel_corr_partials(
-            x, yhat, inv[b0:b0 + MAX_PERMS], orders16[b0:b0 + MAX_PERMS]))
+            x, yhat, inv[b0:b0 + MAX_PERMS], orders16[b0:b0 + MAX_PERMS],
+            c0))
         for b0 in range(0, orders.shape[0], MAX_PERMS)])

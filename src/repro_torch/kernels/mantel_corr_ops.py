@@ -10,6 +10,9 @@ gathers the permuted rows itself and masks a ragged n; on a CPU tensor the
 plain version runs. Either way an order that is not a permutation is
 refused. Nothing is padded (the reference pads n to 128-lane blocks for the
 TPU).
+
+``mantel_corr_sums_op`` is the raw reduction over a column range of ŷ
+(the kernel's column-range mode), for the distributed Mantel test.
 """
 
 from __future__ import annotations
@@ -22,6 +25,15 @@ from repro_torch.kernels.inverse_orders import inverse_orders
 from repro_torch.kernels.mantel_corr import mantel_corr
 from repro_torch.kernels.mantel_corr_ref import mantel_corr_plain
 from repro_torch.obs.compile import note_trace
+
+
+def _require_orders(orders: torch.Tensor, n: int) -> None:
+    """Refuse orders that are not (K, n), or whose indices leave [0, n):
+    the kernel reads x at them."""
+    if orders.ndim != 2 or orders.shape[1] != n:
+        raise ValueError(f"orders must be (K, {n}), got {tuple(orders.shape)}")
+    if orders.shape[0] and (int(orders.min()) < 0 or int(orders.max()) >= n):
+        raise ValueError(f"orders must hold indices in [0, {n})")
 
 
 def mantel_corr_hoist(x: torch.Tensor, y: torch.Tensor
@@ -51,11 +63,7 @@ def mantel_corr_op(x: torch.Tensor, y: torch.Tensor, orders: torch.Tensor,
         raise ValueError(f"unsupported device {device}")
     note_trace("kernels.mantel_corr", (n, perm_batch, x.dtype, device.type))
     k_perms = orders.shape[0]
-    if orders.ndim != 2 or orders.shape[1] != n:
-        raise ValueError(f"orders must be (K, {n}), got {tuple(orders.shape)}")
-    # the kernel reads x at the orders' indices: refuse any out of range
-    if k_perms and (int(orders.min()) < 0 or int(orders.max()) >= n):
-        raise ValueError(f"orders must hold indices in [0, {n})")
+    _require_orders(orders, n)
     normxm, yhat = mantel_corr_hoist(x, y)
     if perm_batch < 1 or k_perms % perm_batch:
         raise ValueError(f"permutations ({k_perms}) must be divisible by "
@@ -72,3 +80,26 @@ def mantel_corr_op(x: torch.Tensor, y: torch.Tensor, orders: torch.Tensor,
     stats = torch.cat(stats) if stats else \
         torch.zeros((0,), dtype=torch.float32, device=device)
     return stats / (2.0 * normxm)
+
+
+def mantel_corr_sums_op(x: torch.Tensor, yhat: torch.Tensor,
+                        orders: torch.Tensor, c0: int = 0) -> torch.Tensor:
+    """(B,) fp32 ``Σ_i Σ_{j∈[c0, c0+c)} x[o_b[i], o_b[j]]·ŷ[i, j − c0]`` for
+    an (n, n) x and ŷ the square's (n, c) columns from ``c0``: on the card
+    the ``mantel_corr`` kernel (slabs of 128 orders, each a launch pair),
+    on the CPU its plain version. Orders that are not permutations are
+    refused either way."""
+    n, cols = yhat.shape
+    require(x, "x", torch.float32, (n, n))
+    require(yhat, "yhat", torch.float32, (n, cols))
+    device = same_device(x, yhat, orders)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    _require_orders(orders, n)
+    orders = orders.to(torch.int32).contiguous()
+    if not orders.shape[0]:
+        return torch.zeros((0,), dtype=torch.float32, device=device)
+    if device.type == "cuda":
+        return mantel_corr(x, yhat, orders, c0)
+    inverse_orders(orders)                      # refuse non-permutations
+    return mantel_corr_plain(x, yhat, orders, c0)

@@ -11,6 +11,9 @@
   inverse orders, then row by row of x, ŷ row ``inv[b, r]`` against
   ``x_row[orders[b, j]]``. It shows the reformulation equals the
   reference's function.
+
+Both take the kernel's column-range mode: ŷ the (n, c) columns [c0, c0 + c)
+of the square, the sum over those columns only (the square: c0 = 0).
 """
 
 from __future__ import annotations
@@ -43,30 +46,31 @@ def mantel_corr_ref(x: torch.Tensor, y_flat: torch.Tensor,
 
 
 def mantel_corr_plain(x: torch.Tensor, yhat: torch.Tensor,
-                      orders: torch.Tensor) -> torch.Tensor:
-    """stats[b] = Σ_ij x[o_b[i], o_b[j]]·ŷ[i, j], (B,) in ``x``'s dtype.
+                      orders: torch.Tensor, c0: int = 0) -> torch.Tensor:
+    """stats[b] = Σ_i Σ_{j∈[c0, c0+c)} x[o_b[i], o_b[j]]·ŷ[i, j − c0], (B,)
+    in ``x``'s dtype.
 
-    x, yhat: (n, n); orders: (B, n) integer permutations."""
-    n = x.shape[0]
+    x: (n, n); yhat: (n, c); orders: (B, n) integer permutations."""
+    n, cols = yhat.shape
     out = torch.zeros((orders.shape[0],), dtype=torch.float64,
                       device=x.device)
     for b, order in enumerate(orders.long()):
         for r0 in range(0, n, ROW_CHUNK):
-            rows = x[order[r0:r0 + ROW_CHUNK]][:, order]
+            rows = x[order[r0:r0 + ROW_CHUNK]][:, order[c0:c0 + cols]]
             out[b] += torch.sum(rows.double() * yhat[r0:r0 + ROW_CHUNK].double())
     return out.to(x.dtype)
 
 
 def mantel_corr_rows(x: torch.Tensor, yhat: torch.Tensor,
-                     orders: torch.Tensor) -> torch.Tensor:
-    """stats[b] = Σ_r Σ_j x[r, o_b[j]]·ŷ[π_b(r), j], π_b the inverse of
-    o_b: the row-stationary kernel's loop, one row of x at a time, in fp64.
-    orders (B, n) permutations (refused otherwise). Returns (B,) in ``x``'s
-    dtype."""
-    n = x.shape[0]
+                     orders: torch.Tensor, c0: int = 0) -> torch.Tensor:
+    """stats[b] = Σ_r Σ_{j∈[c0, c0+c)} x[r, o_b[j]]·ŷ[π_b(r), j − c0], π_b
+    the inverse of o_b: the row-stationary kernel's loop, one row of x at
+    a time, in fp64. orders (B, n) permutations (refused otherwise).
+    Returns (B,) in ``x``'s dtype."""
+    n, cols = yhat.shape
     inv, _, is_perm = inverse_orders_plain(orders)
     require_permutations(is_perm, n)
-    inv, o = inv.long(), orders.long()
+    inv, o = inv.long(), orders.long()[:, c0:c0 + cols]
     out = torch.zeros((orders.shape[0],), dtype=torch.float64,
                       device=x.device)
     for r in range(n):

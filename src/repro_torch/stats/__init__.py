@@ -4,8 +4,9 @@ The counterpart of ``repro/stats``:
 
 * ``engine``         — the shared loop: the ``Statistic`` protocol
                        (hoist / per_perm, with ``per_batch`` as the primary
-                       path over padded full-size tiles) and p-value
-                       finishing.
+                       path over padded full-size tiles), p-value
+                       finishing, and the permutation axis spread over a
+                       device mesh (``permutation_test_distributed``).
 * ``permanova``      — pseudo-F from the centred Gower matrix (materialized
                        by the ``center`` kernel pair, or as an operator).
 * ``anosim``         — Clarke's R with the ranks hoisted and kept
@@ -21,7 +22,9 @@ test has an eager ``*_ref`` oracle in scikit-bio's evaluation order.
 
 from repro_torch.stats.engine import (PermutationTestResult, Statistic,
                                       encode_grouping, permutation_orders,
-                                      permutation_test)
+                                      permutation_test,
+                                      permutation_test_distributed,
+                                      rank_orders)
 from repro_torch.stats.anosim import (AnosimStatistic, anosim, anosim_ref,
                                       rank_transform,
                                       rank_transform_condensed)
@@ -38,6 +41,7 @@ from repro_torch.stats.permdisp import (PermdispStatistic, permdisp,
 __all__ = [
     "PermutationTestResult", "Statistic", "encode_grouping",
     "permutation_orders", "permutation_test",
+    "permutation_test_distributed", "rank_orders",
     "AnosimStatistic", "anosim", "anosim_ref", "rank_transform",
     "rank_transform_condensed",
     "PartialMantelPallasStatistic", "PartialMantelStatistic",

@@ -22,6 +22,15 @@ Orders are the argsort of uint32-range random words from a CPU
 cannot reproduce): a seed gives the same orders on every device, but not
 the reference's. The parity tests pass the reference's orders in through
 ``orders=``.
+
+``permutation_test_distributed`` spreads the permutations over the perm
+axes of a device mesh: the invariants are hoisted once on every rank,
+each rank runs the padded tile loop over its K / P orders, and the null
+is gathered in row-major rank order. Rank ``dev`` draws its orders from
+the generator seeded by ``rank_seed(key, dev)`` (where the reference
+folds the device index into its key), so the global null does not depend
+on the mesh's shape beyond its perm-device count; ``rank_orders`` gives
+the global orders the ranks draw.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import torch
 from repro_torch.api.config import ExecConfig
 from repro_torch.core.distance_matrix import as_generator
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
+from repro_torch.launch.mesh import all_gather_tiled, axis_index, axis_size
 from repro_torch.obs.compile import note_trace
 from repro_torch.obs.trace import current_obs
 
@@ -98,6 +108,66 @@ def permutation_orders(generator: Union[int, torch.Generator, None],
     words = torch.randint(0, 2**32, (permutations, n), dtype=torch.int64,
                           generator=as_generator(generator))
     return torch.argsort(words.to(device), dim=-1, stable=True).to(torch.int32)
+
+
+def rank_seed(key: Union[int, None], dev: int) -> int:
+    """The seed of perm device ``dev``'s generator: 64 bits of
+    ``np.random.SeedSequence([key, dev])`` (``None``: key 0). The
+    reference's ``fold_in(key, dev)`` has no torch counterpart; this is its
+    documented stand-in. A ``torch.Generator`` is refused: its state
+    cannot be split over ranks."""
+    if isinstance(key, torch.Generator):
+        raise TypeError("a torch.Generator key cannot be split over the "
+                        "ranks of a mesh: pass an int seed")
+    key = 0 if key is None else int(key)
+    return int(np.random.SeedSequence([key, dev]).generate_state(
+        1, dtype=np.uint64)[0])
+
+
+def perm_share(mesh, perm_axes, permutations: int) -> tuple[int, int]:
+    """``(per_dev, dev)``: the permutations each perm device runs and this
+    rank's row-major index over ``perm_axes``. K must divide over them."""
+    devices = axis_size(mesh, perm_axes)
+    if permutations % devices:
+        raise ValueError(f"permutations ({permutations}) must divide over "
+                         f"{devices} devices")
+    return permutations // devices, axis_index(mesh, perm_axes)
+
+
+def rank_orders(key: Union[int, None], mesh, perm_axes, permutations: int,
+                n: int, device: DeviceLike = "cpu") -> torch.Tensor:
+    """(K, n) int32: the global orders the perm devices of ``mesh`` draw,
+    device ``dev``'s K / P rows at ``dev · K / P``."""
+    per_dev, _ = perm_share(mesh, perm_axes, permutations)
+    return torch.cat([
+        permutation_orders(rank_seed(key, dev), per_dev, n, device)
+        for dev in range(permutations // per_dev)]) if per_dev else \
+        torch.zeros((0, n), dtype=torch.int32, device=device)
+
+
+def local_orders(key, mesh, perm_axes, permutations: int, n: int,
+                 device: torch.device,
+                 orders: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """This rank's (K / P, n) orders: its own draw, or its rows of the
+    given global (K, n) ``orders``."""
+    per_dev, dev = perm_share(mesh, perm_axes, permutations)
+    if orders is None:
+        return permutation_orders(rank_seed(key, dev), per_dev, n, device)
+    orders = given_orders(orders, permutations, n, device)
+    return orders[dev * per_dev:(dev + 1) * per_dev]
+
+
+def given_orders(orders, permutations: int, n: int,
+                 device: torch.device) -> torch.Tensor:
+    """Caller-given (K, n) orders as int32 on ``device``, refused unless
+    their shape is (K, n) and their indices lie in [0, n)."""
+    orders = torch.as_tensor(orders).to(device=device, dtype=torch.int32)
+    if tuple(orders.shape) != (permutations, n):
+        raise ValueError(f"orders must be ({permutations}, {n}), got "
+                         f"{tuple(orders.shape)}")
+    if permutations and (int(orders.min()) < 0 or int(orders.max()) >= n):
+        raise ValueError(f"orders must hold indices in [0, {n})")
+    return orders
 
 
 def count_better(orig_stat: torch.Tensor, permuted_stats: torch.Tensor,
@@ -210,6 +280,19 @@ def grouping_codes(grouping, n: int, device: torch.device
     return torch.from_numpy(codes).to(device), num_groups
 
 
+def _batch_size(stat: Statistic, batch_size: Optional[int],
+                config: Optional[ExecConfig], device: torch.device) -> int:
+    """Explicit arg > ``config.batch_size`` > 8; a still-unresolved
+    ``"auto"`` is solved against the statistic's n on ``device``."""
+    batch_size = (config or ExecConfig()).resolve_batch_size(batch_size, 8)
+    if batch_size == "auto":
+        from repro_torch.tune.solve import solve_tiles
+        batch_size = solve_tiles(stat.n, device=device).batch_size
+    if batch_size < 1:
+        raise ValueError(f"batch_size must be positive, got {batch_size}")
+    return batch_size
+
+
 def permutation_test(stat: Statistic, permutations: int = 999,
                      key: Union[int, torch.Generator, None] = None,
                      alternative: str = "two-sided",
@@ -231,12 +314,7 @@ def permutation_test(stat: Statistic, permutations: int = 999,
     if alternative not in ALTERNATIVES:
         raise ValueError(f"unknown alternative {alternative!r}")
     dev = resolve_device(device)
-    batch_size = (config or ExecConfig()).resolve_batch_size(batch_size, 8)
-    if batch_size == "auto":
-        from repro_torch.tune.solve import solve_tiles
-        batch_size = solve_tiles(stat.n, device=dev).batch_size
-    if batch_size < 1:
-        raise ValueError(f"batch_size must be positive, got {batch_size}")
+    batch_size = _batch_size(stat, batch_size, config, dev)
     n = stat.n
     if orders is None:
         seed = 0 if key is None else \
@@ -244,12 +322,7 @@ def permutation_test(stat: Statistic, permutations: int = 999,
         orders = permutation_orders(key, permutations, n, dev)
     else:
         seed = None
-        orders = torch.as_tensor(orders).to(device=dev, dtype=torch.int32)
-        if tuple(orders.shape) != (permutations, n):
-            raise ValueError(f"orders must be ({permutations}, {n}), got "
-                             f"{tuple(orders.shape)}")
-        if permutations and (int(orders.min()) < 0 or int(orders.max()) >= n):
-            raise ValueError(f"orders must hold indices in [0, {n})")
+        orders = given_orders(orders, permutations, n, dev)
     obs = current_obs()          # the ambient session (NULL_OBS when none)
     batched = getattr(stat, "per_batch", None) is not None
     tiles = -(-permutations // batch_size) if permutations else 0
@@ -263,4 +336,55 @@ def permutation_test(stat: Statistic, permutations: int = 999,
         charge_tiles(obs, method or type(stat).__name__, stat, dev,
                      tiles * batch_size, batch_size)
     return finish(observed, permuted, permutations, alternative, n,
+                  method=method, key=seed)
+
+
+def null_distribution_distributed(stat: Statistic, invariants, mesh,
+                                  permutations: int, key=None,
+                                  perm_axes=("data",), batch_size: int = 8,
+                                  orders: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """(K,) null draws over the perm devices of ``mesh``: each rank's
+    padded tile loop over its K / P orders, gathered in row-major rank
+    order. Given the same global orders, a row's draw is the one
+    ``null_distribution`` gives it (every tile is padded to
+    ``batch_size`` either way)."""
+    device = torch.device(mesh.device_type)
+    mine = local_orders(key, mesh, perm_axes, permutations, stat.n, device,
+                        orders)
+    return all_gather_tiled(
+        null_distribution(stat, invariants, mine, batch_size), mesh,
+        perm_axes)
+
+
+def permutation_test_distributed(stat: Statistic, mesh,
+                                 permutations: int = 1024,
+                                 key: Union[int, None] = None,
+                                 alternative: str = "two-sided",
+                                 perm_axes=("data",),
+                                 batch_size: Optional[int] = None,
+                                 config: Optional[ExecConfig] = None,
+                                 method: str = "",
+                                 orders: Optional[torch.Tensor] = None
+                                 ) -> PermutationTestResult:
+    """Permutation-parallel engine: K / P permutations on each of the P
+    devices of ``perm_axes`` (row-major over several), whose tensors lie on
+    the mesh's device type.
+
+    The invariants are hoisted once on every rank; rank ``dev`` draws its
+    orders from ``rank_seed(key, dev)`` (an int key or ``None``; a
+    generator is refused), or takes its rows of the given global (K, n)
+    ``orders``; the null is gathered in rank order and finished on every
+    rank. ``batch_size`` resolves as in ``permutation_test``.
+    """
+    if alternative not in ALTERNATIVES:
+        raise ValueError(f"unknown alternative {alternative!r}")
+    device = torch.device(mesh.device_type)
+    batch_size = _batch_size(stat, batch_size, config, device)
+    invariants, observed = hoist_and_observe(stat, device)
+    permuted = null_distribution_distributed(
+        stat, invariants, mesh, permutations, key, perm_axes, batch_size,
+        orders)
+    seed = None if orders is not None else (0 if key is None else int(key))
+    return finish(observed, permuted, permutations, alternative, stat.n,
                   method=method, key=seed)

@@ -278,11 +278,21 @@ def test_execconfig_validates():
     ({"centering_impl": "distributed"}, "distributed"),
 ])
 def test_execconfig_refuses_what_is_not_ported(changes, what):
-    """The distributed paths are refused by name, never run in some other
-    way."""
-    with pytest.raises(NotImplementedError, match="not yet ported") as err:
-        ExecConfig(**changes)
-    assert what in str(err.value)
+    """The reference's rule for the distributed paths (``config.py:192``):
+    ``"distributed"`` without a mesh raises ``ValueError``; a config with a
+    mesh is accepted, and resolves like any other."""
+    if what == "distributed":
+        with pytest.raises(ValueError, match="requires a mesh") as err:
+            ExecConfig(**changes)
+        with pytest.raises(ValueError, match="requires a mesh"):
+            JaxExecConfig(**changes)
+        assert what in str(err.value)
+    else:
+        cfg = ExecConfig(**changes, centering_impl="distributed")
+        assert cfg.mesh is changes["mesh"]
+        assert cfg.resolve(64) == (cfg, None)
+        resolved, tuned = cfg.replace(auto=True, device="cpu").resolve(64)
+        assert resolved.mesh is changes["mesh"] and tuned is not None
 
 
 def test_execconfig_threads_through_pallas_paths():
@@ -607,3 +617,41 @@ def test_obs_enabled_session_answers_the_same():
     off = Workspace(d, config=CPU)
     assert on.permanova(g, 19, orders=o) == off.permanova(g, 19, orders=o)
     assert on.anosim(g, 19, orders=o) == off.anosim(g, 19, orders=o)
+
+
+# --------------------------------------------------------------------------
+# a session with a mesh (the cases of tests/test_api.py a mesh enables)
+# --------------------------------------------------------------------------
+def test_workspace_routes_gram_and_pcoa_through_a_mesh():
+    """``ExecConfig(mesh=, centering_impl="distributed")``: the session's
+    gram and pcoa run over the mesh, as the reference's over a one-device
+    ``jax.sharding.Mesh``; on one rank the gram is the square path's,
+    bitwise. Its tests stay on the single-process engine, as in the
+    reference: the same answers as a session without a mesh."""
+    from jax.sharding import Mesh
+    from repro_torch.launch import make_host_mesh
+
+    mesh = make_host_mesh((1, 1), device_type="cpu")
+    jax_mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                    ("data", "model"))
+    d = _dm(21)
+    cfg = CPU.replace(mesh=mesh, centering_impl="distributed")
+    ws = Workspace(DistanceMatrix(torch.from_numpy(d), device="cpu"),
+                   config=cfg)
+    ref = JaxWorkspace(JaxDistanceMatrix(d), config=JaxExecConfig(
+        mesh=jax_mesh, centering_impl="distributed"))
+    np.testing.assert_allclose(ws.gram().numpy(), np.asarray(ref.gram()),
+                               rtol=2e-4, atol=2e-4)
+    assert torch.equal(ws.gram(), materialized_gram(torch.from_numpy(d)))
+    for method in ("eigh", "fsvd"):
+        got = ws.pcoa(dimensions=4, method=method, omega=_omega(4))
+        want = ref.pcoa(dimensions=4, method=method)
+        np.testing.assert_allclose(got.eigenvalues.numpy(),
+                                   np.asarray(want.eigenvalues), rtol=1e-4)
+    assert ws.cache.misses["gram"] == 1
+    single = Workspace(DistanceMatrix(torch.from_numpy(d), device="cpu"),
+                       config=CPU)
+    g = _grouping()
+    a = ws.permanova(g, permutations=19, orders=_orders(19))
+    b = single.permanova(g, permutations=19, orders=_orders(19))
+    assert (a.statistic, a.p_value) == (b.statistic, b.p_value)

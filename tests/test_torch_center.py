@@ -21,7 +21,10 @@ from repro.kernels.center_ref import center_distance_matrix_ref as jax_ref
 from repro_torch.core.centering import (center_distance_matrix,
                                         center_distance_matrix_blocked,
                                         center_distance_matrix_ref)
-from repro_torch.kernels.center_ops import center_distance_matrix_op
+from repro_torch.kernels.center_ops import (center_block_op,
+                                            center_distance_matrix_op,
+                                            center_means_op,
+                                            center_row_sums_op)
 from repro_torch.kernels.center_ref import (center_finish_ref,
                                             center_pass1_ref,
                                             center_pass2_ref)
@@ -107,3 +110,41 @@ def test_wrapper_checks_operand():
         center_distance_matrix_op(d.double())
     with pytest.raises(ValueError, match="contiguous"):
         center_distance_matrix_op(d.T)
+
+
+@pytest.mark.parametrize("pr,pc", [(1, 1), (2, 2), (4, 2), (2, 4), (3, 1)])
+def test_block_mode_is_the_square_sliced(pr, pc):
+    """The kernels' block mode (the distributed centering's): pass 1 of the
+    (r, c) blocks summed over a block row gives the square's row sums, and
+    pass 2 of a block, given its row and column means, is the square's F
+    sliced, bit for bit."""
+    n = 96
+    d = torch.from_numpy(_matrix(n, pr * 10 + pc))
+    row_sums = center_pass1_ref(d)
+    row_means, gm = center_finish_ref(row_sums)
+    f = center_pass2_ref(d, row_means, gm)
+    r, c = n // pr, n // pc
+    for i0 in range(0, n, r):
+        parts = [center_row_sums_op(d[i0:i0 + r, j0:j0 + c].contiguous())
+                 for j0 in range(0, n, c)]
+        _close(torch.stack(parts).sum(0), row_sums[i0:i0 + r])
+        for j0 in range(0, n, c):
+            block = d[i0:i0 + r, j0:j0 + c].contiguous()
+            got = center_block_op(block, row_means[i0:i0 + r].contiguous(),
+                                  row_means[j0:j0 + c].contiguous(), gm)
+            assert torch.equal(got, f[i0:i0 + r, j0:j0 + c])
+    # the finish on the gathered row sums is the square's
+    assert all(torch.equal(a, b) for a, b in zip(center_means_op(row_sums),
+                                                  (row_means, gm)))
+    assert torch.equal(center_pass2_ref(d, row_means, gm, row_means), f)
+
+
+def test_block_wrappers_check_operands():
+    d = torch.from_numpy(_matrix(12, 3))[:6, :4].contiguous()
+    rm, cm, gm = torch.zeros(6), torch.zeros(4), torch.zeros(1)
+    with pytest.raises(ValueError, match="col_means"):
+        center_block_op(d, rm, torch.zeros(6), gm)
+    with pytest.raises(TypeError, match="bfloat16"):
+        center_row_sums_op(d.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        center_block_op(d.T, cm, rm, gm)

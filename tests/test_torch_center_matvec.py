@@ -18,8 +18,10 @@ from repro.kernels.center_matvec_ops import center_matvec_pallas
 from repro_torch.core.centering import (center_distance_matrix,
                                         center_distance_matrix_ref)
 from repro_torch.core.operators import CenteredGramOperator
-from repro_torch.kernels.center_matvec_ops import center_matvec_op
+from repro_torch.kernels.center_matvec_ops import (block_product_op,
+                                                   center_matvec_op)
 from repro_torch.kernels.center_matvec_ref import (center_corrections,
+                                                   center_matvec_block_ref,
                                                    center_matvec_ref)
 
 
@@ -191,3 +193,35 @@ def test_plain_tf32_would_miss_the_tolerance(k):
                             want)
     print(f"plain TF32 n={STUDY_N} k={k}: {use:.4f} of the tolerance")
     assert use > 1.0
+
+
+@pytest.mark.parametrize("pr,pc,k", [(1, 1, 4), (2, 2, 5), (4, 2, 20),
+                                     (1, 3, 7), (2, 4, 130)])
+def test_block_mode_sums_to_the_square(pr, pc, k):
+    """The kernel's block mode (the distributed matvec's): the products of
+    a block row's (r, c) blocks with their slices of X, summed, plus the
+    corrections, are the square's F@X; with zero means and corrections a
+    block gives its E_blk@X_col alone (``block_product_op``)."""
+    n = 96
+    d, x = map(torch.from_numpy, _inputs(n, k, pr * 10 + pc))
+    row_means = -0.5 * torch.mean(d * d, dim=1)
+    gm = torch.mean(row_means)
+    colsum, corr = center_corrections(x, row_means, gm)
+    want = center_matvec_ref(d, x, row_means, gm)
+    assert torch.equal(center_matvec_block_ref(d, x, row_means, colsum, corr),
+                       want)
+    r, c = n // pr, n // pc
+    zeros_r, zeros_k = torch.zeros(r), torch.zeros(k)
+    for i0 in range(0, n, r):
+        parts = []
+        for j0 in range(0, n, c):
+            block = d[i0:i0 + r, j0:j0 + c].contiguous()
+            xs = x[j0:j0 + c].contiguous()
+            parts.append(block_product_op(block, xs))
+            assert torch.equal(parts[-1], center_matvec_block_ref(
+                block, xs, zeros_r, zeros_k, zeros_k))
+        got = torch.stack(parts).sum(0) + (
+            corr[None, :] - row_means[i0:i0 + r, None] * colsum[None, :])
+        _close(got, want[i0:i0 + r])
+    with pytest.raises(ValueError, match="x must be"):
+        block_product_op(d[:r, :c].contiguous(), x[:c - 1])

@@ -32,8 +32,13 @@ import pytest
 import torch
 
 from repro_torch.api import ExecConfig, Workspace
-from repro_torch.core import (CondensedCenteredGramOperator, mantel, pcoa,
+from repro_torch.core import (CenteredGramOperator,
+                              CondensedCenteredGramOperator,
+                              center_distance_matrix,
+                              center_distance_matrix_distributed,
+                              centered_gram_matvec_distributed, mantel, pcoa,
                               random_distance_matrix)
+from repro_torch.core.mantel import MantelStatistic, mantel_null_distributed
 from repro_torch.core.distance_matrix import DistanceMatrix, triangle_coords
 from repro_torch.dist import METRICS, pairwise_condensed, pairwise_distances
 from repro_torch.kernels import _build
@@ -41,16 +46,23 @@ from repro_torch.kernels.center import (center_finish, center_pass1,
                                         center_pass2)
 from repro_torch.kernels.center_ops import center_distance_matrix_op
 from repro_torch.kernels.center_ref import (center_distance_matrix_ref,
+                                            center_pass1_ref,
+                                            center_pass2_ref,
                                             center_two_pass_ref)
-from repro_torch.kernels.center_matvec_ops import center_matvec_op
-from repro_torch.kernels.center_matvec_ref import center_matvec_ref
+from repro_torch.kernels.center_matvec import center_matvec
+from repro_torch.kernels.center_matvec_ops import (block_product_op,
+                                                   center_matvec_op)
+from repro_torch.kernels.center_matvec_ref import (center_matvec_block_ref,
+                                                   center_matvec_ref)
 from repro_torch.kernels.inverse_orders import (inverse_orders,
                                                 inverse_orders_kernel,
                                                 inverse_orders_plain)
 from repro_torch.kernels.mantel_corr import (mantel_corr, mantel_corr_finish,
                                              mantel_corr_partials)
 from repro_torch.kernels.mantel_corr_ops import mantel_corr_op
-from repro_torch.kernels.mantel_corr_ref import mantel_corr_plain
+from repro_torch.kernels.mantel_corr_ref import (mantel_corr_plain,
+                                                 mantel_corr_rows)
+from repro_torch.launch.mesh import check_device, full_tensor, make_host_mesh
 from repro_torch.kernels.pairwise_ops import pairwise_panel_op
 from repro_torch.kernels.pairwise_ref import pairwise_panel_ref
 from repro_torch.configs import get_arch
@@ -66,8 +78,10 @@ from repro_torch.kernels.symhollow_ops import is_symmetric_and_hollow_op
 from repro_torch.kernels.symhollow_ref import is_symmetric_and_hollow_ref
 from repro_torch.stats import (PermanovaOperatorStatistic, anosim,
                                partial_mantel, permanova, permdisp)
-from repro_torch.stats.engine import (encode_grouping, permutation_orders,
-                                      permutation_test)
+from repro_torch.stats.engine import (encode_grouping, hoist_and_observe,
+                                      null_distribution,
+                                      null_distribution_distributed,
+                                      permutation_orders, permutation_test)
 
 
 @pytest.fixture
@@ -873,3 +887,156 @@ def test_service_is_bitwise_standalone_workspaces(cuda):
         models = {e.params["model"] for e in ws.obs.ledger.entries
                   if e.op.startswith("perm:")}
         assert models == {"row_stationary"}
+
+
+# --------------------------------------------------------------------------
+# block and column-range modes (the distributed paths' kernels)
+# --------------------------------------------------------------------------
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary: the kernels take their scalar routes."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (r, c): square, a 2 x 2 split's block, ragged rows and columns, wide
+BLOCKS = [(512, 512), (1000, 700), (1001, 333), (129, 4096), (700, 1000)]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("r,c", BLOCKS)
+def test_center_block_mode_matches_plain(cuda, r, c, aligned):
+    d = _matrix(max(r, c), r + c, cuda)[:r, :c].contiguous()
+    d = d if aligned else _misaligned(d)
+    gen = torch.Generator().manual_seed(r * c)
+    row_means = torch.randn(r, generator=gen).to(cuda)
+    col_means = torch.randn(c, generator=gen).to(cuda)
+    gm = torch.randn(1, generator=gen).to(cuda)
+    np.testing.assert_allclose(center_pass1(d).cpu().numpy(),
+                               center_pass1_ref(d).cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+    got = center_pass2(d, row_means, gm, col_means)
+    want = center_pass2_ref(d, row_means, gm, col_means)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+    assert torch.equal(got, center_pass2(d, row_means, gm, col_means))
+
+
+@pytest.mark.parametrize("n", [1000, 1001])
+def test_center_square_call_is_the_block_call(cuda, n):
+    """The square call is the block call with r = c = n and the row means
+    as the column means: the same bits."""
+    d = _matrix(n, n + 5, cuda)
+    row_sums = center_pass1(d)
+    row_means, gm = center_finish(row_sums)
+    assert torch.equal(center_pass2(d, row_means, gm),
+                       center_pass2(d, row_means, gm, row_means.clone()))
+    assert torch.equal(center_distance_matrix_op(d),
+                       center_pass2(d, row_means, gm))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("r,c,k", [(512, 512, 20), (1000, 700, 20),
+                                   (1001, 333, 45), (129, 4096, 7),
+                                   (700, 1000, 128)])
+def test_center_matvec_block_mode_matches_plain(cuda, r, c, k, aligned):
+    d = _matrix(max(r, c), r + c + 1, cuda)[:r, :c].contiguous()
+    d = d if aligned else _misaligned(d)
+    gen = torch.Generator().manual_seed(r + c + k)
+    x = torch.randn((c, k), generator=gen).to(cuda)
+    row_means = torch.randn(r, generator=gen).to(cuda)
+    colsum = torch.randn(k, generator=gen).to(cuda)
+    corr = torch.randn(k, generator=gen).to(cuda)
+    got = center_matvec(d, x, row_means, colsum, corr)
+    want = center_matvec_block_ref(d, x, row_means, colsum, corr)
+    scale = want.abs().max().item()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * max(scale, 1.0))
+    assert torch.equal(got, center_matvec(d, x, row_means, colsum, corr))
+    _build.reset_launches()
+    product = block_product_op(d, x)
+    assert _build.launches["center_matvec"] == 1
+    want = center_matvec_block_ref(d, x, *(torch.zeros_like(v) for v in
+                                           (row_means, colsum, corr)))
+    scale = want.abs().max().item()
+    np.testing.assert_allclose(product.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * max(scale, 1.0))
+
+
+@pytest.mark.parametrize("n,c0,c", [(1000, 0, 1000), (1000, 500, 500),
+                                    (1000, 3, 700), (1001, 0, 1001),
+                                    (1001, 4, 500), (1024, 256, 256),
+                                    (1024, 1020, 4)])
+def test_mantel_corr_column_range_matches_plain(cuda, n, c0, c):
+    """Columns [c0, c0 + c) of ŷ against the plain version: aligned
+    (vector path) and unaligned c0 or ragged n and c (scalar path)."""
+    x = _matrix(n, n + 7, cuda)
+    gen = torch.Generator().manual_seed(n + c0)
+    yhat = torch.randn((n, c), generator=gen).to(cuda)
+    orders = permutation_orders(n + c, 27, n, cuda)
+    got = mantel_corr(x, yhat, orders, c0)
+    want = mantel_corr_plain(x, yhat, orders, c0)
+    scale = want.abs().max().item()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * max(scale, 1.0))
+    assert torch.equal(got, mantel_corr(x, yhat, orders, c0))
+    np.testing.assert_allclose(got.cpu().numpy(), mantel_corr_rows(
+        x.cpu(), yhat.cpu(), orders.cpu(), c0).numpy(), rtol=1e-5,
+        atol=1e-5 * max(scale, 1.0))
+
+
+def test_mantel_corr_square_is_the_whole_column_range(cuda):
+    n = 1000
+    x = _matrix(n, 11, cuda)
+    yhat = torch.randn((n, n), generator=torch.Generator().manual_seed(11)
+                       ).to(cuda)
+    orders = permutation_orders(12, 27, n, cuda)
+    assert torch.equal(mantel_corr(x, yhat, orders),
+                       mantel_corr(x, yhat, orders, 0))
+
+
+def test_one_rank_nccl_mesh_centers_bitwise_like_the_square(cuda):
+    """A 1 x 1 NCCL mesh: the distributed centering's block is
+    ``center_distance_matrix``'s F, bit for bit; the matvec and the
+    distributed Mantel agree with the single-device routes."""
+    mesh = make_host_mesh((1, 1), device_type="cuda")
+    dm = random_distance_matrix(21, 1000, device=cuda)
+    _build.reset_launches()
+    f = center_distance_matrix_distributed(dm.data, mesh)
+    assert (_build.launches["center_pass1"], _build.launches["center_finish"],
+            _build.launches["center_pass2"]) == (1, 1, 1)
+    assert torch.equal(full_tensor(f), center_distance_matrix(dm.data))
+    x = torch.randn((1000, 20), generator=torch.Generator().manual_seed(3)
+                    ).to(cuda)
+    op = CenteredGramOperator.from_distance(dm.data)
+    want = op.matvec(x)
+    got = full_tensor(centered_gram_matvec_distributed(dm.data, x, mesh))
+    scale = want.abs().max().item()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * max(scale, 1.0))
+    y = random_distance_matrix(22, 1000, device=cuda)
+    orders = permutation_orders(23, 64, 1000, cuda)
+    _build.reset_launches()
+    observed, null = mantel_null_distributed(dm, y, mesh, 64, orders=orders)
+    assert _build.launches["mantel_corr"] == 1
+    stat = MantelStatistic(dm.data, y.data, 1000)
+    inv, want_observed = hoist_and_observe(stat, cuda)
+    want = null_distribution(stat, inv, orders, 32)
+    np.testing.assert_allclose(null.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    assert torch.equal(observed, want_observed)
+    assert torch.equal(
+        null_distribution_distributed(stat, inv, mesh, 64, orders=orders,
+                                      batch_size=32), want)
+
+
+def test_a_cuda_tensor_on_a_cpu_mesh_is_refused(cuda):
+    """The distributed paths refuse a tensor off the mesh's device type
+    before any collective (``launch.mesh.check_device``)."""
+    from types import SimpleNamespace
+
+    with pytest.raises(ValueError, match="cuda tensor on a cpu mesh"):
+        check_device(SimpleNamespace(device_type="cpu"),
+                     torch.zeros(2, device=cuda))

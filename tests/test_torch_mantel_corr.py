@@ -22,9 +22,11 @@ from repro_torch.core.mantel import MantelStatistic
 from repro_torch.kernels import _build
 from repro_torch.kernels import mantel_corr_ref as mantel_corr_ref_mod
 from repro_torch.kernels.mantel_corr import MAX_N, mantel_corr_partials
-from repro_torch.kernels.mantel_corr_ops import mantel_corr_op
+from repro_torch.kernels.mantel_corr_ops import (mantel_corr_op,
+                                                 mantel_corr_sums_op)
 from repro_torch.kernels.mantel_corr_ref import (mantel_corr_plain,
-                                                 mantel_corr_ref)
+                                                 mantel_corr_ref,
+                                                 mantel_corr_rows)
 from repro_torch.stats import engine
 
 TOL = {"rtol": 1e-4, "atol": 1e-5}
@@ -135,3 +137,34 @@ def test_cpu_runs_launch_nothing_and_the_kernel_refuses_wide_rows():
     wide = torch.zeros((1, MAX_N + 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="shared memory"):
         mantel_corr_partials(x, x, wide, wide.to(torch.int16))
+
+
+@pytest.mark.parametrize("n,ranges", [
+    (32, [(0, 32)]), (32, [(0, 16), (16, 16)]),
+    (96, [(0, 24), (24, 24), (48, 24), (72, 24)]),
+    (37, [(0, 3), (3, 20), (23, 14)])])
+def test_column_ranges_sum_to_the_square(n, ranges):
+    """The kernel's column-range mode (the distributed Mantel's): the sums
+    over ŷ's column blocks [c0, c0 + c) add up to the square's, aligned or
+    not; the plain version equals the kernel's row-stationary walk on each
+    block; the whole range is the square call, bit for bit."""
+    x = torch.from_numpy(_matrix(n, n))
+    yhat = torch.from_numpy(np.random.default_rng(n).normal(
+        size=(n, n)).astype(np.float32))
+    orders = torch.from_numpy(_orders(6, n, n + 1))
+    want = mantel_corr_plain(x, yhat, orders)
+    parts = []
+    for c0, c in ranges:
+        block = yhat[:, c0:c0 + c].contiguous()
+        parts.append(mantel_corr_sums_op(x, block, orders, c0))
+        assert torch.equal(parts[-1], mantel_corr_plain(x, block, orders, c0))
+        np.testing.assert_allclose(
+            parts[-1].numpy(), mantel_corr_rows(x, block, orders, c0).numpy(),
+            rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(torch.stack(parts).double().sum(0).numpy(),
+                               want.numpy(), rtol=1e-5, atol=1e-5)
+    assert torch.equal(mantel_corr_plain(x, yhat, orders, 0), want)
+    bad = orders.clone()
+    bad[1, 2] = bad[1, 3]
+    with pytest.raises(ValueError):
+        mantel_corr_sums_op(x, yhat[:, :ranges[0][1]].contiguous(), bad)

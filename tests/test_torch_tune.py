@@ -367,11 +367,12 @@ def test_execconfig_accepts_and_validates_auto():
             ExecConfig(**bad)
     hash(ExecConfig(auto=True))
     hash(ExecConfig(block="auto"))
-    for changes, what in (({"mesh": object()}, "mesh"),
-                          ({"centering_impl": "distributed"},
-                           "distributed")):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ExecConfig(**changes)
+    # the reference's rule: "distributed" needs a mesh; a mesh resolves
+    with pytest.raises(ValueError, match="requires a mesh"):
+        ExecConfig(centering_impl="distributed")
+    mesh = object()
+    cfg, _ = ExecConfig(mesh=mesh, auto=True, device="cpu").resolve(256, 32)
+    assert cfg.mesh is mesh and not cfg.needs_resolution
 
 
 def test_execconfig_resolve_materializes_all_knobs():
