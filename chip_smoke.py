@@ -78,10 +78,25 @@ check fails:
    decode, decode held against a prefill of the same tokens in bf16 and,
    with the weights upcast, in fp32, where two cache faults planted in the
    cache's state must fail the check; and the smoke widths in fp32 on the
-   card against the CPU; 5b times ``rmsnorm`` at the
-   path's shapes; then one JSON line of per-kernel launches, errors, times
-   and bounds (``session_launches``: each kernel's launches in phase 3d),
-   and one of each phase's host seconds (``phase_walls_s``).
+   card against the CPU; then
+8. the LM training path: llama3.2-3b at full width and depth (28 layers,
+   d = 3072, 6.4 GB of bf16 weights drawn from a seed on the card, fp32
+   AdamW moments) trained 5 steps of 8 x 512 tokens (4 microbatches of 2,
+   remat "full") through ``launch.train.run``, with exact ``rmsnorm``,
+   ``rmsnorm_bwd`` and ``rmsnorm_bwd_finish`` launch counts; each step's
+   loss, grad norm and seconds, tokens a second, peak memory, one more
+   step profiled, every RMSNorm weight's gradient and every parameter's
+   change checked; 8b the smoke widths trained on the card and on the CPU
+   from the same state (llama3.2-3b-smoke, qwen3-8b-smoke, fp32, 3 steps);
+   8c the reference's kill-and-resume drill on the card (qwen3-8b-smoke, 8
+   steps, a checkpoint at step 4, resumed losses to 1e-4, bitwise or not);
+   5b holds the ``rmsnorm`` backward against its plain version (d = 128,
+   3072, 4096 and two d that are not multiples of 8, fp32 and bf16, two
+   launches bitwise equal) and times ``rmsnorm`` and its backward at the
+   paths' shapes; then one JSON line of per-kernel launches, errors, times
+   and bounds (``session_launches``: each kernel's launches in phase 3d;
+   ``train_launches``: rmsnorm's in phase 8), and one of each phase's host
+   seconds (``phase_walls_s``).
 
 ``python3 chip_smoke.py --center-matvec-op TREE`` times only
 ``center_matvec_op`` of the checkout at TREE (phase 5's shapes), so that a
@@ -133,6 +148,11 @@ LM_PROMPT = 512       # prompt tokens a request
 LM_STEPS = 32         # greedy decode steps
 LM_MAX_LEN = 544      # cache slots: prompt + steps
 LM_CHECK_STEP = 16    # the decode step held against a prefill of its tokens
+TRAIN_ARCH = "llama3.2-3b"  # phase 8: full width and depth, bf16, fp32 moments
+TRAIN_BATCH = 8       # sequences a step: 4 microbatches of 2
+TRAIN_SEQ = 512       # tokens a sequence
+TRAIN_STEPS = 5       # AdamW steps through launch.train.run
+TRAIN_SMOKES = ("llama3.2-3b", "qwen3-8b")  # phase 8b: card against CPU
 BLOCK = N // 2        # a block of phase 7's 2 x 2 mesh: (8192, 8192)
 RAGGED_BLOCK = (1000, 700)  # phases 2, 2b and 2c's ragged block
 RAGGED_C0 = 3         # and phase 2c's unaligned column offset
@@ -165,6 +185,13 @@ CENTER_TOL = {"rtol": 2e-4, "atol": 2e-4}    # tests/test_kernels.py, fp32
 CORR_TOL = {"rtol": 1e-4, "atol": 1e-5}      # tests/test_kernels.py, mantel_corr
 PAIRWISE_TOL = {"rtol": 1e-5, "atol": 1e-5}  # tests/test_dist.py
 RMSNORM_TOL = {"rtol": 1e-5, "atol": 1e-6}   # fp32; bf16: at most 1 ulp
+# phase 5b: the rmsnorm backward's inputs, (rows, d) and x's dtype: qwen3's
+# q-norm rows of head_dim at a (2, 512) microbatch x 24, llama3.2-3b's block
+# norm at its (2, 512) microbatch, qwen3-8b's at (1, 2048), and two d that
+# are not multiples of 8 (the warp and the block route's scalar paths)
+RMSNORM_BWD_SHAPES = [(24576, 128), (1024, 3072), (2048, 4096), (1000, 100),
+                      (333, 3070)]
+RMSNORM_BWD_ULPS = 2                          # bf16 dx and dw
 # decode step vs a prefill of the same tokens, qwen3-8b: max abs error as
 # a share of max|logits|, and the least correlation, each set between the
 # sound reading and the planted faults' (PERF.md). In bf16 (the served
@@ -996,7 +1023,7 @@ def phase_feature_checks(feat: dict, x: torch.Tensor, y: torch.Tensor,
             "permute_reduce_finish": tiles, "center_matvec": 0,
             "symhollow": 0, "center_pass1": 0, "center_finish": 0,
             "center_pass2": 0, "mantel_corr": 0, "mantel_corr_finish": 0,
-            "rmsnorm": 0}
+            "rmsnorm": 0, "rmsnorm_bwd": 0, "rmsnorm_bwd_finish": 0}
     check(launches == want, f"feature path launches {launches} != {want}")
     prod = feat["prod_x"]
     cond = prod["condensed"]
@@ -2943,6 +2970,401 @@ def rmsnorm_entry(launches: int, error: float, card: str) -> dict:
     return main
 
 
+def rmsnorm_bwd_inputs(shape, dtype, seed: int = SEED):
+    """x, w (its '1 + w' weight, of x's dtype), dy and the forward kernel's
+    inverse RMS of each row, on the card."""
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    x, w = rmsnorm_inputs(shape, dtype, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7 * sum(shape))
+    dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    inv = torch.empty((shape[0],), dtype=torch.float32, device="cuda")
+    rmsnorm(x, w, 1e-6, inv)
+    return x, w, dy, inv
+
+
+def phase_rmsnorm_bwd_kernel() -> float:
+    """Phase 5b's check of the ``rmsnorm`` backward against its plain
+    version, both given the forward kernel's inverse RMS: fp32 dx and dw at
+    rtol 1e-5 / atol 1e-5·max(scale, 1), bf16 within RMSNORM_BWD_ULPS, two
+    launches bitwise equal. Returns the max abs error of dx at llama's
+    (1024, 3072) bf16."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_backward
+    from repro_torch.kernels.rmsnorm_ref import (bf16_ulp_distance,
+                                                 rmsnorm_backward_plain)
+
+    print("== phase 5b: the rmsnorm backward against its plain version on "
+          "the card")
+    error = None
+    for shape in RMSNORM_BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, dy, inv = rmsnorm_bwd_inputs(shape, dtype)
+            got = rmsnorm_backward(x, w, inv, dy)
+            again = rmsnorm_backward(x, w, inv, dy)
+            want = rmsnorm_backward_plain(x, w, dy, inv=inv)
+            label = f"rmsnorm_bwd {shape} {str(dtype).replace('torch.', '')}"
+            check(torch.equal(got[0], again[0])
+                  and torch.equal(got[1], again[1]),
+                  f"{label}: two launches differ")
+            for part, g, wv in (("dx", got[0], want[0]),
+                                ("dw", got[1], want[1])):
+                if dtype == torch.float32:
+                    err = compare(f"{label} {part}", g, wv)
+                else:
+                    ulps = int(bf16_ulp_distance(g, wv).max())
+                    err = float((g.double() - wv.double()).abs().max())
+                    print(f"  {label} {part}: max abs err {err:.3e}, max "
+                          f"{ulps} bf16 ulp (limit {RMSNORM_BWD_ULPS})")
+                    check(bool(torch.isfinite(g).all())
+                          and ulps <= RMSNORM_BWD_ULPS,
+                          f"{label} {part}: more than {RMSNORM_BWD_ULPS} "
+                          f"bf16 ulps from the plain version")
+                if part == "dx" and shape == (1024, 3072) and \
+                        dtype == torch.bfloat16:
+                    error = err
+            print(f"  {label}: two launches bitwise equal")
+    return error
+
+
+def rmsnorm_bwd_entries(launches: dict, error: float, card: str) -> list:
+    """The ``rmsnorm`` backward timed at llama3.2-3b's (1024, 3072) and
+    qwen3's (24576, 128) bf16 inputs beside its bound, its plain version and
+    the yardstick ``torch.autograd.grad`` through ``F.rms_norm(x, (d,),
+    1 + w)`` (its forward taken once, outside the timing). The
+    ``rmsnorm_bwd`` entry is the whole backward (the row kernel and the
+    finish, as ``rmsnorm_backward`` launches them; ``row_ms`` the row kernel
+    alone); ``rmsnorm_bwd_finish`` the column finish alone. ``ms`` and
+    ``plain_ms`` replay a CUDA graph; ``host_launch_ms`` and the yardstick
+    are launched from Python. Inputs rotate past L2. The entries' numbers
+    are llama's shape; ``shapes`` holds both."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import (bwd_grid, rmsnorm_backward,
+                                             rmsnorm_bwd, rmsnorm_bwd_finish)
+    from repro_torch.kernels.rmsnorm_ref import rmsnorm_backward_plain
+
+    print(f"== phase 5b: rmsnorm backward times, bf16 ({card})")
+    out = {"rmsnorm_bwd": [], "rmsnorm_bwd_finish": []}
+    for what, shape in (("llama3.2-3b block norm, a (2, 512) microbatch",
+                         (1024, 3072)),
+                        ("qwen3 q-norm rows", (24576, 128))):
+        rows, d = shape
+        x, w, dy, inv = rmsnorm_bwd_inputs(shape, torch.bfloat16)
+        copies = min(64, -(-2 * L2_BYTES // (2 * 2 * rows * d)))
+        sets = [(x.clone(), dy.clone(), inv.clone()) for _ in range(copies)]
+        cyc = itertools.cycle(sets)
+        blocks, _ = bwd_grid(rows, d)
+        partials = rmsnorm_bwd(x, w, inv, dy)[1]
+        fin_err = float((rmsnorm_bwd_finish(partials, torch.float32).double()
+                         - partials.double().sum(0)).abs().max())
+
+        def whole():
+            xi, dyi, invi = next(cyc)
+            return rmsnorm_backward(xi, w, invi, dyi)
+
+        def row():
+            xi, dyi, invi = next(cyc)
+            return rmsnorm_bwd(xi, w, invi, dyi)
+
+        def plain():
+            xi, dyi, invi = next(cyc)
+            return rmsnorm_backward_plain(xi, w, dyi, inv=invi)
+
+        w1 = (1 + w).detach().requires_grad_()
+        graphs = []
+        for xi, dyi, _ in sets:
+            xg = xi.detach().requires_grad_()
+            graphs.append((F.rms_norm(xg, (d,), weight=w1, eps=1e-6), xg,
+                           dyi))
+        lib = itertools.cycle(graphs)
+
+        def library():
+            y, xg, dyi = next(lib)
+            return torch.autograd.grad(y, (xg, w1), dyi, retain_graph=True)
+
+        es = 2
+        fn_bytes = 3 * rows * d * es + 2 * d * es + 4 * rows
+        fn_flops = (8 + 2 * FP32_FLOPS / FP64_FLOPS) * rows * d
+        entry = kernel_entry(
+            "rmsnorm_bwd", "src/repro_torch/csrc/rmsnorm.cu",
+            "src/repro/kernels/rmsnorm.py:35", launches["rmsnorm_bwd"],
+            error, graph_ms(whole), graph_ms(plain, reps=20), fn_bytes,
+            fn_flops, FP32_FLOPS, library_ms=cuda_ms(library, reps=100),
+            note="backward of the rmsnorm kernel: new, the reference "
+                 "differentiates its jnp rmsnorm (src/repro/models/"
+                 "layers.py:19); ms is the row kernel and the finish",
+            shape=list(shape), path=what, row_ms=graph_ms(row),
+            host_launch_ms=cuda_ms(whole, reps=200), partial_rows=blocks)
+        fin = kernel_entry(
+            "rmsnorm_bwd_finish", "src/repro_torch/csrc/rmsnorm.cu",
+            "src/repro/kernels/rmsnorm.py:35",
+            launches["rmsnorm_bwd_finish"], fin_err,
+            graph_ms(lambda: rmsnorm_bwd_finish(partials, w.dtype)),
+            graph_ms(lambda: partials.double().sum(0).float().to(w.dtype),
+                     reps=20),
+            4 * blocks * d + es * d, blocks * d * FP32_FLOPS / FP64_FLOPS,
+            FP32_FLOPS,
+            library_ms=graph_ms(lambda: torch.sum(partials, 0)),
+            shape=[blocks, d], path=what)
+        del sets, graphs, cyc, lib
+        for name, e in (("rmsnorm_bwd", entry), ("rmsnorm_bwd_finish", fin)):
+            out[name].append(e)
+            print(f"  {name} {shape} ({what}), from a CUDA graph: "
+                  f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
+                  f"library {e['library_ms']:.4f} ms, bound "
+                  f"{e['bound_ms']:.4f} ms ({e['bound_by']})"
+                  + (f"; row kernel {e['row_ms']:.4f} ms, launched from "
+                     f"Python {e['host_launch_ms']:.4f} ms, {blocks} "
+                     f"partial rows" if name == "rmsnorm_bwd" else ""))
+    entries = []
+    for name, timed in out.items():
+        main = dict(timed[0])
+        main["shapes"] = [{k: t.get(k) for k in ("path", "shape", "ms",
+                                                 "plain_ms", "bound_ms",
+                                                 "library_ms", "row_ms")}
+                          for t in timed]
+        entries.append(main)
+    return entries
+
+
+def warm_opt_state(opt: dict, seed: int) -> None:
+    """A resumed run's moments in place of zeros: m ~ 1e-3·N(0, 1), v =
+    (2e-3·N(0, 1))² + 1e-6, step 10. A first step from zero moments is
+    ill-conditioned where a gradient cancels to ~eps (u = g / (|g| + eps)),
+    which would turn the devices' rounding-level differences into visible
+    updates (tests/test_torch_train.py)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for key, scale in (("m", 1e-3), ("v", 2e-3)):
+            for t in opt[key].values():
+                t.copy_(torch.randn(t.shape, generator=gen) * scale)
+                if key == "v":
+                    t.square_().add_(1e-6)
+        opt["step"].fill_(10)
+
+
+def train_smoke_vs_cpu(name: str) -> None:
+    """Phase 8b for one arch: its smoke widths in fp32, the same state on
+    the card and on the CPU (norm weights drawn non-zero, warm moments),
+    three steps of two microbatches on the same TokenPipeline batches:
+    losses to rtol 1e-5, parameters and moments to rtol 1e-5 / atol
+    1e-5·max(scale, 1), and the norms' launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import (build_train_step_fn,
+                                           init_train_state)
+
+    cfg = dataclasses.replace(get_arch(name, smoke=True), microbatches=2)
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=1, decay_steps=100)
+    cpu_model, cpu_opt = init_train_state(SEED, cfg, device="cpu")
+    with torch.no_grad():
+        for pname, p in cpu_model.named_parameters():
+            if p.ndim == 1:
+                p.copy_(0.1 * torch.randn(p.shape, generator=torch.Generator(
+                    ).manual_seed(len(pname))))
+    warm_opt_state(cpu_opt, SEED)
+    card_model = Transformer(cfg, "cuda")
+    card_model.load_state_dict(cpu_model.state_dict())
+    card_opt = {"m": {k: t.cuda() for k, t in cpu_opt["m"].items()},
+                "v": {k: t.cuda() for k, t in cpu_opt["v"].items()},
+                "step": cpu_opt["step"].cuda()}
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=32, global_batch=4,
+                         seed=SEED)
+    out = {}
+    for dev, model, state in (("cpu", cpu_model, cpu_opt),
+                              ("cuda", card_model, card_opt)):
+        step = build_train_step_fn(cfg, opt, device=dev)
+        _build.reset_launches()
+        losses = []
+        for s in range(3):
+            model, state, metrics = step(model, state, pipe.batch(s))
+            losses.append(float(metrics["loss"]))
+        out[dev] = (losses, model, state, dict(_build.launches))
+    norms = 2 * cfg.n_layers + 1 + (2 * cfg.n_layers if cfg.qk_norm else 0)
+    got = out["cuda"][3]
+    print(f"  {cfg.name} fp32, 3 steps of 2 microbatches, card vs CPU: "
+          f"losses {out['cuda'][0]} vs {out['cpu'][0]}; launches rmsnorm "
+          f"{got['rmsnorm']}, rmsnorm_bwd {got['rmsnorm_bwd']} (want "
+          f"{6 * (2 * norms - 1)}, {6 * norms}), CPU "
+          f"{sum(out['cpu'][3].values())}")
+    check(got["rmsnorm"] == 6 * (2 * norms - 1)
+          and got["rmsnorm_bwd"] == got["rmsnorm_bwd_finish"] == 6 * norms
+          and set(out["cpu"][3].values()) == {0},
+          f"{cfg.name}: train launches on the card or the CPU")
+    compare(f"{cfg.name} losses, card vs CPU", torch.tensor(out["cuda"][0]),
+            torch.tensor(out["cpu"][0]), rtol=1e-5, atol=0.0)
+    worst = {}
+    for label, card_t, cpu_t in (
+            [(f"param {k}", out["cuda"][1].state_dict()[k], v)
+             for k, v in out["cpu"][1].state_dict().items()]
+            + [(f"{m} {k}", out["cuda"][2][m][k], v)
+               for m in ("m", "v") for k, v in out["cpu"][2][m].items()]):
+        got_t, want_t = card_t.cpu().double(), cpu_t.double()
+        scale = float(want_t.abs().max())
+        err = (got_t - want_t).abs()
+        ok = bool((err <= 1e-5 * max(scale, 1.0)
+                   + 1e-5 * want_t.abs()).all())
+        check(ok, f"{cfg.name} {label}: card and CPU disagree "
+                  f"(max abs err {float(err.max()):.3e})")
+        kind = label.split()[0]
+        worst[kind] = max(worst.get(kind, 0.0), float(err.max()))
+    print(f"  {cfg.name}: every parameter and moment within rtol 1e-5 / "
+          f"atol 1e-5·max(scale, 1); max abs err {worst}")
+
+
+def phase_train(card: str) -> dict:
+    """Phase 8: llama3.2-3b at full width and depth trained on the card
+    through ``launch.train.run`` (bf16 parameters, fp32 moments, TRAIN_BATCH
+    x TRAIN_SEQ tokens a step in 4 microbatches, remat "full", the
+    structured TokenPipeline, seed 0), the launch counts set to 0 just
+    before and read just after; then one step profiled, every RMSNorm
+    weight's gradient and every parameter's change checked, and the peak
+    memory read."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import build_train_step_fn
+
+    cfg = get_arch(TRAIN_ARCH)
+    args = train_launch.build_argparser().parse_args(
+        ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+         str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed", "0"])
+    m = min(cfg.microbatches, max(TRAIN_BATCH // 2, 1))
+    print(f"== phase 8: training {cfg.name} at full width and depth "
+          f"({cfg.n_layers} layers, d={cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} kv, d_ff={cfg.d_ff}, vocab={cfg.vocab}), "
+          f"{cfg.param_dtype} params, {cfg.opt_dtype} moments: "
+          f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+          f"{m} microbatches, remat {cfg.remat!r}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    # the main path: counts set to 0 just before, read just after
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = train_launch.run(args)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() - base
+    model, opt = res["params"], res["opt"]
+    norms = 2 * cfg.n_layers + 1 + (2 * cfg.n_layers if cfg.qk_norm else 0)
+    recomputed = norms - 1 if cfg.remat in ("full", "dots") else 0
+    want_fwd = TRAIN_STEPS * m * (norms + recomputed)
+    want_bwd = TRAIN_STEPS * m * norms
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    secs = res["seconds"]
+    steady = float(np.median(secs[1:]))
+    for s, (loss, gn, sec) in enumerate(zip(res["losses"], res["grad_norms"],
+                                            secs)):
+        print(f"  step {s}: loss {loss:.6f}, grad norm {gn:.6f}, "
+              f"{sec:.4f} s, {tokens / sec:.1f} tokens/s")
+    print(f"  run {wall:.4f} s (weights drawn, {TRAIN_STEPS} steps); median "
+          f"of steps 1-{TRAIN_STEPS - 1} {steady:.4f} s, "
+          f"{tokens / steady:.1f} tokens/s ({card})")
+    print(f"  peak memory above the phase's start "
+          f"(torch.cuda.max_memory_allocated): {peak / 1e9:.4f} GB")
+    print(f"  launches: rmsnorm {launches['rmsnorm']} (want {want_fwd}: "
+          f"{norms} a forward + {recomputed} recomputed, x {m} microbatches "
+          f"x {TRAIN_STEPS} steps), rmsnorm_bwd {launches['rmsnorm_bwd']} "
+          f"and rmsnorm_bwd_finish {launches['rmsnorm_bwd_finish']} (want "
+          f"{want_bwd}: one a norm of the forward); a step: "
+          f"{launches['rmsnorm'] // TRAIN_STEPS} / "
+          f"{launches['rmsnorm_bwd'] // TRAIN_STEPS}; other kernels "
+          f"{sum(v for k, v in launches.items() if not k.startswith('rmsnorm'))}")
+    check(launches["rmsnorm"] == want_fwd
+          and launches["rmsnorm_bwd"] == launches["rmsnorm_bwd_finish"]
+          == want_bwd, "training: rmsnorm launches on the main path")
+    check(all(np.isfinite(v) for v in res["losses"] + res["grad_norms"]),
+          "training: non-finite loss or grad norm")
+    check(len(res["losses"]) == TRAIN_STEPS and res["final_step"]
+          == TRAIN_STEPS, "training: steps run")
+    norm_names = [k for k in opt["v"] if k.endswith(
+        ("ln1.w", "ln2.w", "final_norm.w", "q_norm", "k_norm"))]
+    nonzero = {k: float((opt["v"][k] > 0).float().mean())
+               for k in norm_names}
+    print(f"  RMSNorm weights with a nonzero gradient (second moment > 0): "
+          f"{sum(v > 0 for v in nonzero.values())} of {len(norm_names)} "
+          f"(want {norms}); least share of elements "
+          f"{min(nonzero.values()):.4f}")
+    check(len(norm_names) == norms and all(v > 0 for v in nonzero.values()),
+          "training: an RMSNorm weight received no gradient")
+
+    # one more step, profiled, on the same state and the next batch
+    step_fn = build_train_step_fn(dataclasses.replace(cfg, microbatches=m),
+                                  AdamWConfig(peak_lr=args.lr,
+                                              warmup_steps=1,
+                                              decay_steps=TRAIN_STEPS))
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=0).batch(TRAIN_STEPS)
+    profile = device_breakdown("one training step, profiled",
+                               lambda: step_fn(model, opt, batch), card,
+                               top=12)
+    del opt, res, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    # every parameter changed: the initial weights drawn again from the seed
+    start = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    changed = {}
+    with torch.no_grad():
+        for (name, p), (_, p0) in zip(model.named_parameters(),
+                                      start.named_parameters()):
+            changed[name] = float((p != p0).float().mean())
+    print(f"  parameters changed: {sum(v > 0 for v in changed.values())} of "
+          f"{len(changed)}; least share of elements changed "
+          f"{min(changed.values()):.4f} "
+          f"({min(changed, key=changed.get)})")
+    check(all(v > 0 for v in changed.values()),
+          "training: a parameter did not change")
+    del model, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steady_s": steady, "peak_gb": peak / 1e9,
+            "profile": profile}
+
+
+def phase_train_checks(card: str) -> None:
+    """Phase 8b: the smoke widths trained on the card and on the CPU from
+    the same state; phase 8c: the reference's kill-and-resume drill
+    (``tests/test_system.py:36``) on the card at qwen3-8b-smoke."""
+    import tempfile
+
+    from repro_torch.launch import train as train_launch
+
+    print("== phase 8b: training at the smoke widths, card against CPU")
+    for name in TRAIN_SMOKES:
+        train_smoke_vs_cpu(name)
+    print(f"== phase 8c: kill-and-resume drill on the card ({card})")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        def run(*extra, ckpt):
+            return train_launch.run(train_launch.build_argparser().parse_args(
+                ["--arch", "qwen3-8b", "--smoke", "--batch", "4", "--seq",
+                 "32", "--ckpt-dir", str(Path(tmp) / ckpt), "--ckpt-every",
+                 "4", "--decay-steps", "8", *extra]))
+        full = run("--steps", "8", ckpt="a")
+        run("--steps", "4", ckpt="b")
+        resumed = run("--steps", "8", "--resume", ckpt="b")
+    tail = full["losses"][4:]
+    err = max(abs(a - b) for a, b in zip(tail, resumed["losses"]))
+    bitwise = tail == resumed["losses"]
+    print(f"  straight steps 4-7 {tail}; resumed {resumed['losses']}: max "
+          f"abs diff {err:.3e} (the reference's limit 1e-4), bitwise "
+          f"{'equal' if bitwise else 'not equal'}")
+    check(len(resumed["losses"]) == 4 and bool(np.allclose(
+        tail, resumed["losses"], rtol=1e-4, atol=1e-4)),
+          "kill-and-resume: the resumed losses differ from the straight run")
+
+
 def center_matvec_op_times() -> dict:
     """``center_matvec_op`` of the ``repro_torch`` first on the path, at
     n = N (the main path's matrix) and k = DIMS + 10 and WIDE_K, as phase 5
@@ -3120,8 +3542,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm = run("6 LM serving", phase_lm, card)
+    train = run("8 training", phase_train, card)
+    run("8b/8c training checks", phase_train_checks, card)
+    errors["rmsnorm_bwd"] = run("5b rmsnorm_bwd check", phase_rmsnorm_bwd_kernel)
     kernels.append(run("5b rmsnorm times", rmsnorm_entry, lm["launches"],
                        errors["rmsnorm"], card))
+    kernels[-1]["train_launches"] = train["launches"]["rmsnorm"]
+    kernels.extend(run("5b rmsnorm_bwd times", rmsnorm_bwd_entries,
+                       train["launches"], errors["rmsnorm_bwd"], card))
     for kern in kernels:        # each kernel's launches on the session path
         kern["session_launches"] = \
             session["session"]["launches_total"].get(kern["name"], 0)

@@ -1,10 +1,11 @@
-"""repro_torch.checkpoint: the crash-safe serve journal.
+"""repro_torch.checkpoint: whole-state snapshots for training
+(``CheckpointManager``) and the crash-safe serve journal.
 
-The counterpart of ``repro/checkpoint``'s ``journal`` module; the
-reference's ``CheckpointManager`` (whole-pytree snapshots) is not ported
-yet.
+The counterpart of ``repro/checkpoint``'s ``manager`` and ``journal``
+modules.
 """
 
 from repro_torch.checkpoint.journal import Journal, replay
+from repro_torch.checkpoint.manager import CheckpointManager
 
-__all__ = ["Journal", "replay"]
+__all__ = ["CheckpointManager", "Journal", "replay"]

@@ -5,7 +5,8 @@ The analyses have no weights: what crosses from ``repro`` (JAX) to
 random numbers, which torch cannot reproduce. The reference's arrays are
 taken as numpy (``np.asarray(jax_array)``) and become tensors of the port's
 dtypes on the chosen device (``from_reference``). The LM stack's weights
-cross the same way (``lm_params_from_reference``). This is the whole of the
+and optimizer state cross the same way (``lm_params_from_reference``,
+``opt_state_from_reference``). This is the whole of the
 transfer; it is how both packages compute on the same inputs in the parity
 tests.
 """
@@ -42,22 +43,12 @@ def from_reference(state: dict[str, np.ndarray],
             for key, value in state.items()}
 
 
-def lm_params_from_reference(params_np: dict, cfg,
-                             device: DeviceLike = None
-                             ) -> dict[str, torch.Tensor]:
-    """The port's ``Transformer`` state_dict for the reference's
-    ``models/transformer.py::init_params`` pytree, taken as numpy
-    (``jax.tree.map(np.asarray, params)``).
-
-    The reference stacks each pattern position's block params (n_full, ...)
-    for its scan and keeps the remainder layers apart; layer
-    ``i·period + j`` is row i of pattern position j, and remainder layer r
-    is layer ``n_full·period + r``. Each leaf becomes a tensor of the
-    config's param dtype (bf16 arrives as float32, exactly)."""
-    dev = resolve_device(device)
-    if "frontend" in params_np:
+def _lm_leaves(tree_np: dict, cfg, dtype: torch.dtype,
+               dev: torch.device) -> dict[str, torch.Tensor]:
+    """The port's state_dict keys for a pytree laid out as the reference's
+    ``init_params``, each leaf a tensor of ``dtype`` on ``dev``."""
+    if "frontend" in tree_np:
         raise NotImplementedError("modality frontends are not ported yet")
-    dtype = cfg.dtype()
     period = len(cfg.pattern)
     n_full = cfg.n_layers // period
 
@@ -72,14 +63,50 @@ def lm_params_from_reference(params_np: dict, cfg,
             else:
                 yield f"{prefix}{key}", value
 
-    state = {f"embed.{k}": tensor(v) for k, v in leaves(params_np["embed"])}
-    for j, stacked in enumerate(params_np["blocks"]):
+    state = {f"embed.{k}": tensor(v) for k, v in leaves(tree_np["embed"])}
+    for j, stacked in enumerate(tree_np["blocks"]):
         for name, value in leaves(stacked):
             for i in range(n_full):
                 state[f"blocks.{i * period + j}.{name}"] = tensor(value[i])
-    for r, block in enumerate(params_np["rem"]):
+    for r, block in enumerate(tree_np["rem"]):
         for name, value in leaves(block):
             state[f"blocks.{n_full * period + r}.{name}"] = tensor(value)
     state.update({f"final_norm.{k}": tensor(v)
-                  for k, v in leaves(params_np["final_norm"])})
+                  for k, v in leaves(tree_np["final_norm"])})
     return state
+
+
+def lm_params_from_reference(params_np: dict, cfg,
+                             device: DeviceLike = None
+                             ) -> dict[str, torch.Tensor]:
+    """The port's ``Transformer`` state_dict for the reference's
+    ``models/transformer.py::init_params`` pytree, taken as numpy
+    (``jax.tree.map(np.asarray, params)``).
+
+    The reference stacks each pattern position's block params (n_full, ...)
+    for its scan and keeps the remainder layers apart; layer
+    ``i·period + j`` is row i of pattern position j, and remainder layer r
+    is layer ``n_full·period + r``. Each leaf becomes a tensor of the
+    config's param dtype (bf16 arrives as float32, exactly)."""
+    return _lm_leaves(params_np, cfg, cfg.dtype(), resolve_device(device))
+
+
+def opt_state_from_reference(opt_np: dict, model, cfg,
+                             device: DeviceLike = None) -> dict:
+    """The port's AdamW state (``repro_torch.optim.adamw``) for the
+    reference's ``init_opt_state`` / ``adamw_update`` state
+    ``{"m", "v", "step"}`` taken as numpy: the moments laid out as
+    ``model``'s parameters, in ``cfg.dtype("opt")``, and the step as an
+    int32 0-d tensor, so both packages start a step from the same state."""
+    dev = resolve_device(device)
+    names = {name for name, _ in model.named_parameters()}
+    out = {}
+    for key in ("m", "v"):
+        out[key] = _lm_leaves(opt_np[key], cfg, cfg.dtype("opt"), dev)
+        if set(out[key]) != names:
+            raise KeyError(f"the reference's {key!r} and the model name "
+                           f"different leaves: "
+                           f"{sorted(set(out[key]) ^ names)}")
+    out["step"] = torch.tensor(int(np.asarray(opt_np["step"])),
+                               dtype=torch.int32, device=dev)
+    return out

@@ -1,10 +1,11 @@
 // Fused RMSNorm with the '1 + w' scale and fp32 statistics, over the last
-// axis of a (rows, d) activation:
+// axis of a (rows, d) activation, and its backward:
 //
 //   out[r, :] = (x[r, :] * rsqrt(mean(x[r, :]^2) + eps) * (1 + w)).to(x.dtype)
 //
 // x and out in fp32 or bf16, w (d,) in fp32 or bf16 (the parameter dtype);
-// every product in fp32 and one rounding at the store.
+// every product in fp32 and one rounding at the store. The forward can also
+// write each row's inverse RMS r (fp32), which the backward reads.
 //
 // Replaces: src/repro/kernels/rmsnorm.py::rmsnorm (_rmsnorm_kernel), the
 // TPU twin of the dense decoders' every norm: the block norms and the final
@@ -27,6 +28,32 @@
 // sum runs in an order fixed by d alone, with no atomics, so two launches
 // give the same bits. Loads and stores are 16 bytes (eight elements) when d
 // is a multiple of 8 and the pointers are 16-byte aligned, scalar otherwise.
+//
+// Backward (new: the reference differentiates its jnp rmsnorm, so there is
+// no Pallas backward to replace). With w' = 1 + w, g = dy * w' and r the
+// forward's inverse RMS of the row, all in fp32:
+//
+//   dx[r, :] = r * g - x * c,   c = (r^3 * sum_j g_j x_j / d) rounded to fp32
+//   dw[j]    = sum over rows of (dy * x) * r
+//
+// The row sum of g x is taken in fp64 (each product of two fp32 values is
+// exact in fp64), so it hardly depends on its order; r is the forward's own,
+// read from memory. The elementwise products and the difference are rounded
+// one at a time (__fmul_rn, __fsub_rn: no contraction into an FMA), as the
+// plain version (kernels/rmsnorm_ref.py::rmsnorm_backward_plain) computes
+// them, so the two differ only where c rounds differently. dw is a column
+// sum over every row: each block takes a fixed run of rows and keeps its
+// columns' fp32 sums in shared memory (each column owned by one thread, or
+// by one lane of each warp at d <= 256, summed over the block's warps in
+// order), writes them as one row of fp32 partials, and a second kernel sums
+// the partials of each column in fp64 in a fixed order. The grid depends on
+// (rows, d) alone and no float atomic is used, so two launches give the
+// same bits.
+//
+// Backward bound: bytes. It reads x, dy, w and r once and writes dx and dw
+// once: at llama3.2-3b's microbatch (1024 rows of 3072 in bf16) 18.9 MB,
+// 0.0056 ms at 3.35 TB/s. The partials (at most kBwdMaxBlocks rows of d
+// floats, written and read once) are the design's cost above it.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -129,7 +156,7 @@ __device__ __forceinline__ void scale_store(const TX* __restrict__ row, const TW
 template <typename TX, typename TW>
 __global__ void __launch_bounds__(kBlockThreads)
 rmsnorm_warp_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TX* __restrict__ out,
-                    long long rows, int d, float eps, bool vec) {
+                    float* __restrict__ inv_out, long long rows, int d, float eps, bool vec) {
   const long long row = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;  // the whole warp leaves together: no shuffle waits on it
   const int lane = threadIdx.x & 31;
@@ -137,6 +164,7 @@ rmsnorm_warp_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TX* __re
   float ss = repro::warp_sum(sum_squares(xr, d, lane, 32, vec));
   ss = __shfl_sync(repro::kFullMask, ss, 0);  // the total sits in lane 0
   const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
+  if (inv_out != nullptr && lane == 0) inv_out[row] = inv;
   scale_store(xr, w, out + row * d, d, lane, 32, vec, inv);
 }
 
@@ -144,7 +172,7 @@ rmsnorm_warp_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TX* __re
 template <typename TX, typename TW>
 __global__ void __launch_bounds__(kBlockThreads)
 rmsnorm_block_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TX* __restrict__ out,
-                     int d, float eps, bool vec) {
+                     float* __restrict__ inv_out, int d, float eps, bool vec) {
   __shared__ float warp_sums[kWarps];
   __shared__ float inv_s;
   const long long row = blockIdx.x;
@@ -156,7 +184,10 @@ rmsnorm_block_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TX* __r
   __syncthreads();
   if (warp == 0) {
     const float total = repro::warp_sum(lane < kWarps ? warp_sums[lane] : 0.0f);
-    if (lane == 0) inv_s = rsqrtf(total / static_cast<float>(d) + eps);
+    if (lane == 0) {
+      inv_s = rsqrtf(total / static_cast<float>(d) + eps);
+      if (inv_out != nullptr) inv_out[row] = inv_s;
+    }
   }
   __syncthreads();
   scale_store(xr, w, out + row * d, d, threadIdx.x, kBlockThreads, vec, inv_s);
@@ -165,8 +196,8 @@ rmsnorm_block_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TX* __r
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename TX, typename TW>
-cudaError_t launch(const void* x, const void* w, void* out, long long rows, int d, float eps,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* w, void* out, float* inv, long long rows, int d,
+                   float eps, cudaStream_t stream) {
   const TX* xp = static_cast<const TX*>(x);
   const TW* wp = static_cast<const TW*>(w);
   TX* op = static_cast<TX*>(out);
@@ -174,33 +205,323 @@ cudaError_t launch(const void* x, const void* w, void* out, long long rows, int 
   if (d <= kWarpMaxD) {
     const long long blocks = (rows + kWarps - 1) / kWarps;
     rmsnorm_warp_kernel<TX, TW><<<static_cast<unsigned>(blocks), kBlockThreads, 0, stream>>>(
-        xp, wp, op, rows, d, eps, vec);
+        xp, wp, op, inv, rows, d, eps, vec);
   } else {
     rmsnorm_block_kernel<TX, TW><<<static_cast<unsigned>(rows), kBlockThreads, 0, stream>>>(
-        xp, wp, op, d, eps, vec);
+        xp, wp, op, inv, d, eps, vec);
   }
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+// c = r^3 * dot / d in fp64, rounded once to fp32.
+__device__ __forceinline__ float bwd_coef(float r, double dot, int d) {
+  const double rd = r;
+  return static_cast<float>(((rd * rd) * rd) * dot / static_cast<double>(d));
+}
+
+// g = dy * (1 + w), each step rounded.
+__device__ __forceinline__ float bwd_g(float dy, float w) {
+  return __fmul_rn(dy, __fadd_rn(1.0f, w));
+}
+
+// dx = r * g - x * c, each step rounded.
+__device__ __forceinline__ float bwd_dx(float r, float g, float x, float c) {
+  return __fsub_rn(__fmul_rn(r, g), __fmul_rn(x, c));
+}
+
+// (dy * x) * r, each step rounded: one row's term of dw.
+__device__ __forceinline__ float bwd_dw_term(float dy, float x, float r) {
+  return __fmul_rn(__fmul_rn(dy, x), r);
+}
+
+// d > kWarpMaxD: one block takes rows [b * rows_per_block, ...) in order, a
+// row at a time. Thread t owns the columns t*8 + k + j*2048 (vector) or
+// t + j*256 (scalar), and only it touches their dw sums in shared memory.
+template <typename TX, typename TW>
+__global__ void __launch_bounds__(kBlockThreads)
+rmsnorm_bwd_block_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                         const float* __restrict__ inv, const TX* __restrict__ dy,
+                         TX* __restrict__ dx, float* __restrict__ partials, long long rows,
+                         int d, long long rows_per_block, bool vec) {
+  extern __shared__ float dw_s[];   // d floats
+  __shared__ double warp_dots[kWarps];
+  __shared__ float coef_s;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  constexpr int kStride = kBlockThreads * kPack;
+  if (vec) {
+    for (int c = t * kPack; c < d; c += kStride) {
+#pragma unroll
+      for (int k = 0; k < kPack; ++k) dw_s[c + k] = 0.0f;
+    }
+  } else {
+    for (int c = t; c < d; c += kBlockThreads) dw_s[c] = 0.0f;
+  }
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long r1 = min(r0 + rows_per_block, rows);
+  for (long long row = r0; row < r1; ++row) {
+    const float r = inv[row];
+    const TX* xr = x + row * d;
+    const TX* gr = dy + row * d;
+    double dot = 0.0;
+    if (vec) {
+      for (int c = t * kPack; c < d; c += kStride) {
+        float xv[kPack], gv[kPack], wv[kPack];
+        load8(xr + c, xv);
+        load8(gr + c, gv);
+        load8(w + c, wv);
+#pragma unroll
+        for (int k = 0; k < kPack; ++k) {
+          dot = fma(static_cast<double>(bwd_g(gv[k], wv[k])), static_cast<double>(xv[k]), dot);
+          dw_s[c + k] += bwd_dw_term(gv[k], xv[k], r);
+        }
+      }
+    } else {
+      for (int c = t; c < d; c += kBlockThreads) {
+        const float xv = to_float(xr[c]), gv = to_float(gr[c]);
+        dot = fma(static_cast<double>(bwd_g(gv, to_float(w[c]))), static_cast<double>(xv), dot);
+        dw_s[c] += bwd_dw_term(gv, xv, r);
+      }
+    }
+    dot = repro::warp_sum(dot);
+    if (lane == 0) warp_dots[warp] = dot;
+    __syncthreads();
+    if (warp == 0) {
+      const double total = repro::warp_sum(lane < kWarps ? warp_dots[lane] : 0.0);
+      if (lane == 0) coef_s = bwd_coef(r, total, d);
+    }
+    __syncthreads();
+    const float cf = coef_s;
+    TX* out = dx + row * d;
+    if (vec) {
+      // the row's share again, from L1 (x and dy of a 3072-wide bf16 row: 12 KB)
+      for (int c = t * kPack; c < d; c += kStride) {
+        float xv[kPack], gv[kPack], wv[kPack];
+        load8(xr + c, xv);
+        load8(gr + c, gv);
+        load8(w + c, wv);
+#pragma unroll
+        for (int k = 0; k < kPack; ++k) xv[k] = bwd_dx(r, bwd_g(gv[k], wv[k]), xv[k], cf);
+        store8(out + c, xv);
+      }
+    } else {
+      for (int c = t; c < d; c += kBlockThreads) {
+        store_one(out + c,
+                  bwd_dx(r, bwd_g(to_float(gr[c]), to_float(w[c])), to_float(xr[c]), cf));
+      }
+    }
+  }
+  float* part = partials + static_cast<long long>(blockIdx.x) * d;
+  if (vec) {
+    for (int c = t * kPack; c < d; c += kStride) {
+#pragma unroll
+      for (int k = 0; k < kPack; ++k) part[c + k] = dw_s[c + k];
+    }
+  } else {
+    for (int c = t; c < d; c += kBlockThreads) part[c] = dw_s[c];
+  }
+}
+
+// d <= kWarpMaxD: the block's rows are dealt to its warps in turn (warp v
+// takes rows r0 + v, r0 + v + 8, ...). A lane owns the columns lane*8 + k
+// (vector) or lane + 32k (scalar), at most eight, and keeps their x, g and dw
+// sums in registers; the warps' dw sums are added in warp order at the end.
+template <typename TX, typename TW>
+__global__ void __launch_bounds__(kBlockThreads)
+rmsnorm_bwd_warp_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                        const float* __restrict__ inv, const TX* __restrict__ dy,
+                        TX* __restrict__ dx, float* __restrict__ partials, long long rows,
+                        int d, long long rows_per_block, bool vec) {
+  __shared__ float warp_dw[kWarps][kWarpMaxD];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float acc[kPack], wv[kPack];
+#pragma unroll
+  for (int k = 0; k < kPack; ++k) {
+    acc[k] = 0.0f;
+    const int c = vec ? lane * kPack + k : lane + 32 * k;
+    wv[k] = c < d ? to_float(w[c]) : 0.0f;
+  }
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long r1 = min(r0 + rows_per_block, rows);
+  for (long long row = r0 + warp; row < r1; row += kWarps) {
+    const float r = inv[row];
+    const TX* xr = x + row * d;
+    const TX* gr = dy + row * d;
+    float xv[kPack], gv[kPack];
+    double dot = 0.0;
+    if (vec) {
+      if (lane * kPack < d) {
+        load8(xr + lane * kPack, xv);
+        load8(gr + lane * kPack, gv);
+#pragma unroll
+        for (int k = 0; k < kPack; ++k) {
+          acc[k] += bwd_dw_term(gv[k], xv[k], r);
+          gv[k] = bwd_g(gv[k], wv[k]);
+          dot = fma(static_cast<double>(gv[k]), static_cast<double>(xv[k]), dot);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPack; ++k) {
+        const int c = lane + 32 * k;
+        if (c < d) {
+          xv[k] = to_float(xr[c]);
+          gv[k] = to_float(gr[c]);
+          acc[k] += bwd_dw_term(gv[k], xv[k], r);
+          gv[k] = bwd_g(gv[k], wv[k]);
+          dot = fma(static_cast<double>(gv[k]), static_cast<double>(xv[k]), dot);
+        }
+      }
+    }
+    dot = repro::warp_sum(dot);
+    dot = __shfl_sync(repro::kFullMask, dot, 0);   // the total sits in lane 0
+    const float cf = bwd_coef(r, dot, d);
+    TX* out = dx + row * d;
+    if (vec) {
+      if (lane * kPack < d) {
+#pragma unroll
+        for (int k = 0; k < kPack; ++k) xv[k] = bwd_dx(r, gv[k], xv[k], cf);
+        store8(out + lane * kPack, xv);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPack; ++k) {
+        const int c = lane + 32 * k;
+        if (c < d) store_one(out + c, bwd_dx(r, gv[k], xv[k], cf));
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPack; ++k) {
+    const int c = vec ? lane * kPack + k : lane + 32 * k;
+    if (c < d) warp_dw[warp][c] = acc[k];
+  }
+  __syncthreads();
+  const int c = threadIdx.x;   // d <= kWarpMaxD == kBlockThreads: a column a thread
+  if (c < d) {
+    float s = 0.0f;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) s += warp_dw[v][c];
+    partials[static_cast<long long>(blockIdx.x) * d + c] = s;
+  }
+}
+
+// dw[c] = sum over b < blocks of partials[b, c], in fp64: the block's eight
+// warps take 32 columns, warp v the partial rows v, v + 8, ..., then the
+// eight warp sums are added in warp order, and the result is rounded to fp32
+// and then to w's dtype.
+template <typename TW>
+__global__ void __launch_bounds__(kBlockThreads)
+rmsnorm_bwd_finish_kernel(const float* __restrict__ partials, TW* __restrict__ dw, int blocks,
+                          int d) {
+  __shared__ double sums[kWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  double v = 0.0;
+  if (c < d) {
+    for (int b = warp; b < blocks; b += kWarps) v += partials[static_cast<long long>(b) * d + c];
+  }
+  sums[warp][lane] = v;
+  __syncthreads();
+  if (warp == 0 && c < d) {
+    double s = 0.0;
+#pragma unroll
+    for (int u = 0; u < kWarps; ++u) s += sums[u][lane];
+    store_one(dw + c, static_cast<float>(s));
+  }
+}
+
+template <typename TX, typename TW>
+cudaError_t launch_bwd(const void* x, const void* w, const float* inv, const void* dy, void* dx,
+                       float* partials, long long rows, int d, long long rows_per_block,
+                       cudaStream_t stream) {
+  const TX* xp = static_cast<const TX*>(x);
+  const TW* wp = static_cast<const TW*>(w);
+  const TX* gp = static_cast<const TX*>(dy);
+  TX* op = static_cast<TX*>(dx);
+  const bool vec = d % kPack == 0 && aligned16(x) && aligned16(w) && aligned16(dy) &&
+                   aligned16(dx);
+  const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
+  if (d <= kWarpMaxD) {
+    rmsnorm_bwd_warp_kernel<TX, TW><<<static_cast<unsigned>(blocks), kBlockThreads, 0, stream>>>(
+        xp, wp, inv, gp, op, partials, rows, d, rows_per_block, vec);
+  } else {
+    const size_t smem = static_cast<size_t>(d) * sizeof(float);
+    if (smem > 48 * 1024) {   // above the default: opt in
+      const cudaError_t err = cudaFuncSetAttribute(rmsnorm_bwd_block_kernel<TX, TW>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    rmsnorm_bwd_block_kernel<TX, TW>
+        <<<static_cast<unsigned>(blocks), kBlockThreads, smem, stream>>>(
+            xp, wp, inv, gp, op, partials, rows, d, rows_per_block, vec);
+  }
+  return cudaGetLastError();
+}
+
+template <typename TW>
+cudaError_t launch_bwd_finish(const float* partials, void* dw, int blocks, int d,
+                              cudaStream_t stream) {
+  rmsnorm_bwd_finish_kernel<TW><<<static_cast<unsigned>((d + 31) / 32), kBlockThreads, 0,
+                                  stream>>>(partials, static_cast<TW*>(dw), blocks, d);
+  return cudaGetLastError();
+}
+
+// fn(TX{}, TW{}) for the dtype codes 0 = fp32, 1 = bf16.
+template <typename Fn>
+cudaError_t by_dtypes(int x_dtype, int w_dtype, Fn&& fn) {
+  if (x_dtype == 0 && w_dtype == 0) return fn(float{}, float{});
+  if (x_dtype == 0 && w_dtype == 1) return fn(float{}, __nv_bfloat16{});
+  if (x_dtype == 1 && w_dtype == 0) return fn(__nv_bfloat16{}, float{});
+  if (x_dtype == 1 && w_dtype == 1) return fn(__nv_bfloat16{}, __nv_bfloat16{});
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // x, out: (rows, d) contiguous, of x_dtype; w: (d,) of w_dtype. Dtype codes:
-// 0 = fp32, 1 = bf16. rows < 2^31 (one block or warp a row); d >= 1.
-REPRO_EXPORT int repro_rmsnorm(const void* x, const void* w, void* out, long long rows, int d,
-                               int x_dtype, int w_dtype, float eps, cudaStream_t stream) {
+// 0 = fp32, 1 = bf16. rows < 2^31 (one block or warp a row); d >= 1. inv:
+// (rows,) fp32 that receives each row's inverse RMS, or null.
+REPRO_EXPORT int repro_rmsnorm(const void* x, const void* w, void* out, float* inv,
+                               long long rows, int d, int x_dtype, int w_dtype, float eps,
+                               cudaStream_t stream) {
   if (rows <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
-  if (x_dtype == 0 && w_dtype == 0) {
-    return static_cast<int>(launch<float, float>(x, w, out, rows, d, eps, stream));
-  }
-  if (x_dtype == 0 && w_dtype == 1) {
-    return static_cast<int>(launch<float, __nv_bfloat16>(x, w, out, rows, d, eps, stream));
-  }
-  if (x_dtype == 1 && w_dtype == 0) {
-    return static_cast<int>(launch<__nv_bfloat16, float>(x, w, out, rows, d, eps, stream));
-  }
-  if (x_dtype == 1 && w_dtype == 1) {
-    return static_cast<int>(
-        launch<__nv_bfloat16, __nv_bfloat16>(x, w, out, rows, d, eps, stream));
+  return static_cast<int>(by_dtypes(x_dtype, w_dtype, [&](auto tx, auto tw) {
+    return launch<decltype(tx), decltype(tw)>(x, w, out, inv, rows, d, eps, stream);
+  }));
+}
+
+// The backward's row kernel: x, dy, dx (rows, d) of x_dtype; w (d,) of
+// w_dtype; inv (rows,) fp32, the forward's; partials (ceil(rows /
+// rows_per_block), d) fp32, one row a block. d <= 56 * 1024 (the block
+// route's dw sums in shared memory).
+REPRO_EXPORT int repro_rmsnorm_bwd(const void* x, const void* w, const float* inv,
+                                   const void* dy, void* dx, float* partials, long long rows,
+                                   int d, long long rows_per_block, int x_dtype, int w_dtype,
+                                   cudaStream_t stream) {
+  if (rows <= 0 || d <= 0 || rows_per_block <= 0) return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(by_dtypes(x_dtype, w_dtype, [&](auto tx, auto tw) {
+    return launch_bwd<decltype(tx), decltype(tw)>(x, w, inv, dy, dx, partials, rows, d,
+                                                  rows_per_block, stream);
+  }));
+}
+
+// The backward's column finish: dw (d,) of w_dtype from partials (blocks, d).
+REPRO_EXPORT int repro_rmsnorm_bwd_finish(const float* partials, void* dw, int blocks, int d,
+                                          int w_dtype, cudaStream_t stream) {
+  if (blocks <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
+  if (w_dtype == 0) return static_cast<int>(launch_bwd_finish<float>(partials, dw, blocks, d,
+                                                                     stream));
+  if (w_dtype == 1) {
+    return static_cast<int>(launch_bwd_finish<__nv_bfloat16>(partials, dw, blocks, d, stream));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -41,11 +41,16 @@ materialized Mantel baseline (paper Algorithm 5 over square operands):
                        permutation's row and column gather fused in,
                        row-stationary like ``permute_reduce``.
 
-The LM serving path (``repro_torch.models``, ``repro_torch.runtime``):
+The LM serving and training paths (``repro_torch.models``,
+``repro_torch.runtime``):
 
 * ``rmsnorm``        — fused RMSNorm with the '1 + w' scale and fp32
                        statistics: every block, final and q/k norm of a
-                       dense decoder.
+                       dense decoder; and its backward (``rmsnorm_bwd``, a
+                       fixed-order ``rmsnorm_bwd_finish`` for dw), which
+                       ``rmsnorm_ops.RMSNormFunction`` runs under autograd
+                       (no Pallas counterpart: the reference differentiates
+                       its jnp norm).
 
 This package imports nothing at import time, so no module here needs
 ``nvcc`` or a card to be imported.

@@ -59,6 +59,8 @@ launches: dict[str, int] = {
     "mantel_corr": 0,
     "mantel_corr_finish": 0,
     "rmsnorm": 0,
+    "rmsnorm_bwd": 0,
+    "rmsnorm_bwd_finish": 0,
 }
 
 _P = ctypes.c_void_p
@@ -82,7 +84,9 @@ _SIGNATURES = {
     "repro_mantel_corr_partials": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _P],
     "repro_mantel_corr_finish": [_P, _P, _I, _I, _P],
-    "repro_rmsnorm": [_P, _P, _P, _L, _I, _I, _I, _F, _P],
+    "repro_rmsnorm": [_P, _P, _P, _P, _L, _I, _I, _I, _F, _P],
+    "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P],
+    "repro_rmsnorm_bwd_finish": [_P, _P, _I, _I, _I, _P],
 }
 
 

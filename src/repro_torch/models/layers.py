@@ -61,7 +61,8 @@ def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 class RMSNorm(nn.Module):
     """'1 + w' RMSNorm; ``w`` starts at 0. fp32 statistics, one rounding to
     x's dtype: the ``rmsnorm`` kernel on a CUDA tensor, its plain version on
-    a CPU tensor."""
+    a CPU tensor; under autograd through ``RMSNormFunction``, whose backward
+    is the ``rmsnorm_bwd`` kernel on the card."""
 
     def __init__(self, d: int, dtype: torch.dtype, device=None):
         super().__init__()

@@ -4,10 +4,17 @@ The counterpart of ``repro/models/transformer.py``. Where the reference
 stacks each pattern position's params (n_periods, ...) for ``lax.scan`` and
 runs remainder layers unrolled, the port holds one ``Block`` a layer in an
 ``nn.ModuleList``, in the order ``cfg.layer_types()`` gives: the order the
-reference's scan and remainder visit them. ``forward_train`` runs the
-forward only (no remat; the training path is not ported yet). The
-reference's ``sharding/ctx.constrain*`` calls pin shardings on a mesh and
-compute nothing; on one card they become nothing.
+reference's scan and remainder visit them. ``forward_train`` is the
+training forward: under autograd every block is rematerialised as
+``cfg.remat`` says (the reference's ``_remat`` around its layer scan):
+``"full"`` checkpoints each block (``torch.utils.checkpoint``, non-reentrant:
+only its input is kept and the block runs again in the backward),
+``"dots"`` keeps the outputs of the blocks' matrix products (``aten.mm``,
+``aten.addmm``: the products with no batch dimension, as
+``checkpoint_dots_with_no_batch_dims`` keeps) and recomputes the rest, and
+``"none"`` keeps every activation. Rematerialisation changes what is kept,
+not what is computed. The reference's ``sharding/ctx.constrain*`` calls pin
+shardings on a mesh and compute nothing; on one card they become nothing.
 
 Three entry points with the reference's signatures, ``params`` being the
 ``Transformer``:
@@ -30,6 +37,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
@@ -110,7 +119,8 @@ def block_decode(p: Block, x, cache, pos: int, cfg, btype: str):
 class Transformer(nn.Module):
     """embed → blocks (one a layer) → final_norm. Parameters are left
     uninitialised (norms and biases at their init values): ``init_params``
-    draws them, ``load_state_dict`` fills them."""
+    draws them, ``load_state_dict`` fills them. ``device="meta"`` builds
+    shapes and dtypes only (``runtime.train.abstract_train_state``)."""
 
     def __init__(self, cfg, device: DeviceLike = None):
         super().__init__()
@@ -118,7 +128,8 @@ class Transformer(nn.Module):
             raise NotImplementedError(
                 "enc-dec models and modality frontends are not ported to "
                 "repro_torch yet (ROADMAP.md, queue 1)")
-        dev = resolve_device(device)
+        dev = (torch.device("meta") if str(device) == "meta"
+               else resolve_device(device))
         self.cfg = cfg
         self.embed = Embedding(cfg, dev)
         self.blocks = nn.ModuleList(Block(cfg, t, dev)
@@ -172,15 +183,43 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
                         device=x.device).expand(x.shape[:2])
 
 
+#: the ops whose outputs ``remat="dots"`` keeps: the blocks' matrix products
+#: with no batch dimension (the projections and the MLP; the attention
+#: einsums are batched ``bmm``s and are recomputed).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg):
+    """``fn`` under the rematerialisation ``cfg.remat`` names."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        return lambda *args: checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(
+                _keep_dots))
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def forward_train(params: Transformer, tokens, cfg, extra_embeds=None):
-    """→ (hidden (B,S,D), aux_loss). Forward only."""
+    """→ (hidden (B,S,D), aux_loss). The layers of the reference's scan
+    (whole pattern periods) are rematerialised as ``cfg.remat`` says; the
+    remainder layers, the embedding and the final norm are not, as there."""
     if extra_embeds is not None:
         raise NotImplementedError("modality frontends are not ported yet")
     x = _embed_inputs(params, tokens, cfg)
     positions = _positions(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for btype, bp in zip(cfg.layer_types(), params.blocks):
-        x, a = block_forward(bp, x, positions, cfg, btype)
+    scanned = cfg.n_layers - cfg.n_layers % len(cfg.pattern)
+    remat_block = _remat(block_forward, cfg)
+    for i, (btype, bp) in enumerate(zip(cfg.layer_types(), params.blocks)):
+        block = remat_block if i < scanned else block_forward
+        x, a = block(bp, x, positions, cfg, btype)
         aux = aux + a
     return params.final_norm(x), aux
 

@@ -25,7 +25,16 @@ bf16 unit in the last place in bf16 (one rounding of values that differ in
 fp32 by an ulp or two), and two launches bitwise equal (a fixed-order sum);
 the LM smoke path card against CPU in fp32: logits to rtol 1e-5 /
 atol 1e-5·max(scale, 1), the products summing in another order on the card.
+The ``rmsnorm`` backward against its plain version given the forward's
+inverse RMS: dx and dw in fp32 at rtol 1e-5 / atol 1e-5·max(scale, 1) (its
+fp32 dw partials are summed in another order), in bf16 within 2 bf16 units
+in the last place, and two launches bitwise equal; through autograd on the
+card, x's and w's gradients are the kernel's. Three smoke train steps, card
+against CPU from the same state (a resumed run's moments): losses at rtol
+1e-5, parameters and moments at rtol 1e-5 / atol 1e-5·max(scale, 1).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -70,8 +79,13 @@ from repro_torch.kernels.permute_reduce import (permute_reduce_finish,
                                                 permute_reduce_partials)
 from repro_torch.kernels.permute_reduce_ops import permute_reduce
 from repro_torch.kernels.permute_reduce_ref import permute_reduce_ref
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_backward
 from repro_torch.kernels.rmsnorm_ops import rmsnorm_op
-from repro_torch.kernels.rmsnorm_ref import bf16_ulp_distance, rmsnorm_plain
+from repro_torch.kernels.rmsnorm_ref import (bf16_ulp_distance,
+                                             rmsnorm_backward_plain,
+                                             rmsnorm_plain)
+from repro_torch.optim import AdamWConfig
+from repro_torch.runtime.train import build_train_step_fn, init_train_state
 from repro_torch.models.transformer import Transformer, init_params
 from repro_torch.runtime.serve import build_decode_fn, build_prefill_fn
 from repro_torch.kernels.symhollow_ops import is_symmetric_and_hollow_op
@@ -296,7 +310,8 @@ def test_launch_counts_follow_the_main_path(cuda):
                                "pairwise_panel": 0, "center_pass1": 0,
                                "center_finish": 0, "center_pass2": 0,
                                "mantel_corr": 0, "mantel_corr_finish": 0,
-                               "rmsnorm": 0}
+                               "rmsnorm": 0, "rmsnorm_bwd": 0,
+                               "rmsnorm_bwd_finish": 0}
 
 
 def test_main_path_card_matches_cpu(cuda):
@@ -734,6 +749,136 @@ def test_lm_smoke_path_card_matches_cpu(cuda):
     scale = float(out["cpu"].abs().max())
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-5,
                                atol=1e-5 * max(scale, 1.0))
+
+
+RMSNORM_BWD_CASES = [
+    ((24576, 128), torch.bfloat16, torch.bfloat16),    # warp route, vector
+    ((1024, 3072), torch.bfloat16, torch.bfloat16),    # block route, vector
+    ((2048, 4096), torch.float32, torch.float32),
+    ((1024, 3072), torch.bfloat16, torch.float32),
+    ((1000, 100), torch.float32, torch.float32),       # warp route, scalar
+    ((333, 3070), torch.bfloat16, torch.bfloat16),     # block route, scalar
+    ((7, 256), torch.float32, torch.bfloat16),
+    ((3, 257), torch.float32, torch.float32),
+    ((1, 1), torch.float32, torch.float32),
+    ((4, 2, 8, 128), torch.bfloat16, torch.bfloat16),
+]
+
+
+def _hold_bwd(got, want, what):
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    assert bool(torch.isfinite(got).all()), what
+    if got.dtype == torch.float32:
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * max(scale, 1.0), msg=what)
+    else:
+        assert int(bf16_ulp_distance(got, want).max()) <= 2, what
+
+
+@pytest.mark.parametrize("shape,dtype,w_dtype", RMSNORM_BWD_CASES,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_rmsnorm_backward_matches_plain(cuda, shape, dtype, w_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + 1)
+    x = (torch.randn(shape, generator=gen, device=cuda) * 3 + 0.25).to(dtype)
+    w = (0.1 * torch.randn(shape[-1:], generator=gen, device=cuda)).to(
+        w_dtype)
+    dy = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    d = shape[-1]
+    x2, dy2 = x.reshape(-1, d), dy.reshape(-1, d)
+    inv = torch.empty((x2.shape[0],), dtype=torch.float32, device=cuda)
+    out = rmsnorm(x2, w, 1e-6, inv)
+    assert torch.equal(out, rmsnorm(x2, w, 1e-6))   # inv changes nothing
+    _build.reset_launches()
+    dx, dw = rmsnorm_backward(x2, w, inv, dy2)
+    again = rmsnorm_backward(x2, w, inv, dy2)
+    assert _build.launches["rmsnorm_bwd"] == 2
+    assert _build.launches["rmsnorm_bwd_finish"] == 2
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+    want_dx, want_dw = rmsnorm_backward_plain(x2, w, dy2, inv=inv)
+    _hold_bwd(dx, want_dx, "dx")
+    _hold_bwd(dw, want_dw, "dw")
+
+
+def test_rmsnorm_gradients_arrive_through_autograd_on_the_card(cuda):
+    """Under autograd on a CUDA tensor the norm's output has a grad_fn (a
+    bare launch would cut the gradient to x and give w none), and x's and
+    w's gradients are the backward kernel's."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = (torch.randn((2, 8, 3072), generator=gen, device=cuda) * 2).to(
+        torch.bfloat16).requires_grad_()
+    w = (0.1 * torch.randn((3072,), generator=gen, device=cuda)).to(
+        torch.bfloat16).requires_grad_()
+    dy = torch.randn((2, 8, 3072), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    _build.reset_launches()
+    out = rmsnorm_op(x, w)
+    assert out.grad_fn is not None
+    out.backward(dy)
+    assert _build.launches["rmsnorm"] == 1
+    assert _build.launches["rmsnorm_bwd"] == 1
+    assert x.grad is not None and w.grad is not None
+    assert bool(w.grad.abs().sum() > 0)
+    want_dx, want_dw = rmsnorm_backward_plain(x.detach(), w.detach(), dy)
+    _hold_bwd(x.grad, want_dx, "x.grad")
+    _hold_bwd(w.grad, want_dw, "w.grad")
+
+
+@pytest.mark.parametrize("name", ["llama3.2-3b", "qwen3-8b"])
+def test_smoke_train_steps_card_match_cpu(cuda, name):
+    cfg = dataclasses.replace(get_arch(name, smoke=True), microbatches=2)
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=1, decay_steps=100)
+    cpu_model, cpu_opt = init_train_state(0, cfg, device="cpu")
+    gen0 = torch.Generator().manual_seed(2)
+    with torch.no_grad():                    # the norm weights act
+        for pname, p in cpu_model.named_parameters():
+            if p.ndim == 1:
+                p.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(
+                    len(pname)))
+        # a resumed run's moments: a first step from zero moments moves a
+        # parameter whose gradient cancels to ~eps by a rounding-level
+        # amount times up to 1 / (4 eps) (tests/test_torch_train.py)
+        for key, scale in (("m", 1e-3), ("v", 2e-3)):
+            for t in cpu_opt[key].values():
+                t.normal_(0.0, scale, generator=gen0)
+                if key == "v":
+                    t.square_().add_(1e-6)
+        cpu_opt["step"].fill_(10)
+    card_model = Transformer(cfg, cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    card_opt = {k: ({n: t.to(cuda) for n, t in v.items()}
+                    if isinstance(v, dict) else v.to(cuda))
+                for k, v in cpu_opt.items()}
+    gen = torch.Generator().manual_seed(1)
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (4, 24), generator=gen),
+                "targets": torch.randint(0, cfg.vocab, (4, 24),
+                                         generator=gen)} for _ in range(3)]
+    out = {}
+    for dev, model, state in (("cpu", cpu_model, cpu_opt),
+                              ("cuda", card_model, card_opt)):
+        step = build_train_step_fn(cfg, opt, device=dev)
+        _build.reset_launches()
+        losses = []
+        for batch in batches:
+            model, state, metrics = step(model, state, batch)
+            losses.append(float(metrics["loss"]))
+        out[dev] = (losses, model, state, dict(_build.launches))
+    norms = 2 * cfg.n_layers + 1 + (2 * cfg.n_layers if cfg.qk_norm else 0)
+    launches = out["cuda"][3]
+    assert launches["rmsnorm_bwd"] == 3 * 2 * norms       # steps x mbs
+    assert launches["rmsnorm"] == 3 * 2 * (2 * norms - 1)  # + recomputed
+    assert set(out["cpu"][3].values()) == {0}
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+
+    def close(got, want):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                   atol=1e-5 * max(scale, 1.0))
+    for pname, p in out["cpu"][1].state_dict().items():
+        close(out["cuda"][1].state_dict()[pname], p)
+    for moment in ("m", "v"):
+        for pname, t in out["cpu"][2][moment].items():
+            close(out["cuda"][2][moment][pname], t)
 
 
 # --------------------------------------------------------------------------

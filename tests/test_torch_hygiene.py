@@ -30,6 +30,10 @@ from repro_torch.stats import (PermanovaOperatorStatistic, anosim,
                                partial_mantel, permanova, permdisp)
 from repro_torch.stats.engine import permutation_test
 from repro_torch.launch import serve as serve_launcher
+from repro_torch.launch import train as train_launcher
+from repro_torch.data import DistanceTileStream
+from repro_torch.optim import AdamWConfig
+from repro_torch.runtime.train import build_train_step_fn, init_train_state
 from repro_torch.serve import AnalysisService, ServeConfig
 from repro_torch.tune import detect_budget, solve_tiles
 
@@ -62,8 +66,9 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(path):
 
 
 def test_session_modules_are_checked():
-    """The session API, the observability layer, the tuner and the
-    analysis service are among the files the import check above walks."""
+    """The session API, the observability layer, the tuner, the analysis
+    service and the LM training path are among the files the import check
+    above walks."""
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
              for p in PORT_FILES if "repro_torch" in p.parts}
     assert {"api/config.py", "api/workspace.py", "api/__init__.py",
@@ -77,7 +82,11 @@ def test_session_modules_are_checked():
             "faults/__init__.py", "faults/plan.py",
             "checkpoint/__init__.py", "checkpoint/journal.py",
             "runtime/monitor.py", "launch/__init__.py",
-            "launch/serve.py"} <= names
+            "launch/serve.py",
+            "data/__init__.py", "data/pipeline.py", "data/distance.py",
+            "optim/__init__.py", "optim/adamw.py", "runtime/loss.py",
+            "runtime/train.py", "checkpoint/manager.py",
+            "launch/train.py", "kernels/rmsnorm_ops.py"} <= names
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -127,6 +136,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: permutation_test(MantelStatistic(d.data, d.data, 12), 9,
                                  config=ExecConfig(batch_size="auto")),
         lambda: serve_launcher.main(["--smoke"]),
+        lambda: init_train_state(0, lm),
+        lambda: build_train_step_fn(lm, AdamWConfig()),
+        lambda: convert.opt_state_from_reference({}, None, lm),
+        lambda: DistanceTileStream(n=8),
+        lambda: train_launcher.main(["--arch", "qwen3-8b", "--smoke"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -147,6 +161,8 @@ def test_kernel_modules_import_without_a_toolkit():
             "repro_torch.configs, "
             "repro_torch.models.transformer, "
             "repro_torch.runtime.serve, "
+            "repro_torch.runtime.train, "
+            "repro_torch.launch.train, "
             "repro_torch.kernels._build as b; "
             "assert all(v == 0 for v in b.launches.values())")
     subprocess.run([sys.executable, "-c", code], env=env, check=True,
@@ -162,7 +178,7 @@ def test_build_covers_every_source_and_refuses_without_nvcc(monkeypatch):
         "symhollow", "center_matvec", "inverse_orders", "permute_reduce",
         "permute_reduce_finish", "pairwise_panel", "center_pass1",
         "center_finish", "center_pass2", "mantel_corr", "mantel_corr_finish",
-        "rmsnorm"}
+        "rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_finish"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build, "Path", lambda p: Path("/nonexistent/nvcc"))
@@ -291,3 +307,30 @@ def test_cpu_session_launches_nothing():
         ws.partial_mantel(y, z, 9)
         assert ws.report().meta["tiles"]["device"] == "cpu"
     assert set(_build.launches.values()) == {0}
+
+
+def test_cpu_training_launches_nothing(tmp_path):
+    """A training step on the CPU (every remat mode, microbatches), the
+    launcher with a checkpoint and a resume, and the tile stream run the
+    kernels' plain versions, forward and backward: no launch is counted."""
+    import dataclasses
+
+    base = get_arch("llama3.2-3b", smoke=True)
+    batch = {"tokens": torch.randint(0, base.vocab, (4, 8)),
+             "targets": torch.randint(0, base.vocab, (4, 8))}
+    _build.reset_launches()
+    for remat in ("none", "full", "dots"):
+        cfg = dataclasses.replace(base, remat=remat, microbatches=2)
+        model, opt = init_train_state(0, cfg, device="cpu")
+        step = build_train_step_fn(cfg, AdamWConfig(), device="cpu")
+        model, opt, metrics = step(model, opt, batch)
+        assert np.isfinite(float(metrics["loss"]))
+    args = ["--arch", "qwen3-8b", "--smoke", "--device", "cpu", "--steps",
+            "2", "--batch", "2", "--seq", "8", "--ckpt-dir",
+            str(tmp_path), "--ckpt-every", "1"]
+    assert train_launcher.main(args) == 0
+    assert train_launcher.main(args[:-2] + ["--steps", "3", "--resume"]) == 0
+    DistanceTileStream(n=20, tile=8, device="cpu").dense()
+    assert set(_build.launches.values()) == {0}
+    assert {"rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_finish"} <= \
+        set(_build.launches)

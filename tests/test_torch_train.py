@@ -1,0 +1,230 @@
+"""The LM training path as a whole: ``repro_torch.runtime.train`` against
+``repro.runtime.train.build_train_step_fn`` from the same state.
+
+For each dense smoke config the reference's ``init_train_state`` draws the
+weights (its zero-initialised norm weights and QKV biases then drawn
+non-zero with numpy, so each acts), and the optimizer state is a resumed
+run's: moments drawn with numpy at step 10, so that the converted m and v
+act too. ``convert.lm_params_from_reference`` and
+``opt_state_from_reference`` carry them over, and both packages take three
+steps on the reference pipeline's batches
+(``repro.data.pipeline.TokenPipeline``), under each remat mode and with one
+and two microbatches.
+
+Tolerances: the loss, ``grad_norm`` and ``lr`` of every step at rtol 1e-5;
+after three steps every parameter and both moments at rtol 1e-5 / atol
+1e-5·max(scale, 1), the kernels' own tolerance: the same formulas in fp32,
+products summed in another order. The learning rate (~1e-3) makes each step
+move the parameters by ~1e-3, a hundred times the tolerance, so a wrong
+update cannot pass. The moments are not zero because a first step from zero
+moments is ill-conditioned in exactly the parameters this test holds: there
+u = g / (|g| + eps), whose slope eps / (|g| + eps)² reaches 1 / (4·eps) =
+2.5e7 at |g| = eps = 1e-8, so a gradient that cancels to ~1e-8 turns a
+rounding-level difference into a visible update (measured: qwen3-8b-smoke,
+two microbatches, one w_up element of 8192 with |g| = 4.5e-8 moved 2.3e-5
+apart after three steps). ``test_arch_smoke_forward_and_train_step`` and
+``tests/test_torch_launch_train.py`` step from zero moments.
+
+``lm_loss`` against the reference's at rtol 1e-5 on the chunked route
+(S = 2048) and the one-block route (S = 1000, S = 1024).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as ref_configs
+from repro.data.pipeline import TokenPipeline as RefPipeline
+from repro.optim.adamw import AdamWConfig as RefAdamWConfig
+from repro.runtime import loss as ref_loss
+from repro.runtime import train as ref_train
+from repro_torch import configs
+from repro_torch.convert import (lm_params_from_reference,
+                                 opt_state_from_reference)
+from repro_torch.kernels import _build
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers import Embedding
+from repro_torch.optim import AdamWConfig
+from repro_torch.runtime import loss as port_loss
+from repro_torch.runtime.train import (abstract_train_state,
+                                       build_train_step_fn,
+                                       init_train_state, make_train_step)
+
+ARCHS = ("llama3.2-3b", "qwen3-8b", "qwen1.5-4b")
+STEPS, BATCH, SEQ = 3, 4, 16
+OPT = dict(peak_lr=1e-3, warmup_steps=1, decay_steps=100)
+START_STEP = 10       # the resumed optimizer state's step
+
+
+def _cfgs(name, **changes):
+    return (dataclasses.replace(configs.get_arch(name, smoke=True), **changes),
+            dataclasses.replace(ref_configs.get_arch(name, smoke=True),
+                                **changes))
+
+
+def _reference_state(rcfg, seed):
+    """The reference's params, every zero-initialised leaf drawn non-zero,
+    and a resumed optimizer state of the reference's layout: m ~ 1e-3·N(0,
+    1) and v = (2e-3·N(0, 1))² + 1e-6 at step START_STEP."""
+    params, opt_state = ref_train.init_train_state(jax.random.PRNGKey(seed),
+                                                   rcfg)
+    rng = np.random.default_rng(seed)
+
+    def nonzero(path, leaf):
+        name = jax.tree_util.keystr(path)
+        if any(k in name for k in ("'w'", "'bq'", "'bk'", "'bv'", "q_norm",
+                                   "k_norm")):
+            noise = 0.1 * rng.standard_normal(leaf.shape).astype(np.float32)
+            return jnp.asarray(noise).astype(leaf.dtype)
+        return leaf
+
+    def drawn(scale, square):
+        def one(leaf):
+            z = scale * rng.standard_normal(leaf.shape)
+            z = z * z + 1e-6 if square else z
+            return jnp.asarray(z.astype(np.float32)).astype(leaf.dtype)
+        return one
+    opt_state = {"m": jax.tree.map(drawn(1e-3, False), opt_state["m"]),
+                 "v": jax.tree.map(drawn(2e-3, True), opt_state["v"]),
+                 "step": jnp.asarray(START_STEP, jnp.int32)}
+    return jax.tree_util.tree_map_with_path(nonzero, params), opt_state
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _close(got: torch.Tensor, want: torch.Tensor, what: str):
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * max(scale, 1.0), msg=what)
+
+
+def _train_both(name, microbatches, remat):
+    cfg, rcfg = _cfgs(name, microbatches=microbatches, remat=remat)
+    params, opt_state = _reference_state(rcfg, 0)
+    model = tf.Transformer(cfg, "cpu")
+    model.load_state_dict(lm_params_from_reference(_np(params), cfg, "cpu"))
+    opt = opt_state_from_reference(_np(opt_state), model, cfg, "cpu")
+    pipe = RefPipeline(vocab=cfg.vocab, seq_len=SEQ, global_batch=BATCH,
+                       seed=1)
+    batches = [_np(pipe.batch(s)) for s in range(STEPS)]
+
+    step = build_train_step_fn(cfg, AdamWConfig(**OPT), device="cpu")
+    ref_step = jax.jit(ref_train.build_train_step_fn(
+        rcfg, RefAdamWConfig(**OPT), None))
+    got, want = [], []
+    for batch in batches:
+        model, opt, metrics = step(model, opt, batch)
+        got.append({k: float(v) for k, v in metrics.items()})
+        params, opt_state, metrics = ref_step(params, opt_state, batch)
+        want.append({k: float(v) for k, v in metrics.items()})
+    return cfg, model, opt, params, opt_state, got, want
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("name", ARCHS)
+def test_train_steps_match_reference(name, microbatches, remat):
+    cfg, model, opt, params, opt_state, got, want = _train_both(
+        name, microbatches, remat)
+    for s, (g, w) in enumerate(zip(got, want)):
+        for key in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(g[key], w[key], rtol=1e-5,
+                                       err_msg=f"step {s} {key}")
+    want_params = lm_params_from_reference(_np(params), cfg, "cpu")
+    for key, p in model.state_dict().items():
+        _close(p, want_params[key], f"param {key}")
+    for moment in ("m", "v"):
+        want_m = lm_params_from_reference(_np(opt_state[moment]), cfg, "cpu")
+        for key, t in opt[moment].items():
+            _close(t, want_m[key], f"{moment} {key}")
+    assert int(opt["step"]) == int(opt_state["step"]) == START_STEP + STEPS
+
+
+@pytest.mark.parametrize("s", [1000, 1024, 2048])
+def test_lm_loss_matches_reference(s):
+    """The one-block route (s % 1024 or s <= 1024) and the chunked one."""
+    cfg, rcfg = _cfgs("qwen3-8b")
+    rng = np.random.default_rng(s)
+    table = rng.standard_normal((cfg.vocab, cfg.d_model)).astype(np.float32)
+    head = rng.standard_normal((cfg.vocab, cfg.d_model)).astype(np.float32)
+    hidden = (0.2 * rng.standard_normal((2, s, cfg.d_model))).astype(
+        np.float32)
+    targets = rng.integers(0, cfg.vocab, (2, s)).astype(np.int32)
+    embed = Embedding(cfg, "cpu")
+    with torch.no_grad():
+        embed.table.copy_(torch.from_numpy(table))
+        embed.head.copy_(torch.from_numpy(head))
+    got = port_loss.lm_loss(embed, torch.from_numpy(hidden),
+                            torch.from_numpy(targets), cfg)
+    want = ref_loss.lm_loss({"table": jnp.asarray(table),
+                             "head": jnp.asarray(head)},
+                            jnp.asarray(hidden), jnp.asarray(targets), rcfg)
+    assert got.dtype == torch.float32 and got.shape == ()
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_arch_smoke_forward_and_train_step(name):
+    """``tests/test_models.py::test_arch_smoke_forward_and_train_step`` for
+    the ported dense smokes, through the port."""
+    cfg = configs.get_arch(name, smoke=True)
+    b, s = 2, 16
+    model, opt_state = init_train_state(0, cfg, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (b, s),
+                         generator=torch.Generator().manual_seed(0))
+    hidden, aux = tf.forward_train(model, toks, cfg)
+    assert hidden.shape == (b, s, cfg.d_model)
+    assert not bool(torch.isnan(hidden).any())
+    assert np.isfinite(float(aux))
+
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, dims=1)}
+    cfg2 = dataclasses.replace(cfg, microbatches=1)
+    step = build_train_step_fn(cfg2, AdamWConfig(warmup_steps=1,
+                                                 decay_steps=10),
+                               device="cpu")
+    model, opt_state, metrics = step(model, opt_state, batch)
+    assert np.isfinite(float(metrics["loss"]))
+    assert np.isfinite(float(metrics["grad_norm"]))
+    delta = sum(float((v.float() - before[k].float()).abs().sum())
+                for k, v in model.state_dict().items())
+    assert delta > 0.0
+
+
+def test_abstract_state_holds_no_memory_and_mesh_steps_wait():
+    model, opt = abstract_train_state(configs.get_arch("llama3.2-3b"))
+    assert all(p.device.type == "meta" for p in model.parameters())
+    assert sum(p.numel() for p in model.parameters()) == \
+        configs.get_arch("llama3.2-3b").param_count()
+    assert opt["m"]["embed.table"].dtype == torch.float32
+    assert opt["v"]["embed.table"].device.type == "meta"
+    with pytest.raises(NotImplementedError, match="13.4"):
+        make_train_step(configs.get_arch("llama3.2-3b"), AdamWConfig(),
+                        mesh=None, rules=None)
+    with pytest.raises(NotImplementedError, match="13.4"):
+        build_train_step_fn(configs.get_arch("llama3.2-3b"), AdamWConfig(),
+                            rules=object(), device="cpu")
+
+
+def test_cpu_train_step_runs_the_plain_norms():
+    """On the CPU every norm's forward and backward are the plain versions:
+    no launch is counted, and every norm weight gets a gradient."""
+    cfg = dataclasses.replace(configs.get_arch("qwen3-8b", smoke=True),
+                              microbatches=2)
+    model, opt = init_train_state(3, cfg, device="cpu")
+    step = build_train_step_fn(cfg, AdamWConfig(**OPT), device="cpu")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 8)),
+             "targets": torch.randint(0, cfg.vocab, (4, 8))}
+    _build.reset_launches()
+    model, opt, _ = step(model, opt, batch)
+    assert set(_build.launches.values()) == {0}
+    norms = [k for k in opt["v"] if k.endswith(("ln1.w", "ln2.w", "q_norm",
+                                                "k_norm", "final_norm.w"))]
+    assert len(norms) == 4 * cfg.n_layers + 1
+    assert all(bool((opt["v"][k] > 0).any()) for k in norms)
