@@ -82,9 +82,10 @@ check fails:
 8. the LM training path: llama3.2-3b at full width and depth (28 layers,
    d = 3072, 6.4 GB of bf16 weights drawn from a seed on the card, fp32
    AdamW moments) trained 5 steps of 8 x 512 tokens (4 microbatches of 2,
-   remat "full") through ``launch.train.run``, with exact ``rmsnorm``,
-   ``rmsnorm_bwd`` and ``rmsnorm_bwd_finish`` launch counts; each step's
-   loss, grad norm and seconds, tokens a second, peak memory, one more
+   remat "full") through ``launch.train.run``, with exact ``rmsnorm`` and
+   ``rmsnorm_bwd`` launch counts (one backward launch a norm); each step's
+   loss (held to the prior tree's: the forward is unchanged), grad norm and
+   seconds, tokens a second, peak memory, one more
    step profiled, every RMSNorm weight's gradient and every parameter's
    change checked; 8b the smoke widths trained on the card and on the CPU
    from the same state (llama3.2-3b-smoke, qwen3-8b-smoke, fp32, 3 steps);
@@ -92,15 +93,20 @@ check fails:
    steps, a checkpoint at step 4, resumed losses to 1e-4, bitwise or not);
    5b holds the ``rmsnorm`` backward against its plain version (d = 128,
    3072, 4096 and two d that are not multiples of 8, fp32 and bf16, two
-   launches bitwise equal) and times ``rmsnorm`` and its backward at the
-   paths' shapes; then one JSON line of per-kernel launches, errors, times
-   and bounds (``session_launches``: each kernel's launches in phase 3d;
-   ``train_launches``: rmsnorm's in phase 8), and one of each phase's host
-   seconds (``phase_walls_s``).
+   launches bitwise equal) and times ``rmsnorm`` and its backward (one
+   launch) at the paths' shapes, the backward beside the graphed
+   ``_fused_rms_norm_backward`` and ``inverse_orders`` (phase 5) beside
+   a graphed ``scatter_``; then one JSON line of per-kernel launches,
+   errors, times and bounds (``session_launches``: each kernel's launches
+   in phase 3d; ``train_launches``: rmsnorm's in phase 8), and one of each
+   phase's host seconds (``phase_walls_s``).
 
 ``python3 chip_smoke.py --center-matvec-op TREE`` times only
 ``center_matvec_op`` of the checkout at TREE (phase 5's shapes), so that a
-parent commit's op can be timed in the same call. ``--square-bits TREE
+parent commit's op can be timed in the same call; ``--redesign-times
+TREE`` likewise times that checkout's ``inverse_orders`` (B = 32, n =
+16384) and whole ``rmsnorm`` backward (phase 5b's two shapes) beside their
+one-call yardsticks, each from a CUDA graph. ``--square-bits TREE
 OUT`` saves the square calls' outputs of the ``center`` pair,
 ``center_matvec`` and ``mantel_corr`` of the checkout at TREE at fixed
 seeds, and ``--same-bits A B`` compares two such files bitwise.
@@ -192,6 +198,24 @@ RMSNORM_TOL = {"rtol": 1e-5, "atol": 1e-6}   # fp32; bf16: at most 1 ulp
 RMSNORM_BWD_SHAPES = [(24576, 128), (1024, 3072), (2048, 4096), (1000, 100),
                       (333, 3070)]
 RMSNORM_BWD_ULPS = 2                          # bf16 dx and dw
+# phase 8 as the tree before the one-launch backward measured it (PERF.md,
+# three runs on an H100 80GB HBM3 at 700 W): its losses to the digits
+# printed, which this run's must meet (the first exactly, the forward being
+# the same; the later ones within 1e-3, dw's summation order having
+# changed), and its median step seconds and tokens a second, printed beside
+# this run's
+PRIOR_LOSSES = (13.4809, 12.1710, 12.0890, 12.1059, 12.0499)
+PRIOR_STEP_S = (0.9441, 1.0990, 1.1477)
+PRIOR_TOKENS_S = (4338.7, 3727.2, 3568.9)
+# the parent tree's kernels (PERF.md, two readings from a CUDA graph on an
+# H100 80GB HBM3 at 700 W): inverse_orders at (32, 16384) and the whole
+# backward at BWD_TIMED_SHAPES, printed beside this run's
+PARENT_MS = {"inverse_orders": (0.0223, 0.0208),
+             "rmsnorm_bwd (1024, 3072)": (0.0183, 0.0182),
+             "rmsnorm_bwd (24576, 128)": (0.0167, 0.0167)}
+# phase 5b's timed backward shapes, bf16: llama3.2-3b's block norm at a
+# (2, 512) microbatch and qwen3's q-norm rows at the same microbatch
+BWD_TIMED_SHAPES = [(1024, 3072), (24576, 128)]
 # decode step vs a prefill of the same tokens, qwen3-8b: max abs error as
 # a share of max|logits|, and the least correlation, each set between the
 # sound reading and the planted faults' (PERF.md). In bf16 (the served
@@ -1023,7 +1047,7 @@ def phase_feature_checks(feat: dict, x: torch.Tensor, y: torch.Tensor,
             "permute_reduce_finish": tiles, "center_matvec": 0,
             "symhollow": 0, "center_pass1": 0, "center_finish": 0,
             "center_pass2": 0, "mantel_corr": 0, "mantel_corr_finish": 0,
-            "rmsnorm": 0, "rmsnorm_bwd": 0, "rmsnorm_bwd_finish": 0}
+            "rmsnorm": 0, "rmsnorm_bwd": 0}
     check(launches == want, f"feature path launches {launches} != {want}")
     prod = feat["prod_x"]
     cond = prod["condensed"]
@@ -2556,14 +2580,19 @@ def print_kernel_times(kernels: list) -> None:
           f"S=2 {pr['rows2_ms']:.4f} ms; B=2 {pr['perms2_ms']:.4f} ms")
     mc = by_name["mantel_corr"]
     print(f"  mantel_corr: {mc['bound_ms'] / mc['ms']:.4f} of its bound")
-    for name in ("inverse_orders", "permute_reduce_finish",
-                 "mantel_corr_finish"):
+    io = by_name["inverse_orders"]
+    parent = PARENT_MS["inverse_orders"]
+    print(f"  inverse_orders (32, {N}), a cluster of {io['cluster']} a row: "
+          f"{io['ms']:.4f} ms from a CUDA graph "
+          f"({io['bound_ms'] / io['ms']:.4f} of the bound), scatter_ {io['library_ms']:.4f} ms, argsort "
+          f"{io['argsort_ms']:.4f} ms; the parent's {parent[0]:.4f} / "
+          f"{parent[1]:.4f} ms; from Python {io['host_launch_ms']:.4f} ms")
+    for name in ("permute_reduce_finish", "mantel_corr_finish"):
         kern = by_name[name]
         print(f"  {name}: {kern['ms']:.4f} ms from a CUDA graph, one-call "
               f"library {kern['library_ms']:.4f} ms; from Python "
-              f"{kern['host_launch_ms']:.4f} ms"
-              + (f", torch.sum {kern['library_host_launch_ms']:.4f} ms"
-                 if "library_host_launch_ms" in kern else ""))
+              f"{kern['host_launch_ms']:.4f} ms, torch.sum "
+              f"{kern['library_host_launch_ms']:.4f} ms")
 
 
 def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
@@ -2583,7 +2612,8 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
     from repro_torch.kernels.center_matvec import center_matvec
     from repro_torch.kernels.center_matvec_ref import (center_corrections,
                                                        center_matvec_ref)
-    from repro_torch.kernels.inverse_orders import (inverse_orders,
+    from repro_torch.kernels.inverse_orders import (cluster_size,
+                                                    inverse_orders,
                                                     inverse_orders_kernel,
                                                     inverse_orders_plain)
     from repro_torch.kernels.pairwise import pairwise_panel
@@ -2658,9 +2688,10 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
     del widths, wide
 
     # the inverse orders of one tile, as each tile of the main path forms
-    # them; its one-call yardstick is the argsort, which inverts a
-    # permutation too
+    # them; its one-call yardstick is a scatter_, which forms the same inv,
+    # and the argsort, which inverts a permutation too, stands beside it
     orders = permutation_orders(SEED + 3, perms, n, "cuda")
+    yardsticks = inverse_orders_yardsticks(orders)
     reps = 20
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -2671,9 +2702,12 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
           graph_ms(lambda: inverse_orders_kernel(orders)),
           cuda_ms(lambda: inverse_orders_plain(orders), reps=reps),
           10 * perms * n + 4 * perms, 0, FP32_INSTR,
-          library_ms=graph_ms(lambda: torch.argsort(orders, dim=1)),
+          library_ms=yardsticks["scatter_ms"],
+          argsort_ms=yardsticks["argsort_ms"],
+          cluster=cluster_size(perms, n),
           role="inverse and 16-bit orders of a tile for the row-stationary "
-               "permute_reduce and mantel_corr; no Pallas counterpart",
+               "permute_reduce and mantel_corr, a thread-block cluster a "
+               "row; no Pallas counterpart",
           host_launch_ms=cuda_ms(lambda: inverse_orders_kernel(orders),
                                  reps=reps),
           checked_call_host_ms=checked_ms)
@@ -3026,45 +3060,110 @@ def phase_rmsnorm_bwd_kernel() -> float:
     return error
 
 
+def rotated_bwd_inputs(shape, dtype=torch.bfloat16) -> tuple:
+    """``(sets, w)``: copies of one (x, dy, inv) input of the backward at
+    ``shape``, together over twice the 50 MB L2, so that calls that cycle
+    through them read x and dy from device memory each time."""
+    rows, d = shape
+    x, w, dy, inv = rmsnorm_bwd_inputs(shape, dtype)
+    copies = min(64, -(-2 * L2_BYTES // (2 * x.element_size() * rows * d)))
+    return [(x.clone(), dy.clone(), inv.clone()) for _ in range(copies)], w
+
+
+def fused_rms_norm_backward_ms(sets: list, w: torch.Tensor, d: int):
+    """``torch.ops.aten._fused_rms_norm_backward`` from a CUDA graph over
+    the rotated ``sets``: weight ``1 + w``, the rstd of its own forward
+    (``torch.ops.aten._fused_rms_norm``, taken outside the graph), dx and
+    dw both asked for. None where this torch has no such operator."""
+    try:
+        op = torch.ops.aten._fused_rms_norm_backward
+        forward = torch.ops.aten._fused_rms_norm
+    except AttributeError:
+        return None
+    w1 = 1 + w
+    calls = itertools.cycle([(dy, x, forward(x, [d], w1, 1e-6)[1])
+                             for x, dy, _ in sets])
+
+    def library():
+        dy, x, rstd = next(calls)
+        return op(dy, x, [d], rstd, w1, [True, True])
+    return graph_ms(library)
+
+
+def inverse_orders_yardsticks(orders: torch.Tensor) -> dict:
+    """One-call yardsticks of ``inverse_orders`` on a tile, from a CUDA
+    graph: ``inv.scatter_(1, index, positions)``, which computes the same
+    inv (the int64 index and the positions made outside the graph), and
+    ``torch.argsort``, which inverts a permutation too."""
+    index = orders.long()
+    positions = torch.arange(orders.shape[1], dtype=torch.int32,
+                             device=orders.device).expand_as(orders)
+    positions = positions.contiguous()
+    inv = torch.empty_like(orders)
+    return {"scatter_ms": graph_ms(lambda: inv.scatter_(1, index,
+                                                        positions)),
+            "argsort_ms": graph_ms(lambda: torch.argsort(orders, dim=1))}
+
+
+def redesign_times() -> dict:
+    """``inverse_orders`` at the main path's tile (B = 32, n = N) and the
+    whole ``rmsnorm`` backward at phase 5b's two shapes, by the
+    ``repro_torch`` first on the path, each from a CUDA graph beside its
+    one-call yardsticks, so that a parent tree's kernels are timed in the
+    same call as this tree's (``--redesign-times TREE``)."""
+    import repro_torch
+    from repro_torch.kernels.inverse_orders import inverse_orders_kernel
+    from repro_torch.kernels.rmsnorm import rmsnorm_backward
+    from repro_torch.stats.engine import permutation_orders
+
+    out = {"tree": str(Path(repro_torch.__file__).resolve().parents[2]),
+           "card": torch.cuda.get_device_name(0),
+           "torch": torch.__version__}
+    orders = permutation_orders(SEED + 3, 32, N, "cuda")
+    out["inverse_orders_ms"] = graph_ms(lambda: inverse_orders_kernel(orders))
+    out.update({f"inverse_orders_{k}": v
+                for k, v in inverse_orders_yardsticks(orders).items()})
+    for rows, d in BWD_TIMED_SHAPES:
+        sets, w = rotated_bwd_inputs((rows, d))
+        cycle = itertools.cycle(sets)
+
+        def whole():
+            x, dy, inv = next(cycle)
+            return rmsnorm_backward(x, w, inv, dy)
+        out[f"rmsnorm_backward_{rows}x{d}_ms"] = graph_ms(whole)
+        out[f"fused_rms_norm_backward_{rows}x{d}_ms"] = \
+            fused_rms_norm_backward_ms(sets, w, d)
+        del sets
+    return out
+
+
 def rmsnorm_bwd_entries(launches: dict, error: float, card: str) -> list:
-    """The ``rmsnorm`` backward timed at llama3.2-3b's (1024, 3072) and
-    qwen3's (24576, 128) bf16 inputs beside its bound, its plain version and
-    the yardstick ``torch.autograd.grad`` through ``F.rms_norm(x, (d,),
-    1 + w)`` (its forward taken once, outside the timing). The
-    ``rmsnorm_bwd`` entry is the whole backward (the row kernel and the
-    finish, as ``rmsnorm_backward`` launches them; ``row_ms`` the row kernel
-    alone); ``rmsnorm_bwd_finish`` the column finish alone. ``ms`` and
-    ``plain_ms`` replay a CUDA graph; ``host_launch_ms`` and the yardstick
-    are launched from Python. Inputs rotate past L2. The entries' numbers
-    are llama's shape; ``shapes`` holds both."""
+    """The ``rmsnorm`` backward, one launch, timed at BWD_TIMED_SHAPES in
+    bf16 beside its bound, its plain version, its one-call yardstick
+    ``torch.ops.aten._fused_rms_norm_backward`` (``library_ms``; weight ``1
+    + w``, its own forward's rstd) and the autograd of ``F.rms_norm(x, (d,),
+    1 + w)`` launched from Python (``autograd_python_ms``, its forward taken
+    once, outside the timing). ``ms``, ``plain_ms`` and ``library_ms``
+    replay a CUDA graph, inputs rotated past L2; ``host_launch_ms`` times
+    the kernel launched from Python. The entry's numbers are llama's
+    (1024, 3072); ``shapes`` holds both."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.rmsnorm import (bwd_grid, rmsnorm_backward,
-                                             rmsnorm_bwd, rmsnorm_bwd_finish)
+    from repro_torch.kernels.rmsnorm import bwd_grid, rmsnorm_backward
     from repro_torch.kernels.rmsnorm_ref import rmsnorm_backward_plain
 
     print(f"== phase 5b: rmsnorm backward times, bf16 ({card})")
-    out = {"rmsnorm_bwd": [], "rmsnorm_bwd_finish": []}
-    for what, shape in (("llama3.2-3b block norm, a (2, 512) microbatch",
-                         (1024, 3072)),
-                        ("qwen3 q-norm rows", (24576, 128))):
-        rows, d = shape
-        x, w, dy, inv = rmsnorm_bwd_inputs(shape, torch.bfloat16)
-        copies = min(64, -(-2 * L2_BYTES // (2 * 2 * rows * d)))
-        sets = [(x.clone(), dy.clone(), inv.clone()) for _ in range(copies)]
+    timed = []
+    for (rows, d), what in zip(BWD_TIMED_SHAPES, (
+            "llama3.2-3b block norm, a (2, 512) microbatch",
+            "qwen3 q-norm rows")):
+        sets, w = rotated_bwd_inputs((rows, d))
         cyc = itertools.cycle(sets)
         blocks, _ = bwd_grid(rows, d)
-        partials = rmsnorm_bwd(x, w, inv, dy)[1]
-        fin_err = float((rmsnorm_bwd_finish(partials, torch.float32).double()
-                         - partials.double().sum(0)).abs().max())
 
         def whole():
             xi, dyi, invi = next(cyc)
             return rmsnorm_backward(xi, w, invi, dyi)
-
-        def row():
-            xi, dyi, invi = next(cyc)
-            return rmsnorm_bwd(xi, w, invi, dyi)
 
         def plain():
             xi, dyi, invi = next(cyc)
@@ -3078,53 +3177,43 @@ def rmsnorm_bwd_entries(launches: dict, error: float, card: str) -> list:
                            dyi))
         lib = itertools.cycle(graphs)
 
-        def library():
+        def autograd():
             y, xg, dyi = next(lib)
             return torch.autograd.grad(y, (xg, w1), dyi, retain_graph=True)
 
         es = 2
         fn_bytes = 3 * rows * d * es + 2 * d * es + 4 * rows
         fn_flops = (8 + 2 * FP32_FLOPS / FP64_FLOPS) * rows * d
-        entry = kernel_entry(
+        timed.append(kernel_entry(
             "rmsnorm_bwd", "src/repro_torch/csrc/rmsnorm.cu",
             "src/repro/kernels/rmsnorm.py:35", launches["rmsnorm_bwd"],
             error, graph_ms(whole), graph_ms(plain, reps=20), fn_bytes,
-            fn_flops, FP32_FLOPS, library_ms=cuda_ms(library, reps=100),
-            note="backward of the rmsnorm kernel: new, the reference "
-                 "differentiates its jnp rmsnorm (src/repro/models/"
-                 "layers.py:19); ms is the row kernel and the finish",
-            shape=list(shape), path=what, row_ms=graph_ms(row),
-            host_launch_ms=cuda_ms(whole, reps=200), partial_rows=blocks)
-        fin = kernel_entry(
-            "rmsnorm_bwd_finish", "src/repro_torch/csrc/rmsnorm.cu",
-            "src/repro/kernels/rmsnorm.py:35",
-            launches["rmsnorm_bwd_finish"], fin_err,
-            graph_ms(lambda: rmsnorm_bwd_finish(partials, w.dtype)),
-            graph_ms(lambda: partials.double().sum(0).float().to(w.dtype),
-                     reps=20),
-            4 * blocks * d + es * d, blocks * d * FP32_FLOPS / FP64_FLOPS,
-            FP32_FLOPS,
-            library_ms=graph_ms(lambda: torch.sum(partials, 0)),
-            shape=[blocks, d], path=what)
+            fn_flops, FP32_FLOPS,
+            library_ms=fused_rms_norm_backward_ms(sets, w, d),
+            note="backward of the rmsnorm kernel, one cooperative launch "
+                 "(dx and dw): new, the reference differentiates its jnp "
+                 "rmsnorm (src/repro/models/layers.py:19)",
+            shape=[rows, d], path=what,
+            autograd_python_ms=cuda_ms(autograd, reps=100),
+            host_launch_ms=cuda_ms(whole, reps=200), partial_rows=blocks))
         del sets, graphs, cyc, lib
-        for name, e in (("rmsnorm_bwd", entry), ("rmsnorm_bwd_finish", fin)):
-            out[name].append(e)
-            print(f"  {name} {shape} ({what}), from a CUDA graph: "
-                  f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
-                  f"library {e['library_ms']:.4f} ms, bound "
-                  f"{e['bound_ms']:.4f} ms ({e['bound_by']})"
-                  + (f"; row kernel {e['row_ms']:.4f} ms, launched from "
-                     f"Python {e['host_launch_ms']:.4f} ms, {blocks} "
-                     f"partial rows" if name == "rmsnorm_bwd" else ""))
-    entries = []
-    for name, timed in out.items():
-        main = dict(timed[0])
-        main["shapes"] = [{k: t.get(k) for k in ("path", "shape", "ms",
-                                                 "plain_ms", "bound_ms",
-                                                 "library_ms", "row_ms")}
-                          for t in timed]
-        entries.append(main)
-    return entries
+        e = timed[-1]
+        parent = PARENT_MS[f"rmsnorm_bwd {(rows, d)}"]
+        print(f"  rmsnorm_bwd {(rows, d)} ({what}), from a CUDA graph: "
+              f"{e['ms']:.4f} ms ({e['bound_ms'] / e['ms']:.4f} of the "
+              f"bound), plain {e['plain_ms']:.4f} ms, "
+              f"_fused_rms_norm_backward {e['library_ms']:.4f} ms, bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}); the parent's "
+              f"{parent[0]:.4f} / {parent[1]:.4f} ms; launched from Python "
+              f"{e['host_launch_ms']:.4f} ms, F.rms_norm's autograd "
+              f"{e['autograd_python_ms']:.4f} ms; {blocks} partial rows")
+    main = dict(timed[0])
+    main["shapes"] = [{k: t.get(k) for k in ("path", "shape", "ms",
+                                             "plain_ms", "bound_ms",
+                                             "library_ms",
+                                             "autograd_python_ms")}
+                      for t in timed]
+    return [main]
 
 
 def warm_opt_state(opt: dict, seed: int) -> None:
@@ -3191,7 +3280,7 @@ def train_smoke_vs_cpu(name: str) -> None:
           f"{6 * (2 * norms - 1)}, {6 * norms}), CPU "
           f"{sum(out['cpu'][3].values())}")
     check(got["rmsnorm"] == 6 * (2 * norms - 1)
-          and got["rmsnorm_bwd"] == got["rmsnorm_bwd_finish"] == 6 * norms
+          and got["rmsnorm_bwd"] == 6 * norms
           and set(out["cpu"][3].values()) == {0},
           f"{cfg.name}: train launches on the card or the CPU")
     compare(f"{cfg.name} losses, card vs CPU", torch.tensor(out["cuda"][0]),
@@ -3275,14 +3364,23 @@ def phase_train(card: str) -> dict:
     print(f"  launches: rmsnorm {launches['rmsnorm']} (want {want_fwd}: "
           f"{norms} a forward + {recomputed} recomputed, x {m} microbatches "
           f"x {TRAIN_STEPS} steps), rmsnorm_bwd {launches['rmsnorm_bwd']} "
-          f"and rmsnorm_bwd_finish {launches['rmsnorm_bwd_finish']} (want "
-          f"{want_bwd}: one a norm of the forward); a step: "
+          f"(want {want_bwd}: one launch a norm of the forward); a step: "
           f"{launches['rmsnorm'] // TRAIN_STEPS} / "
           f"{launches['rmsnorm_bwd'] // TRAIN_STEPS}; other kernels "
           f"{sum(v for k, v in launches.items() if not k.startswith('rmsnorm'))}")
     check(launches["rmsnorm"] == want_fwd
-          and launches["rmsnorm_bwd"] == launches["rmsnorm_bwd_finish"]
-          == want_bwd, "training: rmsnorm launches on the main path")
+          and launches["rmsnorm_bwd"] == want_bwd,
+          "training: rmsnorm launches on the main path")
+    print(f"  the prior tree's phase 8 (PERF.md, three runs): losses "
+          f"{list(PRIOR_LOSSES)}; median step {list(PRIOR_STEP_S)} s, "
+          f"{list(PRIOR_TOKENS_S)} tokens/s; this run {steady:.4f} s, "
+          f"{tokens / steady:.1f} tokens/s")
+    check(abs(res["losses"][0] - PRIOR_LOSSES[0]) <= 5e-5
+          and all(abs(a - b) <= 1e-3 for a, b in zip(res["losses"][1:],
+                                                      PRIOR_LOSSES[1:])),
+          f"training: losses {res['losses']} moved from the prior tree's "
+          f"{PRIOR_LOSSES} (the first beyond its printed digits, a later "
+          f"one by more than 1e-3)")
     check(all(np.isfinite(v) for v in res["losses"] + res["grad_norms"]),
           "training: non-finite loss or grad norm")
     check(len(res["losses"]) == TRAIN_STEPS and res["final_step"]
@@ -3460,6 +3558,11 @@ def main() -> int:
         # another tree's center_matvec_op, timed as phase 5 times this one's
         sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
         print(json.dumps(center_matvec_op_times()))
+        return 0
+    if sys.argv[1:2] == ["--redesign-times"] and len(sys.argv) == 3:
+        # another (or this) tree's inverse_orders and rmsnorm backward
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
+        print(json.dumps({"redesign_times": redesign_times()}))
         return 0
     if sys.argv[1:2] == ["--square-bits"] and len(sys.argv) == 4:
         # the square calls' outputs of another (or this) tree, saved

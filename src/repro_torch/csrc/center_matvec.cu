@@ -59,6 +59,13 @@
 
 namespace {
 
+using repro::copy_bulk;
+using repro::mbar_arrive;
+using repro::mbar_arrive_expect;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::smem_addr;
+
 constexpr int kBM = 128;                      // output rows a block
 constexpr int kBN = 32;                       // D columns (X rows) a stage
 constexpr int kMmaWarps = kBM / 16;           // 16 rows a warp at narrow k
@@ -88,50 +95,9 @@ struct Layout {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
 // Arrive on `bar` once every cp.async this thread has issued has landed.
 __device__ __forceinline__ void mbar_arrive_on_copies(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Expect `bytes` of bulk copies on `bar`, and arrive.
-__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// A bulk copy (the copy engine, no thread's registers) of `bytes`, a
-// multiple of 16, between 16-byte aligned addresses; completes on `bar`.
-__device__ __forceinline__ void copy_bulk(uint32_t dst, const float* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
 }
 
 // The box of `map` at (column c, row r) into shared memory at `dst` (128-byte

@@ -92,6 +92,48 @@ __device__ __forceinline__ void stage_run(float* dst, const float* __restrict__ 
   for (int t = head + 4 * vecs + tid; t < count; t += nthreads) dst[t] = __ldg(src + t);
 }
 
+// mbarriers and bulk copies of shared memory (center_matvec.cu, rmsnorm.cu).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Expect `bytes` of bulk copies on `bar`, and arrive.
+__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// A bulk copy (the copy engine, 1-D TMA: no thread's registers) of `bytes`, a
+// multiple of 16, between 16-byte aligned addresses; completes on `bar`.
+__device__ __forceinline__ void copy_bulk(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // Blocks of `kernel` (threads a block, `smem` bytes of dynamic shared memory,
 // opted into here) that the card holds at once, capped at `work` items: the
 // grid of a kernel whose blocks stride over its items.

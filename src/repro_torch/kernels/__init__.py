@@ -23,8 +23,10 @@ Mantel):
                        permutation).
 * ``inverse_orders`` — the inverse and 16-bit orders of a tile that the
                        row-stationary kernels read, refusing any order row
-                       that is not a permutation (no Pallas counterpart;
-                       launch, plain version and dispatch in one module).
+                       that is not a permutation: a thread-block cluster a
+                       row, each block a slice of its inverse in shared
+                       memory (no Pallas counterpart; launch, plain version
+                       and dispatch in one module).
 
 The feature-table path (feature table → condensed distances → PCoA →
 Mantel) and the materialized solves:
@@ -46,8 +48,9 @@ The LM serving and training paths (``repro_torch.models``,
 
 * ``rmsnorm``        — fused RMSNorm with the '1 + w' scale and fp32
                        statistics: every block, final and q/k norm of a
-                       dense decoder; and its backward (``rmsnorm_bwd``, a
-                       fixed-order ``rmsnorm_bwd_finish`` for dw), which
+                       dense decoder; and its backward (``rmsnorm_bwd``,
+                       one cooperative launch that sums dw in a fixed
+                       order after a grid-wide barrier), which
                        ``rmsnorm_ops.RMSNormFunction`` runs under autograd
                        (no Pallas counterpart: the reference differentiates
                        its jnp norm).

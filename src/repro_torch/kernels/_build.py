@@ -60,7 +60,6 @@ launches: dict[str, int] = {
     "mantel_corr_finish": 0,
     "rmsnorm": 0,
     "rmsnorm_bwd": 0,
-    "rmsnorm_bwd_finish": 0,
 }
 
 _P = ctypes.c_void_p
@@ -71,7 +70,7 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "repro_symhollow": [_P, _I, _P, _P],
     "repro_center_matvec": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "repro_inverse_orders": [_P, _P, _P, _P, _I, _I, _P],
+    "repro_inverse_orders": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_permute_reduce_grid": [_I, _I, _I, _IP],
     "repro_permute_reduce_partials": [_P, _P, _L, _P, _P, _P, _I, _I, _I,
                                       _I, _P],
@@ -85,8 +84,8 @@ _SIGNATURES = {
                                    _I, _P],
     "repro_mantel_corr_finish": [_P, _P, _I, _I, _P],
     "repro_rmsnorm": [_P, _P, _P, _P, _L, _I, _I, _I, _F, _P],
-    "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P],
-    "repro_rmsnorm_bwd_finish": [_P, _P, _I, _I, _I, _P],
+    "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I,
+                          _P],
 }
 
 

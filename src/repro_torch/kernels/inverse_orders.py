@@ -17,15 +17,37 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: widest order a 16-bit copy holds.
+#: widest order a 16-bit copy holds: the one place the limit is set (the
+#: kernel writes values 0..n-1 to 16 bits).
 MAX_N = 2**16
+#: blocks of a row's thread-block cluster: the portable sizes.
+CLUSTER_SIZES = (1, 2, 4, 8)
+#: shared memory a block's slice of a row's inverse may take: what a block
+#: gets without opting in.
+SLICE_BYTES = 48 * 1024
+#: blocks a tile should light, about the card's 132 SMs.
+FILL_BLOCKS = 128
+
+
+def cluster_size(perms: int, n: int) -> int:
+    """Blocks of the cluster that inverts one order row, a function of
+    (perms, n) alone: the smallest C of CLUSTER_SIZES, C <= n, with
+    perms·C >= FILL_BLOCKS and a slice of ceil(n / C) int32 slots within
+    SLICE_BYTES; where none reaches FILL_BLOCKS, the largest such C."""
+    fits = [c for c in CLUSTER_SIZES
+            if c <= n and 4 * -(-n // c) <= SLICE_BYTES]
+    if not fits:
+        raise ValueError(f"no cluster of {CLUSTER_SIZES} holds a row of "
+                         f"n={n} in {SLICE_BYTES} bytes a block")
+    return next((c for c in fits if perms * c >= FILL_BLOCKS), fits[-1])
 
 
 def inverse_orders_kernel(orders: torch.Tensor
                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(inv, orders16, is_perm)`` on the card: (B, n) int32, (B, n) int16
     holding the orders' 16 low bits, (B,) int32 flags. orders: (B, n) int32,
-    contiguous, 1 <= n <= MAX_N. Returns without synchronising."""
+    contiguous, 1 <= n <= MAX_N. One launch: a cluster of
+    :func:`cluster_size` blocks a row. Returns without synchronising."""
     perms, n = orders.shape
     inv = torch.empty((perms, n), dtype=torch.int32, device=orders.device)
     orders16 = torch.empty((perms, n), dtype=torch.int16,
@@ -33,7 +55,8 @@ def inverse_orders_kernel(orders: torch.Tensor
     is_perm = torch.empty((perms,), dtype=torch.int32, device=orders.device)
     err = _build.library().repro_inverse_orders(
         orders.data_ptr(), inv.data_ptr(), orders16.data_ptr(),
-        is_perm.data_ptr(), n, perms, _build.stream_handle(orders.device))
+        is_perm.data_ptr(), n, perms, cluster_size(perms, n),
+        _build.stream_handle(orders.device))
     _build.launches["inverse_orders"] += 1
     _build.check(err, "inverse_orders")
     return inv, orders16, is_perm

@@ -7,10 +7,11 @@ once, so two launches give the same bits. It can also write each row's
 inverse RMS, which the backward reads.
 
 The backward is new (the reference differentiates its jnp ``rmsnorm``):
-``rmsnorm_bwd`` writes dx and one row of fp32 dw partials a block over a
-grid fixed by (rows, d) (:func:`bwd_grid`), and ``rmsnorm_bwd_finish`` sums
-each column's partials in fp64 in a fixed order, so two launches give the
-same bits.
+``rmsnorm_backward`` is one cooperative launch of ``rmsnorm_bwd`` over a
+grid fixed by (rows, d) (:func:`bwd_grid`): each block writes dx and one
+row of fp32 dw partials, then, after a grid-wide barrier, sums the partials
+of its columns in fp64 in a fixed order, so two launches give the same
+bits.
 """
 
 from __future__ import annotations
@@ -31,9 +32,11 @@ WARP_MAX_D = 256
 #: widest row of the backward: its block route keeps d fp32 dw sums in the
 #: 227 KB of shared memory a block may opt into.
 MAX_BWD_D = 56 * 1024
-#: the backward's grid: at most this many blocks, each taking at least
-#: BWD_MIN_ROWS[route] rows ("warp" at d <= 256, "block" above).
-BWD_MAX_BLOCKS = 264
+#: the backward's grid: at most this many blocks, the SMs of the PCIe H100
+#: (132 on the SXM card), so that the cooperative launch is resident on
+#: either; each block takes at least BWD_MIN_ROWS[route] rows ("warp" at
+#: d <= 256, "block" above).
+BWD_MAX_BLOCKS = 114
 BWD_MIN_ROWS = {"warp": 64, "block": 4}
 
 
@@ -74,55 +77,37 @@ def bwd_grid(rows: int, d: int) -> tuple[int, int]:
     return -(-rows // per_block), per_block
 
 
-def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, inv: torch.Tensor,
-                dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The backward's row kernel: ``(dx, partials)``, dx (rows, d) in x's
-    dtype and partials (blocks, d) fp32, one row of dw sums a block.
+def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, inv: torch.Tensor,
+                     dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dw)`` of the '1 + w' RMSNorm at (x, w) for the output
+    gradient ``dy``, one launch: dx (rows, d) in x's dtype, dw (d,) in w's.
 
     x, dy: (rows, d) of one dtype; w: (d,); inv: (rows,) fp32, the
     forward's inverse RMS; all contiguous on one CUDA device, 1 <= d <=
-    MAX_BWD_D."""
+    MAX_BWD_D. Returns without synchronising."""
     rows, d = x.shape
     if rows > MAX_ROWS:
         raise ValueError(f"rmsnorm_bwd takes at most {MAX_ROWS} rows a "
                          f"launch, got {rows}")
     if not 1 <= d <= MAX_BWD_D:
         raise ValueError(f"rmsnorm_bwd takes 1 <= d <= {MAX_BWD_D}, got {d}")
+    for name, t in (("x", x), ("w", w)):
+        if t.dtype not in DTYPE_CODES:
+            raise TypeError(f"{name} must be float32 or bfloat16, "
+                            f"got {t.dtype}")
     require(x, "x", x.dtype)
     require(w, "w", w.dtype, (d,))
     require(dy, "dy", x.dtype, (rows, d))
     require(inv, "inv", torch.float32, (rows,))
     blocks, per_block = bwd_grid(rows, d)
     dx = torch.empty_like(x)
+    dw = torch.empty((d,), dtype=w.dtype, device=x.device)
     partials = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
     err = _build.library().repro_rmsnorm_bwd(
         x.data_ptr(), w.data_ptr(), inv.data_ptr(), dy.data_ptr(),
-        dx.data_ptr(), partials.data_ptr(), rows, d, per_block,
-        DTYPE_CODES[x.dtype], DTYPE_CODES[w.dtype],
+        dx.data_ptr(), partials.data_ptr(), dw.data_ptr(), rows, d,
+        per_block, DTYPE_CODES[x.dtype], DTYPE_CODES[w.dtype],
         _build.stream_handle(x.device))
     _build.launches["rmsnorm_bwd"] += 1
     _build.check(err, "rmsnorm_bwd")
-    return dx, partials
-
-
-def rmsnorm_bwd_finish(partials: torch.Tensor,
-                       w_dtype: torch.dtype) -> torch.Tensor:
-    """dw (d,) in ``w_dtype``: each column of the (blocks, d) fp32 partials
-    summed in fp64 in a fixed order, rounded to fp32, then to w_dtype."""
-    blocks, d = partials.shape
-    require(partials, "partials", torch.float32)
-    dw = torch.empty((d,), dtype=w_dtype, device=partials.device)
-    err = _build.library().repro_rmsnorm_bwd_finish(
-        partials.data_ptr(), dw.data_ptr(), blocks, d, DTYPE_CODES[w_dtype],
-        _build.stream_handle(partials.device))
-    _build.launches["rmsnorm_bwd_finish"] += 1
-    _build.check(err, "rmsnorm_bwd_finish")
-    return dw
-
-
-def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, inv: torch.Tensor,
-                     dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(dx, dw)`` of the '1 + w' RMSNorm at (x, w) for the output
-    gradient ``dy``: the row kernel, then the column finish."""
-    dx, partials = rmsnorm_bwd(x, w, inv, dy)
-    return dx, rmsnorm_bwd_finish(partials, w.dtype)
+    return dx, dw

@@ -8,8 +8,8 @@ its 64-row blocks for the TPU).
 
 When autograd records the call (grad mode on and ``x`` or ``w`` requiring a
 gradient) it goes through :class:`RMSNormFunction`: on a CUDA tensor the
-forward kernel also writes each row's inverse RMS, and the backward is the
-``rmsnorm_bwd`` and ``rmsnorm_bwd_finish`` kernels; on a CPU tensor the
+forward kernel also writes each row's inverse RMS, and the backward is one
+launch of the ``rmsnorm_bwd`` kernel; on a CPU tensor the
 forward and the backward are the plain versions. Neither falls back to the
 other device's route, nor to a library norm.
 """

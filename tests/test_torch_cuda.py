@@ -63,7 +63,8 @@ from repro_torch.kernels.center_matvec_ops import (block_product_op,
                                                    center_matvec_op)
 from repro_torch.kernels.center_matvec_ref import (center_matvec_block_ref,
                                                    center_matvec_ref)
-from repro_torch.kernels.inverse_orders import (inverse_orders,
+from repro_torch.kernels.inverse_orders import (MAX_N, cluster_size,
+                                                inverse_orders,
                                                 inverse_orders_kernel,
                                                 inverse_orders_plain)
 from repro_torch.kernels.mantel_corr import (mantel_corr, mantel_corr_finish,
@@ -263,9 +264,11 @@ def test_permute_reduce_takes_no_triangle_map_or_chunk_on_the_card(cuda):
         permute_reduce(xc, ys, orders, chunk=64)
 
 
-@pytest.mark.parametrize("n,perms", [(1, 1), (2, 3), (1001, 32),
-                                     (16384, 32), (46340, 2)])
+@pytest.mark.parametrize("perms", [1, 2, 32, 128])
+@pytest.mark.parametrize("n", [1, 2, 7, 1001, 16384, MAX_N])
 def test_inverse_orders_matches_plain(cuda, n, perms):
+    """One cluster launch a tile, bitwise the plain version, up to the
+    16-bit limit n = 65536 (values 0..65535)."""
     orders = permutation_orders(n, perms, n, cuda)
     _build.reset_launches()
     inv, orders16 = inverse_orders(orders)
@@ -280,7 +283,11 @@ def test_inverse_orders_matches_plain(cuda, n, perms):
 def test_non_permutation_orders_are_refused(cuda, fault):
     n = 257
     orders = permutation_orders(6, 8, n, cuda)
+    c = cluster_size(8, n)
     if fault == "repeat":
+        # positions 10 and 200 lie in different ranks of the row's cluster,
+        # so two blocks store into one slot through distributed shared memory
+        assert c > 1 and 10 * c // n != 200 * c // n
         orders[5, 10] = orders[5, 200]
     elif fault == "negative":
         orders[5, 10] = -1
@@ -298,6 +305,22 @@ def test_non_permutation_orders_are_refused(cuda, fault):
         permute_reduce(xc.cpu(), xc.cpu()[None], orders.cpu())
 
 
+@pytest.mark.parametrize("n,perms", [(16384, 32), (MAX_N, 32)])
+def test_a_repeat_across_cluster_ranks_is_refused_at_the_paths_tile(cuda, n,
+                                                                    perms):
+    """At the main path's tile (a cluster of 4 a row) and at the 16-bit
+    limit: a value repeated from rank 0's share into rank 2's, and an
+    out-of-range value in the last rank's, mark only their rows."""
+    orders = permutation_orders(n, perms, n, cuda)
+    c = cluster_size(perms, n)
+    assert c >= 4
+    orders[3, 10] = orders[3, n // 2 + 7]
+    orders[30, n - 1] = n
+    _, _, flags = inverse_orders_kernel(orders)
+    assert flags.cpu().tolist() == [0 if b in (3, 30) else 1
+                                    for b in range(perms)]
+
+
 def test_launch_counts_follow_the_main_path(cuda):
     dm = random_distance_matrix(5, 300, dim=6, device=cuda)
     _build.reset_launches()
@@ -310,8 +333,7 @@ def test_launch_counts_follow_the_main_path(cuda):
                                "pairwise_panel": 0, "center_pass1": 0,
                                "center_finish": 0, "center_pass2": 0,
                                "mantel_corr": 0, "mantel_corr_finish": 0,
-                               "rmsnorm": 0, "rmsnorm_bwd": 0,
-                               "rmsnorm_bwd_finish": 0}
+                               "rmsnorm": 0, "rmsnorm_bwd": 0}
 
 
 def test_main_path_card_matches_cpu(cuda):
@@ -762,6 +784,13 @@ RMSNORM_BWD_CASES = [
     ((3, 257), torch.float32, torch.float32),
     ((1, 1), torch.float32, torch.float32),
     ((4, 2, 8, 128), torch.bfloat16, torch.bfloat16),
+    ((77, 200), torch.bfloat16, torch.float32),        # warp route, a warp a row
+    ((1024, 8192), torch.float32, torch.float32),      # ring route, 2 chunks a thread
+    ((300, 6144), torch.bfloat16, torch.bfloat16),
+    ((5, 2048), torch.bfloat16, torch.bfloat16),       # ring route, 5 blocks
+    ((64, 1024), torch.bfloat16, torch.bfloat16),      # block route, vector
+    ((16, 57344), torch.float32, torch.float32),       # MAX_BWD_D
+    ((9, 57344), torch.bfloat16, torch.bfloat16),
 ]
 
 
@@ -792,8 +821,8 @@ def test_rmsnorm_backward_matches_plain(cuda, shape, dtype, w_dtype):
     _build.reset_launches()
     dx, dw = rmsnorm_backward(x2, w, inv, dy2)
     again = rmsnorm_backward(x2, w, inv, dy2)
-    assert _build.launches["rmsnorm_bwd"] == 2
-    assert _build.launches["rmsnorm_bwd_finish"] == 2
+    assert _build.launches["rmsnorm_bwd"] == 2     # one launch a backward
+    assert "rmsnorm_bwd_finish" not in _build.launches
     assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
     want_dx, want_dw = rmsnorm_backward_plain(x2, w, dy2, inv=inv)
     _hold_bwd(dx, want_dx, "dx")
@@ -822,6 +851,23 @@ def test_rmsnorm_gradients_arrive_through_autograd_on_the_card(cuda):
     want_dx, want_dw = rmsnorm_backward_plain(x.detach(), w.detach(), dy)
     _hold_bwd(x.grad, want_dx, "x.grad")
     _hold_bwd(w.grad, want_dw, "w.grad")
+
+
+@pytest.mark.parametrize("shape", [(1024, 3072), (24576, 128)])
+def test_rmsnorm_backward_bits_do_not_depend_on_the_route(cuda, shape):
+    """An input that is not 16-byte aligned takes the scalar route (the
+    block route at d = 3072, the warp route's scalar columns at d = 128);
+    each column's rows are summed in the same order, so dx and dw are the
+    aligned call's bits."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = (torch.randn(shape, generator=gen, device=cuda) * 3).bfloat16()
+    w = (0.1 * torch.randn(shape[-1:], generator=gen, device=cuda)).bfloat16()
+    dy = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    inv = torch.empty((shape[0],), dtype=torch.float32, device=cuda)
+    rmsnorm(x, w, 1e-6, inv)
+    dx, dw = rmsnorm_backward(x, w, inv, dy)
+    dx_u, dw_u = rmsnorm_backward(_misaligned(x), w, inv, _misaligned(dy))
+    assert torch.equal(dx, dx_u) and torch.equal(dw, dw_u)
 
 
 @pytest.mark.parametrize("name", ["llama3.2-3b", "qwen3-8b"])

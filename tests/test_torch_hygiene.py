@@ -178,7 +178,7 @@ def test_build_covers_every_source_and_refuses_without_nvcc(monkeypatch):
         "symhollow", "center_matvec", "inverse_orders", "permute_reduce",
         "permute_reduce_finish", "pairwise_panel", "center_pass1",
         "center_finish", "center_pass2", "mantel_corr", "mantel_corr_finish",
-        "rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_finish"}
+        "rmsnorm", "rmsnorm_bwd"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build, "Path", lambda p: Path("/nonexistent/nvcc"))
@@ -332,5 +332,4 @@ def test_cpu_training_launches_nothing(tmp_path):
     assert train_launcher.main(args[:-2] + ["--steps", "3", "--resume"]) == 0
     DistanceTileStream(n=20, tile=8, device="cpu").dense()
     assert set(_build.launches.values()) == {0}
-    assert {"rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_finish"} <= \
-        set(_build.launches)
+    assert {"rmsnorm", "rmsnorm_bwd"} <= set(_build.launches)

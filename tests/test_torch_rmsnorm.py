@@ -216,8 +216,12 @@ def test_function_cpu_route_is_the_plain_backward(dtype, w_dtype):
                                     (2048, 4096), (5, 3070), (63, 256),
                                     (100000, 64)])
 def test_backward_grid_depends_on_the_shape_alone(rows, d):
+    """One cooperative launch: at most BWD_MAX_BLOCKS blocks, the 114 SMs
+    of the PCIe H100, so the grid is resident on either card; every block
+    takes at least its route's least rows and every row has one block."""
     blocks, per_block = bwd_grid(rows, d)
     route = "warp" if d <= 256 else "block"
+    assert BWD_MAX_BLOCKS == 114
     assert 1 <= blocks <= BWD_MAX_BLOCKS
     assert (blocks - 1) * per_block < rows <= blocks * per_block
     assert per_block >= min(BWD_MIN_ROWS[route], rows)
@@ -226,8 +230,8 @@ def test_backward_grid_depends_on_the_shape_alone(rows, d):
 
 def test_backward_wrapper_refuses_what_its_kernel_does_not_take():
     """The checks run before any build or launch, so they hold here."""
-    from repro_torch.kernels.rmsnorm import (MAX_BWD_D, rmsnorm_bwd,
-                                             rmsnorm_bwd_finish)
+    from repro_torch.kernels.rmsnorm import MAX_BWD_D
+    from repro_torch.kernels.rmsnorm import rmsnorm_backward as rmsnorm_bwd
 
     x = torch.zeros(4, 8)
     w, inv, dy = torch.zeros(8), torch.zeros(4), torch.zeros(4, 8)
@@ -244,6 +248,5 @@ def test_backward_wrapper_refuses_what_its_kernel_does_not_take():
     with pytest.raises(ValueError, match="d <="):
         rmsnorm_bwd(torch.zeros(1, MAX_BWD_D + 1), torch.zeros(MAX_BWD_D + 1),
                     torch.zeros(1), torch.zeros(1, MAX_BWD_D + 1))
-    with pytest.raises(TypeError, match="partials"):
-        rmsnorm_bwd_finish(torch.zeros(2, 8, dtype=torch.float64),
-                           torch.float32)
+    with pytest.raises(TypeError, match="w must be float32 or bfloat16"):
+        rmsnorm_bwd(x, w.double(), inv, dy)

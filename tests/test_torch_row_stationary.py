@@ -32,7 +32,9 @@ from repro_torch.core.distance_matrix import (condensed_form,
                                               triangle_coords)
 from repro_torch.core.mantel import MantelStatistic
 from repro_torch.kernels import _build
-from repro_torch.kernels.inverse_orders import (MAX_N, inverse_orders,
+from repro_torch.kernels.inverse_orders import (CLUSTER_SIZES, FILL_BLOCKS,
+                                                MAX_N, SLICE_BYTES,
+                                                cluster_size, inverse_orders,
                                                 inverse_orders_plain)
 from repro_torch.kernels.mantel_corr_ops import (mantel_corr_hoist,
                                                  mantel_corr_op)
@@ -155,6 +157,37 @@ def test_inverse_orders_keep_sixteen_bits_up_to_their_limit():
     np.testing.assert_array_equal(inv.numpy()[0], np.arange(MAX_N)[::-1])
     with pytest.raises(ValueError, match="16-bit"):
         inverse_orders(torch.zeros((1, MAX_N + 1), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("perms", [1, 2, 27, 32, 128])
+@pytest.mark.parametrize("n", [1, 2, 7, 8, 1001, 16384, 46340, MAX_N])
+def test_inverse_orders_cluster_plan(n, perms):
+    """The card kernel's plan: C blocks a row from CLUSTER_SIZES, C <= n, a
+    function of (B, n) alone; rank r owns the slots [ceil(r n / C),
+    ceil((r + 1) n / C)), which cover 0..n-1 once, each within the shared
+    memory budget; the smallest such C that lights FILL_BLOCKS blocks, or
+    the largest that fits."""
+    c = cluster_size(perms, n)
+    assert c in CLUSTER_SIZES and c <= n
+    assert cluster_size(perms, n) == c
+    lo = np.array([-(-r * n // c) for r in range(c + 1)])
+    assert lo[0] == 0 and lo[-1] == n
+    sizes = np.diff(lo)
+    assert (sizes >= 1).all() and 4 * sizes.max() <= SLICE_BYTES
+    assert 4 * -(-n // c) <= SLICE_BYTES
+    v = np.arange(n)
+    owner = v * c // n                      # the kernel's owner of value v
+    assert ((lo[owner] <= v) & (v < lo[owner + 1])).all()
+    smaller = [s for s in CLUSTER_SIZES if s < c and s <= n
+               and 4 * -(-n // s) <= SLICE_BYTES]
+    if perms * c >= FILL_BLOCKS:
+        assert all(perms * s < FILL_BLOCKS for s in smaller)
+    else:
+        assert c == min(8, max(s for s in CLUSTER_SIZES if s <= n))
+    if (perms, n) == (32, 16384):
+        assert c == 4                      # the main path's tile: 128 blocks
+    if n == MAX_N:
+        assert c >= 2
 
 
 @pytest.mark.parametrize("fault", ["repeat", "negative", "too_large"])
