@@ -77,8 +77,17 @@ check fails:
    launch counts (145 a pass); a warm prefill, a profile of prefill and
    decode, decode held against a prefill of the same tokens in bf16 and,
    with the weights upcast, in fp32, where two cache faults planted in the
-   cache's state must fail the check; and the smoke widths in fp32 on the
-   card against the CPU; then
+   cache's state must fail the check; qwen3-8b again from the int8 cache
+   (``kv_quant``), its bytes and each step's logits against the bf16
+   cache's run; and the smoke widths in fp32 on the card against the CPU
+   (every ported arch and a ``local`` config whose ring the prompt
+   overflows; the MoE routing compared before the logits); 6b
+   granite-moe-1b-a400m (24 layers, 32 experts top-8) and
+   phi-3-vision-4.2b (32 layers, 1024 patch embeddings before each prompt)
+   at full width and depth in bf16, phase 6's traffic, exact ``rmsnorm``
+   launches (49 and 65 a pass), the share of MoE pairs dropped at
+   prefill, a profile of decode, and decode held against a prefill of the
+   same inputs (MoE made dropless); then
 8. the LM training path: llama3.2-3b at full width and depth (28 layers,
    d = 3072, 6.4 GB of bf16 weights drawn from a seed on the card, fp32
    AdamW moments) trained 5 steps of 8 x 512 tokens (4 microbatches of 2,
@@ -88,7 +97,9 @@ check fails:
    seconds, tokens a second, peak memory, one more
    step profiled, every RMSNorm weight's gradient and every parameter's
    change checked; 8b the smoke widths trained on the card and on the CPU
-   from the same state (llama3.2-3b-smoke, qwen3-8b-smoke, fp32, 3 steps);
+   from the same state (llama3.2-3b-smoke, qwen3-8b-smoke,
+   granite-moe-1b-a400m-smoke with its routing compared,
+   phi-3-vision-4.2b-smoke with the launcher's patches; fp32, 3 steps);
    8c the reference's kill-and-resume drill on the card (qwen3-8b-smoke, 8
    steps, a checkpoint at step 4, resumed losses to 1e-4, bitwise or not);
    5b holds the ``rmsnorm`` backward against its plain version (d = 128,
@@ -98,7 +109,8 @@ check fails:
    ``_fused_rms_norm_backward`` and ``inverse_orders`` (phase 5) beside
    a graphed ``scatter_``; then one JSON line of per-kernel launches,
    errors, times and bounds (``session_launches``: each kernel's launches
-   in phase 3d; ``train_launches``: rmsnorm's in phase 8), and one of each
+   in phase 3d; ``train_launches``: rmsnorm's in phase 8;
+   ``serve_6b_launches``: rmsnorm's on phase 6b's paths), and one of each
    phase's host seconds (``phase_walls_s``).
 
 ``python3 chip_smoke.py --center-matvec-op TREE`` times only
@@ -158,7 +170,26 @@ TRAIN_ARCH = "llama3.2-3b"  # phase 8: full width and depth, bf16, fp32 moments
 TRAIN_BATCH = 8       # sequences a step: 4 microbatches of 2
 TRAIN_SEQ = 512       # tokens a sequence
 TRAIN_STEPS = 5       # AdamW steps through launch.train.run
-TRAIN_SMOKES = ("llama3.2-3b", "qwen3-8b")  # phase 8b: card against CPU
+TRAIN_SMOKES = ("llama3.2-3b", "qwen3-8b", "granite-moe-1b-a400m",
+                "phi-3-vision-4.2b")  # phase 8b: card against CPU
+# phase 6's smoke widths served card against CPU: the ported archs, and a
+# local config (qwen3-8b's smoke, attn and local layers, a ring of 4 slots
+# that the 16-token prompt overflows)
+SERVE_SMOKES = (("qwen3-8b", {}), ("nemotron-4-340b", {}),
+                ("granite-moe-1b-a400m", {}), ("grok-1-314b", {}),
+                ("phi-3-vision-4.2b", {}),
+                ("qwen3-8b", {"pattern": ("attn", "local"), "window": 4}))
+NEW_LM_ARCHS = ("granite-moe-1b-a400m", "phi-3-vision-4.2b")  # phase 6b
+# phase 6b: qwen3-8b decoding from the int8 cache against its bf16 cache's
+# run on the same tokens, at each of the LM_STEPS steps: max abs difference
+# of the logits as a share of max|logits|, and their correlation. On the CPU
+# at the smoke widths (2 and 4 layers, 32 decode steps, the same weights)
+# the int8 cache moves them 0.0047 in fp32 and 0.0117-0.0138 in bf16 (its
+# quantization step, and bf16's rounding of what differs), correlation
+# 0.99995 at least; the bound allows for 36 layers, as phase 6's own bf16
+# decode-against-prefill check (0.035) does
+KV_QUANT_ATOL = 0.05
+KV_QUANT_CORR = 0.999
 BLOCK = N // 2        # a block of phase 7's 2 x 2 mesh: (8192, 8192)
 RAGGED_BLOCK = (1000, 700)  # phases 2, 2b and 2c's ragged block
 RAGGED_C0 = 3         # and phase 2c's unaligned column offset
@@ -1844,45 +1875,114 @@ def phase_battery_vs_cpu(main: dict, x_feat: torch.Tensor, groups) -> None:
               f"{name}: card and CPU disagree at n={n}")
 
 
+def norms_per_pass(cfg) -> int:
+    """rmsnorm launches a forward pass: two block norms a layer, the q and
+    k norms of a qk-norm model, and the final norm."""
+    return (4 if cfg.qk_norm else 2) * cfg.n_layers + 1
+
+
+class RoutingRecord:
+    """Records every MoE chunk's routing (each pair's expert and whether it
+    was kept) while it is entered, by wrapping ``models.moe.route``; so the
+    card's and the CPU's routing can be compared before their numbers."""
+
+    def __init__(self, to_cpu: bool = True):
+        self.calls, self.to_cpu = [], to_cpu
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.route = moe, moe.route
+
+        def route(*args):
+            out = self.route(*args)
+            ids, keep = out[1], out[4]
+            self.calls.append((ids.cpu(), keep.cpu()) if self.to_cpu
+                              else (ids, keep))
+            return out
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def check_routing(name: str, card: RoutingRecord, cpu: RoutingRecord) -> None:
+    """The card routed every (token, choice) pair as the CPU did: a flip is
+    reported as one, before any numbers are compared."""
+    check(len(card.calls) == len(cpu.calls),
+          f"{name}: {len(card.calls)} routing calls on the card, "
+          f"{len(cpu.calls)} on the CPU")
+    flips = sum(int((a[0] != b[0]).sum()) + int((a[1] != b[1]).sum())
+                for a, b in zip(card.calls, cpu.calls))
+    pairs = sum(a[0].numel() for a in card.calls)
+    print(f"  {name}: routing card vs CPU over {len(card.calls)} chunks, "
+          f"{pairs} (token, choice) pairs: {flips} flips of expert or keep")
+    check(flips == 0, f"{name}: routing flips between the card and the CPU")
+
+
+def smoke_patches(cfg, batch: int, seed: int):
+    """A vision model's patch embeddings on the CPU, else None."""
+    if cfg.frontend != "vision":
+        return None
+    return torch.randn((batch, cfg.n_patches, cfg.frontend_dim),
+                       generator=torch.Generator().manual_seed(seed))
+
+
 def lm_smoke_vs_cpu() -> None:
-    """``qwen3-8b-smoke`` in fp32 on the card (the rmsnorm kernel) and on the
-    CPU (its plain version) with the same weights: prefill then 6 decode
-    steps, logits to rtol 1e-5."""
+    """Each of SERVE_SMOKES in fp32 on the card (the rmsnorm kernel) and on
+    the CPU (its plain version) with the same weights: prefill (random
+    patches first for phi-3-vision) then 6 decode steps, the MoE routing
+    equal, logits to rtol 1e-5."""
+    for name, changes in SERVE_SMOKES:
+        serve_smoke_vs_cpu(name, changes)
+
+
+def serve_smoke_vs_cpu(name: str, changes: dict) -> None:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
     from repro_torch.models.transformer import Transformer, init_params
     from repro_torch.runtime.serve import build_decode_fn, build_prefill_fn
 
-    cfg = get_arch(LM_ARCH, smoke=True)
+    cfg = dataclasses.replace(get_arch(name, smoke=True), **changes)
     cpu = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
     with torch.no_grad():               # the '1 + w' norm weights act
-        for name, p in cpu.named_parameters():
+        for pname, p in cpu.named_parameters():
             if p.ndim == 1:
                 p.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(
-                    len(name)))
+                    len(pname)))
     card = Transformer(cfg, "cuda")
     card.load_state_dict(cpu.state_dict())
     tokens = torch.randint(0, cfg.vocab, (2, 22),
                            generator=torch.Generator().manual_seed(SEED))
-    out, launches = {}, {}
+    patches = smoke_patches(cfg, 2, SEED)
+    extra = {} if patches is None else {"patches": patches}
+    max_len = 24 + (cfg.n_patches if extra else 0)
+    out, launches, routing = {}, {}, {}
     for dev, model in (("cpu", cpu), ("cuda", card)):
-        prefill = build_prefill_fn(cfg, 24, device=dev)
+        prefill = build_prefill_fn(cfg, max_len, device=dev)
         decode = build_decode_fn(cfg, device=dev)
         _build.reset_launches()
-        logits, cache = prefill(model, {"tokens": tokens[:, :16]})
-        steps = [logits]
-        for t in range(16, 22):
-            logits, cache = decode(model, tokens[:, t:t + 1], cache)
-            steps.append(logits)
+        with RoutingRecord() as routing[dev]:
+            logits, cache = prefill(model, {"tokens": tokens[:, :16],
+                                            **extra})
+            steps = [logits]
+            for t in range(16, 22):
+                logits, cache = decode(model, tokens[:, t:t + 1], cache)
+                steps.append(logits)
         out[dev] = torch.cat(steps, dim=1).cpu()
         launches[dev] = _build.launches["rmsnorm"]
-    want = 7 * (4 * cfg.n_layers + 1)
-    print(f"  {cfg.name} fp32, card vs CPU (prefill of 16, 6 decode steps): "
-          f"rmsnorm launches card {launches['cuda']} (want {want}), CPU "
-          f"{launches['cpu']}")
+    want = 7 * norms_per_pass(cfg)
+    label = cfg.name + "".join(f" {k}={v}" for k, v in changes.items())
+    print(f"  {label} fp32, card vs CPU (prefill of 16"
+          f"{' after %d patches' % cfg.n_patches if extra else ''}, 6 decode "
+          f"steps): rmsnorm launches card {launches['cuda']} (want {want}), "
+          f"CPU {launches['cpu']}")
     check(launches == {"cpu": 0, "cuda": want},
-          "smoke LM: rmsnorm launches on the card or the CPU")
-    compare(f"{cfg.name} logits, card vs CPU", out["cuda"], out["cpu"],
+          f"smoke LM {label}: rmsnorm launches on the card or the CPU")
+    if cfg.n_experts:
+        check_routing(label, routing["cuda"], routing["cpu"])
+    compare(f"{label} logits, card vs CPU", out["cuda"], out["cpu"],
             rtol=1e-5)
 
 
@@ -2007,7 +2107,10 @@ def phase_lm(card: str) -> dict:
           and tuple(step_logits[-1].shape) == (LM_BATCH, 1, cfg.vocab),
           "LM: non-finite logits or wrong shape")
     check(cache.pos == LM_PROMPT + LM_STEPS, "LM: cache position")
+    dense_bytes = cache_bytes(cache)
     del cache
+    kv_quant = kv_quant_decode(model, cfg, prompts, tokens, step_logits,
+                               dense_bytes, card)
 
     sync()
     t0 = time.perf_counter()
@@ -2072,7 +2175,321 @@ def phase_lm(card: str) -> dict:
           f"before the reset): {peak / 1e9:.4f} GB")
     del prompts
     lm_smoke_vs_cpu()
-    return {"launches": launches["rmsnorm"]}
+    return {"launches": launches["rmsnorm"], "kv_quant": kv_quant}
+
+
+def cache_bytes(cache) -> int:
+    """Bytes of an ``LMCache``: every layer's K/V, slot positions and int8
+    scales."""
+    return sum(t.numel() * t.element_size() for c in cache.blocks
+               for t in (c.k, c.v, c.pos, c.k_scale, c.v_scale)
+               if t is not None)
+
+
+def kv_quant_decode(model, cfg, prompts, tokens, step_logits, dense_bytes,
+                    card: str) -> dict:
+    """Phase 6b's int8 cache on phase 6's weights: the same prompts
+    prefilled into an int8 cache and the bf16 run's greedy tokens decoded
+    (so each step's logits meet that run's), with the launch counts set to
+    0 just before and read just after. Each step's logits within
+    KV_QUANT_ATOL of max|logits| of the bf16 cache's and correlated to
+    KV_QUANT_CORR."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.serve import build_decode_fn, build_prefill_fn
+
+    cfg_q = dataclasses.replace(cfg, kv_quant=True)
+    print(f"== phase 6b: {cfg.name} from the int8 KV cache (kv_quant) on "
+          f"phase 6's weights: the same {LM_BATCH} prompts, the bf16 run's "
+          f"{LM_STEPS} greedy tokens fed back")
+    prefill, decode = build_prefill_fn(cfg_q, LM_MAX_LEN), \
+        build_decode_fn(cfg_q)
+    sync()
+    _build.reset_launches()
+    logits, cache = prefill(model, {"tokens": prompts})
+    shares, corrs, step_ms = [], [], []
+    for j in range(LM_STEPS + 1):
+        if j:
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = decode(model, tokens[j - 1], cache)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        share, corr = consistency(logits, step_logits[j])
+        shares.append(share)
+        corrs.append(corr)
+    launches = _build.launches["rmsnorm"]
+    q_bytes = cache_bytes(cache)
+    check(cache.blocks[0].k.dtype == torch.int8, "kv_quant: cache not int8")
+    _, cache = prefill(model, {"tokens": prompts})
+    profile = device_breakdown(
+        "3 decode steps from the int8 cache, profiled",
+        lambda: [decode(model, tokens[j], cache) for j in range(3)], card)
+    del cache
+    want = norms_per_pass(cfg) * (LM_STEPS + 1)
+    print(f"  cache at {LM_MAX_LEN} slots: int8 {q_bytes} bytes "
+          f"({q_bytes / 1e9:.4f} GB) against bf16 {dense_bytes} bytes "
+          f"({dense_bytes / 1e9:.4f} GB): {q_bytes / dense_bytes:.4f}")
+    print(f"  decode from the int8 cache: median {np.median(step_ms):.4f} ms "
+          f"a step (min {min(step_ms):.4f}, max {max(step_ms):.4f}) "
+          f"({card}); rmsnorm launches {launches} (want {want})")
+    print(f"  logits against the bf16 cache's run, max abs diff as a share "
+          f"of max|logits| at steps 0-{LM_STEPS} (0 = the prefill): "
+          f"{[round(x, 6) for x in shares]}; largest {max(shares):.6f} "
+          f"(limit {KV_QUANT_ATOL}), least correlation {min(corrs):.6f} "
+          f"(limit {KV_QUANT_CORR})")
+    check(launches == want, "kv_quant: rmsnorm launches")
+    check(max(shares) <= KV_QUANT_ATOL and min(corrs) >= KV_QUANT_CORR,
+          "kv_quant: the int8 cache's logits stray from the bf16 cache's")
+    return {"launches": launches, "cache_bytes": q_bytes,
+            "dense_cache_bytes": dense_bytes,
+            "decode_ms": float(np.median(step_ms)),
+            "max_share": max(shares), "min_corr": min(corrs),
+            "profile": profile}
+
+
+def new_lm_inputs(cfg, gen):
+    """Phase 6b's requests on the card: LM_BATCH prompts of LM_PROMPT token
+    ids, and for a vision model ``n_patches`` random patch embeddings
+    each."""
+    batch = {"tokens": torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                                     generator=gen, device="cuda")}
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.randn(
+            (LM_BATCH, cfg.n_patches, cfg.frontend_dim), generator=gen,
+            device="cuda")
+    return batch
+
+
+def routing_flips(cfg, first: RoutingRecord, decoded: RoutingRecord,
+                  whole: RoutingRecord) -> torch.Tensor:
+    """(B,) count of (layer, position) pairs where a token's experts (as a
+    set) differ between the served run (the prompt's prefill ``first``,
+    then ``decoded`` one token a step) and the prefill of the whole
+    sequence ``whole``. A prefill records a layer's chunks in order, a
+    decode step one call a layer."""
+    layers = sum(1 for t in cfg.layer_types() if t == "moe")
+
+    def prefilled(rec):
+        per = len(rec.calls) // layers
+        return [torch.cat([ids for ids, _ in rec.calls[i * per:(i + 1) * per]],
+                          dim=1) for i in range(layers)]
+
+    served = [torch.cat([a, *(ids for ids, _ in decoded.calls[i::layers])],
+                        dim=1) for i, a in enumerate(prefilled(first))]
+    return sum((a.sort(-1).values != b.sort(-1).values).any(-1).sum(1)
+               for a, b in zip(served, prefilled(whole)))
+
+
+def prefill_decode_check(model, cfg, batch, fed, max_len: int) -> tuple:
+    """Decode step LM_CHECK_STEP against a prefill of the same patches and
+    tokens, MoE made dropless (a prefill drops pairs that a decoded token
+    never does): (max abs err as a share of max|logits|, correlation, the
+    requests held, routing flips). A request one of whose tokens chose
+    other experts in the served run (the prompt's prefill, then decode)
+    than in the prefill of the whole sequence, at some layer (a near tie
+    that the two sums' orders break apart), is reported as such and left
+    out of the comparison."""
+    from repro_torch.runtime.serve import build_decode_fn, build_prefill_fn
+
+    dropless = (dataclasses.replace(cfg, capacity_factor=float(
+        cfg.n_experts)) if cfg.n_experts else cfg)
+    prefill = build_prefill_fn(dropless, max_len)
+    decode = build_decode_fn(dropless)
+    with RoutingRecord(to_cpu=False) as first:
+        _, cache = prefill(model, batch)
+    with RoutingRecord(to_cpu=False) as decoded:
+        for t in range(fed.shape[1]):
+            logits, cache = decode(model, fed[:, t:t + 1], cache)
+    del cache
+    seq = dict(batch, tokens=torch.cat([batch["tokens"], fed], dim=1))
+    with RoutingRecord(to_cpu=False) as prefilled:
+        want, extra = prefill(model, seq)
+    del extra
+    flips = (routing_flips(cfg, first, decoded, prefilled) if cfg.n_experts
+             else torch.zeros(fed.shape[0], dtype=torch.long))
+    held = (flips == 0).nonzero()[:, 0].to(logits.device)
+    print(f"  ({cfg.compute_dtype}) each request's max abs err as a share of "
+          f"its max|logits|: "
+          f"{[f'{consistency(logits[i], want[i])[0]:.3e}' for i in range(len(flips))]}"
+          f"; routing flips by request {flips.tolist()}")
+    check(len(held) > 0, f"{cfg.name}: every request's routing flipped "
+                         f"between decode and prefill")
+    return (*consistency(logits[held], want[held]), len(held),
+            int(flips.sum()))
+
+
+def routing_note(cfg, held: int, flips: int) -> str:
+    return (f"; {flips} (request, layer, position) routing flips, "
+            f"{held} of {LM_BATCH} requests held" if cfg.n_experts else "")
+
+
+def fp32_prefill_decode_check(model, cfg, batch, fed, max_len: int):
+    """``prefill_decode_check`` with the bf16 weights upcast (exactly) into
+    an fp32 model, where decode and prefill differ by the order of their
+    sums alone: within phase 6's fp32 bounds."""
+    from repro_torch.models.transformer import Transformer
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = Transformer(cfg32, "cuda")
+    model32.load_state_dict(model.state_dict())
+    share, corr, held, flips = prefill_decode_check(model32, cfg32, batch,
+                                                    fed, max_len)
+    del model32
+    print(f"  decode step {LM_CHECK_STEP} vs prefill, fp32 (the weights "
+          f"upcast){', dropless' if cfg.n_experts else ''}: max abs err "
+          f"{share:.3e} of max|logits| (limit {LM_FP32_ATOL}), 1 - "
+          f"correlation {1 - corr:.3e} (limit {1 - LM_FP32_CORR:.0e})"
+          f"{routing_note(cfg, held, flips)}")
+    check(share <= LM_FP32_ATOL and corr >= LM_FP32_CORR,
+          f"{cfg.name}: fp32 decode disagrees with prefill")
+
+
+def phase_lm_new(card: str) -> dict:
+    """Phase 6b: granite-moe-1b-a400m and phi-3-vision-4.2b served at full
+    width and depth in bf16 with phase 6's traffic (phi-3-vision's requests
+    also carry n_patches patch embeddings each), each with the launch
+    counts set to 0 just before its prefill and decode and read just after;
+    a warm prefill, the share of MoE pairs dropped at the served capacity,
+    a profile of decode, and decode held against a prefill of the same
+    inputs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime.serve import build_decode_fn, build_prefill_fn
+
+    out = {}
+    for name in NEW_LM_ARCHS:
+        cfg = get_arch(name)
+        n_front = cfg.n_patches if cfg.frontend == "vision" else 0
+        max_len = n_front + LM_MAX_LEN
+        print(f"== phase 6b: LM serving, {cfg.name} at full width and depth "
+              f"({cfg.n_layers} layers, d={cfg.d_model}, {cfg.n_heads} heads "
+              f"/ {cfg.n_kv_heads} kv of {cfg.head_dim}, d_ff={cfg.d_ff}"
+              + (f", {cfg.n_experts} experts top-{cfg.top_k}, capacity "
+                 f"factor {cfg.capacity_factor}" if cfg.n_experts else "")
+              + (f", {cfg.n_patches} patches of {cfg.frontend_dim}"
+                 if n_front else "")
+              + f", vocab={cfg.vocab}) in {cfg.param_dtype}: {LM_BATCH} "
+              f"requests of {LM_PROMPT} tokens, max_len {max_len}, "
+              f"{LM_STEPS} greedy decode steps")
+        sync()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        model = init_params(cfg, gen, "cuda")
+        batch = new_lm_inputs(cfg, gen)
+        sync()
+        n_params = sum(p.numel() for p in model.parameters())
+        param_bytes = sum(p.numel() * p.element_size()
+                          for p in model.parameters())
+        print(f"  weights drawn on the card in {time.perf_counter() - t0:.4f}"
+              f" s: {n_params} parameters (config {cfg.param_count()}), "
+              f"{param_bytes / 1e9:.4f} GB")
+        check(n_params == cfg.param_count(),
+              f"{name}: parameter count != config's")
+        prefill = build_prefill_fn(cfg, max_len)
+        decode = build_decode_fn(cfg)
+
+        # the main path: counts set to 0 just before, read just after
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, batch)
+        sync()
+        cold_s = time.perf_counter() - t0
+        per_prefill = _build.launches["rmsnorm"]
+        tokens = [logits[:, -1].argmax(-1, keepdim=True)]
+        step_logits, step_ms, per_step = [logits], [], []
+        for _ in range(LM_STEPS):
+            before = _build.launches["rmsnorm"]
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = decode(model, tokens[-1], cache)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.append(_build.launches["rmsnorm"] - before)
+            step_logits.append(logits)
+            tokens.append(logits[:, -1].argmax(-1, keepdim=True))
+        launches = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated()
+        per_pass = norms_per_pass(cfg)
+        print(f"  rmsnorm launches: prefill {per_prefill}, decode steps "
+              f"{sorted(set(per_step))}, in all {launches['rmsnorm']} (want "
+              f"{per_pass} a pass, {per_pass * (LM_STEPS + 1)} in all); "
+              f"other kernels "
+              f"{sum(v for k, v in launches.items() if k != 'rmsnorm')}")
+        check(per_prefill == per_pass and set(per_step) == {per_pass}
+              and launches["rmsnorm"] == per_pass * (LM_STEPS + 1),
+              f"{name}: rmsnorm launches on the main path")
+        check(all(bool(torch.isfinite(lg).all()) for lg in step_logits)
+              and tuple(step_logits[-1].shape) == (LM_BATCH, 1, cfg.vocab),
+              f"{name}: non-finite logits or wrong shape")
+        check(cache.pos == n_front + LM_PROMPT + LM_STEPS,
+              f"{name}: cache position")
+        del cache, step_logits
+
+        sync()
+        t0 = time.perf_counter()
+        with RoutingRecord(to_cpu=False) as routing:
+            _, warm_cache = prefill(model, batch)
+        sync()
+        warm_s = time.perf_counter() - t0
+        if cfg.n_experts:
+            kept = sum(int(keep.sum()) for _, keep in routing.calls)
+            pairs = sum(keep.numel() for _, keep in routing.calls)
+            # each layer's busiest expert: its share of the layer's pairs
+            busiest = max(float(torch.bincount(
+                ids.flatten(), minlength=cfg.n_experts).max()) / ids.numel()
+                for ids, _ in routing.calls)
+            print(f"  MoE pairs at prefill ({len(routing.calls)} chunks of "
+                  f"{min(cfg.moe_chunk, LM_PROMPT)} positions, capacity "
+                  f"factor {cfg.capacity_factor}): {pairs - kept} of {pairs} "
+                  f"(token, choice) pairs dropped, {1 - kept / pairs:.6f}; "
+                  f"the busiest expert of a layer took {busiest:.4f} of its "
+                  f"pairs (even: {1 / cfg.n_experts:.4f}, capacity "
+                  f"{cfg.capacity_factor / cfg.n_experts:.4f})")
+        del routing
+
+        def decode_3(cache=warm_cache):
+            for _ in range(3):
+                decode(model, tokens[0], cache)
+        profile = device_breakdown("3 decode steps, profiled", decode_3,
+                                   card)
+        del warm_cache
+
+        fed = torch.cat(tokens[:LM_CHECK_STEP], dim=1)
+        share, corr, held, flips = prefill_decode_check(model, cfg, batch,
+                                                        fed, max_len)
+        print(f"  decode step {LM_CHECK_STEP} vs a prefill of its "
+              f"{n_front + LM_PROMPT + LM_CHECK_STEP} positions, bf16"
+              f"{', dropless' if cfg.n_experts else ''}: max abs err "
+              f"{share:.6f} of max|logits| (limit {LM_CONSISTENCY_ATOL}), "
+              f"correlation {corr:.6f} (limit {LM_CONSISTENCY_CORR})"
+              f"{routing_note(cfg, held, flips)}")
+        check(share <= LM_CONSISTENCY_ATOL and corr >= LM_CONSISTENCY_CORR,
+              f"{name}: decode disagrees with prefill")
+        fp32_prefill_decode_check(model, cfg, batch, fed, max_len)
+        del model, batch, fed
+
+        median_ms = float(np.median(step_ms))
+        print(f"  prefill ({LM_BATCH} x ({n_front} + {LM_PROMPT})): cold "
+              f"{cold_s:.4f} s, warm {warm_s:.4f} s ({card})")
+        print(f"  decode: median {median_ms:.4f} ms a step (first "
+              f"{step_ms[0]:.4f}, min {min(step_ms):.4f}, max "
+              f"{max(step_ms):.4f}), {LM_BATCH / median_ms * 1e3:.1f} "
+              f"tokens/s ({card})")
+        print(f"  decode floor: the weights ({param_bytes / 1e9:.4f} GB, "
+              f"every expert's: each runs on its capacity slots) over 3.35 "
+              f"TB/s = {param_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        print(f"  peak memory (torch.cuda.max_memory_allocated, weights drawn "
+              f"before the reset): {peak / 1e9:.4f} GB")
+        out[name] = {"launches": launches["rmsnorm"], "cold_s": cold_s,
+                     "warm_s": warm_s, "decode_ms": median_ms,
+                     "peak_bytes": peak, "profile": profile}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def synced(fn):
@@ -3235,12 +3652,14 @@ def warm_opt_state(opt: dict, seed: int) -> None:
 def train_smoke_vs_cpu(name: str) -> None:
     """Phase 8b for one arch: its smoke widths in fp32, the same state on
     the card and on the CPU (norm weights drawn non-zero, warm moments),
-    three steps of two microbatches on the same TokenPipeline batches:
-    losses to rtol 1e-5, parameters and moments to rtol 1e-5 / atol
+    three steps of two microbatches on the same TokenPipeline batches (with
+    the launcher's patches for phi-3-vision): the MoE routing equal, losses
+    to rtol 1e-5, parameters and moments to rtol 1e-5 / atol
     1e-5·max(scale, 1), and the norms' launches."""
     from repro_torch.configs import get_arch
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels import _build
+    from repro_torch.launch.train import make_batch
     from repro_torch.models.transformer import Transformer
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime.train import (build_train_step_fn,
@@ -3262,17 +3681,21 @@ def train_smoke_vs_cpu(name: str) -> None:
                 "step": cpu_opt["step"].cuda()}
     pipe = TokenPipeline(vocab=cfg.vocab, seq_len=32, global_batch=4,
                          seed=SEED)
-    out = {}
+    out, routing = {}, {}
     for dev, model, state in (("cpu", cpu_model, cpu_opt),
                               ("cuda", card_model, card_opt)):
         step = build_train_step_fn(cfg, opt, device=dev)
         _build.reset_launches()
         losses = []
-        for s in range(3):
-            model, state, metrics = step(model, state, pipe.batch(s))
-            losses.append(float(metrics["loss"]))
+        with RoutingRecord() as routing[dev]:
+            for s in range(3):
+                model, state, metrics = step(model, state,
+                                             make_batch(pipe, cfg, SEED, s))
+                losses.append(float(metrics["loss"]))
         out[dev] = (losses, model, state, dict(_build.launches))
-    norms = 2 * cfg.n_layers + 1 + (2 * cfg.n_layers if cfg.qk_norm else 0)
+    if cfg.n_experts:
+        check_routing(f"{cfg.name} training", routing["cuda"], routing["cpu"])
+    norms = norms_per_pass(cfg)
     got = out["cuda"][3]
     print(f"  {cfg.name} fp32, 3 steps of 2 microbatches, card vs CPU: "
           f"losses {out['cuda'][0]} vs {out['cpu'][0]}; launches rmsnorm "
@@ -3645,12 +4068,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm = run("6 LM serving", phase_lm, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_new = run("6b MoE and vision serving", phase_lm_new, card)
     train = run("8 training", phase_train, card)
     run("8b/8c training checks", phase_train_checks, card)
     errors["rmsnorm_bwd"] = run("5b rmsnorm_bwd check", phase_rmsnorm_bwd_kernel)
     kernels.append(run("5b rmsnorm times", rmsnorm_entry, lm["launches"],
                        errors["rmsnorm"], card))
     kernels[-1]["train_launches"] = train["launches"]["rmsnorm"]
+    # phase 6b's paths: each run's launches
+    kernels[-1]["serve_6b_launches"] = {
+        **{name: lm_new[name]["launches"] for name in NEW_LM_ARCHS},
+        f"{LM_ARCH} kv_quant": lm["kv_quant"]["launches"]}
     kernels.extend(run("5b rmsnorm_bwd times", rmsnorm_bwd_entries,
                        train["launches"], errors["rmsnorm_bwd"], card))
     for kern in kernels:        # each kernel's launches on the session path

@@ -1,11 +1,11 @@
 """Arch registry: importing this package registers the ported architectures
 (and their smoke reductions) into ``ARCHS`` / ``SMOKES``.
 
-The counterpart of ``repro/configs/__init__.py``. The dense decoders whose
-blocks are ported (``attn`` blocks only) are registered; the other seven
-architectures need blocks that are not ported yet (MoE, SSD, RG-LRU,
-local attention, enc-dec, the vision frontend), and ``get_arch`` says so
-for them rather than pretend they are unknown.
+The counterpart of ``repro/configs/__init__.py``. The architectures whose
+blocks are ported (``attn``, ``local`` and ``moe`` blocks, and the vision
+frontend) are registered; the other three need blocks that are not ported
+yet (SSD, RG-LRU, enc-dec), and ``get_arch`` says so for them rather than
+pretend they are unknown.
 
 ``--arch <id>`` ids use the assignment's spelling (dots/dashes); module
 names use underscores.
@@ -15,15 +15,17 @@ from repro_torch.configs.base import (ARCHS, SHAPES, SMOKES, ModelConfig,
                                       ShapeConfig)
 
 # importing registers
-from repro_torch.configs import llama3_2_3b      # noqa: F401
-from repro_torch.configs import qwen1_5_4b       # noqa: F401
-from repro_torch.configs import qwen3_8b         # noqa: F401
+from repro_torch.configs import phi_3_vision_4_2b      # noqa: F401
+from repro_torch.configs import grok_1_314b            # noqa: F401
+from repro_torch.configs import granite_moe_1b_a400m   # noqa: F401
+from repro_torch.configs import qwen3_8b               # noqa: F401
+from repro_torch.configs import nemotron_4_340b        # noqa: F401
+from repro_torch.configs import llama3_2_3b            # noqa: F401
+from repro_torch.configs import qwen1_5_4b             # noqa: F401
 
 #: the reference's other architectures, registered once their blocks are
 #: ported (ROADMAP.md, queue 1).
-NOT_YET_PORTED = ("recurrentgemma-9b", "phi-3-vision-4.2b", "grok-1-314b",
-                  "granite-moe-1b-a400m", "nemotron-4-340b", "mamba2-1.3b",
-                  "seamless-m4t-medium")
+NOT_YET_PORTED = ("recurrentgemma-9b", "mamba2-1.3b", "seamless-m4t-medium")
 
 
 def get_arch(name: str, smoke: bool = False) -> ModelConfig:

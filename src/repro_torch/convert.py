@@ -43,18 +43,12 @@ def from_reference(state: dict[str, np.ndarray],
             for key, value in state.items()}
 
 
-def _lm_leaves(tree_np: dict, cfg, dtype: torch.dtype,
+def _lm_leaves(tree_np: dict, cfg, dtype_of,
                dev: torch.device) -> dict[str, torch.Tensor]:
     """The port's state_dict keys for a pytree laid out as the reference's
-    ``init_params``, each leaf a tensor of ``dtype`` on ``dev``."""
-    if "frontend" in tree_np:
-        raise NotImplementedError("modality frontends are not ported yet")
+    ``init_params``, each leaf a tensor of ``dtype_of(key)`` on ``dev``."""
     period = len(cfg.pattern)
     n_full = cfg.n_layers // period
-
-    def tensor(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=dev, dtype=dtype)
 
     def leaves(tree: dict, prefix: str = ""):
         for key, value in tree.items():
@@ -63,17 +57,19 @@ def _lm_leaves(tree_np: dict, cfg, dtype: torch.dtype,
             else:
                 yield f"{prefix}{key}", value
 
-    state = {f"embed.{k}": tensor(v) for k, v in leaves(tree_np["embed"])}
-    for j, stacked in enumerate(tree_np["blocks"]):
-        for name, value in leaves(stacked):
-            for i in range(n_full):
-                state[f"blocks.{i * period + j}.{name}"] = tensor(value[i])
-    for r, block in enumerate(tree_np["rem"]):
-        for name, value in leaves(block):
-            state[f"blocks.{n_full * period + r}.{name}"] = tensor(value)
-    state.update({f"final_norm.{k}": tensor(v)
-                  for k, v in leaves(tree_np["final_norm"])})
-    return state
+    def named():
+        for top in ("embed", "final_norm", "frontend"):
+            yield from leaves(tree_np.get(top, {}), f"{top}.")
+        for j, stacked in enumerate(tree_np["blocks"]):
+            for name, value in leaves(stacked):
+                for i in range(n_full):
+                    yield f"blocks.{i * period + j}.{name}", value[i]
+        for r, block in enumerate(tree_np["rem"]):
+            yield from leaves(block, f"blocks.{n_full * period + r}.")
+
+    return {key: torch.from_numpy(np.array(a, dtype=np.float32)).to(
+                device=dev, dtype=dtype_of(key))
+            for key, a in named()}
 
 
 def lm_params_from_reference(params_np: dict, cfg,
@@ -87,8 +83,11 @@ def lm_params_from_reference(params_np: dict, cfg,
     for its scan and keeps the remainder layers apart; layer
     ``i·period + j`` is row i of pattern position j, and remainder layer r
     is layer ``n_full·period + r``. Each leaf becomes a tensor of the
-    config's param dtype (bf16 arrives as float32, exactly)."""
-    return _lm_leaves(params_np, cfg, cfg.dtype(), resolve_device(device))
+    config's param dtype (bf16 arrives as float32, exactly), but for the
+    MoE routers, which are fp32 whatever the param dtype, as there."""
+    def dtype_of(key: str) -> torch.dtype:
+        return torch.float32 if key.endswith("moe.router") else cfg.dtype()
+    return _lm_leaves(params_np, cfg, dtype_of, resolve_device(device))
 
 
 def opt_state_from_reference(opt_np: dict, model, cfg,
@@ -102,7 +101,8 @@ def opt_state_from_reference(opt_np: dict, model, cfg,
     names = {name for name, _ in model.named_parameters()}
     out = {}
     for key in ("m", "v"):
-        out[key] = _lm_leaves(opt_np[key], cfg, cfg.dtype("opt"), dev)
+        out[key] = _lm_leaves(opt_np[key], cfg, lambda _: cfg.dtype("opt"),
+                              dev)
         if set(out[key]) != names:
             raise KeyError(f"the reference's {key!r} and the model name "
                            f"different leaves: "

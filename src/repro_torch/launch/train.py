@@ -13,10 +13,15 @@ relaunch with ``--resume``: the run resumes from step 4 on the same data
 straight run's. Pin ``--decay-steps`` to the full horizon for such a run, so
 the schedule does not depend on where it stopped.
 
+A vision arch's batches carry random patch embeddings (``make_batch``)
+drawn from numpy keyed by ``(seed + 2, step)``: like the reference's
+``fold_in(PRNGKey(seed + 2), step)`` they depend on the step alone, but
+they are not its numbers.
+
 ``--mesh`` takes only ``host`` (one card) and ``--profile`` only its default:
 the sharded meshes and profiles wait for the LM on a mesh (ROADMAP.md, item
-13.4). Enc-dec and vision archs raise ``NotImplementedError`` from
-``get_arch``, as they are not ported.
+13.4). Enc-dec archs raise ``NotImplementedError`` from ``get_arch``, as
+they are not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import sys
+
+import numpy as np
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_arch
@@ -64,6 +71,19 @@ def build_argparser():
     return ap
 
 
+def make_batch(pipe: TokenPipeline, cfg, seed: int, step: int) -> dict:
+    """The pipeline's batch of ``step``, and for a vision arch ``"patches"``
+    (B, n_patches, frontend_dim) fp32 standard normals keyed by
+    ``(seed + 2, step)``."""
+    batch = pipe.batch(step)
+    if cfg.frontend == "vision":
+        rng = np.random.default_rng(np.random.SeedSequence([seed + 2, step]))
+        batch["patches"] = rng.standard_normal(
+            (len(batch["tokens"]), cfg.n_patches, cfg.frontend_dim),
+            dtype=np.float32)
+    return batch
+
+
 def run(args) -> dict:
     """Train ``args.steps`` steps; returns ``{"losses", "monitor",
     "final_step"}`` as the reference does, and beside them each step's
@@ -100,7 +120,7 @@ def run(args) -> dict:
     monitor = StepMonitor()
     losses, grad_norms, seconds = [], [], []
     for step in range(start_step, args.steps):
-        batch = pipe.batch(step)
+        batch = make_batch(pipe, cfg, args.seed, step)
         monitor.start()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])        # waits for the step

@@ -1,30 +1,37 @@
-"""Attention: GQA/MQA/MHA with RoPE, qk-norm, QKV bias and logit softcap.
+"""Attention: GQA/MQA/MHA with RoPE, qk-norm, QKV bias, logit softcap and
+sliding windows.
 
-The counterpart of ``repro/models/attention.py`` for the dense decoders'
-serving path, computed as the reference computes it: products through
+The counterpart of ``repro/models/attention.py`` for the decoders' serving
+and training paths, computed as the reference computes it: products through
 ``torch.einsum``/``matmul``, scores cast to fp32, masked scores set to
 ``_NEG_INF`` (not ``-inf``), an fp32 softmax, and the probabilities cast to
 q's dtype before the PV product. No fused attention library is called.
 
 * ``attn_forward`` takes one masked pass while S <= max(attn_chunk, 2048)
   and loops over query chunks of ``attn_chunk`` above it, so the live
-  scores buffer is (chunk, S) (the reference's ``lax.scan``);
+  scores buffer is (chunk, S) (the reference's ``lax.scan``); a window
+  (``local`` blocks) narrows the causal mask in both;
 * prefill expands K/V to the full head count (``repeat_interleave``, the
   reference's ``jnp.repeat``); decode uses the grouped (K, G) product. Both
   map query head h to kv head h // G;
 * the cache is updated in place (the reference's ``dynamic_update_slice``
   returns a new one; its jitted decode donates the old). The decode
   position is a host ``int``: no host sync a layer. The slot-validity mask
-  is built on the device from the cache's ``pos`` slot array.
+  is built on the device from the cache's ``pos`` slot array;
+* a window makes the cache a ring of ``min(window, max_len)`` slots:
+  position t lives in slot ``t % size``;
+* ``kv_quant`` stores K/V as int8 with one fp32 scale per (b, t, head)
+  (``max|x| / 127``); decode dequantizes the whole cache to x's dtype
+  before attending, as the reference does.
 
-Not ported yet (ROADMAP.md, queue 1): the int8 cache (``kv_quant``),
-sliding-window attention and its ring cache (``window > 0`` raises),
-and the enc-dec cross-attention (``kv_x`` in the forward, and decode).
+Not ported yet (ROADMAP.md, queue 1): the enc-dec cross-attention (``kv_x``
+in the forward, and ``attn_decode_cross``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
@@ -140,29 +147,36 @@ def _attend(q, k, v, mask, cfg):
     return torch.einsum("bhst,bthk->bshk", probs, v)
 
 
-def _causal_mask(sq: int, skv: int, offset: int = 0,
+def _causal_mask(sq: int, skv: int, offset: int = 0, window: int = 0,
                  device=None) -> torch.Tensor:
-    """(1, 1, sq, skv) boolean; query i attends key j iff j <= i+offset."""
+    """(1, 1, sq, skv) boolean; query i attends key j iff
+    j <= i+offset and (window == 0 or j > i+offset-window)."""
     qi = torch.arange(sq, device=device)[:, None] + offset
     kj = torch.arange(skv, device=device)[None, :]
-    return (kj <= qi)[None, None]
+    m = kj <= qi
+    if window:
+        m = m & (kj > qi - window)
+    return m[None, None]
 
 
 # --------------------------------------------------------------------------
 # train / prefill forward
 # --------------------------------------------------------------------------
-def attn_forward(p: Attention, x, positions, cfg, *, window: int = 0):
-    """Causal self-attention over the sequence. Chunks queries when
+def attn_forward(p: Attention, x, positions, cfg, *, window: int = 0,
+                 kv_x=None):
+    """Causal self-attention over the sequence; ``window`` > 0 keeps the
+    last ``window`` keys of each query. Chunks queries when
     S > max(attn_chunk, 2048). → (out, (k, v))."""
-    if window:
-        raise _not_ported("sliding-window attention (window > 0)")
+    if kv_x is not None:
+        raise _not_ported("cross-attention (attn_forward with kv_x)")
     q = _project_q(p, x, positions, cfg)
     k, v = _project_kv(p, x, positions, cfg)
     sq, skv = q.shape[1], k.shape[1]
 
     chunk = cfg.attn_chunk
     if sq <= max(chunk, 2048):
-        out = _attend(q, k, v, _causal_mask(sq, skv, device=x.device), cfg)
+        out = _attend(q, k, v, _causal_mask(sq, skv, window=window,
+                                            device=x.device), cfg)
     else:
         # a loop over query chunks: the live scores buffer is (chunk, skv)
         if sq % chunk:
@@ -171,7 +185,7 @@ def attn_forward(p: Attention, x, positions, cfg, *, window: int = 0):
         outs = []
         for ci in range(sq // chunk):
             mask = _causal_mask(chunk, skv, offset=ci * chunk,
-                                device=x.device)
+                                window=window, device=x.device)
             outs.append(_attend(q[:, ci * chunk:(ci + 1) * chunk], k, v,
                                 mask, cfg))
         out = torch.cat(outs, dim=1)
@@ -184,44 +198,88 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# caches
+# caches (optionally int8: per-(b, t, head) symmetric scales, dequantized
+# at read)
 # --------------------------------------------------------------------------
+def _quantize_kv(x: torch.Tensor):
+    """x: (B, S, K, hd) → (int8 values, fp32 scales (B, S, K)): the scale
+    is max|x| / 127 floored at 1e-8 / 127, the values rounded half to even
+    and clipped to ±127."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1), 1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 @dataclasses.dataclass
 class AttnCache:
-    """k, v: (B, size, K, hd) in the compute dtype; pos: (size,) int32, the
-    global position held in each slot (-1 = empty)."""
+    """k, v: (B, size, K, hd) in the compute dtype, or int8 with fp32
+    scales ``k_scale``/``v_scale`` (B, size, K) under ``kv_quant``; pos:
+    (size,) int32, the global position held in each slot (-1 = empty). A
+    ring (``local`` blocks) holds position t in slot t % size."""
     k: torch.Tensor
     v: torch.Tensor
     pos: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
 
 def init_attn_cache(cfg, batch: int, max_len: int, window: int = 0,
                     device=None) -> AttnCache:
-    if cfg.kv_quant:
-        raise _not_ported("the int8 KV cache (kv_quant=True)")
-    if window:
-        raise _not_ported("the ring cache of sliding-window attention")
+    """window > 0 → a ring of min(window, max_len) slots."""
     dev = resolve_device(device)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    size = min(window, max_len) if window else max_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
+    pos = torch.full((size,), -1, dtype=torch.int32, device=dev)
+    if cfg.kv_quant:
+        return AttnCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=dev),
+            v=torch.zeros(shape, dtype=torch.int8, device=dev), pos=pos,
+            k_scale=torch.zeros(shape[:3], dtype=torch.float32, device=dev),
+            v_scale=torch.zeros(shape[:3], dtype=torch.float32, device=dev))
     dt = cfg.dtype("compute")
     return AttnCache(k=torch.zeros(shape, dtype=dt, device=dev),
-                     v=torch.zeros(shape, dtype=dt, device=dev),
-                     pos=torch.full((max_len,), -1, dtype=torch.int32,
-                                    device=dev))
+                     v=torch.zeros(shape, dtype=dt, device=dev), pos=pos)
+
+
+def _store(cache: AttnCache, slots, k: torch.Tensor, v: torch.Tensor,
+           positions: torch.Tensor) -> None:
+    """Write K/V (B, n, K, hd) into ``slots`` (a slice or n indices) of the
+    cache in place, quantized when the cache is int8."""
+    if cache.quantized:
+        k, cache.k_scale[:, slots] = _quantize_kv(k)
+        v, cache.v_scale[:, slots] = _quantize_kv(v)
+    cache.k[:, slots] = k
+    cache.v[:, slots] = v
+    cache.pos[slots] = positions
 
 
 def fill_cache_from_prefill(cache: AttnCache, k: torch.Tensor,
                             v: torch.Tensor, window: int = 0) -> AttnCache:
-    """Store prefill K/V in slots [0, S) of the cache, in place."""
-    if window:
-        raise _not_ported("the ring cache of sliding-window attention")
+    """Store prefill K/V in the cache, in place: slots [0, S), or, for a
+    ring shorter than the prompt, the last ``size`` positions at
+    ``pos % size`` (each slot written once: the reference's write in
+    ``argsort`` order leaves the same slot → position map)."""
     s = k.shape[1]
-    if s > cache.k.shape[1]:
+    size = cache.k.shape[1]
+    if window and s > size:
+        pos = torch.arange(s - size, s, dtype=torch.int32, device=k.device)
+        _store(cache, (pos % size).long(), k[:, -size:], v[:, -size:], pos)
+        return cache
+    if s > size:
         raise ValueError(f"prompt of {s} tokens exceeds the cache's "
-                         f"{cache.k.shape[1]} slots")
-    cache.k[:, :s] = k
-    cache.v[:, :s] = v
-    cache.pos[:s] = torch.arange(s, dtype=torch.int32, device=k.device)
+                         f"{size} slots")
+    _store(cache, slice(0, s), k, v,
+           torch.arange(s, dtype=torch.int32, device=k.device))
     return cache
 
 
@@ -231,21 +289,27 @@ def fill_cache_from_prefill(cache: AttnCache, k: torch.Tensor,
 def attn_decode(p: Attention, x, cache: AttnCache, pos: int, cfg, *,
                 window: int = 0):
     """x: (B, 1, D); pos: host int, the new token's position. Writes its
-    K/V into slot ``pos`` in place. → (out (B,1,D), cache)."""
-    if window:
-        raise _not_ported("sliding-window decode (the ring cache)")
-    if not 0 <= pos < cache.k.shape[1]:
+    K/V into slot ``pos`` (``pos % size`` for a ring) in place.
+    → (out (B,1,D), cache)."""
+    size = cache.k.shape[1]
+    if pos < 0 or (not window and pos >= size):
         raise ValueError(f"position {pos} is outside the cache's "
-                         f"{cache.k.shape[1]} slots")
+                         f"{size} slots")
+    slot = pos % size if window else pos
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
     q = _project_q(p, x, positions, cfg)
     k_new, v_new = _project_kv(p, x, positions, cfg)
-    cache.k[:, pos] = k_new[:, 0]
-    cache.v[:, pos] = v_new[:, 0]
-    cache.pos[pos] = pos
+    _store(cache, slice(slot, slot + 1), k_new, v_new, pos)
+    if cache.quantized:
+        k = _dequantize_kv(cache.k, cache.k_scale, x.dtype)
+        v = _dequantize_kv(cache.v, cache.v_scale, x.dtype)
+    else:
+        k, v = cache.k, cache.v
     valid = (cache.pos >= 0) & (cache.pos <= pos)
-    out = _attend(q, cache.k, cache.v, valid[None, None, None, :], cfg)
+    if window:
+        valid = valid & (cache.pos > pos - window)
+    out = _attend(q, k, v, valid[None, None, None, :], cfg)
     return _out_proj(out, p.wo), cache
 
 

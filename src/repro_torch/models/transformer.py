@@ -1,4 +1,5 @@
-"""Decoder-only transformer for the dense archs (``attn`` blocks).
+"""Decoder-only transformer: ``attn``, ``local`` and ``moe`` blocks, and the
+vision frontend.
 
 The counterpart of ``repro/models/transformer.py``. Where the reference
 stacks each pattern position's params (n_periods, ...) for ``lax.scan`` and
@@ -22,9 +23,14 @@ Three entry points with the reference's signatures, ``params`` being the
   prefill        — forward + cache construction (inference)
   decode_step    — one token through all layers against the cache
 
-Only ``attn`` blocks are ported; ``local``, ``moe``, ``rec`` and ``ssd``
-blocks, enc-dec and the vision frontend raise ``NotImplementedError``
-(ROADMAP.md, queue 1). ``init_params`` draws from an explicit
+``local`` blocks attend within ``cfg.window`` and keep a ring cache;
+``moe`` blocks replace the MLP with ``models/moe.py``'s FFN, whose
+load-balance loss ``forward_train`` sums over the layers. A vision model
+(``cfg.frontend == "vision"``) projects ``extra_embeds`` (B, n_patches,
+frontend_dim) through ``frontend.proj`` and puts them before the token
+embeddings; only the tokens are scaled by √d. ``rec`` and ``ssd`` blocks
+and enc-dec models raise ``NotImplementedError`` (ROADMAP.md, queue 1).
+``init_params`` draws from an explicit
 ``torch.Generator`` on the parameters' device: not key-compatible with JAX
 (the parity tests load the reference's weights through
 ``repro_torch.convert.lm_params_from_reference``).
@@ -42,9 +48,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import MLP, Embedding, embed_tokens, init_norm
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.layers import (MLP, Embedding, draw_normal,
+                                       embed_tokens, init_norm, param)
 
-PORTED_BLOCKS = ("attn",)
+PORTED_BLOCKS = ("attn", "local", "moe")
 
 
 def _check_block(btype: str) -> None:
@@ -58,7 +66,8 @@ def _check_block(btype: str) -> None:
 # the block module and its forward / prefill / decode
 # --------------------------------------------------------------------------
 class Block(nn.Module):
-    """ln1 → attention → residual, ln2 → MLP → residual."""
+    """ln1 → attention → residual, ln2 → MLP (``moe``: the MoE FFN) →
+    residual."""
 
     def __init__(self, cfg, btype: str = "attn", device=None):
         super().__init__()
@@ -69,64 +78,99 @@ class Block(nn.Module):
         self.ln1 = init_norm(cfg, d, device)
         self.attn = attn_mod.Attention(cfg, device)
         self.ln2 = init_norm(cfg, d, device)
-        self.mlp = MLP(cfg, d, cfg.d_ff, device)
+        if btype == "moe":
+            self.moe = moe_mod.MoE(cfg, device)
+        else:
+            self.mlp = MLP(cfg, d, cfg.d_ff, device)
 
     def forward(self, x, positions):
         return block_forward(self, x, positions, self.cfg, self.btype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.attn.reset_parameters(generator)
-        self.mlp.reset_parameters(generator)
+        (self.moe if self.btype == "moe" else self.mlp).reset_parameters(
+            generator)
+
+
+def _window(cfg, btype: str) -> int:
+    return cfg.window if btype == "local" else 0
+
+
+def _ffn(p: Block, x, cfg, btype: str):
+    """ln2 → MLP or MoE → (h, aux_loss)."""
+    if btype == "moe":
+        return moe_mod.moe_ffn(p.moe, p.ln2(x), cfg)
+    return p.mlp(p.ln2(x)), torch.zeros((), dtype=torch.float32,
+                                        device=x.device)
 
 
 def block_forward(p: Block, x, positions, cfg, btype: str):
     """→ (x, aux_loss)."""
     _check_block(btype)
-    h, _ = attn_mod.attn_forward(p.attn, p.ln1(x), positions, cfg)
+    h, _ = attn_mod.attn_forward(p.attn, p.ln1(x), positions, cfg,
+                                 window=_window(cfg, btype))
     x = x + h
-    x = x + p.mlp(p.ln2(x))
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    h, aux = _ffn(p, x, cfg, btype)
+    return x + h, aux
 
 
 def init_block_cache(cfg, btype: str, batch: int, max_len: int,
                      device=None) -> attn_mod.AttnCache:
     _check_block(btype)
-    return attn_mod.init_attn_cache(cfg, batch, max_len, device=device)
+    return attn_mod.init_attn_cache(cfg, batch, max_len,
+                                    window=_window(cfg, btype), device=device)
 
 
 def block_prefill(p: Block, x, positions, cfg, btype: str, max_len: int):
     """→ (x, cache). Like forward but keeps the inference cache."""
     _check_block(btype)
-    h, (k, v) = attn_mod.attn_forward(p.attn, p.ln1(x), positions, cfg)
+    window = _window(cfg, btype)
+    h, (k, v) = attn_mod.attn_forward(p.attn, p.ln1(x), positions, cfg,
+                                      window=window)
     x = x + h
-    cache = attn_mod.init_attn_cache(cfg, x.shape[0], max_len,
+    cache = attn_mod.init_attn_cache(cfg, x.shape[0], max_len, window=window,
                                      device=x.device)
-    cache = attn_mod.fill_cache_from_prefill(cache, k, v)
-    return x + p.mlp(p.ln2(x)), cache
+    cache = attn_mod.fill_cache_from_prefill(cache, k, v, window=window)
+    return x + _ffn(p, x, cfg, btype)[0], cache
 
 
 def block_decode(p: Block, x, cache, pos: int, cfg, btype: str):
     """→ (x, cache). x: (B, 1, D); the cache is updated in place."""
     _check_block(btype)
-    h, cache = attn_mod.attn_decode(p.attn, p.ln1(x), cache, pos, cfg)
+    h, cache = attn_mod.attn_decode(p.attn, p.ln1(x), cache, pos, cfg,
+                                    window=_window(cfg, btype))
     x = x + h
-    return x + p.mlp(p.ln2(x)), cache
+    return x + _ffn(p, x, cfg, btype)[0], cache
 
 
 # --------------------------------------------------------------------------
 # the stack
 # --------------------------------------------------------------------------
+class Frontend(nn.Module):
+    """The vision frontend stub: ``proj`` (frontend_dim, d_model) folds
+    precomputed patch embeddings into the model's width."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.proj = param((cfg.frontend_dim, cfg.d_model), cfg.dtype(),
+                          device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        draw_normal(self.proj, self.proj.shape[0] ** -0.5, generator)
+
+
 class Transformer(nn.Module):
-    """embed → blocks (one a layer) → final_norm. Parameters are left
-    uninitialised (norms and biases at their init values): ``init_params``
-    draws them, ``load_state_dict`` fills them. ``device="meta"`` builds
-    shapes and dtypes only (``runtime.train.abstract_train_state``)."""
+    """embed → blocks (one a layer) → final_norm, and ``frontend`` for a
+    vision model. Parameters are left uninitialised (norms and biases at
+    their init values): ``init_params`` draws them, ``load_state_dict``
+    fills them. ``device="meta"`` builds shapes and dtypes only
+    (``runtime.train.abstract_train_state``)."""
 
     def __init__(self, cfg, device: DeviceLike = None):
         super().__init__()
-        if cfg.is_encdec or cfg.frontend != "none":
+        if cfg.is_encdec or cfg.frontend not in ("none", "vision"):
             raise NotImplementedError(
-                "enc-dec models and modality frontends are not ported to "
+                "enc-dec models and the audio frontend are not ported to "
                 "repro_torch yet (ROADMAP.md, queue 1)")
         dev = (torch.device("meta") if str(device) == "meta"
                else resolve_device(device))
@@ -135,21 +179,26 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg, t, dev)
                                     for t in cfg.layer_types())
         self.final_norm = init_norm(cfg, cfg.d_model, dev)
+        if cfg.frontend == "vision":
+            self.frontend = Frontend(cfg, dev)
 
-    def forward(self, tokens):
-        return forward_train(self, tokens, self.cfg)
+    def forward(self, tokens, extra_embeds=None):
+        return forward_train(self, tokens, self.cfg, extra_embeds)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.embed.reset_parameters(generator)
         for block in self.blocks:
             block.reset_parameters(generator)
+        if self.cfg.frontend == "vision":
+            self.frontend.reset_parameters(generator)
 
 
 def init_params(cfg, generator: torch.Generator,
                 device: DeviceLike = None) -> Transformer:
     """The full model with weights drawn at the reference's init scales
-    (``layers.py``, ``attention.py``): the embedding, then each layer's
-    attention and MLP in order, from ``generator``, which must lie on
+    (``layers.py``, ``attention.py``, ``moe.py``): the embedding, then each
+    layer's attention and MLP or MoE in order, then the frontend's
+    projection, from ``generator``, which must lie on
     ``device`` (the card unless the CPU is asked for)."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
@@ -168,14 +217,23 @@ class LMCache:
     pos: int
 
 
-def _embed_inputs(params: Transformer, tokens, cfg):
+def _embed_inputs(params: Transformer, tokens, cfg, extra_embeds=None):
     x = embed_tokens(params.embed, tokens, cfg)
     # the scale rounded to x's dtype before the multiply, as the reference's
     # jnp.asarray(d ** 0.5, x.dtype); the product of two bf16 values is exact
     # in the fp32 torch computes it in, so it is rounded once, as there
     scale = torch.tensor(cfg.d_model ** 0.5, dtype=torch.float64).to(
         x.dtype).item()
-    return x * scale
+    x = x * scale
+    if cfg.frontend != "none" and extra_embeds is not None:
+        # the patches in the compute dtype through the projection, unscaled,
+        # before the tokens
+        proj = params.frontend.proj
+        e = torch.as_tensor(extra_embeds, device=x.device).to(
+            cfg.dtype("compute"))
+        dt = torch.promote_types(e.dtype, proj.dtype)
+        x = torch.cat([(e.to(dt) @ proj.to(dt)).to(x.dtype), x], dim=1)
+    return x
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -207,12 +265,11 @@ def _remat(fn, cfg):
 
 
 def forward_train(params: Transformer, tokens, cfg, extra_embeds=None):
-    """→ (hidden (B,S,D), aux_loss). The layers of the reference's scan
-    (whole pattern periods) are rematerialised as ``cfg.remat`` says; the
-    remainder layers, the embedding and the final norm are not, as there."""
-    if extra_embeds is not None:
-        raise NotImplementedError("modality frontends are not ported yet")
-    x = _embed_inputs(params, tokens, cfg)
+    """→ (hidden (B,S,D), aux_loss), S counting the patches of a vision
+    model. The layers of the reference's scan (whole pattern periods) are
+    rematerialised as ``cfg.remat`` says; the remainder layers, the
+    embedding and the final norm are not, as there."""
+    x = _embed_inputs(params, tokens, cfg, extra_embeds)
     positions = _positions(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     scanned = cfg.n_layers - cfg.n_layers % len(cfg.pattern)
@@ -227,10 +284,9 @@ def forward_train(params: Transformer, tokens, cfg, extra_embeds=None):
 @torch.no_grad()
 def prefill(params: Transformer, tokens, cfg, extra_embeds=None,
             max_len: Optional[int] = None):
-    """→ (hidden, cache). max_len: cache capacity (≥ prompt length)."""
-    if extra_embeds is not None:
-        raise NotImplementedError("modality frontends are not ported yet")
-    x = _embed_inputs(params, tokens, cfg)
+    """→ (hidden, cache). max_len: cache capacity (≥ prompt length, the
+    patches of a vision model included)."""
+    x = _embed_inputs(params, tokens, cfg, extra_embeds)
     max_len = max_len or x.shape[1]
     positions = _positions(x)
     caches = []

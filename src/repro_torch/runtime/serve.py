@@ -8,8 +8,10 @@ logits; decode updates the cache in place (the reference's jitted decode
 donates it) and returns it.
 
 The builders resolve the device once: the card unless ``device="cpu"``,
-raising when there is no card. Enc-dec and vision models are refused where
-the model is built (``Transformer``). The sharded ``make_prefill_step`` and
+raising when there is no card. A vision model's prefill takes the patch
+embeddings as ``batch["patches"]`` (B, n_patches, frontend_dim). Enc-dec
+models are refused where the model is built (``Transformer``). The sharded
+``make_prefill_step`` and
 ``make_decode_step`` (a mesh and its shardings) wait for the distributed
 slice (ROADMAP.md, queue 1).
 """
@@ -23,13 +25,14 @@ from repro_torch.models import transformer as tf_mod
 from repro_torch.models.layers import lm_logits
 
 
-def _on(params: tf_mod.Transformer, dev: torch.device, tokens):
-    """The tokens as integers on ``dev``; raise unless the model lies there."""
+def _on(params: tf_mod.Transformer, dev: torch.device, array):
+    """The tokens (or patches) as a tensor on ``dev``; raise unless the
+    model lies there."""
     where = params.embed.table.device
     if where.type != dev.type:
         raise ValueError(f"the model lies on {where}, the step was built "
                          f"for {dev}")
-    return torch.as_tensor(tokens, device=where)
+    return torch.as_tensor(array, device=where)
 
 
 def build_prefill_fn(cfg, max_len: int, device: DeviceLike = None):
@@ -38,7 +41,10 @@ def build_prefill_fn(cfg, max_len: int, device: DeviceLike = None):
     @torch.no_grad()
     def prefill_step(params, batch):
         tokens = _on(params, dev, batch["tokens"])
-        hidden, cache = tf_mod.prefill(params, tokens, cfg, max_len=max_len)
+        patches = (_on(params, dev, batch["patches"])
+                   if cfg.frontend == "vision" else None)
+        hidden, cache = tf_mod.prefill(params, tokens, cfg,
+                                       extra_embeds=patches, max_len=max_len)
         # only the last position's logits are needed to start decoding
         return lm_logits(params.embed, hidden[:, -1:], cfg), cache
 

@@ -41,9 +41,12 @@ def _on(v, device: torch.device) -> torch.Tensor:
 
 
 def _loss_fn(params: Transformer, batch: dict, cfg):
-    """→ (loss + aux term, loss) over one microbatch. Enc-dec and vision
-    models are refused where the model is built (``Transformer``)."""
-    hidden, aux = forward_train(params, batch["tokens"], cfg)
+    """→ (loss + aux term, loss) over one microbatch; the aux term is the
+    MoE layers' load-balance loss. A vision model takes ``batch["patches"]``
+    and its loss is on the text positions. Enc-dec models are refused where
+    the model is built (``Transformer``)."""
+    patches = batch["patches"] if cfg.frontend == "vision" else None
+    hidden, aux = forward_train(params, batch["tokens"], cfg, patches)
     loss = lm_loss(params.embed, hidden, batch["targets"], cfg)
     return loss + _AUX_WEIGHT * aux, loss
 
@@ -53,7 +56,8 @@ def decayed_leaves(params: Transformer, cfg) -> set[str]:
     leaves of one dimension, but it sees each scanned layer's parameters
     stacked (n_periods, ...), so only the final norm and the remainder
     layers' 1-D leaves are skipped: the scanned blocks' norm scales and
-    biases are decayed too (ROADMAP.md, queue 3)."""
+    biases are decayed too (ROADMAP.md, queue 3). The MoE routers (fp32),
+    experts (3-D) and the frontend's projection are decayed, as there."""
     scanned = cfg.n_layers - cfg.n_layers % len(cfg.pattern)
     out = set()
     for name, p in params.named_parameters():
@@ -67,7 +71,8 @@ def build_train_step_fn(cfg, opt: AdamWConfig, rules=None,
                         device: DeviceLike = None):
     """Returns ``train_step(params, opt_state, batch) → (params, opt_state,
     metrics)``: ``params`` the ``Transformer``, ``batch`` a dict of
-    ``"tokens"`` and ``"targets"`` (B, S) integers, metrics ``loss``,
+    ``"tokens"`` and ``"targets"`` (B, S) integers (and ``"patches"``
+    (B, n_patches, frontend_dim) for a vision model), metrics ``loss``,
     ``lr`` and ``grad_norm`` (0-d fp32 tensors on the device)."""
     if rules is not None:
         raise NotImplementedError(

@@ -31,7 +31,17 @@ fp32 dw partials are summed in another order), in bf16 within 2 bf16 units
 in the last place, and two launches bitwise equal; through autograd on the
 card, x's and w's gradients are the kernel's. Three smoke train steps, card
 against CPU from the same state (a resumed run's moments): losses at rtol
-1e-5, parameters and moments at rtol 1e-5 / atol 1e-5·max(scale, 1).
+1e-5, parameters and moments at rtol 1e-5 / atol 1e-5·max(scale, 1). The
+MoE FFN at the smoke widths in fp32, card against CPU: the routing (each
+pair's expert, slot and keep) equal, y and aux to rtol 1e-5 / atol 1e-5;
+the int8 ring cache: int8 values within 1 unit (K/V differ by rounding, so
+a value at a half step may round the other way), scales to rtol 1e-6, slot
+positions equal, outputs to 1e-4 (a unit's flip moves a product by a
+quantization step, ~1e-3 of the values); one smoke decode step of
+granite-moe and phi-3-vision launches ``rmsnorm`` exactly 2·layers + 1
+times. fp32 products against fp64 within 1e-5 of the largest (TF32 stays
+off); granite-moe's MoE layer at full width in fp32, a token alone
+against its chunk of 528: the same experts, y within 1e-5·max(scale, 1).
 """
 
 import dataclasses
@@ -87,7 +97,10 @@ from repro_torch.kernels.rmsnorm_ref import (bf16_ulp_distance,
                                              rmsnorm_plain)
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.train import build_train_step_fn, init_train_state
-from repro_torch.models.transformer import Transformer, init_params
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.transformer import (Transformer, decode_step,
+                                            init_params, prefill)
 from repro_torch.runtime.serve import build_decode_fn, build_prefill_fn
 from repro_torch.kernels.symhollow_ops import is_symmetric_and_hollow_op
 from repro_torch.kernels.symhollow_ref import is_symmetric_and_hollow_ref
@@ -1231,3 +1244,128 @@ def test_a_cuda_tensor_on_a_cpu_mesh_is_refused(cuda):
     with pytest.raises(ValueError, match="cuda tensor on a cpu mesh"):
         check_device(SimpleNamespace(device_type="cpu"),
                      torch.zeros(2, device=cuda))
+
+
+@pytest.mark.parametrize("name,s,changes", [
+    ("granite-moe-1b-a400m", 48, {}),
+    ("granite-moe-1b-a400m", 16, {"capacity_factor": 0.5}),
+    ("grok-1-314b", 20, {})])
+def test_moe_card_matches_cpu(cuda, name, s, changes):
+    """The MoE FFN at the smoke widths in fp32: the card routes every pair
+    as the CPU does (a flip is reported as one), then y and aux agree."""
+    cfg = dataclasses.replace(get_arch(name, smoke=True), **changes)
+    cpu = moe_mod.MoE(cfg, "cpu")
+    cpu.reset_parameters(torch.Generator().manual_seed(1))
+    card = moe_mod.MoE(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, s, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2))
+    chunk = cfg.moe_chunk if s % cfg.moe_chunk == 0 else s
+    for i in range(0, s, chunk):
+        got = moe_mod.route(card, x[:, i:i + chunk].to(cuda), cfg)
+        want = moe_mod.route(cpu, x[:, i:i + chunk], cfg)
+        for j, what in ((1, "expert"), (3, "slot"), (4, "keep")):
+            flips = int((got[j].cpu() != want[j]).sum())
+            assert flips == 0, f"chunk {i // chunk}: {flips} {what} flips"
+    with torch.no_grad():
+        y, aux = moe_mod.moe_ffn(card, x.to(cuda), cfg)
+        want_y, want_aux = moe_mod.moe_ffn(cpu, x, cfg)
+    torch.testing.assert_close(y.cpu(), want_y, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)
+
+
+def test_int8_ring_cache_card_matches_cpu(cuda):
+    """A ring of 4 slots holding int8 K/V: a prefill of 10 positions and 6
+    decode steps through one attention layer, card against CPU."""
+    cfg = dataclasses.replace(get_arch("qwen3-8b", smoke=True),
+                              kv_quant=True)
+    window = 4
+    cpu = attn_mod.Attention(cfg, "cpu")
+    cpu.reset_parameters(torch.Generator().manual_seed(3))
+    card = attn_mod.Attention(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 16, cfg.d_model),
+                    generator=torch.Generator().manual_seed(4))
+    pos = torch.arange(10, dtype=torch.int32).expand(2, 10)
+    caches, outs = {}, {}
+    with torch.no_grad():
+        for dev, p in ((torch.device("cpu"), cpu), (cuda, card)):
+            xd = x.to(dev)
+            _, (k, v) = attn_mod.attn_forward(p, xd[:, :10], pos.to(dev),
+                                              cfg, window=window)
+            cache = attn_mod.fill_cache_from_prefill(
+                attn_mod.init_attn_cache(cfg, 2, 16, window=window,
+                                         device=dev), k, v, window=window)
+            steps = []
+            for t in range(10, 16):
+                out, cache = attn_mod.attn_decode(p, xd[:, t:t + 1], cache, t,
+                                                  cfg, window=window)
+                steps.append(out.cpu())
+            caches[dev.type], outs[dev.type] = cache, torch.cat(steps, dim=1)
+    got, want = caches[cuda.type], caches["cpu"]
+    assert torch.equal(got.pos.cpu(), want.pos)
+    assert sorted(want.pos.tolist()) == [12, 13, 14, 15]
+    for key in ("k", "v"):
+        diff = (getattr(got, key).cpu().int() - getattr(want, key).int())
+        assert int(diff.abs().max()) <= 1, key
+        torch.testing.assert_close(getattr(got, f"{key}_scale").cpu(),
+                                   getattr(want, f"{key}_scale"), rtol=1e-6,
+                                   atol=1e-12)
+    torch.testing.assert_close(outs[cuda.type], outs["cpu"], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m",
+                                  "phi-3-vision-4.2b"])
+def test_new_arch_decode_step_launches_rmsnorm_exactly(cuda, name):
+    """One smoke decode step on the card: two block norms a layer and the
+    final norm, each one ``rmsnorm`` launch (no qk-norm in either)."""
+    cfg = get_arch(name, smoke=True)
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(5),
+                        cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 9), device=cuda)
+    extra = (torch.randn((2, cfg.n_patches, cfg.frontend_dim), device=cuda)
+             if cfg.frontend == "vision" else None)
+    _, cache = prefill(model, tokens[:, :8], cfg, extra, max_len=32)
+    _build.reset_launches()
+    hidden, cache = decode_step(model, tokens[:, 8:], cache, cfg)
+    torch.cuda.synchronize()
+    assert _build.launches["rmsnorm"] == 2 * cfg.n_layers + 1
+    assert bool(torch.isfinite(hidden).all())
+
+
+def test_fp32_products_are_ieee_on_the_card(cuda):
+    """``repro_torch`` keeps TF32 off: an fp32 ``mm`` and ``bmm`` on the
+    card (the MoE's expert products at granite-moe's widths) agree with
+    fp64 to fp32's rounding, where TF32 would miss by ~1e-3."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    a = torch.randn((8, 2048, 1024), generator=gen, device=cuda)
+    b = torch.randn((8, 1024, 512), generator=gen, device=cuda)
+    for got, want in ((torch.bmm(a, b), torch.bmm(a.double(), b.double())),
+                      (a[0] @ b[0], a[0].double() @ b[0].double())):
+        err = float((got.double() - want).abs().max() / want.abs().max())
+        assert err < 1e-5, err
+
+
+def test_moe_token_alone_matches_its_chunk_at_full_width(cuda):
+    """granite-moe's MoE layer at full width in fp32, dropless: a token run
+    alone (decode) and within a chunk of 528 (prefill) choose the same
+    experts and give the same output to fp32's rounding."""
+    cfg = get_arch("granite-moe-1b-a400m")
+    cfg = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32",
+                              capacity_factor=float(cfg.n_experts))
+    p = moe_mod.MoE(cfg, cuda)
+    p.reset_parameters(torch.Generator(device=cuda).manual_seed(7))
+    x = torch.randn((4, 528, cfg.d_model),
+                    generator=torch.Generator(device=cuda).manual_seed(8),
+                    device=cuda)
+    with torch.no_grad():
+        ids_all = moe_mod.route(p, x, cfg)[1][:, -1]
+        ids_one = moe_mod.route(p, x[:, -1:], cfg)[1][:, 0]
+        assert torch.equal(ids_all.sort(-1).values, ids_one.sort(-1).values)
+        y_all = moe_mod.moe_ffn(p, x, cfg)[0][:, -1]
+        y_one = moe_mod.moe_ffn(p, x[:, -1:], cfg)[0][:, 0]
+    scale = float(y_all.abs().max())
+    err = float((y_all - y_one).abs().max())
+    assert err <= 1e-5 * max(scale, 1.0), (err, scale)

@@ -65,3 +65,37 @@ def test_launcher_refuses_what_waits_for_a_mesh():
         ap.parse_args(["--arch", "llama3.2-3b", "--profile", "zero1"])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         train_launch.run(_args(arch="seamless-m4t-medium", steps=1))
+
+
+def test_vision_batches_carry_patches_keyed_by_step():
+    """A vision arch's batch holds (B, n_patches, frontend_dim) fp32
+    normals keyed by (seed + 2, step): the same step gives the same
+    patches, another step or seed others, and a dense arch none."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+
+    cfg = get_arch("phi-3-vision-4.2b", smoke=True)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=16, global_batch=4, seed=0)
+    a = train_launch.make_batch(pipe, cfg, 0, 3)
+    assert a["patches"].shape == (4, cfg.n_patches, cfg.frontend_dim)
+    assert a["patches"].dtype == np.float32
+    np.testing.assert_array_equal(
+        a["patches"], train_launch.make_batch(pipe, cfg, 0, 3)["patches"])
+    for seed, step in ((0, 4), (1, 3)):
+        assert not np.array_equal(
+            a["patches"],
+            train_launch.make_batch(pipe, cfg, seed, step)["patches"])
+    np.testing.assert_array_equal(a["tokens"], pipe.batch(3)["tokens"])
+    assert "patches" not in train_launch.make_batch(
+        pipe, get_arch("qwen3-8b", smoke=True), 0, 3)
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b",
+                                  "granite-moe-1b-a400m"])
+def test_new_archs_train_through_the_launcher(arch):
+    """The vision and MoE smokes train end to end: finite losses, and the
+    loss falls over 12 steps."""
+    res = train_launch.run(_args(arch=arch, steps=12, batch=4, seq=32,
+                                 lr="3e-3"))
+    assert np.isfinite(res["losses"]).all()
+    assert np.mean(res["losses"][-3:]) < np.mean(res["losses"][:3])

@@ -5,7 +5,11 @@ For each smoke config the reference's ``init_params`` draws the weights
 (its zero-initialised norm weights and QKV biases are then drawn non-zero
 with numpy, so each acts), ``convert.lm_params_from_reference`` carries
 them over, and both packages prefill the same prompts and decode the same
-six tokens.
+six tokens. The MoE archs run at their own capacity (the prefill drops
+pairs on both sides alike); phi-3-vision prefills random patch embeddings
+before the prompt; a ``local`` config (qwen3-8b's smoke with the pattern
+(attn, local) and a window of 4) evicts from its ring; and qwen3-8b's smoke
+serves from the int8 cache.
 
 Tolerances:
 * fp32: logits to rtol 1e-4 / atol 1e-4 (the same formulas; products
@@ -17,7 +21,9 @@ Tolerances:
   activations at other places; measured 0.0093 of the scale, correlation
   0.99995;
 * the port's decode against its own forward: rtol 2e-3 / atol 2e-3, the
-  reference's tolerance for its own (tests/test_models.py).
+  reference's tolerance for its own (tests/test_models.py), with the MoE
+  archs made dropless (``capacity_factor = n_experts``) as there: a
+  prefill drops pairs that a single decoded token never drops.
 """
 
 import dataclasses
@@ -37,7 +43,9 @@ from repro_torch.kernels import _build
 from repro_torch.models import transformer as tf
 from repro_torch.runtime.serve import build_decode_fn, build_prefill_fn
 
-ARCHS = ("qwen3-8b", "llama3.2-3b", "qwen1.5-4b")
+ARCHS = ("qwen3-8b", "llama3.2-3b", "qwen1.5-4b", "nemotron-4-340b",
+         "granite-moe-1b-a400m", "grok-1-314b", "phi-3-vision-4.2b")
+LOCAL = {"pattern": ("attn", "local"), "window": 4}   # qwen3-8b's smoke
 PROMPT, STEPS, MAX_LEN, BATCH = 8, 6, 16, 2
 BF16_ATOL = 0.05      # of max|logits|
 
@@ -70,6 +78,14 @@ def _port_model(cfg, params):
     return model
 
 
+def _patches(cfg, b, seed):
+    """A vision model's batch entry: random patch embeddings, else none."""
+    if cfg.frontend != "vision":
+        return {}
+    return {"patches": np.random.default_rng(seed).standard_normal(
+        (b, cfg.n_patches, cfg.frontend_dim)).astype(np.float32)}
+
+
 def _serve_both(name, **changes):
     """(port logits, reference logits): prefill then STEPS decode steps,
     each (BATCH, 1 + STEPS, vocab) as float32 numpy."""
@@ -78,20 +94,23 @@ def _serve_both(name, **changes):
     model = _port_model(cfg, params)
     tokens = np.random.default_rng(1).integers(
         0, cfg.vocab, (BATCH, PROMPT + STEPS)).astype(np.int32)
+    extra = _patches(cfg, BATCH, 2)
+    max_len = MAX_LEN + (cfg.n_patches if extra else 0)
 
-    prefill = build_prefill_fn(cfg, MAX_LEN, device="cpu")
+    prefill = build_prefill_fn(cfg, max_len, device="cpu")
     decode = build_decode_fn(cfg, device="cpu")
-    logits, cache = prefill(model, {"tokens": tokens[:, :PROMPT]})
+    logits, cache = prefill(model, {"tokens": tokens[:, :PROMPT], **extra})
     got = [logits]
     for t in range(PROMPT, PROMPT + STEPS):
         logits, cache = decode(model, tokens[:, t:t + 1], cache)
         got.append(logits)
-    assert cache.pos == PROMPT + STEPS
+    assert cache.pos == max_len - MAX_LEN + PROMPT + STEPS
 
-    ref_prefill = jax.jit(ref_serve.build_prefill_fn(rcfg, MAX_LEN))
+    ref_prefill = jax.jit(ref_serve.build_prefill_fn(rcfg, max_len))
     ref_decode = jax.jit(ref_serve.build_decode_fn(rcfg))
-    logits, cache = ref_prefill(params, {"tokens": jnp.asarray(
-        tokens[:, :PROMPT])})
+    logits, cache = ref_prefill(params, {
+        "tokens": jnp.asarray(tokens[:, :PROMPT]),
+        **{k: jnp.asarray(v) for k, v in extra.items()}})
     want = [logits]
     for t in range(PROMPT, PROMPT + STEPS):
         logits, cache = ref_decode(params, jnp.asarray(tokens[:, t:t + 1]),
@@ -110,6 +129,15 @@ def test_prefill_and_decode_match_reference_fp32(name):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("changes", [LOCAL, {"kv_quant": True}],
+                         ids=["local-window-4", "int8-cache"])
+def test_attention_variants_serve_as_the_reference(changes):
+    """qwen3-8b's smoke with local blocks whose ring the prompt overflows,
+    and with the int8 cache."""
+    got, want = _serve_both("qwen3-8b", **changes)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
 def test_prefill_and_decode_match_reference_bf16():
     got, want = _serve_both("qwen3-8b", param_dtype="bfloat16",
                             compute_dtype="bfloat16")
@@ -119,24 +147,29 @@ def test_prefill_and_decode_match_reference_bf16():
     assert np.corrcoef(got.ravel(), want.ravel())[0, 1] >= 0.999
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ARCHS + ("qwen3-8b local",))
 def test_port_decode_matches_its_forward(name):
-    cfg, _ = _cfgs(name)
+    cfg, _ = _cfgs(name.split()[0], **(LOCAL if "local" in name else {}))
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
     model = tf.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
     b, s, split = 2, 12, 6
     tokens = torch.randint(0, cfg.vocab, (b, s),
                            generator=torch.Generator().manual_seed(3))
+    extra = _patches(cfg, b, 4).get("patches")
+    p = cfg.n_patches if extra is not None else 0
     with torch.no_grad():
-        full, aux = tf.forward_train(model, tokens, cfg)
-        assert torch.equal(model(tokens)[0], full)
-    assert float(aux) == 0.0
-    hidden, cache = tf.prefill(model, tokens[:, :split], cfg, max_len=s)
-    torch.testing.assert_close(hidden, full[:, :split], rtol=2e-3,
+        full, aux = tf.forward_train(model, tokens, cfg, extra)
+        assert torch.equal(model(tokens, extra)[0], full)
+    assert (float(aux) > 0.0) == bool(cfg.n_experts)
+    hidden, cache = tf.prefill(model, tokens[:, :split], cfg, extra,
+                               max_len=p + s)
+    torch.testing.assert_close(hidden, full[:, :p + split], rtol=2e-3,
                                atol=2e-3)
     for t in range(split, s):
         h, cache = tf.decode_step(model, tokens[:, t:t + 1], cache, cfg)
-        torch.testing.assert_close(h[:, 0], full[:, t], rtol=2e-3, atol=2e-3,
-                                   msg=f"position {t}")
+        torch.testing.assert_close(h[:, 0], full[:, p + t], rtol=2e-3,
+                                   atol=2e-3, msg=f"position {t}")
 
 
 def test_decode_from_an_empty_cache_matches_prefill():
@@ -157,7 +190,7 @@ def test_param_count_matches_the_init_and_the_reference(name):
     model = tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     assert sum(p.numel() for p in model.parameters()) == cfg.param_count()
     # a block drawn alone holds what one layer of the model holds
-    block = tf.Block(cfg, "attn", "cpu")
+    block = tf.Block(cfg, cfg.pattern[0], "cpu")
     block.reset_parameters(torch.Generator().manual_seed(1))
     assert {k: v.shape for k, v in block.state_dict().items()} == \
         {k: v.shape for k, v in model.blocks[0].state_dict().items()}
@@ -170,6 +203,22 @@ def test_param_count_matches_the_init_and_the_reference(name):
     assert set(state) == set(model.state_dict())
     assert all(state[k].shape == v.shape
                for k, v in model.state_dict().items())
+
+
+@pytest.mark.parametrize("name,count", [
+    ("granite-moe-1b-a400m", 1_334_641_664),
+    ("phi-3-vision-4.2b", 3_824_225_280)])
+def test_served_archs_are_the_published_size(name, count):
+    """The two archs served at full width and depth on one card: their
+    parameter counts, built on the meta device, are the configs'."""
+    cfg = configs.get_arch(name)
+    model = tf.Transformer(cfg, "meta")
+    assert sum(p.numel() for p in model.parameters()) == \
+        cfg.param_count() == count
+    routers = [p for n, p in model.named_parameters()
+               if n.endswith("moe.router")]
+    assert all(p.dtype == torch.float32 for p in routers)
+    assert len(routers) == (cfg.n_layers if cfg.n_experts else 0)
 
 
 def test_qwen3_8b_is_the_published_size():
@@ -197,4 +246,4 @@ def test_cpu_serving_launches_nothing_and_checks_the_device(monkeypatch):
     with pytest.raises(ValueError, match="built for cuda"):
         build_prefill_fn(cfg, 8)(model, {"tokens": np.zeros((1, 4))})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tf.Block(cfg, "moe", "cpu")
+        tf.Block(cfg, "rec", "cpu")
