@@ -58,8 +58,15 @@ def _lm_leaves(tree_np: dict, cfg, dtype_of,
                 yield f"{prefix}{key}", value
 
     def named():
-        for top in ("embed", "final_norm", "frontend"):
+        for top in ("embed", "final_norm", "frontend", "enc_norm"):
             yield from leaves(tree_np.get(top, {}), f"{top}.")
+        if cfg.is_encdec:
+            for group, n in (("enc_blocks", cfg.n_enc_layers),
+                             ("dec_blocks", cfg.n_layers)):
+                for name, value in leaves(tree_np[group]):
+                    for i in range(n):
+                        yield f"{group}.{i}.{name}", value[i]
+            return
         for j, stacked in enumerate(tree_np["blocks"]):
             for name, value in leaves(stacked):
                 for i in range(n_full):
@@ -72,21 +79,30 @@ def _lm_leaves(tree_np: dict, cfg, dtype_of,
             for key, a in named()}
 
 
+#: the leaves that are fp32 whatever the param dtype, in both packages: the
+#: MoE routers, the SSD's Δ bias, A and skip, and the RG-LRU's Λ.
+FP32_LEAVES = ("moe.router", "ssd.dt_bias", "ssd.a_log", "ssd.d_skip",
+               "rec.lambda")
+
+
 def lm_params_from_reference(params_np: dict, cfg,
                              device: DeviceLike = None
                              ) -> dict[str, torch.Tensor]:
-    """The port's ``Transformer`` state_dict for the reference's
-    ``models/transformer.py::init_params`` pytree, taken as numpy
+    """The port's ``Transformer`` (or, for an enc-dec config, ``EncDec``)
+    state_dict for the reference's ``models/transformer.py::init_params``
+    (``models/encdec.py::init_params_encdec``) pytree, taken as numpy
     (``jax.tree.map(np.asarray, params)``).
 
     The reference stacks each pattern position's block params (n_full, ...)
     for its scan and keeps the remainder layers apart; layer
     ``i·period + j`` is row i of pattern position j, and remainder layer r
-    is layer ``n_full·period + r``. Each leaf becomes a tensor of the
-    config's param dtype (bf16 arrives as float32, exactly), but for the
-    MoE routers, which are fp32 whatever the param dtype, as there."""
+    is layer ``n_full·period + r`` (recurrentgemma-9b: 12 periods of (rec,
+    rec, local), then (rec, rec)). An enc-dec tree stacks every encoder and
+    every decoder layer; layer i is row i. Each leaf becomes a tensor of
+    the config's param dtype (bf16 arrives as float32, exactly), but for
+    ``FP32_LEAVES``, which are fp32 whatever the param dtype, as there."""
     def dtype_of(key: str) -> torch.dtype:
-        return torch.float32 if key.endswith("moe.router") else cfg.dtype()
+        return torch.float32 if key.endswith(FP32_LEAVES) else cfg.dtype()
     return _lm_leaves(params_np, cfg, dtype_of, resolve_device(device))
 
 

@@ -14,14 +14,15 @@ straight run's. Pin ``--decay-steps`` to the full horizon for such a run, so
 the schedule does not depend on where it stopped.
 
 A vision arch's batches carry random patch embeddings (``make_batch``)
-drawn from numpy keyed by ``(seed + 2, step)``: like the reference's
-``fold_in(PRNGKey(seed + 2), step)`` they depend on the step alone, but
-they are not its numbers.
+drawn from numpy keyed by ``(seed + 2, step)``, and an enc-dec arch's
+random audio frame embeddings keyed by ``(seed + 1, step)``: like the
+reference's ``fold_in(PRNGKey(seed + 2), step)`` and ``fold_in(PRNGKey(seed
++ 1), step)`` they depend on the step alone, but they are not its numbers
+(ROADMAP.md, queue 3).
 
 ``--mesh`` takes only ``host`` (one card) and ``--profile`` only its default:
 the sharded meshes and profiles wait for the LM on a mesh (ROADMAP.md, item
-13.4). Enc-dec archs raise ``NotImplementedError`` from ``get_arch``, as
-they are not ported.
+13.4).
 """
 
 from __future__ import annotations
@@ -72,14 +73,21 @@ def build_argparser():
 
 
 def make_batch(pipe: TokenPipeline, cfg, seed: int, step: int) -> dict:
-    """The pipeline's batch of ``step``, and for a vision arch ``"patches"``
-    (B, n_patches, frontend_dim) fp32 standard normals keyed by
-    ``(seed + 2, step)``."""
+    """The pipeline's batch of ``step``; for an enc-dec arch ``"frames"``
+    (B, max(S // enc_len_ratio, 1), frontend_dim) fp32 standard normals
+    keyed by ``(seed + 1, step)``, and for a vision arch ``"patches"``
+    (B, n_patches, frontend_dim) keyed by ``(seed + 2, step)``."""
     batch = pipe.batch(step)
+    b, s = np.shape(batch["tokens"])
+    if cfg.is_encdec:
+        rng = np.random.default_rng(np.random.SeedSequence([seed + 1, step]))
+        batch["frames"] = rng.standard_normal(
+            (b, max(s // cfg.enc_len_ratio, 1), cfg.frontend_dim),
+            dtype=np.float32)
     if cfg.frontend == "vision":
         rng = np.random.default_rng(np.random.SeedSequence([seed + 2, step]))
         batch["patches"] = rng.standard_normal(
-            (len(batch["tokens"]), cfg.n_patches, cfg.frontend_dim),
+            (b, cfg.n_patches, cfg.frontend_dim),
             dtype=np.float32)
     return batch
 

@@ -1,8 +1,7 @@
-"""Attention: GQA/MQA/MHA with RoPE, qk-norm, QKV bias, logit softcap and
-sliding windows.
+"""Attention: GQA/MQA/MHA with RoPE, qk-norm, QKV bias, logit softcap,
+sliding windows and cross-attention.
 
-The counterpart of ``repro/models/attention.py`` for the decoders' serving
-and training paths, computed as the reference computes it: products through
+The counterpart of ``repro/models/attention.py``, computed as the reference computes it: products through
 ``torch.einsum``/``matmul``, scores cast to fp32, masked scores set to
 ``_NEG_INF`` (not ``-inf``), an fp32 softmax, and the probabilities cast to
 q's dtype before the PV product. No fused attention library is called.
@@ -22,10 +21,11 @@ q's dtype before the PV product. No fused attention library is called.
   position t lives in slot ``t % size``;
 * ``kv_quant`` stores K/V as int8 with one fp32 scale per (b, t, head)
   (``max|x| / 127``); decode dequantizes the whole cache to x's dtype
-  before attending, as the reference does.
-
-Not ported yet (ROADMAP.md, queue 1): the enc-dec cross-attention (``kv_x``
-in the forward, and ``attn_decode_cross``).
+  before attending, as the reference does;
+* cross-attention (the enc-dec decoder): ``attn_forward(..., kv_x=)`` takes
+  K/V from ``kv_x``, and ``attn_decode_cross`` attends to K/V computed
+  once at prefill. Where positions are ``None`` no rope is applied, and
+  ``causal=False`` (the encoder, the cross-attention) masks nothing.
 """
 
 from __future__ import annotations
@@ -41,11 +41,6 @@ from repro_torch.kernels.rmsnorm_ops import rmsnorm_op
 from repro_torch.models.layers import apply_rope, draw_normal, param
 
 _NEG_INF = -1e30
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1)")
 
 
 # --------------------------------------------------------------------------
@@ -98,6 +93,8 @@ def _project_q(p: Attention, x, positions, cfg):
         q = q + p.bq
     if cfg.qk_norm:
         q = rmsnorm_op(q, p.q_norm)
+    if positions is None:               # cross-attention queries: no rope
+        return q
     return apply_rope(q, positions, cfg.rope_theta)
 
 
@@ -109,6 +106,8 @@ def _project_kv(p: Attention, x, positions, cfg):
         v = v + p.bv
     if cfg.qk_norm:
         k = rmsnorm_op(k, p.k_norm)
+    if positions is None:               # cross-attention keys: no rope
+        return k, v
     return apply_rope(k, positions, cfg.rope_theta), v
 
 
@@ -162,21 +161,25 @@ def _causal_mask(sq: int, skv: int, offset: int = 0, window: int = 0,
 # --------------------------------------------------------------------------
 # train / prefill forward
 # --------------------------------------------------------------------------
-def attn_forward(p: Attention, x, positions, cfg, *, window: int = 0,
-                 kv_x=None):
-    """Causal self-attention over the sequence; ``window`` > 0 keeps the
-    last ``window`` keys of each query. Chunks queries when
-    S > max(attn_chunk, 2048). → (out, (k, v))."""
-    if kv_x is not None:
-        raise _not_ported("cross-attention (attn_forward with kv_x)")
+def attn_forward(p: Attention, x, positions, cfg, *, causal: bool = True,
+                 window: int = 0, kv_x=None, kv_positions=None):
+    """Attention over the sequence: self-attention when ``kv_x`` is None,
+    else cross-attention to ``kv_x`` (at ``kv_positions``); ``causal``
+    masks future keys and ``window`` > 0 keeps the last ``window`` keys of
+    each query. Chunks queries when S > max(attn_chunk, 2048).
+    → (out, (k, v))."""
     q = _project_q(p, x, positions, cfg)
-    k, v = _project_kv(p, x, positions, cfg)
+    if kv_x is None:
+        k, v = _project_kv(p, x, positions, cfg)
+    else:
+        k, v = _project_kv(p, kv_x, kv_positions, cfg)
     sq, skv = q.shape[1], k.shape[1]
 
     chunk = cfg.attn_chunk
     if sq <= max(chunk, 2048):
-        out = _attend(q, k, v, _causal_mask(sq, skv, window=window,
-                                            device=x.device), cfg)
+        mask = (_causal_mask(sq, skv, window=window, device=x.device)
+                if causal else None)
+        out = _attend(q, k, v, mask, cfg)
     else:
         # a loop over query chunks: the live scores buffer is (chunk, skv)
         if sq % chunk:
@@ -184,8 +187,9 @@ def attn_forward(p: Attention, x, positions, cfg, *, window: int = 0,
                              f"attn_chunk {chunk}")
         outs = []
         for ci in range(sq // chunk):
-            mask = _causal_mask(chunk, skv, offset=ci * chunk,
-                                window=window, device=x.device)
+            mask = (_causal_mask(chunk, skv, offset=ci * chunk,
+                                 window=window, device=x.device)
+                    if causal else None)
             outs.append(_attend(q[:, ci * chunk:(ci + 1) * chunk], k, v,
                                 mask, cfg))
         out = torch.cat(outs, dim=1)
@@ -313,6 +317,9 @@ def attn_decode(p: Attention, x, cache: AttnCache, pos: int, cfg, *,
     return _out_proj(out, p.wo), cache
 
 
-def attn_decode_cross(p, x, cross_kv, cfg):
-    """Cross-attention decode (enc-dec): not ported yet."""
-    raise _not_ported("cross-attention decode (attn_decode_cross)")
+def attn_decode_cross(p: Attention, x, cross_kv, cfg):
+    """Cross-attention decode: x (B, 1, D) against the encoder's K/V
+    (B, S_enc, K, hd), computed once at prefill (no rope, no mask)."""
+    q = _project_q(p, x, None, cfg)
+    k, v = cross_kv
+    return _out_proj(_attend(q, k, v, None, cfg), p.wo)

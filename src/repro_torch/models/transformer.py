@@ -1,5 +1,5 @@
-"""Decoder-only transformer: ``attn``, ``local`` and ``moe`` blocks, and the
-vision frontend.
+"""Decoder-only transformer: ``attn``, ``local``, ``moe``, ``rec`` and ``ssd``
+blocks, and the vision frontend.
 
 The counterpart of ``repro/models/transformer.py``. Where the reference
 stacks each pattern position's params (n_periods, ...) for ``lax.scan`` and
@@ -25,12 +25,15 @@ Three entry points with the reference's signatures, ``params`` being the
 
 ``local`` blocks attend within ``cfg.window`` and keep a ring cache;
 ``moe`` blocks replace the MLP with ``models/moe.py``'s FFN, whose
-load-balance loss ``forward_train`` sums over the layers. A vision model
+load-balance loss ``forward_train`` sums over the layers; ``rec`` blocks
+(recurrentgemma) put the RG-LRU mixer of ``models/rglru.py`` where the
+attention is, and keep its conv inputs and state as their cache; ``ssd``
+blocks (mamba2) are one norm and the SSD mixer of ``models/ssd.py``, with
+no MLP. Every cache is updated in place by a decode step. A vision model
 (``cfg.frontend == "vision"``) projects ``extra_embeds`` (B, n_patches,
 frontend_dim) through ``frontend.proj`` and puts them before the token
-embeddings; only the tokens are scaled by √d. ``rec`` and ``ssd`` blocks
-and enc-dec models raise ``NotImplementedError`` (ROADMAP.md, queue 1).
-``init_params`` draws from an explicit
+embeddings; only the tokens are scaled by √d. Enc-dec models are
+``models/encdec.py``'s ``EncDec``. ``init_params`` draws from an explicit
 ``torch.Generator`` on the parameters' device: not key-compatible with JAX
 (the parity tests load the reference's weights through
 ``repro_torch.convert.lm_params_from_reference``).
@@ -49,24 +52,27 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rec_mod
+from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.layers import (MLP, Embedding, draw_normal,
                                        embed_tokens, init_norm, param)
 
-PORTED_BLOCKS = ("attn", "local", "moe")
+PORTED_BLOCKS = ("attn", "local", "moe", "rec", "ssd")
 
 
 def _check_block(btype: str) -> None:
     if btype not in PORTED_BLOCKS:
-        raise NotImplementedError(
-            f"{btype!r} blocks are not ported to repro_torch yet "
-            f"(ROADMAP.md, queue 1); ported: {PORTED_BLOCKS}")
+        raise ValueError(f"unknown block type {btype!r}; the block types "
+                         f"are {PORTED_BLOCKS}")
 
 
 # --------------------------------------------------------------------------
 # the block module and its forward / prefill / decode
 # --------------------------------------------------------------------------
 class Block(nn.Module):
-    """ln1 → attention → residual, ln2 → MLP (``moe``: the MoE FFN) →
+    """One layer. ``attn``/``local``/``moe``: ln1 → attention → residual,
+    ln2 → MLP (``moe``: the MoE FFN) → residual. ``rec``: ln1 → RG-LRU
+    mixer → residual, ln2 → MLP → residual. ``ssd``: ln → SSD mixer →
     residual."""
 
     def __init__(self, cfg, btype: str = "attn", device=None):
@@ -75,8 +81,15 @@ class Block(nn.Module):
         d = cfg.d_model
         self.cfg = cfg
         self.btype = btype
+        if btype == "ssd":
+            self.ln = init_norm(cfg, d, device)
+            self.ssd = ssd_mod.SSD(cfg, device)
+            return
         self.ln1 = init_norm(cfg, d, device)
-        self.attn = attn_mod.Attention(cfg, device)
+        if btype == "rec":
+            self.rec = rec_mod.Rec(cfg, device)
+        else:
+            self.attn = attn_mod.Attention(cfg, device)
         self.ln2 = init_norm(cfg, d, device)
         if btype == "moe":
             self.moe = moe_mod.MoE(cfg, device)
@@ -87,7 +100,11 @@ class Block(nn.Module):
         return block_forward(self, x, positions, self.cfg, self.btype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        self.attn.reset_parameters(generator)
+        if self.btype == "ssd":
+            self.ssd.reset_parameters(generator)
+            return
+        (self.rec if self.btype == "rec" else self.attn).reset_parameters(
+            generator)
         (self.moe if self.btype == "moe" else self.mlp).reset_parameters(
             generator)
 
@@ -100,23 +117,38 @@ def _ffn(p: Block, x, cfg, btype: str):
     """ln2 → MLP or MoE → (h, aux_loss)."""
     if btype == "moe":
         return moe_mod.moe_ffn(p.moe, p.ln2(x), cfg)
-    return p.mlp(p.ln2(x)), torch.zeros((), dtype=torch.float32,
-                                        device=x.device)
+    return p.mlp(p.ln2(x)), _zero(x)
+
+
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def block_forward(p: Block, x, positions, cfg, btype: str):
     """→ (x, aux_loss)."""
     _check_block(btype)
-    h, _ = attn_mod.attn_forward(p.attn, p.ln1(x), positions, cfg,
-                                 window=_window(cfg, btype))
+    if btype == "ssd":
+        h, _ = ssd_mod.ssd_forward(p.ssd, p.ln(x), cfg)
+        return x + h, _zero(x)
+    if btype == "rec":
+        h, _ = rec_mod.rec_forward(p.rec, p.ln1(x), cfg)
+    else:
+        h, _ = attn_mod.attn_forward(p.attn, p.ln1(x), positions, cfg,
+                                     window=_window(cfg, btype))
     x = x + h
     h, aux = _ffn(p, x, cfg, btype)
     return x + h, aux
 
 
 def init_block_cache(cfg, btype: str, batch: int, max_len: int,
-                     device=None) -> attn_mod.AttnCache:
+                     device=None):
+    """An empty cache of one layer: an ``AttnCache`` (a ring for ``local``),
+    a ``RecCache`` or an ``SSDCache``."""
     _check_block(btype)
+    if btype == "rec":
+        return rec_mod.init_rec_cache(cfg, batch, device)
+    if btype == "ssd":
+        return ssd_mod.init_ssd_cache(cfg, batch, device)
     return attn_mod.init_attn_cache(cfg, batch, max_len,
                                     window=_window(cfg, btype), device=device)
 
@@ -124,21 +156,34 @@ def init_block_cache(cfg, btype: str, batch: int, max_len: int,
 def block_prefill(p: Block, x, positions, cfg, btype: str, max_len: int):
     """→ (x, cache). Like forward but keeps the inference cache."""
     _check_block(btype)
-    window = _window(cfg, btype)
-    h, (k, v) = attn_mod.attn_forward(p.attn, p.ln1(x), positions, cfg,
-                                      window=window)
+    if btype == "ssd":
+        h, cache = ssd_mod.ssd_forward(p.ssd, p.ln(x), cfg)
+        return x + h, cache
+    if btype == "rec":
+        h, (conv, h_last) = rec_mod.rec_forward(p.rec, p.ln1(x), cfg)
+        cache = rec_mod.RecCache(conv=conv, h=h_last)
+    else:
+        window = _window(cfg, btype)
+        h, (k, v) = attn_mod.attn_forward(p.attn, p.ln1(x), positions, cfg,
+                                          window=window)
+        cache = attn_mod.init_attn_cache(cfg, x.shape[0], max_len,
+                                         window=window, device=x.device)
+        cache = attn_mod.fill_cache_from_prefill(cache, k, v, window=window)
     x = x + h
-    cache = attn_mod.init_attn_cache(cfg, x.shape[0], max_len, window=window,
-                                     device=x.device)
-    cache = attn_mod.fill_cache_from_prefill(cache, k, v, window=window)
     return x + _ffn(p, x, cfg, btype)[0], cache
 
 
 def block_decode(p: Block, x, cache, pos: int, cfg, btype: str):
     """→ (x, cache). x: (B, 1, D); the cache is updated in place."""
     _check_block(btype)
-    h, cache = attn_mod.attn_decode(p.attn, p.ln1(x), cache, pos, cfg,
-                                    window=_window(cfg, btype))
+    if btype == "ssd":
+        h, cache = ssd_mod.ssd_decode(p.ssd, p.ln(x), cache, cfg)
+        return x + h, cache
+    if btype == "rec":
+        h, cache = rec_mod.rec_decode(p.rec, p.ln1(x), cache, cfg)
+    else:
+        h, cache = attn_mod.attn_decode(p.attn, p.ln1(x), cache, pos, cfg,
+                                        window=_window(cfg, btype))
     x = x + h
     return x + _ffn(p, x, cfg, btype)[0], cache
 
@@ -147,13 +192,23 @@ def block_decode(p: Block, x, cache, pos: int, cfg, btype: str):
 # the stack
 # --------------------------------------------------------------------------
 class Frontend(nn.Module):
-    """The vision frontend stub: ``proj`` (frontend_dim, d_model) folds
-    precomputed patch embeddings into the model's width."""
+    """The modality frontend stub: ``proj`` (frontend_dim, d_model) folds
+    precomputed patch (vision) or frame (audio) embeddings into the model's
+    width."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
         self.proj = param((cfg.frontend_dim, cfg.d_model), cfg.dtype(),
                           device)
+
+    def forward(self, embeds, cfg) -> torch.Tensor:
+        """(B, P, frontend_dim) embeddings in the compute dtype through
+        ``proj``, in the dtype the two promote to (the reference's
+        einsum)."""
+        e = torch.as_tensor(embeds, device=self.proj.device).to(
+            cfg.dtype("compute"))
+        dt = torch.promote_types(e.dtype, self.proj.dtype)
+        return e.to(dt) @ self.proj.to(dt)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         draw_normal(self.proj, self.proj.shape[0] ** -0.5, generator)
@@ -168,10 +223,12 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg, device: DeviceLike = None):
         super().__init__()
-        if cfg.is_encdec or cfg.frontend not in ("none", "vision"):
-            raise NotImplementedError(
-                "enc-dec models and the audio frontend are not ported to "
-                "repro_torch yet (ROADMAP.md, queue 1)")
+        if cfg.is_encdec:
+            raise ValueError(f"{cfg.name} is an enc-dec model: build it "
+                             f"with models.encdec.EncDec")
+        if cfg.frontend not in ("none", "vision"):
+            raise ValueError(f"a decoder-only model takes the vision "
+                             f"frontend or none, not {cfg.frontend!r}")
         dev = (torch.device("meta") if str(device) == "meta"
                else resolve_device(device))
         self.cfg = cfg
@@ -196,9 +253,9 @@ class Transformer(nn.Module):
 def init_params(cfg, generator: torch.Generator,
                 device: DeviceLike = None) -> Transformer:
     """The full model with weights drawn at the reference's init scales
-    (``layers.py``, ``attention.py``, ``moe.py``): the embedding, then each
-    layer's attention and MLP or MoE in order, then the frontend's
-    projection, from ``generator``, which must lie on
+    (``layers.py``, ``attention.py``, ``moe.py``, ``rglru.py``, ``ssd.py``):
+    the embedding, then each layer's mixer and MLP or MoE in order, then
+    the frontend's projection, from ``generator``, which must lie on
     ``device`` (the card unless the CPU is asked for)."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
@@ -211,8 +268,9 @@ def init_params(cfg, generator: torch.Generator,
 
 @dataclasses.dataclass
 class LMCache:
-    """One ``AttnCache`` a layer, and the next token's position as a host
-    int (the reference keeps it as a device scalar)."""
+    """One cache a layer (``AttnCache``, ``RecCache`` or ``SSDCache``), and
+    the next token's position as a host int (the reference keeps it as a
+    device scalar)."""
     blocks: list
     pos: int
 
@@ -226,13 +284,9 @@ def _embed_inputs(params: Transformer, tokens, cfg, extra_embeds=None):
         x.dtype).item()
     x = x * scale
     if cfg.frontend != "none" and extra_embeds is not None:
-        # the patches in the compute dtype through the projection, unscaled,
-        # before the tokens
-        proj = params.frontend.proj
-        e = torch.as_tensor(extra_embeds, device=x.device).to(
-            cfg.dtype("compute"))
-        dt = torch.promote_types(e.dtype, proj.dtype)
-        x = torch.cat([(e.to(dt) @ proj.to(dt)).to(x.dtype), x], dim=1)
+        # the patches through the projection, unscaled, before the tokens
+        x = torch.cat([params.frontend(extra_embeds, cfg).to(x.dtype), x],
+                      dim=1)
     return x
 
 

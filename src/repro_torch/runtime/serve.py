@@ -2,15 +2,18 @@
 
 The counterpart of ``repro/runtime/serve.py::build_prefill_fn`` and
 ``build_decode_fn``, with the reference's signatures: ``params`` is the
-``Transformer``, ``batch`` a dict holding ``"tokens"`` (B, S), and each
-step returns ``(logits, cache)``. Prefill returns only the last position's
+``Transformer`` (or, for an enc-dec config, the ``EncDec``), ``batch`` a
+dict holding ``"tokens"`` (B, S), and each step returns ``(logits,
+cache)``. Prefill returns only the last position's
 logits; decode updates the cache in place (the reference's jitted decode
 donates it) and returns it.
 
 The builders resolve the device once: the card unless ``device="cpu"``,
 raising when there is no card. A vision model's prefill takes the patch
-embeddings as ``batch["patches"]`` (B, n_patches, frontend_dim). Enc-dec
-models are refused where the model is built (``Transformer``). The sharded
+embeddings as ``batch["patches"]`` (B, n_patches, frontend_dim); an enc-dec
+model's takes the audio frame embeddings as ``batch["frames"]`` (B, S_enc,
+frontend_dim), and its steps go through ``models/encdec.py``'s
+``prefill_encdec`` and ``decode_step_encdec``. The sharded
 ``make_prefill_step`` and
 ``make_decode_step`` (a mesh and its shardings) wait for the distributed
 slice (ROADMAP.md, queue 1).
@@ -21,12 +24,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.layers import lm_logits
 
 
-def _on(params: tf_mod.Transformer, dev: torch.device, array):
-    """The tokens (or patches) as a tensor on ``dev``; raise unless the
+def _on(params, dev: torch.device, array):
+    """The tokens (or patches, or frames) as a tensor on ``dev``; raise unless the
     model lies there."""
     where = params.embed.table.device
     if where.type != dev.type:
@@ -41,10 +45,16 @@ def build_prefill_fn(cfg, max_len: int, device: DeviceLike = None):
     @torch.no_grad()
     def prefill_step(params, batch):
         tokens = _on(params, dev, batch["tokens"])
-        patches = (_on(params, dev, batch["patches"])
-                   if cfg.frontend == "vision" else None)
-        hidden, cache = tf_mod.prefill(params, tokens, cfg,
-                                       extra_embeds=patches, max_len=max_len)
+        if cfg.is_encdec:
+            hidden, cache = encdec_mod.prefill_encdec(
+                params, _on(params, dev, batch["frames"]), tokens, cfg,
+                max_len=max_len)
+        else:
+            patches = (_on(params, dev, batch["patches"])
+                       if cfg.frontend == "vision" else None)
+            hidden, cache = tf_mod.prefill(params, tokens, cfg,
+                                           extra_embeds=patches,
+                                           max_len=max_len)
         # only the last position's logits are needed to start decoding
         return lm_logits(params.embed, hidden[:, -1:], cfg), cache
 
@@ -56,8 +66,9 @@ def build_decode_fn(cfg, device: DeviceLike = None):
 
     @torch.no_grad()
     def decode_step(params, token, cache):
-        hidden, cache = tf_mod.decode_step(params, _on(params, dev, token),
-                                           cache, cfg)
+        step = (encdec_mod.decode_step_encdec if cfg.is_encdec
+                else tf_mod.decode_step)
+        hidden, cache = step(params, _on(params, dev, token), cache, cfg)
         return lm_logits(params.embed, hidden, cfg), cache
 
     return decode_step

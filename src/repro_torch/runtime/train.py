@@ -14,7 +14,9 @@ The counterpart of ``repro/runtime/train.py`` on one card:
   the reference decays (:func:`decayed_leaves`).
 
 The step runs where the model lies, which must be the device
-``build_train_step_fn`` resolved: the card unless ``device="cpu"``.
+``build_train_step_fn`` resolved: the card unless ``device="cpu"``. An
+enc-dec config's model is the ``EncDec`` and its batches carry
+``"frames"``.
 ``make_train_step`` with a mesh and sharding rules waits for the LM on a
 mesh (ROADMAP.md, item 13.4).
 """
@@ -25,6 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
+from repro_torch.models.encdec import (EncDec, forward_train_encdec,
+                                       init_params_encdec)
 from repro_torch.models.transformer import (Transformer, forward_train,
                                             init_params)
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
@@ -40,29 +44,37 @@ def _on(v, device: torch.device) -> torch.Tensor:
     return v.to(device)
 
 
-def _loss_fn(params: Transformer, batch: dict, cfg):
+def _loss_fn(params, batch: dict, cfg):
     """→ (loss + aux term, loss) over one microbatch; the aux term is the
     MoE layers' load-balance loss. A vision model takes ``batch["patches"]``
-    and its loss is on the text positions. Enc-dec models are refused where
-    the model is built (``Transformer``)."""
-    patches = batch["patches"] if cfg.frontend == "vision" else None
-    hidden, aux = forward_train(params, batch["tokens"], cfg, patches)
+    and its loss is on the text positions; an enc-dec model takes
+    ``batch["frames"]`` and its loss is on the decoder's positions."""
+    if cfg.is_encdec:
+        hidden, aux = forward_train_encdec(params, batch["frames"],
+                                           batch["tokens"], cfg)
+    else:
+        patches = batch["patches"] if cfg.frontend == "vision" else None
+        hidden, aux = forward_train(params, batch["tokens"], cfg, patches)
     loss = lm_loss(params.embed, hidden, batch["targets"], cfg)
     return loss + _AUX_WEIGHT * aux, loss
 
 
-def decayed_leaves(params: Transformer, cfg) -> set[str]:
+def decayed_leaves(params, cfg) -> set[str]:
     """The parameters the reference's ``adamw_update`` decays. It skips
     leaves of one dimension, but it sees each scanned layer's parameters
     stacked (n_periods, ...), so only the final norm and the remainder
     layers' 1-D leaves are skipped: the scanned blocks' norm scales and
-    biases are decayed too (ROADMAP.md, queue 3). The MoE routers (fp32),
-    experts (3-D) and the frontend's projection are decayed, as there."""
+    biases (and the SSD's and RG-LRU's fp32 vectors) are decayed too
+    (ROADMAP.md, queue 3). An enc-dec model's encoder and decoder blocks
+    are all stacked, so only its two final norms are skipped. The MoE
+    routers (fp32), experts (3-D) and the frontend's projection are
+    decayed, as there."""
     scanned = cfg.n_layers - cfg.n_layers % len(cfg.pattern)
     out = set()
     for name, p in params.named_parameters():
         parts = name.split(".")
-        if p.ndim > 1 or (parts[0] == "blocks" and int(parts[1]) < scanned):
+        if (p.ndim > 1 or parts[0] in ("enc_blocks", "dec_blocks")
+                or (parts[0] == "blocks" and int(parts[1]) < scanned)):
             out.add(name)
     return out
 
@@ -70,9 +82,11 @@ def decayed_leaves(params: Transformer, cfg) -> set[str]:
 def build_train_step_fn(cfg, opt: AdamWConfig, rules=None,
                         device: DeviceLike = None):
     """Returns ``train_step(params, opt_state, batch) → (params, opt_state,
-    metrics)``: ``params`` the ``Transformer``, ``batch`` a dict of
-    ``"tokens"`` and ``"targets"`` (B, S) integers (and ``"patches"``
-    (B, n_patches, frontend_dim) for a vision model), metrics ``loss``,
+    metrics)``: ``params`` the ``Transformer`` (an enc-dec config's
+    ``EncDec``), ``batch`` a dict of ``"tokens"`` and ``"targets"`` (B, S)
+    integers (and ``"patches"`` (B, n_patches, frontend_dim) for a vision
+    model, ``"frames"`` (B, S_enc, frontend_dim) for an enc-dec one),
+    metrics ``loss``,
     ``lr`` and ``grad_norm`` (0-d fp32 tensors on the device)."""
     if rules is not None:
         raise NotImplementedError(
@@ -134,12 +148,13 @@ def init_train_state(key, cfg, opt_dtype=None, device: DeviceLike = None):
     dev = resolve_device(device)
     if not isinstance(key, torch.Generator):
         key = torch.Generator(device=dev).manual_seed(int(key))
-    model = init_params(cfg, key, dev)
+    model = (init_params_encdec if cfg.is_encdec else init_params)(
+        cfg, key, dev)
     return model, init_opt_state(model, opt_dtype or cfg.dtype("opt"))
 
 
 def abstract_train_state(cfg):
     """``(model, opt_state)`` on the ``meta`` device: shapes and dtypes, no
     memory."""
-    model = Transformer(cfg, "meta")
+    model = (EncDec if cfg.is_encdec else Transformer)(cfg, "meta")
     return model, init_opt_state(model, cfg.dtype("opt"))

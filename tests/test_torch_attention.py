@@ -298,19 +298,27 @@ def test_quantize_kv_matches_reference():
 
 
 def test_unported_variants_raise_naming_the_roadmap():
-    """Cross-attention (enc-dec) still waits; the other variants run."""
-    cfg, _ = _cfgs("qwen3-8b")
+    """No variant waits: cross-attention (the enc-dec decoder's) equals the
+    reference's in the forward and in decode; the cache still refuses a
+    position or a prompt it cannot hold."""
+    cfg, rcfg = _cfgs("qwen3-8b")
+    weights = _weights(rcfg, 28)
+    p = _port(cfg, weights)
+    rng = np.random.default_rng(28)
+    x = rng.standard_normal((1, 3, cfg.d_model)).astype(np.float32)
+    enc = rng.standard_normal((1, 5, cfg.d_model)).astype(np.float32)
+    jw = jax.tree.map(jnp.asarray, weights)
+    out, (k, v) = attn.attn_forward(p, torch.from_numpy(x), None, cfg,
+                                    causal=False, kv_x=torch.from_numpy(enc))
+    want, (wk, wv) = ref.attn_forward(jw, jnp.asarray(x), None, rcfg,
+                                      causal=False, kv_x=jnp.asarray(enc))
+    _close(out, want)
+    _close(k, wk)
+    _close(attn.attn_decode_cross(p, torch.from_numpy(x[:, :1]), (k, v),
+                                  cfg),
+           ref.attn_decode_cross(jw, jnp.asarray(x[:, :1]), (wk, wv), rcfg))
     cache = attn.init_attn_cache(cfg, 1, 4, device="cpu")
     x = torch.zeros((1, 1, cfg.d_model))
-    pos = torch.zeros((1, 1), dtype=torch.int32)
-    p = attn.Attention(cfg, "cpu")
-    calls = [
-        lambda: attn.attn_forward(p, x, pos, cfg, kv_x=x),
-        lambda: attn.attn_decode_cross(p, x, (x, x), cfg),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
     with pytest.raises(ValueError, match="outside the cache"):
         attn.attn_decode(p, x, cache, 4, cfg)
     with pytest.raises(ValueError, match="exceeds the cache"):

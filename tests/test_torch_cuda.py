@@ -38,8 +38,13 @@ the int8 ring cache: int8 values within 1 unit (K/V differ by rounding, so
 a value at a half step may round the other way), scales to rtol 1e-6, slot
 positions equal, outputs to 1e-4 (a unit's flip moves a product by a
 quantization step, ~1e-3 of the values); one smoke decode step of
-granite-moe and phi-3-vision launches ``rmsnorm`` exactly 2·layers + 1
-times. fp32 products against fp64 within 1e-5 of the largest (TF32 stays
+granite-moe, phi-3-vision, mamba2 (a block norm and the SSD's gated norm
+a layer) and recurrentgemma launches ``rmsnorm`` exactly 2·layers + 1
+times. The SSD, RG-LRU and enc-dec smokes served card against CPU in fp32:
+logits to rtol 1e-5 / atol 1e-5·max(scale, 1), each recurrent state and
+cross K/V likewise; the SSD at chunk 256, whose decay's exponent passes
+88.7 above the diagonal: output card against CPU to rtol 1e-5 / atol
+1e-5·max(scale, 1) and every gradient finite. fp32 products against fp64 within 1e-5 of the largest (TF32 stays
 off); granite-moe's MoE layer at full width in fp32, a token alone
 against its chunk of 528: the same experts, y within 1e-5·max(scale, 1).
 """
@@ -98,7 +103,9 @@ from repro_torch.kernels.rmsnorm_ref import (bf16_ulp_distance,
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.train import build_train_step_fn, init_train_state
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.transformer import (Transformer, decode_step,
                                             init_params, prefill)
 from repro_torch.runtime.serve import build_decode_fn, build_prefill_fn
@@ -1316,10 +1323,12 @@ def test_int8_ring_cache_card_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("name", ["granite-moe-1b-a400m",
-                                  "phi-3-vision-4.2b"])
+                                  "phi-3-vision-4.2b", "mamba2-1.3b",
+                                  "recurrentgemma-9b"])
 def test_new_arch_decode_step_launches_rmsnorm_exactly(cuda, name):
-    """One smoke decode step on the card: two block norms a layer and the
-    final norm, each one ``rmsnorm`` launch (no qk-norm in either)."""
+    """One smoke decode step on the card: two norms a layer (the block
+    norms; an SSD layer's block norm and gated norm) and the final norm,
+    each one ``rmsnorm`` launch (no qk-norm in any)."""
     cfg = get_arch(name, smoke=True)
     model = init_params(cfg, torch.Generator(device=cuda).manual_seed(5),
                         cuda)
@@ -1369,3 +1378,87 @@ def test_moe_token_alone_matches_its_chunk_at_full_width(cuda):
     scale = float(y_all.abs().max())
     err = float((y_all - y_one).abs().max())
     assert err <= 1e-5 * max(scale, 1.0), (err, scale)
+
+
+@pytest.mark.parametrize("name", ["mamba2-1.3b", "recurrentgemma-9b",
+                                  "seamless-m4t-medium"])
+def test_recurrent_and_encdec_smokes_card_match_cpu(cuda, name):
+    """The smoke served in fp32 on the card and on the CPU from the same
+    weights (norm weights and biases drawn non-zero): a prefill of 20
+    tokens (recurrentgemma's ring of 16 overflows; seamless on 5 frames)
+    and 6 decode steps; the logits, and the last cache's recurrent states
+    or cross K/V, agree."""
+    cfg = get_arch(name, smoke=True)
+    build = encdec_mod.init_params_encdec if cfg.is_encdec else init_params
+    cpu = build(cfg, torch.Generator().manual_seed(8), "cpu")
+    with torch.no_grad():
+        for pname, p in cpu.named_parameters():
+            if p.ndim == 1 and not pname.endswith(("lambda", "dt_bias",
+                                                   "a_log")):
+                p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator(
+                    ).manual_seed(len(pname))))
+    card = (encdec_mod.EncDec if cfg.is_encdec else Transformer)(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab, (2, 26),
+                           generator=torch.Generator().manual_seed(9))
+    extra = ({"frames": torch.randn((2, 5, cfg.frontend_dim),
+                                    generator=torch.Generator().manual_seed(
+                                        10))} if cfg.is_encdec else {})
+    out, caches = {}, {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        prefill = build_prefill_fn(cfg, max_len=28, device=dev)
+        decode = build_decode_fn(cfg, device=dev)
+        _build.reset_launches()
+        logits, cache = prefill(model, {"tokens": tokens[:, :20],
+                                        **{k: v.to(dev)
+                                           for k, v in extra.items()}})
+        steps = [logits]
+        for t in range(20, 26):
+            logits, cache = decode(model, tokens[:, t:t + 1], cache)
+            steps.append(logits)
+        norms = 0 if cfg.norm == "layernorm" else 2 * cfg.n_layers + 1
+        assert _build.launches["rmsnorm"] == (0 if dev == "cpu"
+                                              else 7 * norms), dev
+        out[dev], caches[dev] = torch.cat(steps, dim=1).cpu(), cache
+
+    def close(got, want):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                   atol=1e-5 * max(scale, 1.0))
+    close(out["cuda"], out["cpu"])
+    if cfg.is_encdec:
+        for c_card, c_cpu in zip(caches["cuda"].dec, caches["cpu"].dec):
+            close(c_card.cross_k, c_cpu.cross_k)
+            close(c_card.cross_v, c_cpu.cross_v)
+    else:
+        for c_card, c_cpu in zip(caches["cuda"].blocks,
+                                 caches["cpu"].blocks):
+            if hasattr(c_cpu, "h"):
+                close(c_card.h, c_cpu.h)
+                close(c_card.conv, c_cpu.conv)
+
+
+def test_ssd_decay_gradient_is_finite_on_the_card(cuda):
+    """mamba2's smoke SSD at chunk 256, one chunk of standard-normal input,
+    where the reference's form overflows: the card's output is the CPU's,
+    and every gradient is finite on the card."""
+    cfg = dataclasses.replace(get_arch("mamba2-1.3b", smoke=True),
+                              ssm_chunk=256)
+    cpu = ssd_mod.SSD(cfg, "cpu")
+    cpu.reset_parameters(torch.Generator().manual_seed(11))
+    card = ssd_mod.SSD(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((1, 256, cfg.d_model),
+                    generator=torch.Generator().manual_seed(12))
+    with torch.no_grad():
+        want, _ = ssd_mod.ssd_forward(cpu, x, cfg)
+    xc = x.to(cuda).requires_grad_(True)
+    got, _ = ssd_mod.ssd_forward(card, xc, cfg)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.detach().cpu(), want, rtol=1e-5,
+                               atol=1e-5 * max(scale, 1.0))
+    got.sum().backward()
+    assert bool(torch.isfinite(xc.grad).all())
+    for pname, p in card.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), \
+            pname

@@ -63,8 +63,10 @@ def test_launcher_refuses_what_waits_for_a_mesh():
         ap.parse_args(["--arch", "llama3.2-3b", "--mesh", "single"])
     with pytest.raises(SystemExit):
         ap.parse_args(["--arch", "llama3.2-3b", "--profile", "zero1"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train_launch.run(_args(arch="seamless-m4t-medium", steps=1))
+    # the enc-dec arch no longer waits: one step on its frames
+    res = train_launch.run(_args(arch="seamless-m4t-medium", steps=1,
+                                 batch=2, seq=16))
+    assert res["final_step"] == 1 and np.isfinite(res["losses"]).all()
 
 
 def test_vision_batches_carry_patches_keyed_by_step():
@@ -90,11 +92,38 @@ def test_vision_batches_carry_patches_keyed_by_step():
         pipe, get_arch("qwen3-8b", smoke=True), 0, 3)
 
 
+def test_encdec_batches_carry_frames_keyed_by_step():
+    """An enc-dec arch's batch holds (B, max(S // enc_len_ratio, 1),
+    frontend_dim) fp32 normals keyed by (seed + 1, step): the same step
+    gives the same frames, another step or seed others; a decoder-only
+    arch none."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+
+    cfg = get_arch("seamless-m4t-medium", smoke=True)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=16, global_batch=4, seed=0)
+    a = train_launch.make_batch(pipe, cfg, 0, 3)
+    assert a["frames"].shape == (4, 16 // cfg.enc_len_ratio,
+                                 cfg.frontend_dim)
+    assert a["frames"].dtype == np.float32 and "patches" not in a
+    np.testing.assert_array_equal(
+        a["frames"], train_launch.make_batch(pipe, cfg, 0, 3)["frames"])
+    for seed, step in ((0, 4), (1, 3)):
+        assert not np.array_equal(
+            a["frames"],
+            train_launch.make_batch(pipe, cfg, seed, step)["frames"])
+    short = TokenPipeline(vocab=cfg.vocab, seq_len=2, global_batch=4, seed=0)
+    assert train_launch.make_batch(short, cfg, 0, 0)["frames"].shape[1] == 1
+    assert "frames" not in train_launch.make_batch(
+        pipe, get_arch("mamba2-1.3b", smoke=True), 0, 3)
+
+
 @pytest.mark.parametrize("arch", ["phi-3-vision-4.2b",
-                                  "granite-moe-1b-a400m"])
+                                  "granite-moe-1b-a400m", "mamba2-1.3b",
+                                  "recurrentgemma-9b", "seamless-m4t-medium"])
 def test_new_archs_train_through_the_launcher(arch):
-    """The vision and MoE smokes train end to end: finite losses, and the
-    loss falls over 12 steps."""
+    """The vision, MoE, SSD, RG-LRU and enc-dec smokes train end to end:
+    finite losses, and the loss falls over 12 steps."""
     res = train_launch.run(_args(arch=arch, steps=12, batch=4, seq=32,
                                  lr="3e-3"))
     assert np.isfinite(res["losses"]).all()

@@ -22,7 +22,8 @@ from repro_torch.kernels.rmsnorm_ref import bf16_ulp_distance
 from repro_torch.models import attention, layers
 
 PORTED = ("qwen3-8b", "llama3.2-3b", "qwen1.5-4b", "nemotron-4-340b",
-          "granite-moe-1b-a400m", "grok-1-314b", "phi-3-vision-4.2b")
+          "granite-moe-1b-a400m", "grok-1-314b", "phi-3-vision-4.2b",
+          "mamba2-1.3b", "recurrentgemma-9b", "seamless-m4t-medium")
 
 
 def _t(a):
@@ -49,13 +50,13 @@ def test_config_fields_and_shapes_are_the_reference_s():
 
 
 def test_get_arch_says_which_archs_wait():
-    assert set(configs.ARCHS) == set(configs.SMOKES) == set(PORTED)
-    waiting = set(ref_configs.ARCHS) - set(PORTED)
-    assert waiting == set(configs.NOT_YET_PORTED) == {
-        "recurrentgemma-9b", "mamba2-1.3b", "seamless-m4t-medium"}
-    for name in sorted(waiting):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            configs.get_arch(name)
+    """None waits: every reference arch resolves, full and smoke."""
+    assert set(configs.ARCHS) == set(configs.SMOKES) == set(PORTED) == \
+        set(ref_configs.ARCHS) == set(ref_configs.SMOKES)
+    for name in sorted(ref_configs.ARCHS):
+        for smoke in (False, True):
+            assert configs.get_arch(name, smoke=smoke).name == \
+                ref_configs.get_arch(name, smoke=smoke).name
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_arch("gpt-2")
 

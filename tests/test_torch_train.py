@@ -38,7 +38,17 @@ ulps, in at most 9 of 16384 elements a leaf), granite-moe and grok their MoE aux
 ``_AUX_WEIGHT``) and fp32 routers, phi-3-vision its patches
 (``batch["patches"]``, the same numpy normals on both sides) and its loss
 on the text positions. The MoE smokes train at their own capacity: the
-dropped pairs are the reference's (``tests/test_torch_moe.py``).
+dropped pairs are the reference's (``tests/test_torch_moe.py``). The SSD,
+RG-LRU and enc-dec slice's archs run one pair each too, with one
+microbatch (the reference's accumulation scan costs its jit 10 s more a
+case; ``chip_smoke.py`` phase 8b trains the three at two microbatches,
+card against CPU): mamba2-1.3b (its two SSD layers in chunks of 8, the
+fp32 Δ bias, A and skip decayed as the reference decays its stacked
+leaves), recurrentgemma-9b (a (rec, rec, local) period under remat and a
+remainder rec layer, whose 1-D leaves, fp32 Λ included, are not decayed)
+and seamless-m4t-medium (its frames as ``batch["frames"]``, the same
+numpy normals on both sides; every block checkpointed whatever ``remat``
+says, as there).
 
 ``lm_loss`` against the reference's at rtol 1e-5 on the chunked route
 (S = 2048) and the one-block route (S = 1000, S = 1024).
@@ -58,6 +68,7 @@ from repro.optim.adamw import AdamWConfig as RefAdamWConfig
 from repro.runtime import loss as ref_loss
 from repro.runtime import train as ref_train
 from repro_torch import configs
+from repro_torch.models import encdec
 from repro_torch.convert import (lm_params_from_reference,
                                  opt_state_from_reference)
 from repro_torch.kernels import _build
@@ -74,7 +85,10 @@ ARCHS = ("llama3.2-3b", "qwen3-8b", "qwen1.5-4b")
 NEW_ARCHS = (("nemotron-4-340b", 2, "full", {"opt_dtype": "bfloat16"}),
              ("granite-moe-1b-a400m", 2, "dots", {}),
              ("grok-1-314b", 1, "none", {}),
-             ("phi-3-vision-4.2b", 2, "full", {}))
+             ("phi-3-vision-4.2b", 2, "full", {}),
+             ("mamba2-1.3b", 1, "dots", {}),
+             ("recurrentgemma-9b", 1, "full", {}),
+             ("seamless-m4t-medium", 1, "none", {}))
 STEPS, BATCH, SEQ = 3, 4, 16
 OPT = dict(peak_lr=1e-3, warmup_steps=1, decay_steps=100)
 START_STEP = 10       # the resumed optimizer state's step
@@ -96,8 +110,9 @@ def _reference_state(rcfg, seed):
 
     def nonzero(path, leaf):
         name = jax.tree_util.keystr(path)
-        if any(k in name for k in ("'w'", "'bq'", "'bk'", "'bv'", "q_norm",
-                                   "k_norm")):
+        if any(k in name for k in ("'w'", "'b'", "'bq'", "'bk'", "'bv'",
+                                   "q_norm", "k_norm", "'norm_w'", "'b_a'",
+                                   "'b_x'")):
             noise = 0.1 * rng.standard_normal(leaf.shape).astype(np.float32)
             return jnp.asarray(noise).astype(leaf.dtype)
         return leaf
@@ -128,17 +143,21 @@ def _train_both(name, microbatches, remat, **changes):
     cfg, rcfg = _cfgs(name, microbatches=microbatches, remat=remat,
                       **changes)
     params, opt_state = _reference_state(rcfg, 0)
-    model = tf.Transformer(cfg, "cpu")
+    model = (encdec.EncDec if cfg.is_encdec else tf.Transformer)(cfg, "cpu")
     model.load_state_dict(lm_params_from_reference(_np(params), cfg, "cpu"))
     opt = opt_state_from_reference(_np(opt_state), model, cfg, "cpu")
     pipe = RefPipeline(vocab=cfg.vocab, seq_len=SEQ, global_batch=BATCH,
                        seed=1)
     batches = [_np(pipe.batch(s)) for s in range(STEPS)]
-    if cfg.frontend == "vision":
-        rng = np.random.default_rng(2)
-        for batch in batches:
+    rng = np.random.default_rng(2)
+    for batch in batches:
+        if cfg.frontend == "vision":
             batch["patches"] = rng.standard_normal(
                 (BATCH, cfg.n_patches, cfg.frontend_dim)).astype(np.float32)
+        if cfg.is_encdec:
+            batch["frames"] = rng.standard_normal(
+                (BATCH, SEQ // cfg.enc_len_ratio, cfg.frontend_dim)).astype(
+                np.float32)
 
     step = build_train_step_fn(cfg, AdamWConfig(**OPT), device="cpu")
     ref_step = jax.jit(ref_train.build_train_step_fn(
@@ -225,8 +244,16 @@ def test_arch_smoke_forward_and_train_step(name):
         extra["patches"] = torch.randn(
             (b, cfg.n_patches, cfg.frontend_dim),
             generator=torch.Generator().manual_seed(1))
-    hidden, aux = tf.forward_train(model, toks, cfg, extra.get("patches"))
-    p = cfg.n_patches if extra else 0
+    if cfg.is_encdec:
+        extra["frames"] = torch.randn(
+            (b, s // cfg.enc_len_ratio, cfg.frontend_dim),
+            generator=torch.Generator().manual_seed(1))
+        hidden, aux = encdec.forward_train_encdec(model, extra["frames"],
+                                                  toks, cfg)
+    else:
+        hidden, aux = tf.forward_train(model, toks, cfg,
+                                       extra.get("patches"))
+    p = cfg.n_patches if "patches" in extra else 0
     assert hidden.shape == (b, p + s, cfg.d_model)
     assert not bool(torch.isnan(hidden).any())
     assert np.isfinite(float(aux))
