@@ -97,9 +97,10 @@ check fails:
    a pass), seamless's cross K/V bitwise unchanged by decode, profiles of
    prefill and decode, the decode floor, and decode held at all 32
    positions against a longer prefill (768, 4096 and 544 positions) in
-   bf16 and, the weights upcast in place, in fp32, each beside a planted
-   cache fault the check must see (each recurrent layer's conv window one
-   step stale; seamless's decode position one late); then
+   bf16 and, the weights upcast in place, in fp32, each beside planted
+   cache faults (each recurrent layer's conv window one step stale, and
+   its fp32 state held in bf16, which only the fp32 check must see;
+   seamless's decode position one late); then
 8. the LM training path: llama3.2-3b at full width and depth (28 layers,
    d = 3072, 6.4 GB of bf16 weights drawn from a seed on the card, fp32
    AdamW moments) trained 5 steps of 8 x 512 tokens (4 microbatches of 2,
@@ -128,8 +129,6 @@ check fails:
    and 6c's paths), and one of each phase's host seconds
    (``phase_walls_s``).
 
-``python3 chip_smoke.py --serve-6c [ARCH ...]`` runs phase 6c alone (the
-kernels built first), for the named archs or all three.
 ``python3 chip_smoke.py --center-matvec-op TREE`` times only
 ``center_matvec_op`` of the checkout at TREE (phase 5's shapes), so that a
 parent commit's op can be timed in the same call; ``--redesign-times
@@ -208,16 +207,24 @@ NEW_LM_ARCHS = ("granite-moe-1b-a400m", "phi-3-vision-4.2b")  # phase 6b
 # of 512; seamless on the same frames (prompt / enc_len_ratio of them)
 RECURRENT_LM = (("mamba2-1.3b", 512, 768), ("recurrentgemma-9b", 3072, 4096),
                 ("seamless-m4t-medium", 512, 544))
-# a cache fault planted in the state a prefill leaves: each RG-LRU and SSD
-# layer's conv window one step stale (its newest input dropped, its oldest
-# held twice); seamless takes phase 6's first fault (rope position + 1)
+# the cache faults planted in the state a prefill leaves: each RG-LRU and
+# SSD layer's conv window one step stale (its newest input dropped, its
+# oldest held twice), and its fp32 recurrent state held in bf16, so that
+# every decode step rounds it (a precision the configs do not state);
+# seamless takes phase 6's first fault (rope position + 1). The bf16 check
+# is held to see the stale window, the fp32 check both: the bf16 state moves
+# mamba2's bf16 reading to 0.029644 / 1 - 8.10e-4 (sound 0.026680 / 1 -
+# 6.26e-4) and recurrentgemma's to 0.022354 / 1 - 5.28e-4 (sound 0.019161 /
+# 1 - 3.22e-4), inside bf16's own rounding, and their fp32 readings to
+# 5.87e-3 and 1.41e-2 of max|logits|, 59x and 141x phase 6's 1e-4 (PERF.md)
 STALE_CONV = "conv window one step stale"
+BF16_STATE = "recurrent state rounded to bf16 each step"
 # phase 6c's decode against the held prefill at all LM_STEPS positions: max
 # abs error as a share of max|logits| and the least correlation, in bf16
 # and in fp32 (the weights upcast). Phase 6's bounds, unless an arch's sound
 # reading needs its own, set between the sound and the fault's readings
 # (PERF.md). mamba2-1.3b in bf16: sound 0.026680 / 1 - 6.258e-4 (past phase
-# 6's 6.0e-4: 48 SSD layers of bf16 states and gated norms over 32
+# 6's 6.0e-4: 48 SSD layers of bf16 activations and gated norms over 32
 # positions), the stale conv window 0.782609 / 1 - 0.2066; its bound keeps
 # 2-3x the sound reading's room and sits two orders below the fault's
 RECURRENT_BOUNDS = {"mamba2-1.3b": {"bf16": (0.06, 0.998)}}
@@ -1944,24 +1951,6 @@ def recomputed_norms(cfg) -> int:
     return sum(layer_norms(cfg)[:scanned])
 
 
-def lm_model(cfg, device):
-    """An uninitialised model of ``cfg`` on ``device``: the ``EncDec`` of
-    an enc-dec config, else the ``Transformer``."""
-    from repro_torch.models.encdec import EncDec
-    from repro_torch.models.transformer import Transformer
-
-    return (EncDec if cfg.is_encdec else Transformer)(cfg, device)
-
-
-def init_lm(cfg, gen, device):
-    """The model of ``cfg`` with weights drawn from ``gen``."""
-    from repro_torch.models.encdec import init_params_encdec
-    from repro_torch.models.transformer import init_params
-
-    return (init_params_encdec if cfg.is_encdec else init_params)(
-        cfg, gen, device)
-
-
 class RoutingRecord:
     """Records every MoE chunk's routing (each pair's expert and whether it
     was kept) while it is entered, by wrapping ``models.moe.route``; so the
@@ -2027,18 +2016,19 @@ def lm_smoke_vs_cpu() -> None:
 
 
 def serve_smoke_vs_cpu(name: str, changes: dict) -> None:
+    from repro_torch import models
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
     from repro_torch.runtime.serve import build_decode_fn, build_prefill_fn
 
     cfg = dataclasses.replace(get_arch(name, smoke=True), **changes)
-    cpu = init_lm(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    cpu = models.init_model(cfg, torch.Generator().manual_seed(SEED), "cpu")
     with torch.no_grad():               # the '1 + w' norm weights act
         for pname, p in cpu.named_parameters():
             if p.ndim == 1:
                 p.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(
                     len(pname)))
-    card = lm_model(cfg, "cuda")
+    card = models.build_model(cfg, "cuda")
     card.load_state_dict(cpu.state_dict())
     # a prompt of 16, or past a window of 16 or more, so that every ring
     # evicts (recurrentgemma's smoke: 20 tokens into a ring of 16)
@@ -2574,13 +2564,18 @@ def phase_lm_new(card: str) -> dict:
 
 
 def plant_fault(cache, fault) -> None:
-    """Plant ``fault`` (STALE_CONV or LM_FAULTS[0]) in the state a prefill
-    left: every RG-LRU and SSD layer's conv window one step stale, or every
-    decoded token one position late."""
+    """Plant ``fault`` (STALE_CONV, BF16_STATE or LM_FAULTS[0]) in the state
+    a prefill left: every RG-LRU and SSD layer's conv window one step stale,
+    or its state a bf16 tensor that each step's in-place update rounds, or
+    every decoded token one position late."""
     if fault == STALE_CONV:
         for c in cache.blocks:
             if hasattr(c, "conv"):
                 c.conv[:, 1:] = c.conv[:, :-1].clone()
+    elif fault == BF16_STATE:
+        for c in cache.blocks:
+            if hasattr(c, "h"):
+                c.h = c.h.to(torch.bfloat16)
     elif fault == LM_FAULTS[0]:
         cache.pos += 1
 
@@ -2609,41 +2604,38 @@ def held_prefill(model, cfg, batch, seq, prompt: int) -> torch.Tensor:
     """A prefill of ``seq`` (on ``batch``'s frames for an enc-dec model):
     the logits at positions prompt .. prompt + LM_STEPS - 1, the positions
     whose tokens the decode steps consumed."""
-    from repro_torch.models import encdec as encdec_mod
-    from repro_torch.models import transformer as tf_mod
+    from repro_torch import models
     from repro_torch.models.layers import lm_logits
 
-    if cfg.is_encdec:
-        hidden, cache = encdec_mod.prefill_encdec(model, batch["frames"], seq,
-                                                  cfg)
-    else:
-        hidden, cache = tf_mod.prefill(model, seq, cfg)
-    del cache
+    hidden, _ = models.prefill(model, seq, cfg, models.extra_input(cfg, batch))
     return lm_logits(model.embed, hidden[:, prompt:prompt + LM_STEPS], cfg)
 
 
 def recurrent_check(model, cfg, batch, fed, seq, prompt: int,
                     precision: str) -> dict:
-    """Decode against the held prefill, sound and with the arch's planted
-    fault, in ``precision``: each reading's (share, correlation), and
-    whether the bound (RECURRENT_BOUNDS, else phase 6's) holds the sound
-    reading and sees the fault."""
-    fault = (STALE_CONV if {"rec", "ssd"} & set(cfg.pattern)
-             else LM_FAULTS[0])
+    """Decode against the held prefill, sound and with each of the arch's
+    planted faults, in ``precision``: each reading's (share, correlation),
+    and whether the bound (RECURRENT_BOUNDS, else phase 6's) holds it."""
+    faults = ((STALE_CONV, BF16_STATE) if {"rec", "ssd"} & set(cfg.pattern)
+              else (LM_FAULTS[0],))
     default = ((LM_CONSISTENCY_ATOL, LM_CONSISTENCY_CORR)
                if precision == "bf16" else (LM_FP32_ATOL, LM_FP32_CORR))
     atol, corr_min = RECURRENT_BOUNDS.get(cfg.name, {}).get(precision,
                                                             default)
     want = held_prefill(model, cfg, batch, seq, prompt)
-    out = {"planted": fault, "atol": atol, "corr_min": corr_min}
-    for what, f in (("sound", None), ("fault", fault)):
+    out = {"atol": atol, "corr_min": corr_min, "faults": {}}
+    for f in (None, *faults):
         share, corr = consistency(recurrent_decode(model, cfg, batch, fed, f),
                                   want)
         held = share <= atol and corr >= corr_min
-        out[what] = {"share": share, "corr": corr, "held": held}
+        reading = {"share": share, "corr": corr, "held": held}
+        if f is None:
+            out["sound"], what = reading, "sound"
+        else:
+            out["faults"][f], what = reading, f"planted fault {f!r}"
         print(f"  decode steps 1-{LM_STEPS} vs a prefill of "
               f"{seq.shape[1]} positions at {prompt}-{prompt + LM_STEPS - 1},"
-              f" {precision}, {what if f is None else f'planted fault {f!r}'}"
+              f" {precision}, {what}"
               f": max abs err {share:.6e} of max|logits| (limit {atol}), "
               f"1 - correlation {1 - corr:.6e} (limit {1 - corr_min:.1e}): "
               f"{'held' if held else 'not held'}")
@@ -2668,7 +2660,7 @@ def lm_state_bytes(cache) -> int:
     return total
 
 
-def phase_lm_recurrent(card: str, names=None) -> dict:
+def phase_lm_recurrent(card: str) -> dict:
     """Phase 6c: the SSD, RG-LRU and enc-dec families (RECURRENT_LM) served
     at full width and depth in bf16 with phase 6's LM_BATCH requests and
     LM_STEPS greedy decode steps, weights drawn from the seed on the card,
@@ -2676,15 +2668,14 @@ def phase_lm_recurrent(card: str, names=None) -> dict:
     and read just after; seamless's cross K/V held bitwise across the
     steps; a warm prefill, profiles of prefill and decode, the decode
     floor; then decode held against a longer prefill in bf16 and, the
-    weights upcast in place, in fp32, each beside a planted cache fault
-    that the check must see."""
+    weights upcast in place, in fp32, each beside the planted cache faults
+    that the check must see (BF16_STATE only in fp32)."""
+    from repro_torch import models
     from repro_torch.configs import get_arch
     from repro_torch.runtime.serve import build_decode_fn, build_prefill_fn
 
     out = {}
     for name, prompt, held_len in RECURRENT_LM:
-        if names and name not in names:
-            continue
         cfg = get_arch(name)
         kinds = sorted(set(cfg.layer_types()))
         n_frames = prompt // cfg.enc_len_ratio if cfg.is_encdec else 0
@@ -2703,7 +2694,7 @@ def phase_lm_recurrent(card: str, names=None) -> dict:
         before_draw = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         gen = torch.Generator(device="cuda").manual_seed(SEED)
-        model = init_lm(cfg, gen, "cuda")
+        model = models.init_model(cfg, gen, "cuda")
         batch = {"tokens": torch.randint(0, cfg.vocab, (LM_BATCH, prompt),
                                          generator=gen, device="cuda")}
         if n_frames:
@@ -2765,10 +2756,11 @@ def phase_lm_recurrent(card: str, names=None) -> dict:
         bf16 = recurrent_check(model, cfg, batch, fed, seq, prompt, "bf16")
         check(bf16["sound"]["held"], f"{name}: bf16 decode disagrees with "
                                      f"prefill")
-        check(not bf16["fault"]["held"]
-              or "bf16" not in RECURRENT_BOUNDS.get(cfg.name, {}),
-              f"{name}: the bf16 check does not see {bf16['planted']!r}"
-              f" under its own bound")
+        for f, r in bf16["faults"].items():
+            check(not r["held"] or f == BF16_STATE
+                  or "bf16" not in RECURRENT_BOUNDS.get(cfg.name, {}),
+                  f"{name}: the bf16 check does not see {f!r} under its own"
+                  f" bound")
         # fp32: the weights upcast in place (the bf16 copy freed as it goes)
         model.float()
         cfg32 = dataclasses.replace(cfg, param_dtype="float32",
@@ -2776,8 +2768,8 @@ def phase_lm_recurrent(card: str, names=None) -> dict:
         fp32 = recurrent_check(model, cfg32, batch, fed, seq, prompt, "fp32")
         check(fp32["sound"]["held"], f"{name}: fp32 decode disagrees with "
                                      f"prefill")
-        check(not fp32["fault"]["held"], f"{name}: the fp32 check does not "
-                                         f"see {fp32['planted']!r}")
+        for f, r in fp32["faults"].items():
+            check(not r["held"], f"{name}: the fp32 check does not see {f!r}")
         del model, batch, fed, seq, tail
         gc.collect()
         torch.cuda.empty_cache()
@@ -3971,6 +3963,7 @@ def train_smoke_vs_cpu(name: str) -> None:
     MoE routing equal, losses to rtol 1e-5, parameters and moments to rtol
     1e-5 / atol 1e-5·max(scale, 1), and the norms' launches (a forward's,
     and again those of the rematerialised layers; one backward each)."""
+    from repro_torch import models
     from repro_torch.configs import get_arch
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels import _build
@@ -3988,7 +3981,7 @@ def train_smoke_vs_cpu(name: str) -> None:
                 p.copy_(0.1 * torch.randn(p.shape, generator=torch.Generator(
                     ).manual_seed(len(pname))))
     warm_opt_state(cpu_opt, SEED)
-    card_model = lm_model(cfg, "cuda")
+    card_model = models.build_model(cfg, "cuda")
     card_model.load_state_dict(cpu_model.state_dict())
     card_opt = {"m": {k: t.cuda() for k, t in cpu_opt["m"].items()},
                 "v": {k: t.cuda() for k, t in cpu_opt["v"].items()},
@@ -4314,16 +4307,6 @@ def main() -> int:
     if sys.argv[1:] == ["--solver-first-calls"]:     # phase 4b's fresh process
         torch.zeros(1, device="cuda")
         print(json.dumps(solver_first_calls()))
-        return 0
-    if sys.argv[1:2] == ["--serve-6c"]:
-        # phase 6c alone, for the named archs (all of RECURRENT_LM unless
-        # some are named); the kernels built first
-        card = phase_environment()["card"]
-        lm_6c = phase_lm_recurrent(card, sys.argv[2:])
-        print(json.dumps({"serve_6c": {
-            name: {k: v for k, v in r.items() if k not in ("bf16", "fp32")}
-            for name, r in lm_6c.items()}}))
-        print(card)
         return 0
     from repro_torch.core.mantel import condensed_moments
 

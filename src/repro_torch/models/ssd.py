@@ -9,18 +9,20 @@ length Q, fp32 state):
   inter:  h_c  = e^{cs_Q} h_{c−1} + S_c;   Y_i += (C_i·h_{c−1}) · e^{cs_i}
   out:    y = RMSNorm(Y ⊙ SiLU(z)) W_out + D ⊙ x
 
-Two differences from the reference's form, neither in the forward's value:
+Two differences from the reference's form:
 
 * the intra-chunk decay masks the exponent before the ``exp``
   (``where(causal, cs_i − cs_j, −inf)``). The reference takes
   ``exp(cs_i − cs_j)`` over the whole (Q, Q) square and zeroes the upper
   triangle after; above the diagonal the exponent passes 88.7 at
   mamba2-1.3b's widths and ``exp`` overflows to ``inf``, so its gradient
-  there is ``inf · 0`` = NaN. Masked first, the forward is bitwise the
+  there is ``inf · 0`` = NaN. Masked first, the decay is bitwise the
   same and the gradient finite (ROADMAP.md, queue 3);
 * the reference's 3-operand einsum over (scores, decay, x) is two explicit
   products: (C·B) times the decay forms the (B, nc, Q, Q, g, h) weights
-  once, and a batched product with x contracts them over the chunk.
+  once, and a batched product with x contracts them over the chunk. The
+  sums run in another order, so the forward agrees with the reference's
+  to fp32 rounding, not bitwise.
 
 The gated norm ``rmsnorm(y ⊙ silu(z), norm_w)`` is the port's ``RMSNorm``
 function (``rmsnorm_op``): the ``rmsnorm`` kernel on the card, its

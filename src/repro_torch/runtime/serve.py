@@ -12,20 +12,17 @@ The builders resolve the device once: the card unless ``device="cpu"``,
 raising when there is no card. A vision model's prefill takes the patch
 embeddings as ``batch["patches"]`` (B, n_patches, frontend_dim); an enc-dec
 model's takes the audio frame embeddings as ``batch["frames"]`` (B, S_enc,
-frontend_dim), and its steps go through ``models/encdec.py``'s
-``prefill_encdec`` and ``decode_step_encdec``. The sharded
-``make_prefill_step`` and
-``make_decode_step`` (a mesh and its shardings) wait for the distributed
-slice (ROADMAP.md, queue 1).
+frontend_dim). ``repro_torch.models`` hands each step to the config's
+family. The sharded ``make_prefill_step`` and ``make_decode_step`` (a mesh
+and its shardings) wait for the distributed slice (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import models
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
-from repro_torch.models import encdec as encdec_mod
-from repro_torch.models import transformer as tf_mod
 from repro_torch.models.layers import lm_logits
 
 
@@ -44,17 +41,11 @@ def build_prefill_fn(cfg, max_len: int, device: DeviceLike = None):
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        tokens = _on(params, dev, batch["tokens"])
-        if cfg.is_encdec:
-            hidden, cache = encdec_mod.prefill_encdec(
-                params, _on(params, dev, batch["frames"]), tokens, cfg,
-                max_len=max_len)
-        else:
-            patches = (_on(params, dev, batch["patches"])
-                       if cfg.frontend == "vision" else None)
-            hidden, cache = tf_mod.prefill(params, tokens, cfg,
-                                           extra_embeds=patches,
-                                           max_len=max_len)
+        extra = models.extra_input(cfg, batch)
+        hidden, cache = models.prefill(
+            params, _on(params, dev, batch["tokens"]), cfg,
+            None if extra is None else _on(params, dev, extra),
+            max_len=max_len)
         # only the last position's logits are needed to start decoding
         return lm_logits(params.embed, hidden[:, -1:], cfg), cache
 
@@ -66,9 +57,8 @@ def build_decode_fn(cfg, device: DeviceLike = None):
 
     @torch.no_grad()
     def decode_step(params, token, cache):
-        step = (encdec_mod.decode_step_encdec if cfg.is_encdec
-                else tf_mod.decode_step)
-        hidden, cache = step(params, _on(params, dev, token), cache, cfg)
+        hidden, cache = models.decode_step(params, _on(params, dev, token),
+                                           cache, cfg)
         return lm_logits(params.embed, hidden, cfg), cache
 
     return decode_step

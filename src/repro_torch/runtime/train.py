@@ -26,11 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import models
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
-from repro_torch.models.encdec import (EncDec, forward_train_encdec,
-                                       init_params_encdec)
-from repro_torch.models.transformer import (Transformer, forward_train,
-                                            init_params)
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.runtime.loss import lm_loss
 
@@ -49,12 +46,8 @@ def _loss_fn(params, batch: dict, cfg):
     MoE layers' load-balance loss. A vision model takes ``batch["patches"]``
     and its loss is on the text positions; an enc-dec model takes
     ``batch["frames"]`` and its loss is on the decoder's positions."""
-    if cfg.is_encdec:
-        hidden, aux = forward_train_encdec(params, batch["frames"],
-                                           batch["tokens"], cfg)
-    else:
-        patches = batch["patches"] if cfg.frontend == "vision" else None
-        hidden, aux = forward_train(params, batch["tokens"], cfg, patches)
+    hidden, aux = models.forward_train(params, batch["tokens"], cfg,
+                                       models.extra_input(cfg, batch))
     loss = lm_loss(params.embed, hidden, batch["targets"], cfg)
     return loss + _AUX_WEIGHT * aux, loss
 
@@ -94,7 +87,7 @@ def build_train_step_fn(cfg, opt: AdamWConfig, rules=None,
             "13.4); rules=None is the only value taken")
     dev = resolve_device(device)
 
-    def train_step(params: Transformer, opt_state: dict, batch: dict):
+    def train_step(params, opt_state: dict, batch: dict):
         where = params.embed.table.device
         if where.type != dev.type:
             raise ValueError(f"the model lies on {where}, the step was "
@@ -148,13 +141,12 @@ def init_train_state(key, cfg, opt_dtype=None, device: DeviceLike = None):
     dev = resolve_device(device)
     if not isinstance(key, torch.Generator):
         key = torch.Generator(device=dev).manual_seed(int(key))
-    model = (init_params_encdec if cfg.is_encdec else init_params)(
-        cfg, key, dev)
+    model = models.init_model(cfg, key, dev)
     return model, init_opt_state(model, opt_dtype or cfg.dtype("opt"))
 
 
 def abstract_train_state(cfg):
     """``(model, opt_state)`` on the ``meta`` device: shapes and dtypes, no
     memory."""
-    model = (EncDec if cfg.is_encdec else Transformer)(cfg, "meta")
+    model = models.build_model(cfg, "meta")
     return model, init_opt_state(model, cfg.dtype("opt"))

@@ -55,6 +55,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import models
 from repro_torch.api import ExecConfig, Workspace
 from repro_torch.core import (CenteredGramOperator,
                               CondensedCenteredGramOperator,
@@ -103,7 +104,6 @@ from repro_torch.kernels.rmsnorm_ref import (bf16_ulp_distance,
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.train import build_train_step_fn, init_train_state
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.transformer import (Transformer, decode_step,
@@ -1389,15 +1389,14 @@ def test_recurrent_and_encdec_smokes_card_match_cpu(cuda, name):
     and 6 decode steps; the logits, and the last cache's recurrent states
     or cross K/V, agree."""
     cfg = get_arch(name, smoke=True)
-    build = encdec_mod.init_params_encdec if cfg.is_encdec else init_params
-    cpu = build(cfg, torch.Generator().manual_seed(8), "cpu")
+    cpu = models.init_model(cfg, torch.Generator().manual_seed(8), "cpu")
     with torch.no_grad():
         for pname, p in cpu.named_parameters():
             if p.ndim == 1 and not pname.endswith(("lambda", "dt_bias",
                                                    "a_log")):
                 p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator(
                     ).manual_seed(len(pname))))
-    card = (encdec_mod.EncDec if cfg.is_encdec else Transformer)(cfg, cuda)
+    card = models.build_model(cfg, cuda)
     card.load_state_dict(cpu.state_dict())
     tokens = torch.randint(0, cfg.vocab, (2, 26),
                            generator=torch.Generator().manual_seed(9))

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch import convert
+from repro_torch import convert, models
 from repro_torch.api import ExecConfig, Workspace
 from repro_torch.configs import get_arch
 from repro_torch.core import (CondensedCenteredGramOperator, DistanceMatrix,
@@ -22,6 +22,10 @@ from repro_torch.core.mantel import MantelStatistic
 from repro_torch.dist import pairwise_condensed, pairwise_distances
 from repro_torch.kernels import _build
 from repro_torch.kernels.mantel_corr_ops import mantel_corr_op
+from repro_torch.models.encdec import (EncDec, init_cache_encdec,
+                                       init_params_encdec)
+from repro_torch.models.rglru import init_rec_cache
+from repro_torch.models.ssd import init_ssd_cache
 from repro_torch.models.transformer import (Transformer, init_cache,
                                             init_params)
 from repro_torch.obs import ObsConfig
@@ -100,6 +104,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     d3 = random_distance_matrix(2, 12, device="cpu")
     groups = np.arange(12) % 3
     lm = get_arch("qwen3-8b", smoke=True)
+    seamless = get_arch("seamless-m4t-medium", smoke=True)
     calls = [
         lambda: DistanceMatrix(d.data),
         lambda: DistanceMatrix.from_numpy(d.data.numpy()),
@@ -125,6 +130,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: init_params(lm, torch.Generator()),
         lambda: Transformer(lm),
         lambda: init_cache(lm, 1, 4),
+        lambda: EncDec(seamless),
+        lambda: init_params_encdec(seamless, torch.Generator()),
+        lambda: init_cache_encdec(seamless, 1, 4, 2),
+        lambda: init_rec_cache(get_arch("recurrentgemma-9b", smoke=True), 1),
+        lambda: init_ssd_cache(get_arch("mamba2-1.3b", smoke=True), 1),
+        lambda: models.build_model(seamless),
+        lambda: models.init_model(lm, torch.Generator()),
         lambda: build_prefill_fn(lm, 8),
         lambda: build_decode_fn(lm),
         lambda: convert.lm_params_from_reference({}, lm),

@@ -45,7 +45,7 @@ from repro import configs as ref_configs
 from repro.models import encdec as ref_encdec
 from repro.models import transformer as ref_tf
 from repro.runtime import serve as ref_serve
-from repro_torch import configs
+from repro_torch import configs, models
 from repro_torch.convert import FP32_LEAVES, lm_params_from_reference
 from repro_torch.kernels import _build
 from repro_torch.models import encdec
@@ -94,12 +94,8 @@ def _reference_params(rcfg, seed):
     return jax.tree_util.tree_map_with_path(nonzero, params)
 
 
-def _model_class(cfg):
-    return encdec.EncDec if cfg.is_encdec else tf.Transformer
-
-
 def _port_model(cfg, params):
-    model = _model_class(cfg)(cfg, "cpu")
+    model = models.build_model(cfg, "cpu")
     model.load_state_dict(lm_params_from_reference(
         jax.tree.map(np.asarray, params), cfg, "cpu"))
     return model
@@ -203,8 +199,7 @@ def test_port_decode_matches_its_forward(name):
     if cfg.n_experts:
         cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
     gen = torch.Generator().manual_seed(2)
-    model = (encdec.init_params_encdec if cfg.is_encdec
-             else tf.init_params)(cfg, gen, "cpu")
+    model = models.init_model(cfg, gen, "cpu")
     b, s, split = DECODE_SPLIT.get(cfg.name.removesuffix("-smoke"),
                                    (2, 12, 6))
     tol = 3e-3 if cfg.window and "rec" in cfg.pattern else 2e-3
@@ -212,29 +207,19 @@ def test_port_decode_matches_its_forward(name):
                            generator=torch.Generator().manual_seed(3))
     extra = _patches(cfg, b, 4, s)
     p = _n_patches(extra)
-    extra = {k: torch.from_numpy(v) for k, v in extra.items()}
+    extra = models.extra_input(
+        cfg, {k: torch.from_numpy(v) for k, v in extra.items()})
     with torch.no_grad():
-        if cfg.is_encdec:
-            full, aux = encdec.forward_train_encdec(
-                model, extra["frames"], tokens, cfg)
-            assert torch.equal(model(extra["frames"], tokens)[0], full)
-        else:
-            full, aux = tf.forward_train(model, tokens, cfg,
-                                         extra.get("patches"))
-            assert torch.equal(model(tokens, extra.get("patches"))[0], full)
+        full, aux = models.forward_train(model, tokens, cfg, extra)
+        called = ((extra, tokens) if cfg.is_encdec else (tokens, extra))
+        assert torch.equal(model(*called)[0], full)
     assert (float(aux) > 0.0) == bool(cfg.n_experts)
-    if cfg.is_encdec:
-        hidden, cache = encdec.prefill_encdec(
-            model, extra["frames"], tokens[:, :split], cfg, max_len=s)
-        step = encdec.decode_step_encdec
-    else:
-        hidden, cache = tf.prefill(model, tokens[:, :split], cfg,
-                                   extra.get("patches"), max_len=p + s)
-        step = tf.decode_step
+    hidden, cache = models.prefill(model, tokens[:, :split], cfg, extra,
+                                   max_len=p + s)
     torch.testing.assert_close(hidden, full[:, :p + split], rtol=2e-3,
                                atol=2e-3)
     for t in range(split, s):
-        h, cache = step(model, tokens[:, t:t + 1], cache, cfg)
+        h, cache = models.decode_step(model, tokens[:, t:t + 1], cache, cfg)
         torch.testing.assert_close(h[:, 0], full[:, p + t], rtol=tol,
                                    atol=tol, msg=f"position {t}")
 
@@ -255,8 +240,7 @@ def test_decode_from_an_empty_cache_matches_prefill():
 def test_param_count_matches_the_init_and_the_reference(name):
     cfg, rcfg = _cfgs(name)
     gen = torch.Generator().manual_seed(0)
-    model = (encdec.init_params_encdec if cfg.is_encdec
-             else tf.init_params)(cfg, gen, "cpu")
+    model = models.init_model(cfg, gen, "cpu")
     assert sum(p.numel() for p in model.parameters()) == cfg.param_count()
     # a block drawn alone holds what one layer of the model holds
     if cfg.is_encdec:
@@ -292,7 +276,7 @@ def test_served_archs_are_the_published_size(name, count):
     parameter counts, built on the meta device, are the configs'; the fp32
     leaves are fp32 beside bf16 weights."""
     cfg = configs.get_arch(name)
-    model = _model_class(cfg)(cfg, "meta")
+    model = models.build_model(cfg, "meta")
     assert sum(p.numel() for p in model.parameters()) == \
         cfg.param_count() == count
     fp32 = {n: p for n, p in model.named_parameters() if p.dtype ==

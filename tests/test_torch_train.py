@@ -67,12 +67,10 @@ from repro.data.pipeline import TokenPipeline as RefPipeline
 from repro.optim.adamw import AdamWConfig as RefAdamWConfig
 from repro.runtime import loss as ref_loss
 from repro.runtime import train as ref_train
-from repro_torch import configs
-from repro_torch.models import encdec
+from repro_torch import configs, models
 from repro_torch.convert import (lm_params_from_reference,
                                  opt_state_from_reference)
 from repro_torch.kernels import _build
-from repro_torch.models import transformer as tf
 from repro_torch.models.layers import Embedding
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import loss as port_loss
@@ -143,7 +141,7 @@ def _train_both(name, microbatches, remat, **changes):
     cfg, rcfg = _cfgs(name, microbatches=microbatches, remat=remat,
                       **changes)
     params, opt_state = _reference_state(rcfg, 0)
-    model = (encdec.EncDec if cfg.is_encdec else tf.Transformer)(cfg, "cpu")
+    model = models.build_model(cfg, "cpu")
     model.load_state_dict(lm_params_from_reference(_np(params), cfg, "cpu"))
     opt = opt_state_from_reference(_np(opt_state), model, cfg, "cpu")
     pipe = RefPipeline(vocab=cfg.vocab, seq_len=SEQ, global_batch=BATCH,
@@ -248,11 +246,8 @@ def test_arch_smoke_forward_and_train_step(name):
         extra["frames"] = torch.randn(
             (b, s // cfg.enc_len_ratio, cfg.frontend_dim),
             generator=torch.Generator().manual_seed(1))
-        hidden, aux = encdec.forward_train_encdec(model, extra["frames"],
-                                                  toks, cfg)
-    else:
-        hidden, aux = tf.forward_train(model, toks, cfg,
-                                       extra.get("patches"))
+    hidden, aux = models.forward_train(model, toks, cfg,
+                                       models.extra_input(cfg, extra))
     p = cfg.n_patches if "patches" in extra else 0
     assert hidden.shape == (b, p + s, cfg.d_model)
     assert not bool(torch.isnan(hidden).any())
