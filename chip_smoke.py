@@ -63,6 +63,14 @@ check fails:
    (``--distributed-rank``; gloo with CUDA tensors on one card, NCCL with
    four), the same checks at K = 1000 against the single-process results,
    each rank killed past DIST_TIMEOUT_S; a ``distributed`` JSON line;
+   7c (after 6c) the LM on a 2 x 2 mesh of four processes
+   (``--lm-mesh-rank``; gloo with CUDA tensors on one card, NCCL with
+   four): llama3.2-3b at full width and depth 2 in fp32, 2 steps of 8 x 512
+   tokens under each profile (fsdp, dp_tp, zero1) against one process on
+   the same state (losses and every rank's blocks to 1e-5, replicated
+   leaves bitwise, exact launches), then a sharded prefill and 8 decode
+   steps against one process's; the bytes each rank gathered; an
+   ``lm_mesh`` JSON line;
 5. per-kernel times, bounds and plain versions at the paths' shapes
    (``center_matvec`` also at k = 128, the square-operator PERMANOVA's
    tile, kernel and op; the block and column-range modes at the 2 x 2
@@ -100,16 +108,25 @@ check fails:
    bf16 and, the weights upcast in place, in fp32, each beside planted
    cache faults (each recurrent layer's conv window one step stale, and
    its fp32 state held in bf16, which only the fp32 check must see;
-   seamless's decode position one late); then
+   seamless's decode position one late); phase 6 also serves its prompts
+   through ``make_prefill_step`` and ``make_decode_step`` on the 1 x 1 NCCL
+   mesh, every step's logits bitwise the unsharded run's, its decode
+   median beside the unsharded steps' run again just before; then
 8. the LM training path: llama3.2-3b at full width and depth (28 layers,
    d = 3072, 6.4 GB of bf16 weights drawn from a seed on the card, fp32
    AdamW moments) trained 5 steps of 8 x 512 tokens (4 microbatches of 2,
-   remat "full") through ``launch.train.run``, with exact ``rmsnorm`` and
+   remat "full") through ``launch.train.run`` on its 1 x 1 mesh, with
+   exact ``rmsnorm`` and
    ``rmsnorm_bwd`` launch counts (one backward launch a norm); each step's
    loss (held to the prior tree's: the forward is unchanged), grad norm and
    seconds, tokens a second, peak memory, one more
    step profiled, every RMSNorm weight's gradient and every parameter's
-   change checked; 8b the smoke widths trained on the card and on the CPU
+   change checked; 8d granite-moe-1b-a400m at full width and depth
+   trained the same way (its 2 microbatches): each step's loss, grad norm
+   and seconds, tokens a second, peak memory, the share of pairs dropped,
+   a profiled step, exact launches, every router and expert weight's
+   gradient and every parameter's change (a ``moe_training`` JSON line);
+   8b the smoke widths trained on the card and on the CPU
    from the same state (llama3.2-3b-smoke, qwen3-8b-smoke,
    granite-moe-1b-a400m-smoke with its routing compared,
    phi-3-vision-4.2b-smoke with the launcher's patches, mamba2-1.3b-smoke,
@@ -126,7 +143,9 @@ check fails:
    errors, times and bounds (``session_launches``: each kernel's launches
    in phase 3d; ``train_launches``: rmsnorm's in phase 8;
    ``serve_6b_launches`` and ``serve_6c_launches``: rmsnorm's on phase 6b's
-   and 6c's paths), and one of each phase's host seconds
+   and 6c's paths; ``mesh_serve_launches``, ``lm_mesh_launches`` and
+   ``train_moe_launches``: on phase 6's 1 x 1 mesh, phase 7c's rank 0 and
+   phase 8d), and one of each phase's host seconds
    (``phase_walls_s``).
 
 ``python3 chip_smoke.py --center-matvec-op TREE`` times only
@@ -138,6 +157,9 @@ one-call yardsticks, each from a CUDA graph. ``--square-bits TREE
 OUT`` saves the square calls' outputs of the ``center`` pair,
 ``center_matvec`` and ``mantel_corr`` of the checkout at TREE at fixed
 seeds, and ``--same-bits A B`` compares two such files bitwise.
+``--train-times TREE`` runs phase 8's ``launch.train.run`` of the checkout
+at TREE and prints its step seconds, so that a parent's training step is
+timed in the same call.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it fails before printing any result.
@@ -244,6 +266,20 @@ RAGGED_C0 = 3         # and phase 2c's unaligned column offset
 DIST_MESH = (2, 2)    # phase 7(b): four processes
 DIST_PERMUTATIONS = 1000  # K of phase 7(b): it must divide over 2 devices
 DIST_TIMEOUT_S = 600  # phase 7(b)'s ranks are killed past this
+# phase 7c: the LM on a 2 x 2 mesh of four processes on the one card:
+# llama3.2-3b at full width (d = 3072, its full vocab) and depth 2 in fp32,
+# LM_MESH_STEPS train steps of TRAIN_BATCH x TRAIN_SEQ tokens in 2
+# microbatches under each profile, then a prefill of LM_MESH_PROMPT tokens
+# and LM_MESH_DECODE decode steps; each held against one process on the
+# same state to 1e-5
+LM_MESH = (2, 2)
+LM_MESH_LAYERS = 2
+LM_MESH_STEPS = 2
+LM_MESH_PROFILES = ("fsdp", "dp_tp", "zero1")
+LM_MESH_PROMPT = 64
+LM_MESH_DECODE = 8
+LM_MESH_TOL = 1e-5
+MOE_TRAIN_ARCH = "granite-moe-1b-a400m"  # phase 8d: full width and depth
 # phase 2d: rmsnorm's inputs on the LM path, x dtype: the prefill block and
 # final norms (B·S rows), q- and k-norms (32·B·S and 8·B·S rows of
 # head_dim), the decode block norm, the decode q- and k-norms in the
@@ -2259,6 +2295,8 @@ def phase_lm(card: str) -> dict:
     del again
     table_bytes = model.embed.table.numel() * model.embed.table.element_size()
     fp32_decode_check(model, cfg, prompts, fed, seq)
+    host_mesh = serve_on_host_mesh(model, cfg, prompts, step_logits,
+                                   step_ms, card)
     del model, step_logits, seq, fed
 
     median_ms = float(np.median(step_ms))
@@ -2279,7 +2317,57 @@ def phase_lm(card: str) -> dict:
           f"before the reset): {peak / 1e9:.4f} GB")
     del prompts
     lm_smoke_vs_cpu()
-    return {"launches": launches["rmsnorm"], "kv_quant": kv_quant}
+    return {"launches": launches["rmsnorm"], "kv_quant": kv_quant,
+            "host_mesh": host_mesh}
+
+
+def serve_on_host_mesh(model, cfg, prompts, step_logits, step_ms,
+                       card: str) -> dict:
+    """Phase 6 on the 1 x 1 NCCL mesh: the same prompts through
+    ``make_prefill_step`` and ``make_decode_step`` (the model placed by the
+    rules, in place; the cache by ``cache_specs``), the launch counts set
+    to 0 just before and read just after (``serve_main_path``); every
+    step's logits bitwise the unsharded run's. The unsharded steps run
+    again just before it, so that the two decode medians are taken side
+    by side, both warm (phase 6's first run is the path's cold one)."""
+    from repro_torch.launch.mesh import full_tensor, make_host_mesh
+    from repro_torch.runtime.serve import (abstract_cache, build_decode_fn,
+                                           build_prefill_fn, make_decode_step,
+                                           make_prefill_step)
+    from repro_torch.sharding import make_rules
+
+    beside = serve_main_path(model, cfg, {"tokens": prompts},
+                             build_prefill_fn(cfg, LM_MAX_LEN),
+                             build_decode_fn(cfg), "LM beside the mesh")
+    plain_ms = float(np.median(beside["step_ms"]))
+    del beside
+    mesh = make_host_mesh((1, 1), ("data", "model"), device_type="cuda")
+    rules = make_rules(mesh)
+    batch = {"tokens": prompts}
+    prefill = make_prefill_step(cfg, mesh, rules, model, batch, LM_MAX_LEN)
+    decode = make_decode_step(cfg, mesh, rules, model,
+                              abstract_cache(cfg, LM_BATCH, LM_MAX_LEN))
+
+    def assembled(out):
+        return full_tensor(out[0]), out[1]
+    served = serve_main_path(model, cfg, batch,
+                             lambda m, b: assembled(prefill(m, b)),
+                             lambda m, t, c: assembled(decode(m, t, c)),
+                             "LM on the 1 x 1 mesh")
+    same = len(served["step_logits"]) == len(step_logits) and all(
+        torch.equal(a, b) for a, b in zip(served["step_logits"], step_logits))
+    k = served["cache"].blocks[0].k
+    median_ms = float(np.median(served["step_ms"]))
+    print(f"  on the 1 x 1 NCCL mesh (make_prefill_step / make_decode_step): "
+          f"prefill {served['cold_s']:.4f} s, decode median {median_ms:.4f} "
+          f"ms a step against {plain_ms:.4f} unsharded just before "
+          f"({float(np.median(step_ms)):.4f} in phase 6's first run; "
+          f"{card}); every step's logits bitwise the unsharded run's: "
+          f"{same}; k placed {list(map(str, k.placements))}")
+    check(same, "LM on the 1 x 1 mesh: logits differ from the unsharded run")
+    return {"prefill_s": served["cold_s"], "decode_ms": median_ms,
+            "plain_decode_ms": plain_ms,
+            "launches": served["launches"]["rmsnorm"]}
 
 
 def cache_bytes(cache) -> int:
@@ -3026,13 +3114,15 @@ def distributed_rank(rank: int, init: str, out_dir: str) -> int:
     return 0
 
 
-def spawn_ranks(out_dir: Path) -> list:
-    """Phase 7(b)'s four ranks, each ``chip_smoke.py --distributed-rank``;
-    every rank is killed past DIST_TIMEOUT_S. Returns their reports."""
-    world = DIST_MESH[0] * DIST_MESH[1]
+def spawn_ranks(out_dir: Path, flag: str = "--distributed-rank",
+                world: int = DIST_MESH[0] * DIST_MESH[1],
+                label: str = "phase 7(b)") -> list:
+    """Phase 7(b)'s four ranks (or phase 7c's with ``flag``), each
+    ``chip_smoke.py <flag> RANK STORE DIR``; every rank is killed past
+    DIST_TIMEOUT_S. Returns their reports."""
     init = out_dir / "store"
     procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--distributed-rank",
+        [sys.executable, str(Path(__file__).resolve()), flag,
          str(rank), str(init), str(out_dir)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for rank in range(world)]
     logs = []
@@ -3050,7 +3140,7 @@ def spawn_ranks(out_dir: Path) -> list:
     if any(codes) or len(logs) < world:
         for rank, log in enumerate(logs):
             print(f"  rank {rank}:\n{log[-3000:]}")
-        raise SmokeFailure(f"phase 7(b): ranks exited {codes}")
+        raise SmokeFailure(f"{label}: ranks exited {codes}")
     return [json.loads((out_dir / f"rank{rank}.json").read_text())
             for rank in range(world)]
 
@@ -3156,6 +3246,258 @@ def phase_distributed(main: dict, groups: np.ndarray, card: str) -> dict:
     print(json.dumps({"distributed": line}))
     shutil.rmtree(out_dir, ignore_errors=True)
     return {"block_launches": total_launches({"a": block_a, "b": block_b})}
+
+
+def same_on_replicas(tensors, mesh) -> bool:
+    """Every DTensor of ``tensors`` holds the same bits on the ranks of
+    each axis it is replicated on."""
+    from repro_torch.launch.mesh import active_axes, gather_stack
+    same = True
+    for t in tensors:
+        axes = active_axes(mesh, [a for a, p in zip(mesh.mesh_dim_names,
+                                                    t.placements)
+                                  if p.is_replicate()])
+        if axes:
+            stack = gather_stack(t.to_local().contiguous(), mesh, axes)
+            same &= all(torch.equal(stack[0], x) for x in stack[1:])
+    return bool(same)
+
+
+def blocks_close(model, want: dict, tol: float) -> tuple:
+    """``(ok, max abs err)``: each parameter's block on this rank against
+    the same block of one process's ``want``, within ``tol`` relative and
+    ``tol``·max(scale, 1) absolute (phase 8b's tolerance)."""
+    from repro_torch.launch.mesh import local_of
+    from repro_torch.sharding.ctx import dtensor_dims
+    ok, worst = True, 0.0
+    for name, p in model.named_parameters():
+        w = local_of(want[name], p.device_mesh, dtensor_dims(p)).double()
+        err = (p.to_local().detach().double() - w).abs()
+        worst = max(worst, float(err.max()))
+        ok &= bool((err <= tol * max(float(w.abs().max()), 1.0)
+                    + tol * w.abs()).all())
+    return bool(ok), worst
+
+
+def lm_mesh_rank(rank: int, init: str, out_dir: str) -> int:
+    """One rank of phase 7c: a 2 x 2 mesh over four processes (gloo with
+    CUDA tensors on one card, NCCL on four). The same state stepped by one
+    process, then by the mesh under each profile; then a prefill and
+    LM_MESH_DECODE decode steps on the mesh against one process. Writes
+    its JSON report."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch import models
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import (full_tensor, gathered,
+                                         make_host_mesh, reset_gathered)
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.serve import (build_decode_fn, build_prefill_fn,
+                                           make_decode_step,
+                                           make_prefill_step)
+    from repro_torch.runtime.train import (build_train_step_fn,
+                                           init_train_state, make_train_step)
+    from repro_torch.sharding import make_rules
+
+    cards = torch.cuda.device_count()
+    torch.cuda.set_device(rank % cards)
+    backend = "nccl" if cards >= 4 else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{init}", rank=rank,
+                            world_size=LM_MESH[0] * LM_MESH[1],
+                            timeout=datetime.timedelta(seconds=300))
+    mesh = make_host_mesh(LM_MESH, ("data", "model"), device_type="cuda")
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=LM_MESH_LAYERS,
+                              param_dtype="float32",
+                              compute_dtype="float32", microbatches=2)
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=1, decay_steps=100)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, seed=SEED)
+    batches = [pipe.batch(s) for s in range(LM_MESH_STEPS)]
+
+    def state():
+        model, o = init_train_state(SEED, cfg, device="cuda")
+        warm_opt_state(o, SEED)
+        return model, o
+
+    model, o = state()
+    single = build_train_step_fn(cfg, opt)
+    want_losses = []
+    for batch in batches:
+        model, o, metrics = single(model, o, batch)
+        want_losses.append(float(metrics["loss"]))
+    want = {n: p.detach() for n, p in model.named_parameters()}
+    del o, single
+    gc.collect()
+    torch.cuda.empty_cache()
+    report = {"rank": rank, "backend": backend, "cards": cards,
+              "want_losses": want_losses, "profiles": {}}
+    for profile in LM_MESH_PROFILES:
+        rules = make_rules(mesh, fsdp=(profile == "fsdp"))
+        opt_rules = make_rules(mesh, fsdp=True) if profile == "zero1" \
+            else None
+        m2, o2 = state()
+        step = make_train_step(cfg, opt, mesh, rules, m2, o2, batches[0],
+                               opt_rules=opt_rules)
+        losses, seconds, moved = [], [], []
+        _build.reset_launches()
+        for batch in batches:
+            reset_gathered()
+            sync()
+            t0 = time.perf_counter()
+            m2, o2, metrics = step(m2, o2, batch)
+            losses.append(float(metrics["loss"]))
+            seconds.append(time.perf_counter() - t0)
+            moved.append(gathered["bytes"])
+        ok, worst = blocks_close(m2, want, LM_MESH_TOL)
+        held = sum(p.to_local().numel() * 4 for p in m2.parameters()) \
+            + sum(t.to_local().numel() * 4 for k in ("m", "v")
+                  for t in o2[k].values())
+        report["profiles"][profile] = {
+            "launches": dict(_build.launches),
+            "losses": losses, "seconds": seconds, "gathered_bytes": moved,
+            "params_ok": ok, "params_max_abs_err": worst,
+            "replicas_same": same_on_replicas(
+                list(m2.parameters()) + [t for k in ("m", "v")
+                                         for t in o2[k].values()], mesh),
+            "state_bytes": held,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+        del m2, o2, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    # serving: one process's prefill and decode against the mesh's, the
+    # same weights placed by the fsdp rules
+    rules = make_rules(mesh)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    prompts = torch.randint(0, cfg.vocab, (TRAIN_BATCH, LM_MESH_PROMPT),
+                            generator=gen, device="cuda")
+    max_len = LM_MESH_PROMPT + LM_MESH_DECODE
+    placed = models.build_model(cfg, "cuda")
+    placed.load_state_dict(model.state_dict())
+    prefill = make_prefill_step(cfg, mesh, rules, placed,
+                                {"tokens": prompts}, max_len)
+    # one process first (its launches are not the mesh path's), then the
+    # mesh on the same tokens, the counts set to 0 just before
+    want_logits, want_cache = build_prefill_fn(cfg, max_len)(
+        model, {"tokens": prompts})
+    wants, tokens = [want_logits], []
+    one = build_decode_fn(cfg)
+    for _ in range(LM_MESH_DECODE):
+        tokens.append(wants[-1][:, -1].argmax(-1, keepdim=True))
+        wants.append(one(model, tokens[-1], want_cache)[0])
+    del want_cache
+    reset_gathered()
+    _build.reset_launches()
+    logits, cache = prefill(placed, {"tokens": prompts})
+    got = [full_tensor(logits)]
+    decode = make_decode_step(cfg, mesh, rules, placed, cache)
+    for token in tokens:
+        logits, cache = decode(placed, token, cache)
+        got.append(full_tensor(logits))
+    errs = [float((g - w).abs().max()) for g, w in zip(got, wants)]
+    scale = max(float(w.abs().max()) for w in wants)
+    k = cache.blocks[0].k
+    report["decode"] = {
+        "launches": dict(_build.launches),
+        "max_abs_err": max(errs), "scale": scale,
+        "ok": max(errs) <= LM_MESH_TOL * max(scale, 1.0),
+        "pos": cache.pos, "want_pos": LM_MESH_PROMPT + LM_MESH_DECODE,
+        "k_placements": [str(p) for p in k.placements],
+        "k_local_shape": list(k.to_local().shape),
+        "gathered_bytes": gathered["bytes"],
+        "replicas_same": same_on_replicas(list(placed.parameters()), mesh)}
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_lm_mesh(card: str) -> dict:
+    """Phase 7c: the LM on a 2 x 2 mesh of four processes (gloo with CUDA
+    tensors on one card): llama3.2-3b at full width and depth
+    LM_MESH_LAYERS in fp32, LM_MESH_STEPS steps under each profile held
+    against one process on the same state (losses and every rank's
+    blocks to LM_MESH_TOL, replicated leaves bitwise on every rank), then
+    the sharded prefill and decode against one process's; every rank
+    killed past DIST_TIMEOUT_S."""
+    import tempfile
+
+    print(f"== phase 7c: the LM on a {LM_MESH[0]} x {LM_MESH[1]} mesh of four "
+          f"processes: {TRAIN_ARCH} at full width, {LM_MESH_LAYERS} layers, "
+          f"fp32, {LM_MESH_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens (2 microbatches) under {', '.join(LM_MESH_PROFILES)}; "
+          f"then a {LM_MESH_PROMPT}-token prefill and {LM_MESH_DECODE} "
+          f"decode steps ({card})")
+    (ROOT / "build").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        reports = spawn_ranks(Path(tmp), "--lm-mesh-rank",
+                              LM_MESH[0] * LM_MESH[1], "phase 7c")
+    wall = time.perf_counter() - t0
+    want = reports[0]["want_losses"]
+    print(f"  backend {reports[0]['backend']} on {reports[0]['cards']} "
+          f"card(s); ranks' wall {wall:.1f} s; one process's losses {want}")
+    out = {"wall_s": wall, "backend": reports[0]["backend"], "profiles": {}}
+    for profile in LM_MESH_PROFILES:
+        rows = [r["profiles"][profile] for r in reports]
+        losses = rows[0]["losses"]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        print(f"  {profile}: losses {losses} (rel err {loss_err:.2e}); "
+              f"parameters max abs err "
+              f"{max(r['params_max_abs_err'] for r in rows):.3e}; seconds a "
+              f"step {[round(x, 4) for x in rows[0]['seconds']]}; bytes "
+              f"gathered a rank a step {[r['gathered_bytes'] for r in rows]}"
+              f"; state a rank {[r['state_bytes'] for r in rows]} B; peak "
+              f"{max(r['peak_bytes'] for r in rows) / 1e9:.2f} GB")
+        norms = 2 * LM_MESH_LAYERS + 1
+        want_l = (LM_MESH_STEPS * 2 * (2 * norms - 1),
+                  LM_MESH_STEPS * 2 * norms)
+        got_l = [(r["launches"]["rmsnorm"], r["launches"]["rmsnorm_bwd"])
+                 for r in rows]
+        print(f"    launches a rank (rmsnorm, rmsnorm_bwd): {got_l} (want "
+              f"{want_l})")
+        check(all(g == want_l for g in got_l),
+              f"phase 7c {profile}: rmsnorm launches on the mesh path")
+        check(all(r["losses"] == losses for r in rows),
+              f"phase 7c {profile}: ranks report other losses")
+        check(loss_err <= LM_MESH_TOL, f"phase 7c {profile}: losses differ "
+              f"from one process's by {loss_err:.2e}")
+        check(all(r["params_ok"] for r in rows),
+              f"phase 7c {profile}: a rank's blocks differ from one "
+              f"process's parameters")
+        check(all(r["replicas_same"] for r in rows),
+              f"phase 7c {profile}: a replicated leaf differs between ranks")
+        out["profiles"][profile] = {
+            "losses": losses, "seconds": rows[0]["seconds"],
+            "gathered_bytes": rows[0]["gathered_bytes"],
+            "params_max_abs_err": max(r["params_max_abs_err"] for r in rows)}
+    dec = [r["decode"] for r in reports]
+    worst = max(d["max_abs_err"] for d in dec)
+    print(f"  decode: logits max abs err {worst:.3e} of max|logits| "
+          f"{dec[0]['scale']:.3f} over the prefill and "
+          f"{LM_MESH_DECODE} steps; pos {dec[0]['pos']} (want "
+          f"{dec[0]['want_pos']}); k placed {dec[0]['k_placements']}, a rank "
+          f"holds {dec[0]['k_local_shape']}; bytes gathered a rank "
+          f"{[d['gathered_bytes'] for d in dec]}")
+    want_l = (2 * LM_MESH_LAYERS + 1) * (1 + LM_MESH_DECODE)
+    print(f"  serving launches a rank: rmsnorm "
+          f"{[d['launches']['rmsnorm'] for d in dec]} (want {want_l})")
+    check(all(d["launches"]["rmsnorm"] == want_l for d in dec),
+          "phase 7c: rmsnorm launches on the sharded serving path")
+    check(all(d["ok"] for d in dec), "phase 7c: sharded decode logits "
+          "differ from one process's")
+    check(all(d["pos"] == d["want_pos"] for d in dec),
+          "phase 7c: the sharded cache's position did not advance")
+    check(all(d["replicas_same"] for d in dec),
+          "phase 7c: a replicated leaf differs between ranks (serving)")
+    out["decode_max_abs_err"] = max(d["max_abs_err"] for d in dec)
+    out["launches"] = {"train": rows[0]["launches"]["rmsnorm"],
+                       "train_bwd": rows[0]["launches"]["rmsnorm_bwd"],
+                       "serve": dec[0]["launches"]["rmsnorm"]}
+    print(json.dumps({"lm_mesh": out}))
+    return out
 
 
 def pcoa_steps(dm) -> dict:
@@ -3828,6 +4170,27 @@ def inverse_orders_yardsticks(orders: torch.Tensor) -> dict:
             "argsort_ms": graph_ms(lambda: torch.argsort(orders, dim=1))}
 
 
+def train_times() -> dict:
+    """Phase 8's run (``launch.train.run``: TRAIN_ARCH at full width and
+    depth, TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens, seed 0) by
+    the ``repro_torch`` first on the path, its step seconds and losses, so
+    that a parent tree's training step is timed in the same call as this
+    tree's (``--train-times TREE``)."""
+    import repro_torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as train_launch
+
+    args = train_launch.build_argparser().parse_args(
+        ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+         str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed", "0"])
+    _build.library()
+    res = train_launch.run(args)
+    return {"tree": str(Path(repro_torch.__file__).resolve().parents[2]),
+            "card": torch.cuda.get_device_name(0),
+            "seconds": res["seconds"], "losses": res["losses"],
+            "median_s": float(np.median(res["seconds"][1:]))}
+
+
 def redesign_times() -> dict:
     """``inverse_orders`` at the main path's tile (B = 32, n = N) and the
     whole ``rmsnorm`` backward at phase 5b's two shapes, by the
@@ -3945,11 +4308,13 @@ def warm_opt_state(opt: dict, seed: int) -> None:
     ill-conditioned where a gradient cancels to ~eps (u = g / (|g| + eps)),
     which would turn the devices' rounding-level differences into visible
     updates (tests/test_torch_train.py)."""
-    gen = torch.Generator().manual_seed(seed)
+    device = next(iter(opt["m"].values())).device
+    gen = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         for key, scale in (("m", 1e-3), ("v", 2e-3)):
             for t in opt[key].values():
-                t.copy_(torch.randn(t.shape, generator=gen) * scale)
+                t.copy_(torch.randn(t.shape, generator=gen, device=device)
+                        * scale)
                 if key == "v":
                     t.square_().add_(1e-6)
         opt["step"].fill_(10)
@@ -4036,19 +4401,21 @@ def train_smoke_vs_cpu(name: str) -> None:
 
 def phase_train(card: str) -> dict:
     """Phase 8: llama3.2-3b at full width and depth trained on the card
-    through ``launch.train.run`` (bf16 parameters, fp32 moments, TRAIN_BATCH
-    x TRAIN_SEQ tokens a step in 4 microbatches, remat "full", the
-    structured TokenPipeline, seed 0), the launch counts set to 0 just
-    before and read just after; then one step profiled, every RMSNorm
-    weight's gradient and every parameter's change checked, and the peak
-    memory read."""
+    through ``launch.train.run`` on its 1 x 1 mesh (bf16 parameters, fp32
+    moments, TRAIN_BATCH x TRAIN_SEQ tokens a step in 4 microbatches, remat
+    "full", the structured TokenPipeline, seed 0), the launch counts set to
+    0 just before and read just after; then one step profiled, every
+    RMSNorm weight's gradient and every parameter's change checked, and the
+    peak memory read."""
     from repro_torch.configs import get_arch
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels import _build
     from repro_torch.launch import train as train_launch
+    from repro_torch.launch.mesh import full_tensor
     from repro_torch.models.transformer import init_params
     from repro_torch.optim import AdamWConfig
-    from repro_torch.runtime.train import build_train_step_fn
+    from repro_torch.runtime.train import make_train_step
+    from repro_torch.sharding import make_rules
 
     cfg = get_arch(TRAIN_ARCH)
     args = train_launch.build_argparser().parse_args(
@@ -4117,7 +4484,7 @@ def phase_train(card: str) -> dict:
           == TRAIN_STEPS, "training: steps run")
     norm_names = [k for k in opt["v"] if k.endswith(
         ("ln1.w", "ln2.w", "final_norm.w", "q_norm", "k_norm"))]
-    nonzero = {k: float((opt["v"][k] > 0).float().mean())
+    nonzero = {k: float((full_tensor(opt["v"][k]) > 0).float().mean())
                for k in norm_names}
     print(f"  RMSNorm weights with a nonzero gradient (second moment > 0): "
           f"{sum(v > 0 for v in nonzero.values())} of {len(norm_names)} "
@@ -4126,11 +4493,13 @@ def phase_train(card: str) -> dict:
     check(len(norm_names) == norms and all(v > 0 for v in nonzero.values()),
           "training: an RMSNorm weight received no gradient")
 
-    # one more step, profiled, on the same state and the next batch
-    step_fn = build_train_step_fn(dataclasses.replace(cfg, microbatches=m),
-                                  AdamWConfig(peak_lr=args.lr,
-                                              warmup_steps=1,
-                                              decay_steps=TRAIN_STEPS))
+    # one more step, profiled, on the same state and the next batch, on the
+    # run's mesh
+    mesh = train_launch.make_mesh("host", "cuda")
+    step_fn = make_train_step(dataclasses.replace(cfg, microbatches=m),
+                              AdamWConfig(peak_lr=args.lr, warmup_steps=1,
+                                          decay_steps=TRAIN_STEPS),
+                              mesh, make_rules(mesh), model, opt)
     batch = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                           global_batch=TRAIN_BATCH, seed=0).batch(TRAIN_STEPS)
     profile = device_breakdown("one training step, profiled",
@@ -4146,7 +4515,7 @@ def phase_train(card: str) -> dict:
     with torch.no_grad():
         for (name, p), (_, p0) in zip(model.named_parameters(),
                                       start.named_parameters()):
-            changed[name] = float((p != p0).float().mean())
+            changed[name] = float((full_tensor(p) != p0).float().mean())
     print(f"  parameters changed: {sum(v > 0 for v in changed.values())} of "
           f"{len(changed)}; least share of elements changed "
           f"{min(changed.values()):.4f} "
@@ -4158,6 +4527,129 @@ def phase_train(card: str) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "steady_s": steady, "peak_gb": peak / 1e9,
             "profile": profile}
+
+
+def phase_train_moe(card: str) -> dict:
+    """Phase 8d: granite-moe-1b-a400m at full width and depth trained
+    through ``launch.train.run`` on its 1 x 1 mesh (bf16 parameters, fp32
+    moments, TRAIN_BATCH x TRAIN_SEQ tokens a step in its own 2
+    microbatches, remat "full", seed 0, TRAIN_STEPS steps), the launch
+    counts set to 0 just before and read just after and every MoE routing
+    recorded on the card; then one step profiled, every router and expert
+    weight's gradient and every parameter's change checked."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.mesh import full_tensor
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import make_train_step
+    from repro_torch.sharding import make_rules
+
+    cfg = get_arch(MOE_TRAIN_ARCH)
+    args = train_launch.build_argparser().parse_args(
+        ["--arch", MOE_TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+         str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed", "0"])
+    m = min(cfg.microbatches, max(TRAIN_BATCH // 2, 1))
+    print(f"== phase 8d: training {cfg.name} at full width and depth "
+          f"({cfg.n_layers} layers, d={cfg.d_model}, {cfg.n_experts} experts "
+          f"of d_ff {cfg.d_ff}, top-{cfg.top_k}, capacity factor "
+          f"{cfg.capacity_factor}, vocab={cfg.vocab}), {cfg.param_dtype} "
+          f"params, {cfg.opt_dtype} moments: {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {m} microbatches, remat "
+          f"{cfg.remat!r}, on the 1 x 1 mesh")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with RoutingRecord(to_cpu=False) as routing:
+        res = train_launch.run(args)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() - base
+    model, opt = res["params"], res["opt"]
+    losses, grad_norms = res["losses"], res["grad_norms"]
+    norms = norms_per_pass(cfg)
+    want_fwd = TRAIN_STEPS * m * (norms + recomputed_norms(cfg))
+    want_bwd = TRAIN_STEPS * m * norms
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    secs = res["seconds"]
+    steady = float(np.median(secs[1:]))
+    for s, (loss, gn, sec) in enumerate(zip(res["losses"], res["grad_norms"],
+                                            secs)):
+        print(f"  step {s}: loss {loss:.6f}, grad norm {gn:.6f}, "
+              f"{sec:.4f} s, {tokens / sec:.1f} tokens/s")
+    kept = sum(int(keep.sum()) for _, keep in routing.calls)
+    pairs = sum(keep.numel() for _, keep in routing.calls)
+    dropped = 1.0 - kept / pairs
+    print(f"  run {wall:.4f} s (weights drawn, {TRAIN_STEPS} steps); median "
+          f"of steps 1-{TRAIN_STEPS - 1} {steady:.4f} s, "
+          f"{tokens / steady:.1f} tokens/s ({card})")
+    print(f"  peak memory above the phase's start "
+          f"(torch.cuda.max_memory_allocated): {peak / 1e9:.4f} GB")
+    print(f"  routing: {len(routing.calls)} chunks routed (forward and "
+          f"remat), {pairs} (token, choice) pairs, {dropped:.4f} of them "
+          f"dropped past capacity")
+    print(f"  launches: rmsnorm {launches['rmsnorm']} (want {want_fwd}), "
+          f"rmsnorm_bwd {launches['rmsnorm_bwd']} (want {want_bwd}); other "
+          f"kernels "
+          f"{sum(v for k, v in launches.items() if not k.startswith('rmsnorm'))}")
+    check(launches["rmsnorm"] == want_fwd
+          and launches["rmsnorm_bwd"] == want_bwd,
+          "MoE training: rmsnorm launches on the main path")
+    check(all(np.isfinite(v) for v in res["losses"] + res["grad_norms"])
+          and len(res["losses"]) == TRAIN_STEPS,
+          "MoE training: non-finite loss or grad norm, or steps missing")
+    expert_names = [k for k in opt["v"] if ".moe." in k]
+    nonzero = {k: float((full_tensor(opt["v"][k]) > 0).float().mean())
+               for k in expert_names}
+    print(f"  router and expert weights with a nonzero gradient (second "
+          f"moment > 0): {sum(v > 0 for v in nonzero.values())} of "
+          f"{len(expert_names)}; least share of elements "
+          f"{min(nonzero.values()):.4f} ({min(nonzero, key=nonzero.get)})")
+    check(len(expert_names) == cfg.n_layers * (4 if cfg.mlp_act != "sq_relu"
+                                               else 3)
+          and all(v > 0 for v in nonzero.values()),
+          "MoE training: a router or expert weight received no gradient")
+    mesh = train_launch.make_mesh("host", "cuda")
+    step_fn = make_train_step(dataclasses.replace(cfg, microbatches=m),
+                              AdamWConfig(peak_lr=args.lr, warmup_steps=1,
+                                          decay_steps=TRAIN_STEPS),
+                              mesh, make_rules(mesh), model, opt)
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=0).batch(TRAIN_STEPS)
+    profile = device_breakdown("one MoE training step, profiled",
+                               lambda: step_fn(model, opt, batch), card,
+                               top=12)
+    del opt, res, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    changed = {}
+    with torch.no_grad():
+        for (name, p), (_, p0) in zip(model.named_parameters(),
+                                      start.named_parameters()):
+            changed[name] = float((full_tensor(p) != p0).float().mean())
+    print(f"  parameters changed: {sum(v > 0 for v in changed.values())} of "
+          f"{len(changed)}; least share of elements changed "
+          f"{min(changed.values()):.4f} ({min(changed, key=changed.get)})")
+    check(all(v > 0 for v in changed.values()),
+          "MoE training: a parameter did not change")
+    del model, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"launches": launches, "steady_s": steady, "seconds": secs,
+           "tokens_per_s": tokens / steady, "peak_gb": peak / 1e9,
+           "dropped": dropped, "losses": losses, "grad_norms": grad_norms,
+           "busy_share": profile and profile["busy_share"]}
+    print(json.dumps({"moe_training": out}))
+    return out
 
 
 def phase_train_checks(card: str) -> None:
@@ -4289,6 +4781,11 @@ def main() -> int:
         sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
         print(json.dumps(center_matvec_op_times()))
         return 0
+    if sys.argv[1:2] == ["--train-times"] and len(sys.argv) == 3:
+        # another (or this) tree's phase 8 run, timed
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
+        print(json.dumps({"train_times": train_times()}))
+        return 0
     if sys.argv[1:2] == ["--redesign-times"] and len(sys.argv) == 3:
         # another (or this) tree's inverse_orders and rmsnorm backward
         sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
@@ -4304,6 +4801,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     if sys.argv[1:2] == ["--distributed-rank"] and len(sys.argv) == 5:
         return distributed_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--lm-mesh-rank"] and len(sys.argv) == 5:
+        return lm_mesh_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if sys.argv[1:] == ["--solver-first-calls"]:     # phase 4b's fresh process
         torch.zeros(1, device="cuda")
         print(json.dumps(solver_first_calls()))
@@ -4382,12 +4881,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_6c = run("6c SSD, RG-LRU and enc-dec serving", phase_lm_recurrent,
                 card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_mesh = run("7c LM on a mesh", phase_lm_mesh, card)
     train = run("8 training", phase_train, card)
+    train_moe = run("8d MoE training", phase_train_moe, card)
     run("8b/8c training checks", phase_train_checks, card)
     errors["rmsnorm_bwd"] = run("5b rmsnorm_bwd check", phase_rmsnorm_bwd_kernel)
     kernels.append(run("5b rmsnorm times", rmsnorm_entry, lm["launches"],
                        errors["rmsnorm"], card))
     kernels[-1]["train_launches"] = train["launches"]["rmsnorm"]
+    # slice 14's paths: the 1 x 1 mesh serving, phase 7c's rank 0 (the
+    # zero1 steps, and serving), phase 8d's MoE training
+    kernels[-1]["mesh_serve_launches"] = lm["host_mesh"]["launches"]
+    kernels[-1]["lm_mesh_launches"] = lm_mesh["launches"]
+    kernels[-1]["train_moe_launches"] = train_moe["launches"]["rmsnorm"]
     # phase 6b's paths: each run's launches
     kernels[-1]["serve_6b_launches"] = {
         **{name: lm_new[name]["launches"] for name in NEW_LM_ARCHS},
@@ -4397,6 +4905,8 @@ def main() -> int:
                                         for name, r in lm_6c.items()}
     kernels.extend(run("5b rmsnorm_bwd times", rmsnorm_bwd_entries,
                        train["launches"], errors["rmsnorm_bwd"], card))
+    kernels[-1]["train_moe_launches"] = train_moe["launches"]["rmsnorm_bwd"]
+    kernels[-1]["lm_mesh_launches"] = lm_mesh["launches"]["train_bwd"]
     for kern in kernels:        # each kernel's launches on the session path
         kern["session_launches"] = \
             session["session"]["launches_total"].get(kern["name"], 0)

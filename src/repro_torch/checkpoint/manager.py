@@ -18,8 +18,17 @@ a nested dict of tensors, named by its key path joined with ``__`` (the
 parameters' ``state_dict`` keys, e.g. ``params__blocks.0.ln1.w``). Numpy has
 no bf16, so a bf16 leaf is stored as its int16 view, with its dtype in the
 manifest. ``restore`` puts each leaf on a given device (or its template's)
-in its template's dtype. The reference's elastic re-shard onto a mesh waits
-for the LM on a mesh (ROADMAP.md, item 13.4).
+in its template's dtype.
+
+**Elastic**: the leaves stay in the unsharded logical layout whatever mesh
+saved them. A ``DTensor`` leaf is assembled (``launch.mesh.full_tensor``,
+a collective every rank of its mesh joins) and written once, by the
+process group's rank 0; a save with such leaves ends, when the files are
+published (at ``wait()`` for ``blocking=False``), with a barrier, so no
+rank reads a checkpoint before it is on disk. ``restore(..., mesh=,
+specs=)`` gives each rank the block its spec names of every leaf
+(``DTensor.from_local``): a re-shard onto any mesh, or, without them, onto
+none.
 """
 
 from __future__ import annotations
@@ -33,8 +42,11 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.dispatch import DeviceLike
+from repro_torch.launch.mesh import full_tensor
 
 _LEAF_DIR = "leaves"
 _SAFE = re.compile(r"[^A-Za-z0-9_.-]")
@@ -78,6 +90,7 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier = False       # a sharded save waits for its writer
 
     # -- discovery ---------------------------------------------------------
     def all_steps(self) -> list[int]:
@@ -97,12 +110,24 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, metadata: Optional[dict] = None,
              blocking: bool = True) -> None:
         """Snapshot ``tree`` to host memory now; write it now or, with
-        ``blocking=False``, on a background thread."""
+        ``blocking=False``, on a background thread. ``DTensor`` leaves are
+        assembled here (every rank of their mesh calls ``save``), and only
+        rank 0 of the process group writes."""
         self.wait()
+        flat = _flatten(tree)
+        sharded = any(isinstance(leaf, DTensor) for _, leaf in flat)
+        writer = not sharded or dist.get_rank() == 0
         host, dtypes = [], {}
-        for key, leaf in _flatten(tree):
-            arr, dtypes[key] = _to_host(leaf)
-            host.append((key, arr))
+        for key, leaf in flat:
+            leaf = full_tensor(leaf)
+            if writer:
+                arr, dtypes[key] = _to_host(leaf)
+                host.append((key, arr))
+        self._barrier = sharded
+        if not writer:
+            if blocking:
+                self.wait()
+            return
         meta = dict(metadata or {})
         meta["step"] = step
         meta["leaves"] = [k for k, _ in host]
@@ -125,6 +150,7 @@ class CheckpointManager:
 
         if blocking:
             write()
+            self.wait()
             return
 
         def run():
@@ -137,10 +163,14 @@ class CheckpointManager:
         self._thread.start()
 
     def wait(self) -> None:
-        """Join the background write, re-raising what it raised."""
+        """Join the background write, re-raising what it raised; after a
+        sharded save, wait at a barrier for the writer."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             error, self._error = self._error, None
             raise error
@@ -153,10 +183,14 @@ class CheckpointManager:
 
     # -- restore -------------------------------------------------------------
     def restore(self, template: Any, step: Optional[int] = None,
-                device: DeviceLike = None):
+                device: DeviceLike = None, mesh=None, specs: Any = None):
         """Restore into the structure of ``template`` (values ignored): each
         leaf in its template's dtype, on ``device`` or, when none is given,
-        on its template's device. Returns ``(tree, metadata)``."""
+        on its template's device. With ``mesh`` and ``specs`` (a tree like
+        ``template`` of ``PartitionSpec``s) each leaf is a ``DTensor`` on
+        the mesh's device holding this rank's block. Returns ``(tree,
+        metadata)``."""
+        from repro_torch.sharding.rules import shard_tensor
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -164,13 +198,37 @@ class CheckpointManager:
         with open(os.path.join(base, "manifest.json")) as f:
             meta = json.load(f)
         dtypes = meta.get("dtypes", {})
+        spec_of = dict(_flatten_specs(template, specs)) if mesh is not None \
+            else {}
         leaves = {}
         for key, tmpl in _flatten(template):
             t = torch.from_numpy(np.load(os.path.join(base, _LEAF_DIR,
                                                       key + ".npy")))
             if dtypes.get(key) == "bfloat16":
                 t = t.view(torch.bfloat16)
+            if key in spec_of:
+                t = t.to(device=mesh.device_type, dtype=tmpl.dtype)
+                leaves[key] = shard_tensor(t, mesh, spec_of[key])
+                continue
             tmpl = torch.as_tensor(tmpl)
             where = tmpl.device if device is None else torch.device(device)
             leaves[key] = t.to(device=where, dtype=tmpl.dtype)
         return _unflatten(template, leaves), meta
+
+
+def _flatten_specs(template: Any, specs: Any, prefix: tuple = ()):
+    """``(key, spec)`` of each leaf of ``template``, its spec at the same
+    path of ``specs`` (a ``PartitionSpec`` is a leaf there)."""
+    from repro_torch.sharding.rules import PartitionSpec
+    if isinstance(specs, PartitionSpec):
+        for key, _ in _flatten(template, prefix):
+            yield key, specs
+        return
+    if isinstance(template, dict):
+        for k, v in template.items():
+            yield from _flatten_specs(v, specs[k], prefix + (str(k),))
+    elif isinstance(template, (list, tuple)):
+        for i, v in enumerate(template):
+            yield from _flatten_specs(v, specs[i], prefix + (f"i{i}",))
+    else:
+        raise ValueError(f"no spec for the leaf at {prefix}")

@@ -15,7 +15,19 @@ the payloads of the analysis paths are O(n) or O(n·k).
 A block-sharded global array is a ``DTensor`` built with
 ``DTensor.from_local`` from the rank's own block (no scatter from a root:
 gloo may refuse one on CUDA tensors). ``full_tensor`` assembles the global
-array with the same gathers.
+array with the same gathers (none over an axis of one rank).
+
+The LM on a mesh adds the collectives a sharded step differentiates
+through, each over the axes of size above 1 only (an axis of size 1 issues
+none, and its function is the identity): ``gather_leaf`` assembles a
+weight from the rank's block at use, and its backward sums the gradient
+over the batch axes in rank order (a reduce-scatter, ``reduce_scatter``,
+where the axis splits one of the leaf's dims; a gather and a rank-order
+sum where it does not) and keeps the rank's block; ``copy_to``
+(identity, its backward a ``psum``), ``reduce_from`` (a ``psum``, its
+backward the identity) and ``all_reduce`` (a ``psum`` both ways) carry the
+vocab-sharded loss and the batch statistics; ``pmax`` takes no gradient.
+A leaf's sharded dims are ``{dim: axes}``, the axes outermost first.
 
 The reference's v5e constants (peak FLOP/s, HBM and ICI rates) are a
 TPU's numbers and are not carried over; ``repro_torch.tune.budget`` reads
@@ -118,21 +130,27 @@ def check_device(mesh: DeviceMesh, *tensors: torch.Tensor) -> None:
                              f"{mesh.device_type} mesh")
 
 
-def _gather(t: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
-    """(P, *t.shape): ``t`` of every rank along ``axis``, in the order of
-    their coordinates on it."""
+def _peers(mesh: DeviceMesh, axis: str) -> tuple:
+    """``(group, [group rank of coordinate i on axis])``."""
     group = mesh.get_group(axis)
     dim = mesh.mesh_dim_names.index(axis)
     coord = list(mesh.get_coordinate())
-    peers = []
+    ranks = []
     for i in range(mesh.size(dim)):
         coord[dim] = i
-        peers.append(int(mesh.mesh[tuple(coord)]))
-    parts = [torch.empty_like(t) for _ in peers]
+        ranks.append(dist.get_group_rank(group, int(mesh.mesh[tuple(coord)])))
+    return group, ranks
+
+
+def _gather(t: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
+    """(P, *t.shape): ``t`` of every rank along ``axis``, in the order of
+    their coordinates on it."""
+    group, ranks = _peers(mesh, axis)
+    parts = [torch.empty_like(t) for _ in ranks]
     dist.all_gather(parts, t.contiguous(), group=group)
     gathered["calls"] += 1
-    gathered["bytes"] += t.numel() * t.element_size() * (len(peers) - 1)
-    return torch.stack([parts[dist.get_group_rank(group, r)] for r in peers])
+    gathered["bytes"] += t.numel() * t.element_size() * (len(ranks) - 1)
+    return torch.stack([parts[r] for r in ranks])
 
 
 def gather_stack(t: torch.Tensor, mesh: DeviceMesh, axes: Axes
@@ -175,19 +193,199 @@ def placements(mesh: DeviceMesh, shards: dict) -> list:
 
 def full_tensor(t) -> torch.Tensor:
     """The global array of a DTensor, by this module's gathers (a plain
-    tensor passes through)."""
+    tensor passes through). A dim split over axes of one rank only is
+    copied, not gathered."""
     if not isinstance(t, DTensor):
         return t
-    local = t.to_local()
+    local = out = t.to_local()
     mesh = t.device_mesh
     # the rightmost mesh axis sharding a tensor dim is its innermost split
     for axis, place in reversed(list(zip(mesh.mesh_dim_names,
                                          t.placements))):
         if place.is_shard():
-            local = all_gather_tiled(local, mesh, axis, dim=place.dim)
+            if axis_size(mesh, axis) > 1:
+                out = all_gather_tiled(out, mesh, axis, dim=place.dim)
         elif not place.is_replicate():
             raise ValueError(f"unsupported placement {place}")
+    sharded = any(place.is_shard() for place in t.placements)
+    return local.clone() if sharded and out is local else out
+
+
+# --------------------------------------------------------------------------
+# the collectives of a sharded step, and their gradients
+# --------------------------------------------------------------------------
+Dims = dict   # {tensor dim: (mesh axis, ...)}, the axes outermost first
+
+
+def active_axes(mesh: DeviceMesh, axes: Axes) -> tuple[str, ...]:
+    """The axes of ``axes`` with more than one rank."""
+    return tuple(a for a in _as_axes(axes) if axis_size(mesh, a) > 1)
+
+
+def block_slices(shape, mesh: DeviceMesh, dims: Dims) -> tuple:
+    """This rank's block of a global ``shape`` split as ``dims`` says: one
+    slice a dim, contiguous, the axes of a dim row-major."""
+    out = []
+    for d, n in enumerate(shape):
+        axes = dims.get(d, ())
+        parts = axis_size(mesh, axes) if axes else 1
+        if n % parts:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                             f"over {axes} ({parts} ranks)")
+        i = axis_index(mesh, axes) if axes else 0
+        out.append(slice(i * (n // parts), (i + 1) * (n // parts)))
+    return tuple(out)
+
+
+def local_of(full: torch.Tensor, mesh: DeviceMesh, dims: Dims
+             ) -> torch.Tensor:
+    """This rank's block of a global tensor every rank holds."""
+    return full[block_slices(full.shape, mesh, dims)]
+
+
+def gather_dims(local: torch.Tensor, mesh: DeviceMesh, dims: Dims
+                ) -> torch.Tensor:
+    """The global tensor of the ranks' blocks: each dim's axes gathered
+    innermost first (``full_tensor``'s order)."""
+    for d, axes in dims.items():
+        for a in reversed(active_axes(mesh, axes)):
+            local = all_gather_tiled(local, mesh, a, dim=d)
     return local
+
+
+def reduce_scatter(t: torch.Tensor, mesh: DeviceMesh, axis: str,
+                   dim: int) -> torch.Tensor:
+    """This rank's chunk (by its coordinate on ``axis``) along ``dim`` of
+    the sum of ``t`` over the ranks of ``axis``, summed in rank order:
+    each rank sends each peer only that peer's chunk (an ``all_to_all``)."""
+    group, ranks = _peers(mesh, axis)
+    p = len(ranks)
+    chunks = list(torch.chunk(t, p, dim=dim))
+    by_group = [None] * p
+    for coord, gr in enumerate(ranks):
+        by_group[gr] = chunks[coord].contiguous().reshape(-1)
+    send = torch.cat(by_group)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    gathered["calls"] += 1
+    gathered["bytes"] += recv.numel() * recv.element_size() * (p - 1) // p
+    parts = recv.reshape(p, *chunks[0].shape)
+    total = parts[ranks[0]].clone()
+    for coord in range(1, p):
+        total += parts[ranks[coord]]
+    return total
+
+
+def _reduce_to_block(grad: torch.Tensor, mesh: DeviceMesh, dims: Dims,
+                     reduce_axes: tuple) -> torch.Tensor:
+    """``grad`` summed over ``reduce_axes`` in rank order and cut to this
+    rank's block of ``dims``: an axis that splits no dim is a gather and a
+    sum; along a dim, each axis outermost first is a reduce-scatter when it
+    is summed over and a cut to the rank's chunk when it is not."""
+    reduce_axes = active_axes(mesh, reduce_axes)
+    splits = {a for ax in dims.values() for a in ax}
+    for a in reduce_axes:
+        if a not in splits:
+            grad = psum(grad, mesh, a)
+    # the dims only cut come first: each reduce-scatter then moves less
+    order = sorted(dims.items(), key=lambda kv: any(
+        a in reduce_axes for a in active_axes(mesh, kv[1])))
+    for d, axes in order:
+        for a in active_axes(mesh, axes):
+            if a in reduce_axes:
+                grad = reduce_scatter(grad, mesh, a, d)
+            else:
+                grad = torch.chunk(grad, axis_size(mesh, a),
+                                   dim=d)[axis_index(mesh, a)]
+    return grad.contiguous()
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, mesh, dims, reduce_axes):
+        ctx.mesh, ctx.dims, ctx.reduce_axes = mesh, dims, reduce_axes
+        return gather_dims(local, mesh, dims)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_reduce_to_block(grad, ctx.mesh, ctx.dims, ctx.reduce_axes),
+                None, None, None)
+
+
+def gather_leaf(local: torch.Tensor, mesh: DeviceMesh, dims: Dims,
+                reduce_axes: Axes = ()) -> torch.Tensor:
+    """The global weight from this rank's block, differentiable: the
+    backward sums the gradient over ``reduce_axes`` (the axes the batch is
+    split over) in rank order and returns this rank's block of it. With
+    no axis of size above 1 among ``dims`` and ``reduce_axes`` it is
+    ``local`` itself."""
+    live = {d: ax for d, ax in dims.items() if active_axes(mesh, ax)}
+    if not live and not active_axes(mesh, reduce_axes):
+        return local
+    return _Gather.apply(local, mesh, live, tuple(reduce_axes))
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return psum(grad.contiguous(), ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return psum(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return psum(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return psum(grad.contiguous(), ctx.mesh, ctx.axes), None, None
+
+
+def copy_to(t: torch.Tensor, mesh: DeviceMesh, axes: Axes) -> torch.Tensor:
+    """``t`` as it is; its gradient summed over ``axes`` (a value every
+    rank of ``axes`` holds, used by each on its own slice of the work)."""
+    axes = active_axes(mesh, axes)
+    return _CopyTo.apply(t, mesh, axes) if axes else t
+
+
+def reduce_from(t: torch.Tensor, mesh: DeviceMesh, axes: Axes
+                ) -> torch.Tensor:
+    """The rank-order sum over ``axes``; the gradient passes as it is (every
+    rank of ``axes`` goes on with the same sum)."""
+    axes = active_axes(mesh, axes)
+    return _ReduceFrom.apply(t, mesh, axes) if axes else t
+
+
+def all_reduce(t: torch.Tensor, mesh: DeviceMesh, axes: Axes
+               ) -> torch.Tensor:
+    """The rank-order sum over ``axes``, its gradient summed the same way
+    (each rank's loss takes its share of the sum)."""
+    axes = active_axes(mesh, axes)
+    return _AllReduce.apply(t, mesh, axes) if axes else t
+
+
+def pmax(t: torch.Tensor, mesh: DeviceMesh, axes: Axes) -> torch.Tensor:
+    """The elementwise max over ``axes`` (no gradient)."""
+    axes = active_axes(mesh, axes)
+    if not axes:
+        return t
+    return gather_stack(t.detach(), mesh, axes).amax(dim=0)
 
 
 def local_block(d, mesh: DeviceMesh, row_axis: str, col_axis: str):

@@ -36,9 +36,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.rmsnorm_ops import rmsnorm_op
-from repro_torch.models.layers import apply_rope, draw_normal, param
+from repro_torch.models.layers import (apply_rope, draw_normal, param,
+                                       state_device)
 
 _NEG_INF = -1e30
 
@@ -240,7 +240,7 @@ class AttnCache:
 def init_attn_cache(cfg, batch: int, max_len: int, window: int = 0,
                     device=None) -> AttnCache:
     """window > 0 → a ring of min(window, max_len) slots."""
-    dev = resolve_device(device)
+    dev = state_device(device)
     size = min(window, max_len) if window else max_len
     shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
     pos = torch.full((size,), -1, dtype=torch.int32, device=dev)

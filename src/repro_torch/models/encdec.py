@@ -26,9 +26,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import MLP, Embedding, init_norm
+from repro_torch.models.layers import (MLP, Embedding, init_norm,
+                                       state_device)
 from repro_torch.models.transformer import (Frontend, _embed_inputs,
-                                            _positions)
+                                            _positions, final_norm)
+from repro_torch.sharding import ctx as shard_ctx
 
 
 class EncBlock(nn.Module):
@@ -119,7 +121,10 @@ def init_params_encdec(cfg, generator: torch.Generator,
 def _blocks(fn, blocks, x, *args):
     """x through ``fn(block, x, *args)`` for each block, each checkpointed
     under autograd."""
+    fn = shard_ctx.at_use(fn)
+    seq_dim = 1 if args[-1].seq_shard_activations else None
     for bp in blocks:
+        x = shard_ctx.constrain_batch(x, seq_dim=seq_dim)
         x = (checkpoint(fn, bp, x, *args, use_reentrant=False)
              if torch.is_grad_enabled() else fn(bp, x, *args))
     return x
@@ -134,9 +139,11 @@ def _enc_block(bp: EncBlock, x, positions, cfg):
 
 def encode(params: EncDec, frames, cfg):
     """frames: (B, S_enc, frontend_dim) stub embeddings → (B, S_enc, D)."""
-    x = params.frontend(frames, cfg)
+    with shard_ctx.gathered(params.frontend):
+        x = params.frontend(frames, cfg)
     x = _blocks(_enc_block, params.enc_blocks, x, _positions(x), cfg)
-    return params.enc_norm(x)
+    with shard_ctx.gathered(params.enc_norm):
+        return params.enc_norm(x)
 
 
 def _dec_block(bp: DecBlock, x, enc_out, positions, cfg):
@@ -156,7 +163,8 @@ def forward_train_encdec(params: EncDec, frames, tokens, cfg):
     x = _embed_inputs(params, tokens, cfg)
     x = _blocks(_dec_block, params.dec_blocks, x, enc_out, _positions(x),
                 cfg)
-    return params.final_norm(x), torch.zeros((), dtype=torch.float32,
+    x = shard_ctx.constrain_batch(x)
+    return final_norm(params, x), torch.zeros((), dtype=torch.float32,
                                              device=x.device)
 
 
@@ -189,26 +197,33 @@ def prefill_encdec(params: EncDec, frames, tokens, cfg,
     positions = _positions(x)
     caches = []
     for bp in params.dec_blocks:
-        h, (k, v) = attn_mod.attn_forward(bp.self, bp.ln1(x), positions,
-                                          cfg, causal=True)
-        x = x + h
-        self_cache = attn_mod.fill_cache_from_prefill(
-            attn_mod.init_attn_cache(cfg, x.shape[0], max_len,
-                                     device=x.device), k, v)
-        h, (ck, cv) = attn_mod.attn_forward(
-            bp.cross, bp.ln_x(x), None, cfg, causal=False, kv_x=enc_out,
-            kv_positions=None)
-        x = x + h
-        x = x + bp.mlp(bp.ln2(x))
-        caches.append(DecLayerCache(self_attn=self_cache, cross_k=ck,
-                                    cross_v=cv))
-    return params.final_norm(x), EncDecCache(dec=caches, pos=s)
+        x = shard_ctx.constrain_batch(x)
+        with shard_ctx.gathered(bp):
+            x, c = _dec_prefill(bp, x, enc_out, positions, cfg, max_len)
+        caches.append(c)
+    return final_norm(params, x), EncDecCache(dec=caches, pos=s)
+
+
+def _dec_prefill(bp: DecBlock, x, enc_out, positions, cfg, max_len: int):
+    """One decoder layer over the prompt → (x, its DecLayerCache)."""
+    h, (k, v) = attn_mod.attn_forward(bp.self, bp.ln1(x), positions,
+                                      cfg, causal=True)
+    x = x + h
+    self_cache = attn_mod.fill_cache_from_prefill(
+        attn_mod.init_attn_cache(cfg, x.shape[0], max_len,
+                                 device=x.device), k, v)
+    h, (ck, cv) = attn_mod.attn_forward(
+        bp.cross, bp.ln_x(x), None, cfg, causal=False, kv_x=enc_out,
+        kv_positions=None)
+    x = x + h
+    x = x + bp.mlp(bp.ln2(x))
+    return x, DecLayerCache(self_attn=self_cache, cross_k=ck, cross_v=cv)
 
 
 def init_cache_encdec(cfg, batch: int, max_len: int, enc_len: int,
                       device: DeviceLike = None) -> EncDecCache:
     """Empty caches (zero cross K/V of ``enc_len`` positions)."""
-    dev = resolve_device(device)
+    dev = state_device(device)
     shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
     dt = cfg.dtype("compute")
     return EncDecCache(dec=[DecLayerCache(
@@ -226,11 +241,13 @@ def decode_step_encdec(params: EncDec, token, cache: EncDecCache, cfg):
     pos = cache.pos
     x = _embed_inputs(params, token, cfg)
     for bp, c in zip(params.dec_blocks, cache.dec):
-        h, c.self_attn = attn_mod.attn_decode(bp.self, bp.ln1(x),
-                                              c.self_attn, pos, cfg)
-        x = x + h
-        x = x + attn_mod.attn_decode_cross(bp.cross, bp.ln_x(x),
-                                           (c.cross_k, c.cross_v), cfg)
-        x = x + bp.mlp(bp.ln2(x))
+        x = shard_ctx.constrain_batch(x)
+        with shard_ctx.gathered(bp), shard_ctx.gathered_cache(c):
+            h, _ = attn_mod.attn_decode(bp.self, bp.ln1(x), c.self_attn,
+                                        pos, cfg)
+            x = x + h
+            x = x + attn_mod.attn_decode_cross(bp.cross, bp.ln_x(x),
+                                               (c.cross_k, c.cross_v), cfg)
+            x = x + bp.mlp(bp.ln2(x))
     cache.pos = pos + 1
-    return params.final_norm(x), cache
+    return final_norm(params, x), cache

@@ -20,12 +20,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.rmsnorm_ops import rmsnorm_op
+from repro_torch.sharding import ctx as shard_ctx
 
 
 # --------------------------------------------------------------------------
 # Parameters
 # --------------------------------------------------------------------------
+def state_device(device) -> torch.device:
+    """Where a cache is made: ``"meta"`` (shapes and dtypes only, the
+    serving layer's ``abstract_cache``), else ``resolve_device``'s."""
+    return (torch.device("meta") if str(device) == "meta"
+            else resolve_device(device))
+
+
 def param(shape, dtype, device, fill=None) -> nn.Parameter:
     """A parameter of ``shape``: uninitialised, or filled with ``fill``."""
     t = torch.empty(shape, dtype=dtype, device=device)
@@ -166,11 +175,27 @@ class Embedding(nn.Module):
 def embed_tokens(e: Embedding, tokens: torch.Tensor, cfg) -> torch.Tensor:
     """tokens (B, S) integers → (B, S, D): a row gather. It equals the
     reference's one-hot einsum bitwise (each one-hot row holds a single 1),
-    in the dtype that einsum promotes to."""
-    dt = torch.promote_types(cfg.dtype("compute"), e.table.dtype)
-    return e.table[tokens.long()].to(dt)
+    in the dtype that einsum promotes to. On a mesh whose TP axis splits
+    the vocab, each rank gathers the tokens of its slice (zeros for the
+    others) and the rows are summed over the axis, as the reference's
+    einsum against a vocab-sharded table partitions: one term of each sum
+    is not zero, so the sum is exact."""
+    table, v0 = shard_ctx.vocab_rows(e, "table")
+    dt = torch.promote_types(cfg.dtype("compute"), table.dtype)
+    if table.shape[0] == cfg.vocab:
+        return table[tokens.long()].to(dt)
+    t = tokens.long() - v0
+    mine = ((t >= 0) & (t < table.shape[0]))[..., None]
+    rows = table[t.clamp(0, table.shape[0] - 1)].to(dt)
+    return shard_ctx.tp_sum(torch.where(mine, rows, 0.0))
 
 
 def lm_logits(e: Embedding, x: torch.Tensor, cfg) -> torch.Tensor:
-    table = e.table if cfg.tie_embeddings else e.head
-    return x @ table.T
+    """x @ table.T (the head's when it is untied); on a mesh whose TP axis
+    splits the vocab, each rank's slice, gathered over the axis."""
+    table, _ = shard_ctx.vocab_rows(e, "table" if cfg.tie_embeddings
+                                    else "head")
+    logits = x @ table.T
+    if table.shape[0] != cfg.vocab:
+        logits = shard_ctx.tp_gather(logits, dim=logits.ndim - 1)
+    return logits

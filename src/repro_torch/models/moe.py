@@ -22,8 +22,15 @@ slot tensor holds 84 M elements; the index dispatch holds (B, C, k) indices.
 
 Top-k ties are broken as ``jax.lax.top_k`` breaks them, the lower expert
 first: a stable descending sort, whose order does not depend on the
-device. Expert sharding over a mesh waits for the LM on a mesh (ROADMAP.md,
-item 13.4).
+device.
+
+On a mesh the experts are placed as the reference's rules place them
+(``sharding.rules``): over "model" when E divides the axis (granite-moe,
+32 experts), else over each expert FFN's hidden dim (grok, 8); the router
+stays an fp32 leaf. A block gathers them when it runs, as every weight.
+Routing, capacity and drops are each row's own, so they never reach a
+collective; the load-balance statistics are means over the global batch,
+summed over the batch axes in rank order (``sharding.ctx.batch_sum``).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import draw_normal, param
+from repro_torch.sharding import ctx as shard_ctx
 
 
 class MoE(nn.Module):
@@ -123,8 +131,16 @@ def _moe_chunk(p: MoE, x: torch.Tensor, cfg):
     y = torch.einsum("bck,bckd->bcd", w.float(), got.float()).to(x.dtype)
 
     # load-balance aux loss (Switch): E * Σ_e fraction_e * prob_e
-    frac = torch.mean(F.one_hot(ids[..., 0], e).sum(1).float() / c, dim=0)
-    aux = e * torch.sum(frac * probs.mean(dim=(0, 1)))
+    top1 = F.one_hot(ids[..., 0], e).sum(1).float() / c        # (B, E)
+    ranks = shard_ctx.batch_ranks()
+    if ranks == 1:
+        frac = torch.mean(top1, dim=0)
+        mean_prob = probs.mean(dim=(0, 1))
+    else:       # the means over the global batch
+        frac = shard_ctx.batch_sum(top1.sum(0)) / (b * ranks)
+        mean_prob = shard_ctx.batch_sum(probs.sum(dim=(0, 1))) \
+            / (b * c * ranks)
+    aux = e * torch.sum(frac * mean_prob)
     return y, aux
 
 

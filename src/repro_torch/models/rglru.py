@@ -37,8 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.models.layers import draw_normal, param
+from repro_torch.models.layers import draw_normal, param, state_device
 
 _C = 8.0
 _CHUNK = 512   # the scan's chunk: bounds the doubling steps' saved tensors
@@ -196,7 +195,7 @@ class RecCache:
 
 
 def init_rec_cache(cfg, batch: int, device=None) -> RecCache:
-    dev = resolve_device(device)
+    dev = state_device(device)
     r = cfg.lru_width_actual
     return RecCache(
         conv=torch.zeros((batch, cfg.conv_width - 1, r),

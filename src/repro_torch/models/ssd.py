@@ -38,9 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.rmsnorm_ops import rmsnorm_op
-from repro_torch.models.layers import draw_normal, param
+from repro_torch.models.layers import draw_normal, param, state_device
 from repro_torch.models.rglru import causal_conv, softplus
 
 
@@ -179,7 +178,7 @@ def ssd_forward(p: SSD, x, cfg, cache=None):
 
 
 def init_ssd_cache(cfg, batch: int, device=None) -> SSDCache:
-    dev = resolve_device(device)
+    dev = state_device(device)
     conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
     return SSDCache(
         conv=torch.zeros((batch, cfg.conv_width - 1, conv_dim),

@@ -14,8 +14,12 @@ only its input is kept and the block runs again in the backward),
 ``aten.addmm``: the products with no batch dimension, as
 ``checkpoint_dots_with_no_batch_dims`` keeps) and recomputes the rest, and
 ``"none"`` keeps every activation. Rematerialisation changes what is kept,
-not what is computed. The reference's ``sharding/ctx.constrain*`` calls pin
-shardings on a mesh and compute nothing; on one card they become nothing.
+not what is computed. The reference's ``sharding/ctx.constrain*`` calls
+stand where they stand there and move nothing (the rank holds its rows).
+On a mesh (``sharding.ctx.use_shards``) each block's weights are gathered
+when it runs (``ctx.at_use``), in a remat block's backward again, and a
+sharded cache's tensors are gathered for the layer that reads them
+(``ctx.gathered_cache``); with no shards registered both are nothing.
 
 Three entry points with the reference's signatures, ``params`` being the
 ``Transformer``:
@@ -55,7 +59,9 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rec_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.layers import (MLP, Embedding, draw_normal,
-                                       embed_tokens, init_norm, param)
+                                       embed_tokens, init_norm, param,
+                                       state_device)
+from repro_torch.sharding import ctx as shard_ctx
 
 PORTED_BLOCKS = ("attn", "local", "moe", "rec", "ssd")
 
@@ -285,9 +291,16 @@ def _embed_inputs(params: Transformer, tokens, cfg, extra_embeds=None):
     x = x * scale
     if cfg.frontend != "none" and extra_embeds is not None:
         # the patches through the projection, unscaled, before the tokens
-        x = torch.cat([params.frontend(extra_embeds, cfg).to(x.dtype), x],
-                      dim=1)
+        with shard_ctx.gathered(params.frontend):
+            patches = params.frontend(extra_embeds, cfg)
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
     return x
+
+
+def final_norm(params, x):
+    """The model's final norm, its weight gathered on a mesh."""
+    with shard_ctx.gathered(params.final_norm):
+        return params.final_norm(x)
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -327,12 +340,16 @@ def forward_train(params: Transformer, tokens, cfg, extra_embeds=None):
     positions = _positions(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     scanned = cfg.n_layers - cfg.n_layers % len(cfg.pattern)
-    remat_block = _remat(block_forward, cfg)
+    seq_dim = 1 if cfg.seq_shard_activations else None
+    at_use = shard_ctx.at_use(block_forward)
+    remat_block = _remat(at_use, cfg)
     for i, (btype, bp) in enumerate(zip(cfg.layer_types(), params.blocks)):
-        block = remat_block if i < scanned else block_forward
+        x = shard_ctx.constrain_batch(x, seq_dim=seq_dim)
+        block = remat_block if i < scanned else at_use
         x, a = block(bp, x, positions, cfg, btype)
         aux = aux + a
-    return params.final_norm(x), aux
+    x = shard_ctx.constrain_batch(x)
+    return final_norm(params, x), aux
 
 
 @torch.no_grad()
@@ -345,16 +362,18 @@ def prefill(params: Transformer, tokens, cfg, extra_embeds=None,
     positions = _positions(x)
     caches = []
     for btype, bp in zip(cfg.layer_types(), params.blocks):
-        x, c = block_prefill(bp, x, positions, cfg, btype, max_len)
+        x = shard_ctx.constrain_batch(x)
+        with shard_ctx.gathered(bp):
+            x, c = block_prefill(bp, x, positions, cfg, btype, max_len)
         caches.append(c)
     cache = LMCache(blocks=caches, pos=x.shape[1])
-    return params.final_norm(x), cache
+    return final_norm(params, x), cache
 
 
 def init_cache(cfg, batch: int, max_len: int,
                device: DeviceLike = None) -> LMCache:
     """Empty cache (decode from scratch)."""
-    dev = resolve_device(device)
+    dev = state_device(device)
     return LMCache(blocks=[init_block_cache(cfg, t, batch, max_len, dev)
                            for t in cfg.layer_types()], pos=0)
 
@@ -366,7 +385,8 @@ def decode_step(params: Transformer, token, cache: LMCache, cfg):
     pos = cache.pos
     x = _embed_inputs(params, token, cfg)
     for i, (btype, bp) in enumerate(zip(cfg.layer_types(), params.blocks)):
-        x, cache.blocks[i] = block_decode(bp, x, cache.blocks[i], pos, cfg,
-                                          btype)
+        x = shard_ctx.constrain_batch(x)
+        with shard_ctx.gathered(bp), shard_ctx.gathered_cache(cache.blocks[i]):
+            x, _ = block_decode(bp, x, cache.blocks[i], pos, cfg, btype)
     cache.pos = pos + 1
-    return params.final_norm(x), cache
+    return final_norm(params, x), cache

@@ -78,12 +78,15 @@ def global_norm(tensors) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(grads: Mapping[str, torch.Tensor], opt_state: dict,
                  params: Params, opt: AdamWConfig,
-                 decayed: Optional[Set[str]] = None):
+                 decayed: Optional[Set[str]] = None,
+                 gnorm: Optional[torch.Tensor] = None):
     """→ (params, opt_state, metrics), the parameters and moments updated
     in place. The gradients are clipped to ``clip_norm`` by their global
     norm (``metrics["grad_norm"]`` is the raw norm). Decoupled weight decay
     acts on the leaves named in ``decayed``, by default those of more than
     one dimension (the reference skips 1-D leaves: norm scales, biases).
+    ``gnorm`` is the global norm when the caller computed it (a sharded
+    step, whose leaves are the rank's blocks).
     ``grads`` may be consumed: an fp32 gradient is scaled in place."""
     leaves = named_leaves(params)
     if set(grads) != set(leaves):
@@ -93,7 +96,8 @@ def adamw_update(grads: Mapping[str, torch.Tensor], opt_state: dict,
         decayed = {k for k, p in leaves.items() if p.ndim > 1}
     step = opt_state["step"] + 1
     lr = lr_schedule(opt, step)
-    gnorm = global_norm(grads[k] for k in leaves)
+    if gnorm is None:
+        gnorm = global_norm(grads[k] for k in leaves)
     scale = torch.clamp(opt.clip_norm / (gnorm + 1e-9), max=1.0)
     b1, b2 = opt.b1, opt.b2
     c1 = 1.0 - torch.pow(b1, step.to(torch.float32))

@@ -47,6 +47,9 @@ cross K/V likewise; the SSD at chunk 256, whose decay's exponent passes
 1e-5·max(scale, 1) and every gradient finite. fp32 products against fp64 within 1e-5 of the largest (TF32 stays
 off); granite-moe's MoE layer at full width in fp32, a token alone
 against its chunk of 528: the same experts, y within 1e-5·max(scale, 1).
+The sharded train, prefill and decode steps on a 1 x 1 NCCL mesh against
+the single-process steps (qwen3-8b's and granite-moe's smokes): losses,
+``rmsnorm`` launches, parameters and logits bitwise.
 """
 
 import dataclasses
@@ -1461,3 +1464,55 @@ def test_ssd_decay_gradient_is_finite_on_the_card(cuda):
     for pname, p in card.named_parameters():
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), \
             pname
+
+
+@pytest.mark.parametrize("name", ["qwen3-8b", "granite-moe-1b-a400m"])
+def test_one_rank_nccl_mesh_trains_and_serves_bitwise(cuda, name):
+    """The sharded train, prefill and decode steps on a 1 x 1 NCCL mesh
+    issue no collective and are the single-process steps, bit for bit,
+    with the same ``rmsnorm`` launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.serve import (build_decode_fn, build_prefill_fn,
+                                           make_decode_step,
+                                           make_prefill_step)
+    from repro_torch.runtime.train import (build_train_step_fn,
+                                           init_train_state, make_train_step)
+    from repro_torch.sharding import make_rules
+
+    cfg = dataclasses.replace(get_arch(name, smoke=True), microbatches=2)
+    mesh = make_host_mesh((1, 1), device_type="cuda")
+    rules = make_rules(mesh)
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=1, decay_steps=10)
+    gen = torch.Generator().manual_seed(5)
+    batch = {k: torch.randint(0, cfg.vocab, (4, 16), generator=gen)
+             for k in ("tokens", "targets")}
+    runs = {}
+    for kind in ("single", "mesh"):
+        model, state = init_train_state(5, cfg, device=cuda)
+        step = (build_train_step_fn(cfg, opt) if kind == "single" else
+                make_train_step(cfg, opt, mesh, rules, model, state))
+        _build.reset_launches()
+        losses = [float(step(model, state, batch)[2]["loss"])
+                  for _ in range(2)]
+        launches = dict(_build.launches)
+        prompt = {"tokens": batch["tokens"]}
+        prefill, decode = ((build_prefill_fn(cfg, 20), build_decode_fn(cfg))
+                           if kind == "single" else
+                           (make_prefill_step(cfg, mesh, rules, model,
+                                              prompt, 20),
+                            make_decode_step(cfg, mesh, rules, model, None)))
+        logits, cache = prefill(model, prompt)
+        out = [full_tensor(logits)]
+        for _ in range(3):
+            logits, cache = decode(model, out[-1][:, -1].argmax(
+                -1, keepdim=True), cache)
+            out.append(full_tensor(logits))
+        runs[kind] = (losses, launches, {n: full_tensor(p) for n, p in
+                                         model.named_parameters()}, out)
+    assert runs["single"][0] == runs["mesh"][0]
+    assert runs["single"][1] == runs["mesh"][1]
+    for n, p in runs["single"][2].items():
+        assert torch.equal(p, runs["mesh"][2][n]), n
+    for a, b in zip(runs["single"][3], runs["mesh"][3]):
+        assert torch.equal(a, b)

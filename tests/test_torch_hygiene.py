@@ -90,7 +90,9 @@ def test_session_modules_are_checked():
             "data/__init__.py", "data/pipeline.py", "data/distance.py",
             "optim/__init__.py", "optim/adamw.py", "runtime/loss.py",
             "runtime/train.py", "checkpoint/manager.py",
-            "launch/train.py", "kernels/rmsnorm_ops.py"} <= names
+            "launch/train.py", "kernels/rmsnorm_ops.py",
+            "sharding/__init__.py", "sharding/rules.py", "sharding/ctx.py",
+            "optim/compression.py", "launch/inputs.py"} <= names
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -159,6 +161,52 @@ def test_entry_points_default_to_the_card(monkeypatch):
             call()
 
 
+def test_mesh_entry_points_default_to_the_card(monkeypatch):
+    """The LM on a mesh runs on its mesh's device, and a mesh is on the
+    card unless the CPU is asked for: without a card, the host mesh, the
+    rules on it and the sharded steps built on it raise, as the launcher
+    does; the abstract stand-ins are ``meta`` tensors, on no device."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.inputs import input_specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.serve import (abstract_cache, make_decode_step,
+                                           make_prefill_step)
+    from repro_torch.runtime.train import abstract_train_state, make_train_step
+    from repro_torch.sharding import make_rules
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lm = get_arch("qwen3-8b", smoke=True)
+    model, opt = abstract_train_state(lm)
+
+    def sharded(build):
+        mesh = make_host_mesh()
+        return build(mesh, make_rules(mesh))
+    calls = [
+        lambda: make_host_mesh(),
+        lambda: make_rules(make_host_mesh()),
+        lambda: sharded(lambda m, r: make_train_step(lm, AdamWConfig(), m, r,
+                                                     model, opt)),
+        lambda: sharded(lambda m, r: make_prefill_step(lm, m, r, model, {},
+                                                       8)),
+        lambda: sharded(lambda m, r: make_decode_step(
+            lm, m, r, model, abstract_cache(lm, 1, 8))),
+        lambda: train_launcher.make_mesh("host", "cuda"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            call()
+    cache = abstract_cache(lm, 2, 8)
+    assert cache.blocks[0].k.device.type == "meta"
+    specs = input_specs(lm, SHAPES["train_4k"])
+    assert all(t.device.type == "meta" for t in specs.values())
+    mesh = make_host_mesh(device_type="cpu")
+    with pytest.raises(ValueError, match="pass no device"):
+        build_train_step_fn(lm, AdamWConfig(), rules=make_rules(mesh),
+                            device="cuda")
+    with pytest.raises(ValueError, match="pass no device"):
+        build_prefill_fn(lm, 8, rules=make_rules(mesh), device="cpu")
+
+
 def test_kernel_modules_import_without_a_toolkit():
     env = dict(os.environ, PATH="", PYTHONPATH=str(ROOT / "src"))
     code = ("import repro_torch.kernels.symhollow_ops, "
@@ -175,6 +223,9 @@ def test_kernel_modules_import_without_a_toolkit():
             "repro_torch.runtime.serve, "
             "repro_torch.runtime.train, "
             "repro_torch.launch.train, "
+            "repro_torch.launch.inputs, "
+            "repro_torch.sharding, "
+            "repro_torch.optim.compression, "
             "repro_torch.kernels._build as b; "
             "assert all(v == 0 for v in b.launches.values())")
     subprocess.run([sys.executable, "-c", code], env=env, check=True,

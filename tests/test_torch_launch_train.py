@@ -58,12 +58,24 @@ def test_train_restart_is_seamless(tmp_path):
 
 
 def test_launcher_refuses_what_waits_for_a_mesh():
+    """The production meshes parse and are refused by the mesh module on a
+    process without their 256 / 512 ranks (never run on the host mesh
+    instead); every profile trains on the host mesh; the enc-dec arch takes
+    one step on its frames."""
     ap = train_launch.build_argparser()
+    for mesh, ranks in (("single", 256), ("multi", 512)):
+        args = ap.parse_args(["--arch", "qwen3-8b", "--smoke", "--mesh",
+                              mesh, "--device", "cpu", "--steps", "1"])
+        with pytest.raises(ValueError, match=f"needs {ranks} ranks"):
+            train_launch.run(args)
     with pytest.raises(SystemExit):
-        ap.parse_args(["--arch", "llama3.2-3b", "--mesh", "single"])
-    with pytest.raises(SystemExit):
-        ap.parse_args(["--arch", "llama3.2-3b", "--profile", "zero1"])
-    # the enc-dec arch no longer waits: one step on its frames
+        ap.parse_args(["--arch", "llama3.2-3b", "--profile", "zero3"])
+    losses = {}
+    for profile in ("fsdp", "dp_tp", "zero1"):
+        losses[profile] = train_launch.run(_args(
+            arch="qwen3-8b", steps=2, batch=4, seq=16,
+            profile=profile))["losses"]
+    assert losses["fsdp"] == losses["dp_tp"] == losses["zero1"]
     res = train_launch.run(_args(arch="seamless-m4t-medium", steps=1,
                                  batch=2, seq=16))
     assert res["final_step"] == 1 and np.isfinite(res["losses"]).all()

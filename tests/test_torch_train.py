@@ -292,12 +292,39 @@ def test_abstract_state_holds_no_memory_and_mesh_steps_wait():
         configs.get_arch("llama3.2-3b").param_count()
     assert opt["m"]["embed.table"].dtype == torch.float32
     assert opt["v"]["embed.table"].device.type == "meta"
-    with pytest.raises(NotImplementedError, match="13.4"):
-        make_train_step(configs.get_arch("llama3.2-3b"), AdamWConfig(),
-                        mesh=None, rules=None)
-    with pytest.raises(NotImplementedError, match="13.4"):
-        build_train_step_fn(configs.get_arch("llama3.2-3b"), AdamWConfig(),
-                            rules=object(), device="cpu")
+    # what waited for the LM on a mesh runs: the sharded step on the 1 x 1
+    # host mesh is the single-process step, bitwise, from the same state
+    from repro_torch.launch.mesh import full_tensor, make_host_mesh
+    from repro_torch.sharding import make_rules
+    cfg, rcfg = _cfgs("qwen3-8b", microbatches=2)
+    params, opt_state = _reference_state(rcfg, 0)
+    runs = {}
+    for kind in ("single", "mesh"):
+        model = models.build_model(cfg, "cpu")
+        model.load_state_dict(lm_params_from_reference(_np(params), cfg,
+                                                       "cpu"))
+        opt = opt_state_from_reference(_np(opt_state), model, cfg, "cpu")
+        if kind == "single":
+            step = build_train_step_fn(cfg, AdamWConfig(**OPT),
+                                       device="cpu")
+        else:
+            mesh = make_host_mesh((1, 1), device_type="cpu")
+            step = make_train_step(cfg, AdamWConfig(**OPT), mesh,
+                                   make_rules(mesh), model, opt)
+        pipe = RefPipeline(vocab=cfg.vocab, seq_len=SEQ, global_batch=BATCH,
+                           seed=1)
+        losses = []
+        for s in range(2):
+            model, opt, metrics = step(model, opt, _np(pipe.batch(s)))
+            losses.append(float(metrics["loss"]))
+        runs[kind] = (losses, {k: full_tensor(p) for k, p in
+                               model.named_parameters()})
+    assert runs["single"][0] == runs["mesh"][0]
+    for key, p in runs["single"][1].items():
+        assert torch.equal(p, runs["mesh"][1][key]), key
+    with pytest.raises(ValueError, match="pass no device"):
+        build_train_step_fn(cfg, AdamWConfig(), rules=make_rules(mesh),
+                            device="cpu")
 
 
 def test_cpu_train_step_runs_the_plain_norms():
