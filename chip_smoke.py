@@ -44,7 +44,14 @@ check fails:
    n×n square on the feature side, and every statistic and p-value bitwise
    the free functions' of phases 3 and 3c (the feature ANOSIM against the
    free ``anosim`` on the square of the same distances, the operator-form
-   PERMANOVA against phase 3c's); it prints the ``session`` JSON line.
+   PERMANOVA against phase 3c's); each session's ``report()`` probes its
+   programs on the card (``obs.probe``: permute_reduce's tile, the square
+   operator's matvec or the feature production's panel, the matrix-free
+   solve) and prints their bytes, peaks and drift verdicts, each within
+   its band, with the launch counts, hoist counters, call sentinel and
+   ledger the same before and after it; ``calibrate(mode="probe")`` twice
+   on the card gives the same bandwidth; it prints the ``session`` JSON
+   line.
    Each path, each test of the battery and each session runs with the
    kernels' launch counts set to 0 just before it and read just after;
 4. checks of the answers (and of small runs on the card against the CPU)
@@ -1398,6 +1405,74 @@ def phase_battery(main: dict, op, card: str) -> dict:
             "results": results, "seconds": seconds_by_test}
 
 
+def probed_report(ws, label: str) -> dict:
+    """``ws.report()`` with its probes on the card: prints the measured
+    records (``probe_table``) and every drift verdict (measured, floor,
+    ratio, band), and fails unless every record ran on the card, every
+    verdict lies within its band, and the launch counts, the session's
+    hoist counters, the call sentinel and the ledger totals are the same
+    after the report as before it. Returns the report's probe summary."""
+    from repro_torch.kernels import _build
+    from repro_torch.obs import ProbeRecord, probe_table, sentinel
+
+    def state():
+        return (dict(_build.launches), dict(ws.cache.hits),
+                dict(ws.cache.misses), sentinel.snapshot(),
+                ws.obs.ledger.totals())
+
+    before = state()
+    sync()
+    t0 = time.perf_counter()
+    rep = ws.report()
+    sync()
+    seconds = time.perf_counter() - t0
+    check(state() == before, f"{label} report: launches, hoist counters, "
+          f"sentinel or ledger changed across report()")
+    print(f"  {label} report with probes: {seconds:.3f} s; measured:")
+    for row in probe_table({k: ProbeRecord(**v)
+                            for k, v in rep.measured.items()}):
+        print(f"    {row}")
+    check(bool(rep.measured) and all(
+        r["backend"] == "cuda" for r in rep.measured.values()),
+        f"{label} report: a measured record did not run on the card")
+    for v in rep.drift["verdicts"]:
+        print(f"    drift {v['name']} {v['quantity']}: measured "
+              f"{v['measured']:.6g}, floor {v['floor']:.6g}, ratio "
+              f"{v['ratio']:.4f}, band [{v['expected_lo']:.6g}, "
+              f"{v['expected_hi']:.6g}] ({v['regime']}), within "
+              f"{v['within']}")
+        check(v["within"], f"{label} drift {v['name']} {v['quantity']}: "
+              f"outside its band")
+    check(rep.drift["backend"] == "cuda" and rep.drift_ok,
+          f"{label} report: drift not within tolerance")
+    return {"report_s": seconds,
+            "measured": {k: {f: v[f] for f in (
+                "bytes_corrected", "flops", "peak_bytes", "argument_bytes",
+                "output_bytes", "scan_trips", "launches", "params")}
+                for k, v in rep.measured.items()},
+            "drift": rep.drift}
+
+
+def probe_calibration() -> dict:
+    """``calibrate(detect_budget(), mode="probe")`` twice on the card, the
+    probe measured anew for the second: the same bandwidth both times,
+    ``source == "probed"``."""
+    from repro_torch.obs.probe import clear_probe_cache
+    from repro_torch.tune import calibrate, detect_budget
+
+    base = detect_budget()
+    first = calibrate(base, mode="probe")
+    clear_probe_cache()
+    second = calibrate(base, mode="probe")
+    print(f"  calibrate(mode='probe') on the card: {first.bandwidth:.6g} "
+          f"and {second.bandwidth:.6g} B/s ({first.source}); static "
+          f"{base.bandwidth:.6g}")
+    check(first.source == second.source == "probed"
+          and first.bandwidth == second.bandwidth,
+          "calibrate(mode='probe') is not the same twice on the card")
+    return {"bandwidth": first.bandwidth, "static": base.bandwidth}
+
+
 def phase_session(main: dict, feat: dict, battery: dict,
                   card: str) -> dict:
     """Phase 3d: the session API on the card. A square-backed ``Workspace``
@@ -1465,7 +1540,9 @@ def phase_session(main: dict, feat: dict, battery: dict,
            "permdisp": timed("permdisp", lambda: ws.permdisp(
                groups, PERMUTATIONS, dimensions=DIMS)),
            "anosim": timed("anosim", lambda: ws.anosim(groups, PERMUTATIONS))}
+    square_probe = probed_report(ws, "square session")
     passes = ws.report().hoist_passes
+    calibration = probe_calibration()
     got["mantel"] = timed("mantel", lambda: ws.mantel(wy, PERMUTATIONS))
     got["partial_mantel"] = timed("partial_mantel", lambda: ws.partial_mantel(
         wy, wz, PERMUTATIONS))
@@ -1528,7 +1605,8 @@ def phase_session(main: dict, feat: dict, battery: dict,
                                    "partial_mantel")},
                                "pcoa": main["times"]["pcoa_s"],
                                "mantel": main["times"]["mantel_s"]},
-              "tiles": ws.resolved_tiles()}
+              "tiles": ws.resolved_tiles(), "probe": square_probe,
+              "calibrate_probe": calibration}
     del ws, wy, wz, got
 
     # phase 3b's feature-backed session (productions, pcoa, mantel) goes
@@ -1545,6 +1623,7 @@ def phase_session(main: dict, feat: dict, battery: dict,
     check_launches("permanova", {})
     busy = device_breakdown("feature session permanova again, profiled",
                             lambda: fx.permanova(groups, PERMUTATIONS), card)
+    feature_probe = probed_report(fx, "feature session")
     fbuilds = {w: {a: wsn.cache.build_count(a) for a in
                    ("condensed", "dist_means", "operator", "ranks",
                     "moments", "coords", "square")}
@@ -1581,6 +1660,7 @@ def phase_session(main: dict, feat: dict, battery: dict,
                "launches_total": {k: v for k, v in feature_launches.items()
                                   if v},
                "builds": fbuilds, "hoist_passes": fx.report().hoist_passes,
+               "probe": feature_probe,
                "permanova_profiled": busy,
                "free_times_s": {
                    "anosim_on_the_square": free_anosim_s,

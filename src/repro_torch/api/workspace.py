@@ -415,11 +415,15 @@ class Workspace:
         counters and resident bytes, the call sentinel's deltas for this
         session's window, and the geometry it ran
         (``resolved_tiles``), with the tuner's record under ``"tune"``
-        when the config was auto-solved. With observability disabled the
-        report still carries the cache counters and the sentinel's
-        process snapshot, with empty spans and ledger. ``measured`` and
-        ``drift`` are ``None``: the reference's HLO probes are not
-        ported."""
+        when the config was auto-solved. With observability enabled and
+        ``ObsConfig.probe`` set (the default), ``measured`` holds one
+        ``obs.probe`` record a program the session runs, measured by one
+        call on the session's device, and ``drift`` the ``obs.drift``
+        verdicts on them; otherwise both are ``{}``. A probe perturbs
+        nothing the report reads: no span, ledger charge, sentinel call,
+        cache hit or launch count. With observability disabled the report
+        still carries the cache counters and the sentinel's process
+        snapshot, with empty spans and ledger."""
         by_key = self.cache.nbytes_by_key()
         base = {"n": self.n, "generation": self.generation,
                 "backing": ("features" if self._features is not None
@@ -434,8 +438,16 @@ class Workspace:
             base["tune"] = self.tuned.to_dict()
         if meta:
             base.update(meta)
+        measured = drift = None
+        if self._obs.enabled and self.config.obs.probe:
+            from repro_torch.obs.drift import DriftSentinel
+            from repro_torch.obs.probe import probe_session
+            measured = probe_session(self)
+            drift = DriftSentinel(backend=self.device.type).reconcile(
+                measured)
         return build_report(self._obs if self._obs.enabled else None,
-                            cache=self.cache, meta=base)
+                            cache=self.cache, meta=base,
+                            measured=measured, drift=drift)
 
     # -- canonical views ----------------------------------------------------
     @property

@@ -22,6 +22,13 @@ launch fails the run, it never degrades an answer.
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels: set the counts to 0 with
 :func:`reset_launches`, drive the path, read them.
+
+``recorder`` is where a measurement listens to the launches
+(``repro_torch.obs.probe``): while one is active, each wrapper that
+counts a launch also passes it the kernel's name, the bytes its kernel
+loads from and stores to device memory (re-reads counted) and the
+operations it performs, from a cost function of the launch's own
+arguments beside the launch. ``None``, the default, costs nothing.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -61,6 +68,9 @@ launches: dict[str, int] = {
     "rmsnorm": 0,
     "rmsnorm_bwd": 0,
 }
+
+#: the active measurement's ``(name, bytes, operations)`` callback, or None
+recorder: Optional[Callable[[str, float, float], None]] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -26,6 +26,17 @@ KMAX = 128
 STRIP_ROWS = 128
 
 
+def center_matvec_cost(rows: int, cols: int, k: int) -> tuple[float, float]:
+    """(bytes, operations) of one ``center_matvec`` launch: D read once;
+    each of the ceil(rows / STRIP_ROWS) blocks reads every row of X and
+    the k column sums and corrections; the row means read and the output
+    stored once. Operations: E = −½d∘d, two a D element, and three tf32
+    products (3xTF32), 2·rows·cols·k each."""
+    blocks = -(-rows // STRIP_ROWS)
+    loads = 4.0 * (rows * cols + blocks * (cols * k + 2 * k) + rows)
+    return loads + 4.0 * rows * k, 6.0 * rows * cols * k + 2.0 * rows * cols
+
+
 def center_matvec(d: torch.Tensor, x: torch.Tensor, row_means: torch.Tensor,
                   colsum: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
     """(r, k) ``E@X − r·colsumᵀ + corrᵀ`` on the card, 1 <= k <= KMAX.
@@ -49,5 +60,7 @@ def center_matvec(d: torch.Tensor, x: torch.Tensor, row_means: torch.Tensor,
                                   corr.data_ptr(), out.data_ptr(), rows,
                                   cols, k, _build.stream_handle(d.device))
     _build.launches["center_matvec"] += 1
+    if _build.recorder is not None:
+        _build.recorder("center_matvec", *center_matvec_cost(rows, cols, k))
     _build.check(err, "center_matvec")
     return out

@@ -42,6 +42,15 @@ def cluster_size(perms: int, n: int) -> int:
     return next((c for c in fits if perms * c >= FILL_BLOCKS), fits[-1])
 
 
+def inverse_orders_cost(perms: int, n: int, cluster: int
+                        ) -> tuple[float, float]:
+    """(bytes, operations) of one ``inverse_orders`` launch: each of a
+    row's ``cluster`` blocks reads the whole int32 order row (from device
+    memory once, from L2 for the others); inv (int32), the 16-bit copy
+    and the flags are stored once. No arithmetic."""
+    return perms * (4.0 * n * cluster + 6.0 * n + 4.0), 0.0
+
+
 def inverse_orders_kernel(orders: torch.Tensor
                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(inv, orders16, is_perm)`` on the card: (B, n) int32, (B, n) int16
@@ -53,11 +62,15 @@ def inverse_orders_kernel(orders: torch.Tensor
     orders16 = torch.empty((perms, n), dtype=torch.int16,
                            device=orders.device)
     is_perm = torch.empty((perms,), dtype=torch.int32, device=orders.device)
+    cluster = cluster_size(perms, n)
     err = _build.library().repro_inverse_orders(
         orders.data_ptr(), inv.data_ptr(), orders16.data_ptr(),
-        is_perm.data_ptr(), n, perms, cluster_size(perms, n),
+        is_perm.data_ptr(), n, perms, cluster,
         _build.stream_handle(orders.device))
     _build.launches["inverse_orders"] += 1
+    if _build.recorder is not None:
+        _build.recorder("inverse_orders",
+                        *inverse_orders_cost(perms, n, cluster))
     _build.check(err, "inverse_orders")
     return inv, orders16, is_perm
 

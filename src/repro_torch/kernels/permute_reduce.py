@@ -28,6 +28,28 @@ MAX_ROWS = 2
 MAX_OUTPUTS = 128
 
 
+def partials_cost(n: int, rows: int, perms: int, grid: int
+                  ) -> tuple[float, float]:
+    """(bytes, operations) of one ``permute_reduce_partials`` launch. Each
+    row r of x is staged from its run and its column: the condensed x
+    twice a launch, 2m floats (the column loads mostly from L2). For each
+    permutation b the block streams the run of each ys row past i =
+    inv[b, r] and the 16-bit orders past i: over the rows, m floats of
+    each ys row and m order values a permutation, and one inv entry a
+    (row, permutation). One fp64 partial is stored a (block, ys row,
+    permutation); one fp64 multiply-add a (pair, ys row, permutation)."""
+    m = n * (n - 1) // 2
+    loads = 4.0 * m * (2 + rows * perms) + 2.0 * m * perms + 4.0 * n * perms
+    return loads + 8.0 * grid * rows * perms, 2.0 * m * rows * perms
+
+
+def finish_cost(num_chunks: int, outputs: int) -> tuple[float, float]:
+    """(bytes, operations) of one ``permute_reduce_finish`` launch: every
+    fp64 partial read once, one fp32 sum stored an output."""
+    return 8.0 * num_chunks * outputs + 4.0 * outputs, \
+        float(num_chunks * outputs)
+
+
 def permute_reduce_partials(xc: torch.Tensor, ys: torch.Tensor,
                             inv: torch.Tensor,
                             orders16: torch.Tensor) -> torch.Tensor:
@@ -54,6 +76,9 @@ def permute_reduce_partials(xc: torch.Tensor, ys: torch.Tensor,
         orders16.data_ptr(), partials.data_ptr(), n, rows, perms, grid,
         _build.stream_handle(xc.device))
     _build.launches["permute_reduce"] += 1
+    if _build.recorder is not None:
+        _build.recorder("permute_reduce",
+                        *partials_cost(n, rows, perms, grid))
     _build.check(err, "permute_reduce")
     return partials
 
@@ -68,6 +93,9 @@ def permute_reduce_finish(partials: torch.Tensor) -> torch.Tensor:
         partials.data_ptr(), out.data_ptr(), num_chunks, rows * perms,
         _build.stream_handle(partials.device))
     _build.launches["permute_reduce_finish"] += 1
+    if _build.recorder is not None:
+        _build.recorder("permute_reduce_finish",
+                        *finish_cost(num_chunks, rows * perms))
     _build.check(err, "permute_reduce_finish")
     return out
 

@@ -37,12 +37,15 @@ class CompileSentinel:
     def __init__(self):
         self._traces: Counter = Counter()
         self._signatures: dict = {}          # name -> set of signatures
+        self._suspended = 0
 
     # -- recording ---------------------------------------------------------
     def note(self, name: str, signature=None) -> None:
         """Record one call of ``name``. ``signature`` is any hashable
         tuple of what specializes the call (shapes, dtype, device type);
         ``None`` degrades to call counting only."""
+        if self._suspended:
+            return
         self._traces[name] += 1
         if signature is not None:
             self._signatures.setdefault(name, set()).add(signature)
@@ -74,6 +77,17 @@ class CompileSentinel:
             if dt or dp:
                 out[n] = {"traces": dt, "programs": dp}
         return out
+
+    @contextlib.contextmanager
+    def suspended(self):
+        """Calls inside the block are not noted: a measurement
+        (``obs.probe``) runs the entry points without counting as a call
+        of the session it measures."""
+        self._suspended += 1
+        try:
+            yield self
+        finally:
+            self._suspended -= 1
 
     # -- guards ------------------------------------------------------------
     @contextlib.contextmanager

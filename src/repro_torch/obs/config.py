@@ -44,11 +44,11 @@ class ObsConfig:
         is kept so a config carries across). Off by default: it adds a
         profiler call per span even when no profile is being taken.
     probe:
-        Kept for the reference's configs. The reference measures its
-        jitted entry points from XLA's compiled HLO at report time
-        (``obs/probe.py``, ``obs/drift.py``); those modules are not
-        ported, so a port report's ``measured`` and ``drift`` sections
-        are ``None`` whatever this says.
+        Measure the programs the session runs at ``Workspace.report()``
+        time (``obs.probe``: one call of each on the session's device,
+        with its bytes, operations and peak memory) and reconcile them
+        with the port's closed forms (``obs.drift``): the report's
+        ``measured`` and ``drift`` sections. ``False``: both are ``{}``.
     """
 
     enabled: bool = False

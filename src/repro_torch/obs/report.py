@@ -10,10 +10,10 @@ functions deeper in the call chain (``stats.engine``, ``core.pcoa``,
 that invoked them without an argument threaded through every signature.
 
 ``RunReport`` is the assembled artifact: span tree, ledger totals,
-HoistCache hit/miss snapshot and sentinel deltas. Its ``measured`` and
-``drift`` sections are ``None`` in the port: the reference fills them
-from XLA's compiled HLO (``obs/probe.py``, ``obs/drift.py``), which has
-no counterpart here yet. Its ledger's ``perm:*`` entries charge the
+HoistCache hit/miss snapshot and sentinel deltas, and the ``measured``
+and ``drift`` sections: one ``obs.probe`` record a program the session
+runs and the ``obs.drift`` verdicts on them (``{}`` when not probed). Its
+ledger's ``perm:*`` entries charge the
 reference's per-permutation model for tiles run on the CPU and the
 row-stationary model for tiles run on the card, and the section says so
 under ``perm_model``.
@@ -91,8 +91,9 @@ class RunReport:
     shape and device); ``spans`` is the tracer's nested dict tree;
     ``ledger`` the totals plus every entry; ``cache`` the HoistCache
     hit/miss counters; ``compile`` the sentinel's per-entry-point call
-    and signature counts for the run's window; ``measured`` and ``drift``
-    are ``None`` (not ported).
+    and signature counts for the run's window; ``measured`` one probe
+    record a program (``obs.probe``) and ``drift`` its verdicts
+    (``obs.drift``), each ``{}`` when not probed.
     """
 
     meta: dict
@@ -100,8 +101,8 @@ class RunReport:
     ledger: dict
     cache: dict
     compile: dict
-    measured: Optional[dict] = None
-    drift: Optional[dict] = None
+    measured: dict = dataclasses.field(default_factory=dict)
+    drift: dict = dataclasses.field(default_factory=dict)
 
     def to_dict(self) -> dict:
         return {"meta": self.meta, "spans": self.spans,
@@ -131,10 +132,9 @@ class RunReport:
 
     @property
     def drift_ok(self) -> bool:
-        """True when the drift section is absent or every reconciled
+        """True when the drift section is empty or every reconciled
         verdict landed inside its tolerance band."""
-        return self.drift is None or bool(
-            self.drift.get("within_tolerance", True))
+        return bool(self.drift.get("within_tolerance", True))
 
 
 def _cache_section(cache) -> dict:
@@ -149,17 +149,25 @@ def _cache_section(cache) -> dict:
 
 
 def build_report(session: Optional[ObsSession] = None, cache=None,
-                 meta: Optional[dict] = None) -> RunReport:
+                 meta: Optional[dict] = None,
+                 measured: Optional[dict] = None,
+                 drift: Optional[dict] = None) -> RunReport:
     """Assemble a ``RunReport`` from a session (tracer + ledger +
     sentinel window) and an optional HoistCache. With ``session=None``
     (observability disabled) the report still carries the cache counters
     and the sentinel's full process snapshot, with empty spans and
-    ledger."""
+    ledger.
+
+    ``measured`` is a ``{name: ProbeRecord}`` mapping from
+    ``obs.probe.probe_session`` (serialized here); ``drift`` the
+    ``DriftSentinel.reconcile`` section."""
     import torch
 
     base_meta = {"torch": torch.__version__, "cuda": torch.version.cuda}
     if meta:
         base_meta.update(meta)
+    measured_section = {name: rec.to_dict()
+                        for name, rec in (measured or {}).items()}
     if session is not None:
         ledger = session.ledger.to_dict()
         ledger["perm_model"] = PERM_MODEL
@@ -167,7 +175,9 @@ def build_report(session: Optional[ObsSession] = None, cache=None,
                          spans=session.tracer.to_dicts(),
                          ledger=ledger,
                          cache=_cache_section(cache),
-                         compile=session.compile_delta())
+                         compile=session.compile_delta(),
+                         measured=measured_section, drift=dict(drift or {}))
     return RunReport(meta=base_meta, spans=[], ledger={},
                      cache=_cache_section(cache),
-                     compile=sentinel.snapshot())
+                     compile=sentinel.snapshot(),
+                     measured=measured_section, drift=dict(drift or {}))

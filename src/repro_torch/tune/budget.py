@@ -21,7 +21,12 @@ gives the CPU column.
 ``calibrate()`` upgrades the static rate constants to measured ones with
 a two-point timed probe (one small pass dominated by launch latency, one
 large pass dominated by stream bandwidth); on the card it times with CUDA
-events. Profiles round-trip through JSON.
+events. The pass is ``stream_pass``, one kernel that reads and writes one
+fp32 an element: 8 bytes, the figure the fit divides by (an eager
+``x * 2 + 1`` is two kernels and a temporary, 16 bytes an element, and
+halved the measured bandwidth). ``calibrate(mode="probe")`` counts the
+same pass's bytes with ``obs.probe`` instead of timing it. Profiles
+round-trip through JSON.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import torch
 
 from repro_torch.kernels.dispatch import resolve_device
 
-__all__ = ["BackendBudget", "detect_budget", "calibrate",
+__all__ = ["BackendBudget", "detect_budget", "calibrate", "stream_pass",
            "save_profile", "load_profile"]
 
 #: bytes per fp32 element: every budget below is quoted in bytes
@@ -60,7 +65,8 @@ class BackendBudget:
       bounds only;
     * ``bandwidth`` / ``latency`` — stream bandwidth (bytes/s) and
       per-launch latency (s), static unless calibrated;
-    * ``source`` — ``"default"``, ``"calibrated"`` or ``"profile"``;
+    * ``source`` — ``"default"``, ``"calibrated"``, ``"probed"`` or
+      ``"profile"``;
     * ``shared_bytes`` — the card only: shared memory one block may opt
       in to, which ``permute_reduce``'s per-block resident set must fit;
     * ``device`` — the card only: its name.
@@ -126,23 +132,29 @@ def detect_budget(device: Union[str, torch.device, None] = None
     return _card_budget(dev)
 
 
+def stream_pass(x: torch.Tensor) -> torch.Tensor:
+    """The calibration's elementwise pass: one kernel that reads ``x`` and
+    writes ``2x``, two fp32 an element."""
+    return torch.mul(x, 2.0)
+
+
 def _time_pass(x: torch.Tensor, reps: int = 5) -> float:
-    """Median seconds of one elementwise pass ``x * 2 + 1`` over ``x``; on
-    the card each pass is timed with CUDA events."""
-    x * 2.0 + 1.0                                    # warm-up
+    """Median seconds of one ``stream_pass`` over ``x``; on the card each
+    pass is timed with CUDA events."""
+    stream_pass(x)                                   # warm-up
     ts = []
     for _ in range(reps):
         if x.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
-            x * 2.0 + 1.0
+            stream_pass(x)
             stop.record()
             stop.synchronize()
             ts.append(start.elapsed_time(stop) * 1e-3)
         else:
             t0 = time.perf_counter()
-            x * 2.0 + 1.0
+            stream_pass(x)
             ts.append(time.perf_counter() - t0)
     ts.sort()
     return ts[len(ts) // 2]
@@ -151,25 +163,31 @@ def _time_pass(x: torch.Tensor, reps: int = 5) -> float:
 def calibrate(base: Optional[BackendBudget] = None, *,
               small: int = 1 << 12, large: int = 1 << 22,
               reps: int = 5, mode: str = "wall") -> BackendBudget:
-    """Fit the budget's rate constants from two streaming passes.
+    """Fit the budget's rate constants from streaming passes.
 
-    ``mode="wall"`` times a small (latency-dominated) and a large
-    (bandwidth-dominated) elementwise pass on the budget's own device (the
-    card for ``backend="cuda"``, the CPU otherwise) and solves the
-    two-point linear fit: a pass over N floats costs latency + 8N/bandwidth
-    bytes. ``mode="probe"`` reads XLA's compiled byte counts in the
-    reference (``obs.probe``), which has no counterpart here, and is
-    refused. Capacities stay static: only rate constants are measured.
+    Both modes run ``stream_pass`` on the budget's own device (the card
+    for ``backend="cuda"``, the CPU otherwise). ``mode="wall"`` times a
+    small (latency-dominated) and a large (bandwidth-dominated) pass and
+    solves the two-point linear fit: a pass over N floats costs latency +
+    8N/bandwidth bytes. ``mode="probe"`` is deterministic: it counts the
+    bytes one pass over ``large`` floats moves (``obs.probe.
+    probe_stream_pass``) and scales the budget's bandwidth by 8·large over
+    that count, so a pass that moved more than the modeled two fp32 an
+    element would price streams proportionally slower; latency stays as
+    it was and ``source`` becomes ``"probed"``. Capacities stay static:
+    only rate constants are measured.
     """
-    if mode == "probe":
-        raise NotImplementedError(
-            "calibrate(mode='probe') reads XLA's compiled HLO through "
-            "obs.probe, which is not yet ported to repro_torch")
-    if mode != "wall":
+    if mode not in ("wall", "probe"):
         raise ValueError(f"calibrate mode must be 'wall' or 'probe', "
                          f"got {mode!r}")
     b = base or detect_budget()
     device = resolve_device("cuda" if b.backend == "cuda" else "cpu")
+    if mode == "probe":
+        from repro_torch.obs.probe import probe_stream_pass
+        rec = probe_stream_pass(large, device=device)
+        factor = max(rec.bytes_corrected / (2.0 * _FP32 * large), 1e-6)
+        return dataclasses.replace(b, bandwidth=b.bandwidth / factor,
+                                   source="probed")
     t_small = _time_pass(torch.ones((small,), device=device), reps)
     t_large = _time_pass(torch.ones((large,), device=device), reps)
     # each element moves two fp32 (read + write) a pass

@@ -1516,3 +1516,44 @@ def test_one_rank_nccl_mesh_trains_and_serves_bitwise(cuda, name):
         assert torch.equal(p, runs["mesh"][2][n]), n
     for a, b in zip(runs["single"][3], runs["mesh"][3]):
         assert torch.equal(a, b)
+
+
+def test_probe_permute_reduce_on_the_card_is_within_its_bands(cuda):
+    """One (32, 4096) tile probed on the card: the row-stationary launches
+    declared their loads and stores, the record's bytes and its peak from
+    the caching allocator lie within the ``"cuda"`` bands, the peak is at
+    least the arguments, and the launch counts are as they were."""
+    from repro_torch.obs.drift import DriftSentinel
+    from repro_torch.obs.probe import clear_probe_cache, probe_permute_reduce
+
+    clear_probe_cache()
+    before = dict(_build.launches)
+    rec = probe_permute_reduce(4096, batch=32)
+    assert _build.launches == before
+    assert rec.backend == "cuda"
+    assert set(rec.launches) == {"inverse_orders", "permute_reduce",
+                                 "permute_reduce_finish"}
+    assert all(v["count"] == 1 for v in rec.launches.values())
+    assert rec.peak_bytes >= rec.argument_bytes
+    verdicts = DriftSentinel(backend="cuda").check_permute_reduce(rec)
+    for v in verdicts:
+        assert v.within, v
+
+
+def test_probed_report_leaves_launch_counts_as_found(cuda):
+    """A probed ``report()`` of a card session launches the probes'
+    kernels but leaves ``_build.launches`` and the cache counters as it
+    found them; every ``measured`` record ran on the card."""
+    from repro_torch.obs import ObsConfig
+
+    d = random_distance_matrix(3, 512, device=cuda)
+    ws = Workspace(d, config=ExecConfig(obs=ObsConfig(enabled=True)))
+    ws.pcoa(dimensions=3)
+    ws.mantel(ws, permutations=31)
+    launches = dict(_build.launches)
+    cache = (dict(ws.cache.hits), dict(ws.cache.misses))
+    rep = ws.report()
+    assert _build.launches == launches
+    assert (dict(ws.cache.hits), dict(ws.cache.misses)) == cache
+    assert {r["backend"] for r in rep.measured.values()} == {"cuda"}
+    assert rep.drift["backend"] == "cuda" and rep.drift_ok, rep.drift

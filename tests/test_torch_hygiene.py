@@ -29,6 +29,9 @@ from repro_torch.models.ssd import init_ssd_cache
 from repro_torch.models.transformer import (Transformer, init_cache,
                                             init_params)
 from repro_torch.obs import ObsConfig
+from repro_torch.obs.probe import (probe_center_matvec, probe_panel_stats,
+                                   probe_pcoa_matfree, probe_permute_reduce,
+                                   probe_statistic, probe_stream_pass)
 from repro_torch.runtime.serve import build_decode_fn, build_prefill_fn
 from repro_torch.stats import (PermanovaOperatorStatistic, anosim,
                                partial_mantel, permanova, permdisp)
@@ -39,7 +42,7 @@ from repro_torch.data import DistanceTileStream
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.train import build_train_step_fn, init_train_state
 from repro_torch.serve import AnalysisService, ServeConfig
-from repro_torch.tune import detect_budget, solve_tiles
+from repro_torch.tune import calibrate, detect_budget, solve_tiles
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -92,7 +95,8 @@ def test_session_modules_are_checked():
             "runtime/train.py", "checkpoint/manager.py",
             "launch/train.py", "kernels/rmsnorm_ops.py",
             "sharding/__init__.py", "sharding/rules.py", "sharding/ctx.py",
-            "optim/compression.py", "launch/inputs.py"} <= names
+            "optim/compression.py", "launch/inputs.py",
+            "obs/probe.py", "obs/drift.py"} <= names
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -155,6 +159,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: convert.opt_state_from_reference({}, None, lm),
         lambda: DistanceTileStream(n=8),
         lambda: train_launcher.main(["--arch", "qwen3-8b", "--smoke"]),
+        lambda: probe_permute_reduce(12, batch=4),
+        lambda: probe_panel_stats(12, 5),
+        lambda: probe_center_matvec(12, k=2),
+        lambda: probe_pcoa_matfree(op, k=2),
+        lambda: probe_statistic(MantelStatistic(d.data, d.data, 12)),
+        lambda: probe_stream_pass(64),
+        lambda: calibrate(mode="probe"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

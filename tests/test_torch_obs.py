@@ -8,9 +8,10 @@ sentinel's one-program-per-shape guarantee across K values, and a
 RunReport from an instrumented battery, square- and feature-backed, whose
 ledger and cache sections equal the reference's after the same calls.
 Left out: ``test_registry_parity_benchmarks_import_the_registry`` (it
-checks the reference's benchmark modules, which are not ported). Nothing
-here needs ``obs.probe`` or ``obs.drift``; a port report's ``measured``
-and ``drift`` are ``None``.
+checks the reference's benchmark modules, which are not ported). A
+report's ``measured`` and ``drift`` sections are checked for the entry
+points and verdicts the session runs; the probes themselves are tested,
+against the reference, in ``tests/test_torch_probe.py``.
 """
 
 import json
@@ -318,7 +319,13 @@ def test_feature_backed_battery_report():
     want = ref.report()
     assert isinstance(rep, RunReport)
     assert rep.meta["backing"] == "features" and rep.meta["suite"] == "test"
-    assert rep.measured is None and rep.drift is None and rep.drift_ok
+    assert set(rep.measured) == {"kernels.permute_reduce",
+                                 "dist.panel_stats", "pcoa.fsvd_matfree"}
+    assert ({(v["name"], v["quantity"]) for v in rep.drift["verdicts"]}
+            == {(name, q) for name in ("kernels.permute_reduce",
+                                       "dist.panel_stats")
+                for q in ("bytes", "peak")})
+    assert rep.drift_ok
     by_op = rep.ledger["by_op"]
     for op in ("production", "hoist:condensed", "hoist:operator",
                "hoist:coords", "hoist:ranks", "hoist:moments",
@@ -404,7 +411,9 @@ def test_report_save_roundtrip(tmp_path):
     with open(path) as f:
         doc = json.load(f)
     assert doc["meta"]["n"] == 16 and doc["spans"]
-    assert doc["measured"] is None and doc["drift"] is None
+    assert set(doc["measured"]) == {"kernels.permute_reduce",
+                                    "dist.panel_stats", "pcoa.fsvd_matfree"}
+    assert doc["drift"]["within_tolerance"] is True
 
 
 def test_spans_accumulate_across_refresh_generations():

@@ -335,8 +335,9 @@ def test_calibration_profile_roundtrip(tmp_path):
     assert loaded.working_bytes == cal.working_bytes
     t = solve_tiles(64, profile=path)
     assert t.budget.source == "profile"
-    with pytest.raises(NotImplementedError, match="obs.probe"):
-        calibrate(base, mode="probe")
+    probed = calibrate(base, mode="probe", large=1 << 16)
+    assert probed.source == "probed" and probed.latency == base.latency
+    assert probed.bandwidth == base.bandwidth      # 8 bytes an element
     with pytest.raises(ValueError, match="mode"):
         calibrate(base, mode="guess")
 
