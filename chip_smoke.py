@@ -596,25 +596,30 @@ def check_center_matvec_blocks(d_main: torch.Tensor, d_ragged: torch.Tensor,
                                errors: dict) -> None:
     """center_matvec's block mode (the distributed matvec's) against its
     plain version: an off-diagonal (BLOCK, BLOCK) block of the main path's
-    matrix, as a 2 x 2 mesh's rank holds, and a ragged (1000, 700) block,
-    at k = DIMS + 10; two launches bitwise equal."""
-    from repro_torch.kernels.center_matvec import center_matvec
+    matrix, as a 2 x 2 mesh's rank holds, at k = DIMS + 10 and WIDE_K, and
+    a ragged (1000, 700) block at k = DIMS + 10, each strip swept by a
+    cluster of ``sweep_split`` blocks; two launches bitwise equal."""
+    from repro_torch.kernels.center_matvec import center_matvec, sweep_split
     from repro_torch.kernels.center_matvec_ref import center_matvec_block_ref
 
-    k = DIMS + 10
     rr, rc = RAGGED_BLOCK
-    for label, d in ((f"({BLOCK}, {BLOCK})", d_main[:BLOCK, BLOCK:]),
-                     (f"({rr}, {rc})", d_ragged[:rr, :rc])):
+    for label, d, widths in (
+            (f"({BLOCK}, {BLOCK})", d_main[:BLOCK, BLOCK:],
+             (DIMS + 10, WIDE_K)),
+            (f"({rr}, {rc})", d_ragged[:rr, :rc], (DIMS + 10,))):
         d = d.contiguous()
         r, c = d.shape
-        rm, _, _, x, colsum, corr = block_operands(r, c, k, SEED + r + c)
-        got = center_matvec(d, x, rm, colsum, corr)
-        err = compare(f"center_matvec block {label} k={k}", got,
-                      center_matvec_block_ref(d, x, rm, colsum, corr))
-        check(torch.equal(got, center_matvec(d, x, rm, colsum, corr)),
-              f"center_matvec block {label}: two launches differ")
-        if r == BLOCK:
-            errors["center_matvec_block"] = err
+        for k in widths:
+            rm, _, _, x, colsum, corr = block_operands(r, c, k, SEED + r + c)
+            got = center_matvec(d, x, rm, colsum, corr)
+            err = compare(f"center_matvec block {label} k={k} (clusters of "
+                          f"{sweep_split(r, c, k)})", got,
+                          center_matvec_block_ref(d, x, rm, colsum, corr))
+            check(torch.equal(got, center_matvec(d, x, rm, colsum, corr)),
+                  f"center_matvec block {label} k={k}: two launches differ")
+            if r == BLOCK:
+                errors["center_matvec_block" if k == DIMS + 10
+                       else "center_matvec_block_wide"] = err
     print("  center_matvec block mode: two launches bitwise equal")
 
 
@@ -3720,6 +3725,16 @@ def print_kernel_times(kernels: list) -> None:
           f"{cm['k128_bound_ms'] / cm['k128_ms']:.4f} of it; op "
           f"{cm['k128_op_ms']:.4f} ms; torch.matmul on a formed E "
           f"{cm['k128_yardstick_matmul_preformed_e_ms']:.4f} ms")
+    cb = by_name["center_matvec_block"]
+    print(f"  center_matvec_block {tuple(cb['shape'][:2])}, clusters of "
+          f"{cb['split']}: k={DIMS + 10} {cb['ms']:.4f} ms from a CUDA graph "
+          f"({cb['host_launch_ms']:.4f} from Python), "
+          f"{cb['bound_ms'] / cb['ms']:.4f} of its bound; k={WIDE_K} "
+          f"(clusters of {cb['k128_split']}) {cb['k128_ms']:.4f} ms, bound "
+          f"{cb['k128_bound_ms']:.4f} ms ({cb['k128_bound_by']}); "
+          f"torch.matmul on a formed E {cb['yardstick_matmul_preformed_e_ms']:.4f}"
+          f" / {cb['k128_yardstick_matmul_preformed_e_ms']:.4f} ms; resident "
+          f"clusters by k and size {cb['resident_clusters']}")
     pr = by_name["permute_reduce"]
     print(f"  permute_reduce: {pr['bound_ms'] / pr['ms']:.4f} of its bound; "
           f"S=2 {pr['rows2_ms']:.4f} ms; B=2 {pr['perms2_ms']:.4f} ms")
@@ -4006,15 +4021,49 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
           cuda_ms(lambda: center_pass2(blk, rm, gmb, cm), reps=20),
           cuda_ms(lambda: center_pass2_ref(blk, rm, gmb, cm), reps=5),
           8 * r * c + 4 * r + 4 * c + 4, 5 * r * c, FP32_FLOPS, shape=[r, c])
+    # center_matvec's block mode, each strip swept by a cluster of
+    # ``sweep_split`` blocks, at pcoa's k and WIDE_K; the card's resident
+    # clusters of each size beside it (the one-wave assumption of the
+    # split), and the yardstick of row 2: torch.matmul on the block's E
+    # formed beforehand
+    from repro_torch.kernels.center_matvec import (SWEEP_SPLITS,
+                                                   resident_clusters,
+                                                   sweep_split)
+    e_blk = -0.5 * blk * blk
+    xw = block_operands(r, c, WIDE_K, SEED + 31)[3]
+    zero_w = torch.zeros(WIDE_K, device="cuda")
+    block_bound = {width: bound_ms(4 * (r * c + c * width + r * width + r
+                                        + 2 * width), 2 * r * c, FP32_FLOPS,
+                                   3 * 2 * r * c * width)
+                   for width in (k, WIDE_K)}
+    # ``ms`` and ``k128_ms`` replay the launches from a CUDA graph: at k =
+    # 20 the kernel takes less time than a launch from Python
+    # (``host_launch_ms``)
     entry("center_matvec_block", "src/repro_torch/csrc/center_matvec.cu",
           "src/repro/kernels/center_matvec.py:59",
-          cuda_ms(lambda: center_matvec(blk, xb, zero_r, zero_k, zero_k),
-                  reps=20),
+          graph_ms(lambda: center_matvec(blk, xb, zero_r, zero_k, zero_k)),
           cuda_ms(lambda: center_matvec_block_ref(blk, xb, zero_r, zero_k,
                                                   zero_k), reps=5),
           4 * (r * c + c * k + r * k + r + 2 * k), 2 * r * c, FP32_FLOPS,
-          tf32_flops=3 * 2 * r * c * k, shape=[r, c, k])
-    del blk, xb
+          tf32_flops=3 * 2 * r * c * k, shape=[r, c, k],
+          split=sweep_split(r, c, k),
+          yardstick_matmul_preformed_e_ms=cuda_ms(
+              lambda: torch.matmul(e_blk, xb), reps=20),
+          host_launch_ms=cuda_ms(lambda: center_matvec(blk, xb, zero_r,
+                                                       zero_k, zero_k),
+                                 reps=20),
+          k128_ms=graph_ms(lambda: center_matvec(blk, xw, zero_r, zero_w,
+                                                 zero_w)),
+          k128_bound_ms=block_bound[WIDE_K][0],
+          k128_bound_by=block_bound[WIDE_K][1],
+          k128_max_abs_err=errors["center_matvec_block_wide"],
+          k128_split=sweep_split(r, c, WIDE_K),
+          k128_yardstick_matmul_preformed_e_ms=cuda_ms(
+              lambda: torch.matmul(e_blk, xw), reps=20),
+          resident_clusters={str(width): {str(s): resident_clusters(width, s)
+                                          for s in SWEEP_SPLITS}
+                             for width in (k, WIDE_K)})
+    del blk, xb, xw, e_blk
     ycols = yhat[:, BLOCK:].contiguous()
     orders = permutation_orders(SEED + 3, MAX_PERMS, n, "cuda")
     inv, orders16 = inverse_orders(orders)
@@ -4767,37 +4816,68 @@ def phase_train_checks(card: str) -> None:
 
 def center_matvec_op_times() -> dict:
     """``center_matvec_op`` of the ``repro_torch`` first on the path, at
-    n = N (the main path's matrix) and k = DIMS + 10 and WIDE_K, as phase 5
-    times it: ms a call and the kernel launches a call makes. So a parent
-    tree's op, which cut k = 128 into slabs, is timed in the same call."""
+    n = N (the main path's matrix), as phase 5 times it, and at n = 4096
+    and BLOCK (leading squares of it), each at k = DIMS + 10 and WIDE_K;
+    ``block_product_op`` on phase 5's off-diagonal (BLOCK, BLOCK) block at
+    both k: ms a call and the kernel launches a call makes, and the
+    kernel's own launch alone replayed from a CUDA graph (``kernel_ms``:
+    the device's time, where the op at n <= BLOCK follows the host). So a
+    parent tree's ops are timed in the same call."""
     import repro_torch
     from repro_torch.core import random_distance_matrix
     from repro_torch.kernels import _build
-    from repro_torch.kernels.center_matvec_ops import center_matvec_op
+    from repro_torch.kernels.center_matvec import center_matvec
+    from repro_torch.kernels.center_matvec_ops import (block_product_op,
+                                                       center_matvec_op)
+    from repro_torch.kernels.center_matvec_ref import center_corrections
 
-    d = random_distance_matrix(SEED, N, dim=POINT_DIM).data
-    row_means = -0.5 * torch.mean(d * d, dim=1)
-    gm = torch.mean(row_means)
+    full = random_distance_matrix(SEED, N, dim=POINT_DIM).data
     out = {"tree": str(Path(repro_torch.__file__).resolve().parents[2]),
            "card": torch.cuda.get_device_name(0)}
+
+    def timed(label, op, kernel):
+        _build.reset_launches()
+        op()
+        sync()
+        out[f"{label}_launches"] = _build.launches["center_matvec"]
+        out[f"{label}_op_ms"] = cuda_ms(op, reps=20)
+        out[f"{label}_kernel_ms"] = graph_ms(kernel)
+
+    for n in (N, BLOCK, 4096):
+        d = full if n == N else full[:n, :n].contiguous()
+        row_means = -0.5 * torch.mean(d * d, dim=1)
+        gm = torch.mean(row_means)
+        for width in (DIMS + 10, WIDE_K):
+            gen = torch.Generator().manual_seed(SEED + width)
+            x = torch.randn((n, width), generator=gen).cuda()
+            colsum, corr = center_corrections(x, row_means, gm)
+            timed(f"k{width}" if n == N else f"n{n}_k{width}",
+                  lambda: center_matvec_op(d, x, row_means, gm),
+                  lambda: center_matvec(d, x, row_means, colsum, corr))
+        del d
+    blk = full[:BLOCK, BLOCK:].contiguous()
+    del full
+    zero_r = torch.zeros(BLOCK, device="cuda")
     for width in (DIMS + 10, WIDE_K):
         gen = torch.Generator().manual_seed(SEED + width)
-        x = torch.randn((N, width), generator=gen).cuda()
-        _build.reset_launches()
-        center_matvec_op(d, x, row_means, gm)
-        sync()
-        out[f"k{width}_launches"] = _build.launches["center_matvec"]
-        out[f"k{width}_op_ms"] = cuda_ms(
-            lambda: center_matvec_op(d, x, row_means, gm), reps=20)
+        x = torch.randn((BLOCK, width), generator=gen).cuda()
+        zero_k = torch.zeros(width, device="cuda")
+        timed(f"block{BLOCK}_k{width}", lambda: block_product_op(blk, x),
+              lambda: center_matvec(blk, x, zero_r, zero_k, zero_k))
     return out
 
 
 def square_call_outputs() -> dict:
     """The square calls of the ``center`` pair (fp32 and bf16),
     ``center_matvec`` (k = 20, 45, 128) and ``mantel_corr`` (27 orders) at
-    n = 1000, 1001 and 4096, from fixed seeds, by the ``repro_torch``
-    first on the path: so a parent tree's bits can be held against this
-    tree's (``--square-bits``, then ``--same-bits``)."""
+    n = 1000, 1001 and 4096, and the main path's ``center_matvec`` at
+    n = N, k = DIMS + 10, from fixed seeds, by the ``repro_torch`` first on
+    the path: so a parent tree's bits can be held against this tree's
+    (``--square-bits``, then ``--same-bits``). Against a tree older than
+    the cluster-split sweep, the ``center_matvec`` entries at n <= 4096
+    differ by design (their strips are swept by clusters of 2 to 8 blocks,
+    which sum in another order); the one at n = N (one block a strip) and
+    the ``center`` and ``mantel_corr`` entries must match."""
     from repro_torch.core import random_distance_matrix
     from repro_torch.kernels.center import (center_finish, center_pass1,
                                             center_pass2)
@@ -4832,6 +4912,15 @@ def square_call_outputs() -> dict:
         partials = mantel_corr_partials(d, yhat, inv, orders16)
         out[f"mantel_corr partials n={n}"] = partials
         out[f"mantel_corr n={n}"] = mantel_corr_finish(partials)
+    del d, yhat, partials
+    d = random_distance_matrix(SEED, N, dim=POINT_DIM).data
+    row_means = -0.5 * torch.mean(d * d, dim=1)
+    gm = torch.mean(row_means)
+    x = torch.randn((N, DIMS + 10), generator=torch.Generator().manual_seed(
+        N + DIMS + 10)).cuda()
+    colsum, corr = center_corrections(x, row_means, gm)
+    out[f"center_matvec n={N} k={DIMS + 10}"] = center_matvec(
+        d, x, row_means, colsum, corr)
     return {k: v.cpu() for k, v in out.items()}
 
 

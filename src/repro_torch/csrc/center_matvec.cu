@@ -15,15 +15,21 @@
 // Replaces: src/repro/kernels/center_matvec.py::center_matvec
 // (_center_matvec_kernel).
 //
-// Bound on an H100: D is read once, 4 n^2 bytes, 1.07 GB at n = 16384, 0.32 ms
-// at 3.35 TB/s. The products run on the tensor cores in 3xTF32: 3 x 2 n^2 k
-// operations at 495 TFLOP/s, 0.07 ms at k = 20 (bytes bound there) and 0.42
-// ms at k = 128 (operations bound). On the CUDA cores in fp32 the same
-// products would take 1.03 ms at k = 128.
+// Bound on an H100: D is read once, 4 r c bytes: 1.07 GB for the square at
+// n = 16384, 0.32 ms at 3.35 TB/s, and 0.27 GB for an (8192, 8192) block,
+// 0.08 ms. The products run on the tensor cores in 3xTF32: 3 x 2 r c k
+// operations at 495 TFLOP/s, 0.07 ms for the square at k = 20 (bytes bound
+// there), 0.42 ms at k = 128 (operations bound), 0.10 ms for the (8192,
+// 8192) block at k = 128. On the CUDA cores in fp32 the square's products
+// would take 1.03 ms at k = 128.
 //
-// Design. One block owns BM = 128 output rows and sweeps every column of D
-// itself, so no sum crosses blocks and the result is deterministic (n / 128
-// blocks, one an SM). A producer warp keeps a ring of 4 to 6 stages full,
+// Design. A strip of BM = 128 output rows is swept, over every column of D,
+// by a thread-block cluster of s blocks, one an SM (s from the wrapper's
+// sweep_split, a function of (r, c, k) alone: s = 1 where the strips fill
+// the card, as the square's 128 strips at n = 16384 do, 2 to 8 where they
+// leave SMs idle, as the 64 strips of an (8192, 8192) block do). Rank q of
+// the cluster sweeps stages [q T / s, (q + 1) T / s) of the T = ceil(c / 32)
+// stages. A producer warp keeps a ring of 4 to 6 stages full,
 // each a 128 x 32 tile of D and the 32 x k rows of X beside it: one tensor
 // copy (TMA) for the D tile and one bulk copy for the X rows where their rows
 // are 16-byte multiples, 4-byte cp.async copies otherwise (the copy engine
@@ -41,11 +47,18 @@
 // owns 16 rows and every column up to 64 columns; above that 32 rows and
 // half the columns, so that each B fragment it loads from shared memory
 // serves two MMA row tiles. A stage's 12 products accumulate in fp32 from
-// zero and are added to running sums, so the long fp32 chain has n / 32
-// terms. Every output element is summed in an order that depends only on n:
-// two launches give the same bits. Up to 128 columns a launch; k is padded
-// to the MMA width in registers and shared memory only (masked loads and
-// stores), never in device memory.
+// zero and are added to the rank's running sums, so its fp32 chain has at
+// most T / s terms. Then the cluster sums in a fixed order through
+// distributed shared memory: after a cluster barrier (every rank's ring is
+// idle), ranks 1 .. s-1 store their sums into slots of their own in rank
+// 0's ring, a second barrier (release, acquire) publishes them, and rank 0
+// adds slots 1, 2, .., s-1 to its own sums in that order and runs the
+// epilogue; no block exits while another may still write its shared memory.
+// Device memory sees what the s = 1 launch reads: the strip's D rows and X
+// once between the cluster's ranks. Every output element is summed in an
+// order that depends only on (r, c, k): two launches give the same bits.
+// Up to 128 columns a launch; k is padded to the MMA width in registers and
+// shared memory only (masked loads and stores), never in device memory.
 //
 // Within each 8-column k-step the kernel maps the MMA's k index t to column
 // 2t and t + 4 to 2t + 1 (A and B alike, so the product is the same): a lane
@@ -53,9 +66,14 @@
 // both rows, as one float4. The D tile's row pitch (40 floats: the tensor
 // copy's box is 8 columns wider than the stage) and the split buffer's (k
 // padded + 2 float4) make those loads free of bank conflicts.
+#include <cooperative_groups.h>
 #include <cuda.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -69,12 +87,14 @@ using repro::smem_addr;
 constexpr int kBM = 128;                      // output rows a block
 constexpr int kBN = 32;                       // D columns (X rows) a stage
 constexpr int kMmaWarps = kBM / 16;           // 16 rows a warp at narrow k
+constexpr int kMmaThreads = kMmaWarps * 32;
 constexpr int kSplitWarps = 3;                // warps that split the X tiles
 constexpr int kSplitters = kSplitWarps * 32;
 constexpr int kProducerWarp = kMmaWarps + kSplitWarps;
 constexpr int kThreads = (kProducerWarp + 1) * 32;
 constexpr int kPitch = kBN + 8;               // D tile row pitch, floats
 constexpr int kPairs = kBN / 2;               // X row pairs (2t, 2t + 1) a stage
+constexpr int kMaxSplit = 8;                  // blocks of a strip's cluster, at most
 
 // MMA row tiles (16 rows) an MMA warp owns at NT n-tiles: two above 8
 // n-tiles, where pairs of warps then split the n-tiles evenly.
@@ -93,7 +113,20 @@ struct Layout {
     x_split = x_ring + stages * kBN * k * 4;                   // multiple of 16
     total = x_split + 2 * kPairs * (kp + 2) * 16;
   }
+  // whether the slots of a cluster of `split` fit in the bytes after the
+  // mbarriers, which the sweep leaves idle: split - 1 blocks' 128 x kp sums
+  __host__ __device__ static bool holds_slots(const Layout& lay, int kp, int split) {
+    return (split - 1) * kBM * kp * 4 <= lay.total - lay.d_ring;
+  }
 };
+
+// Every thread of the cluster arrives, then waits for every other: what
+// each wrote to shared memory (its own or another block's) before arriving
+// is seen by every thread after the wait.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
 
 // Arrive on `bar` once every cp.async this thread has issued has landed.
 __device__ __forceinline__ void mbar_arrive_on_copies(uint32_t bar) {
@@ -137,7 +170,8 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The producer warp: stage t of the ring holds D[i0:i0+128, 32t:32t+40]
+// The producer warp: the block's stages t0 .. t0 + steps - 1, stage t in
+// ring slot (t - t0) % S holding D[i0:i0+128, 32t:32t+40]
 // (8 columns more than the stage uses, the row pitch that keeps the MMA
 // warps' loads free of bank conflicts) and X[32t:32t+32, :]. Two routes
 // for each operand, chosen per launch:
@@ -154,15 +188,14 @@ template <int S>
 __device__ __forceinline__ void produce(const CUtensorMap& dmap, const float* __restrict__ d,
                                         const float* __restrict__ x, unsigned char* smem,
                                         const Layout& lay, int rows, int cols_d, int k, int i0,
-                                        bool d_tma, bool x_tma) {
+                                        int t0, int steps, bool d_tma, bool x_tma) {
   const int lane = threadIdx.x & 31;
   const uint32_t bars = smem_addr(smem);
-  const int steps = (cols_d + kBN - 1) / kBN;
-  for (int t = 0; t < steps; ++t) {
-    const int slot = t % S;
-    if (t >= S) mbar_wait(bars + 8 * (S + slot), ((t / S) - 1) & 1);
+  for (int u = 0; u < steps; ++u) {
+    const int slot = u % S;
+    if (u >= S) mbar_wait(bars + 8 * (S + slot), ((u / S) - 1) & 1);
     const uint32_t full = bars + 8 * slot;
-    const int j0 = t * kBN;
+    const int j0 = (t0 + u) * kBN;
     const int cols = min(kBN, cols_d - j0);   // D columns, and X rows, of the stage
     const uint32_t dt = smem_addr(smem + lay.d_ring) + slot * kBM * kPitch * 4;
     const uint32_t xt = smem_addr(smem + lay.x_ring) + slot * kBN * k * 4;
@@ -192,13 +225,15 @@ __device__ __forceinline__ void produce(const CUtensorMap& dmap, const float* __
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <int NT>
+// kCluster false: one block a strip (split is 1), the cluster's sum
+// compiled out.
+template <int NT, bool kCluster>
 __global__ void __launch_bounds__(kThreads, 1)
 center_matvec_kernel(const __grid_constant__ CUtensorMap dmap, const float* __restrict__ d,
                      const float* __restrict__ x,
                      const float* __restrict__ row_means, const float* __restrict__ colsum,
                      const float* __restrict__ corr, float* __restrict__ out, int rows,
-                     int cols, int k, int d_tma, int x_tma) {
+                     int cols, int k, int d_tma, int x_tma, int cluster_blocks) {
   constexpr int KP = 8 * NT;          // columns padded to the MMA width
   constexpr int kSplitPitch = KP + 2;  // float4 a row pair of the split X tile
   extern __shared__ __align__(128) unsigned char smem[];
@@ -206,7 +241,15 @@ center_matvec_kernel(const __grid_constant__ CUtensorMap dmap, const float* __re
   const Layout lay(k, KP, S);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int i0 = blockIdx.x * kBM;
+  // strip blockIdx.x / split; rank blockIdx.x % split of its cluster (the
+  // cluster's own block rank), which sweeps stages [t0, t0 + steps)
+  const int split = kCluster ? cluster_blocks : 1;
+  const int strip = blockIdx.x / split;
+  const int rank = blockIdx.x - strip * split;
+  const int i0 = strip * kBM;
+  const int stages = (cols + kBN - 1) / kBN;
+  const int t0 = rank * stages / split;
+  const int steps = (rank + 1) * stages / split - t0;
   // mbarriers: full[S] and empty[S] of the D/X ring, then
   // split_full[2] and split_empty[2] of the split X tiles
   const uint32_t bars = smem_addr(smem);
@@ -224,13 +267,16 @@ center_matvec_kernel(const __grid_constant__ CUtensorMap dmap, const float* __re
   }
   __syncthreads();
 
-  const int steps = (cols + kBN - 1) / kBN;
   const float* d_ring = reinterpret_cast<const float*>(smem + lay.d_ring);
   const float* x_ring = reinterpret_cast<const float*>(smem + lay.x_ring);
   float4* x_split = reinterpret_cast<float4*>(smem + lay.x_split);
 
   if (warp == kProducerWarp) {
-    produce<S>(dmap, d, x, smem, lay, rows, cols, k, i0, d_tma != 0, x_tma != 0);
+    produce<S>(dmap, d, x, smem, lay, rows, cols, k, i0, t0, steps, d_tma != 0, x_tma != 0);
+    if (kCluster) {   // the cluster's two barriers of the sum below
+      cluster_sync();
+      cluster_sync();
+    }
     return;
   }
   if (warp >= kMmaWarps) {
@@ -239,13 +285,13 @@ center_matvec_kernel(const __grid_constant__ CUtensorMap dmap, const float* __re
     // zero past the D columns and k; one stage ahead of the MMA warps
     const int stid = threadIdx.x - kMmaWarps * 32;
     const bool x_vec = k % 4 == 0;
-    for (int t = 0; t < steps; ++t) {
-      const int slot = t % S;
-      const int j0 = t * kBN;
-      mbar_wait(bars + 8 * slot, (t / S) & 1);
-      if (t >= 2) mbar_wait(split_bars + 8 * (2 + (t & 1)), ((t >> 1) - 1) & 1);
+    for (int u = 0; u < steps; ++u) {
+      const int slot = u % S;
+      const int j0 = (t0 + u) * kBN;
+      mbar_wait(bars + 8 * slot, (u / S) & 1);
+      if (u >= 2) mbar_wait(split_bars + 8 * (2 + (u & 1)), ((u >> 1) - 1) & 1);
       const float* xr = x_ring + slot * kBN * k;
-      float4* xs = x_split + (t & 1) * kPairs * kSplitPitch;
+      float4* xs = x_split + (u & 1) * kPairs * kSplitPitch;
       // four columns at a time: one float4 of each of the two rows where k
       // % 4 == 0 (the rows then start 16-byte aligned), scalars otherwise
       constexpr int kQuads = kPairs * KP / 4;
@@ -278,8 +324,12 @@ center_matvec_kernel(const __grid_constant__ CUtensorMap dmap, const float* __re
       __syncwarp();
       if (lane == 0) {
         mbar_arrive(bars + 8 * (S + slot));   // done with the X rows of the ring
-        mbar_arrive(split_bars + 8 * (t & 1));   // split tile t is ready
+        mbar_arrive(split_bars + 8 * (u & 1));   // split tile u is ready
       }
+    }
+    if (kCluster) {
+      cluster_sync();
+      cluster_sync();
     }
     return;
   }
@@ -305,11 +355,11 @@ center_matvec_kernel(const __grid_constant__ CUtensorMap dmap, const float* __re
     }
   }
 
-  for (int t = 0; t < steps; ++t) {
-    const int slot = t % S;
-    mbar_wait(bars + 8 * slot, (t / S) & 1);
-    mbar_wait(split_bars + 8 * (t & 1), (t >> 1) & 1);
-    const float4* xs = x_split + (t & 1) * kPairs * kSplitPitch;
+  for (int u = 0; u < steps; ++u) {
+    const int slot = u % S;
+    mbar_wait(bars + 8 * slot, (u / S) & 1);
+    mbar_wait(split_bars + 8 * (u & 1), (u >> 1) & 1);
+    const float4* xs = x_split + (u & 1) * kPairs * kSplitPitch;
 
     // this warp's rows against the stage's 32 columns: 4 k-steps of 8
     const float* dt = d_ring + slot * kBM * kPitch + (rg * 16 * MT + g) * kPitch + 2 * tq;
@@ -354,7 +404,7 @@ center_matvec_kernel(const __grid_constant__ CUtensorMap dmap, const float* __re
     __syncwarp();
     if (lane == 0) {
       mbar_arrive(bars + 8 * (S + slot));   // the ring slot may be refilled
-      mbar_arrive(split_bars + 8 * (2 + (t & 1)));   // and the split tile
+      mbar_arrive(split_bars + 8 * (2 + (u & 1)));   // and the split tile
     }
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
@@ -362,6 +412,46 @@ center_matvec_kernel(const __grid_constant__ CUtensorMap dmap, const float* __re
       for (int nt = 0; nt < WNT; ++nt) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) acc[m][nt][r] = __fadd_rn(acc[m][nt][r], step[m][nt][r]);
+      }
+    }
+  }
+
+  if (kCluster) {
+    // the cluster's sum in rank order: slot q - 1 of rank 0's ring holds
+    // rank q's sums, float4 (m, nt) of MMA thread i at (m WNT + nt) 256 + i.
+    // The rank and the cluster's size are read anew from the cluster's
+    // registers, so no register holds them over the sweep.
+    constexpr int kSlot = MT * WNT * kMmaThreads;   // float4 a slot
+    cg::cluster_group cluster = cg::this_cluster();
+    const int my_rank = static_cast<int>(cluster.block_rank());
+    float4* slots = reinterpret_cast<float4*>(smem + lay.d_ring);
+    cluster_sync();   // every rank's sweep is done: rank 0's ring is idle
+    if (my_rank > 0) {
+      float4* dst = cluster.map_shared_rank(slots, 0) + (my_rank - 1) * kSlot;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int nt = 0; nt < WNT; ++nt) {
+          dst[(m * WNT + nt) * kMmaThreads + threadIdx.x] =
+              make_float4(acc[m][nt][0], acc[m][nt][1], acc[m][nt][2], acc[m][nt][3]);
+        }
+      }
+    }
+    cluster_sync();   // every slot written; rank 0 alone goes on
+    if (my_rank > 0) return;
+    const int blocks = static_cast<int>(cluster.num_blocks());
+    for (int q = 1; q < blocks; ++q) {
+      const float4* src = slots + (q - 1) * kSlot;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int nt = 0; nt < WNT; ++nt) {
+          const float4 v = src[(m * WNT + nt) * kMmaThreads + threadIdx.x];
+          acc[m][nt][0] = __fadd_rn(acc[m][nt][0], v.x);
+          acc[m][nt][1] = __fadd_rn(acc[m][nt][1], v.y);
+          acc[m][nt][2] = __fadd_rn(acc[m][nt][2], v.z);
+          acc[m][nt][3] = __fadd_rn(acc[m][nt][3], v.w);
+        }
       }
     }
   }
@@ -433,12 +523,37 @@ cudaError_t d_tensor_map(const float* d, int rows, int cols, CUtensorMap* map) {
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A launch of `grid` blocks of kThreads in clusters of `split` along x, with
+// `smem` bytes of dynamic shared memory a block; `attribute`, which holds the
+// cluster's shape, must outlive the config.
+cudaLaunchConfig_t cluster_config(int grid, int split, int smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attribute) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(grid));
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
+  config.stream = stream;
+  attribute->id = cudaLaunchAttributeClusterDimension;
+  attribute->val.clusterDim.x = split;
+  attribute->val.clusterDim.y = 1;
+  attribute->val.clusterDim.z = 1;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  return config;
+}
+
 template <int NT>
 int launch(const float* d, const float* x, const float* rm, const float* colsum,
-           const float* corr, float* out, int rows, int cols, int k, cudaStream_t stream) {
+           const float* corr, float* out, int rows, int cols, int k, int split,
+           cudaStream_t stream) {
   const Layout lay(k, 8 * NT, ring_stages(NT));
-  cudaError_t err = cudaFuncSetAttribute(center_matvec_kernel<NT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
+  if (split > (cols + kBN - 1) / kBN || !Layout::holds_slots(lay, 8 * NT, split)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto kernel =
+      split == 1 ? center_matvec_kernel<NT, false> : center_matvec_kernel<NT, true>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int d_tma = cols % 4 == 0 && reinterpret_cast<uintptr_t>(d) % 16 == 0;
   const int x_tma = k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
@@ -446,30 +561,77 @@ int launch(const float* d, const float* x, const float* rm, const float* colsum,
   if (d_tma && (err = d_tensor_map(d, rows, cols, &dmap)) != cudaSuccess) {
     return static_cast<int>(err);
   }
-  const int blocks = (rows + kBM - 1) / kBM;
-  center_matvec_kernel<NT><<<blocks, kThreads, lay.total, stream>>>(
-      dmap, d, x, rm, colsum, corr, out, rows, cols, k, d_tma, x_tma);
+  const int strips = (rows + kBM - 1) / kBM;
+  if (split == 1) {
+    kernel<<<strips, kThreads, lay.total, stream>>>(
+        dmap, d, x, rm, colsum, corr, out, rows, cols, k, d_tma, x_tma, 1);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchAttribute attribute = {};
+  const cudaLaunchConfig_t config =
+      cluster_config(strips * split, split, lay.total, stream, &attribute);
+  err = cudaLaunchKernelEx(&config, kernel, dmap, d, x, rm, colsum, corr, out,
+                           rows, cols, k, d_tma, x_tma, split);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Clusters of `split` blocks of the width-NT kernel that the card holds at
+// once.
+template <int NT>
+int resident_clusters(int k, int split, int* clusters) {
+  const Layout lay(k, 8 * NT, ring_stages(NT));
+  cudaError_t err = cudaFuncSetAttribute(center_matvec_kernel<NT, true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attribute = {};
+  const cudaLaunchConfig_t config = cluster_config(split, split, lay.total, nullptr, &attribute);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(clusters, center_matvec_kernel<NT, true>, &config));
+}
+
+// fn(std::integral_constant<int, NT>) for the instantiated width NT (n-tiles
+// of 8 columns) that k columns take: the next one up.
+template <typename Fn>
+int by_width(int k, Fn&& fn) {
+  const int tiles = (k + 7) / 8;
+  if (tiles <= 1) return fn(std::integral_constant<int, 1>{});
+  if (tiles <= 2) return fn(std::integral_constant<int, 2>{});
+  if (tiles <= 3) return fn(std::integral_constant<int, 3>{});
+  if (tiles <= 4) return fn(std::integral_constant<int, 4>{});
+  if (tiles <= 6) return fn(std::integral_constant<int, 6>{});
+  if (tiles <= 8) return fn(std::integral_constant<int, 8>{});
+  if (tiles <= 12) return fn(std::integral_constant<int, 12>{});
+  return fn(std::integral_constant<int, 16>{});
+}
+
+bool valid_split(int split) {
+  return split >= 1 && split <= kMaxSplit && (split & (split - 1)) == 0;
 }
 
 }  // namespace
 
 // d: (rows, cols), x: (cols, k), row_means: (rows,), colsum/corr: (k,),
 // out: (rows, k); all fp32, contiguous, on the device. 1 <= k <= 128. The
-// square matrix is rows = cols = n.
+// square matrix is rows = cols = n. Each strip of 128 rows is swept by a
+// cluster of `split` blocks: 1, 2, 4 or 8, at most the ceil(cols / 32)
+// stages, and with the slots of its sum within shared memory.
 REPRO_EXPORT int repro_center_matvec(const float* d, const float* x, const float* row_means,
                                      const float* colsum, const float* corr, float* out,
-                                     int rows, int cols, int k, cudaStream_t stream) {
+                                     int rows, int cols, int k, int split, cudaStream_t stream) {
   if (rows <= 0 || cols <= 0) return static_cast<int>(cudaGetLastError());
-  if (k < 1 || k > 128) return static_cast<int>(cudaErrorInvalidValue);
-  // n-tiles of 8 columns; instantiated widths, the next one up
-  const int tiles = (k + 7) / 8;
-  if (tiles <= 1) return launch<1>(d, x, row_means, colsum, corr, out, rows, cols, k, stream);
-  if (tiles <= 2) return launch<2>(d, x, row_means, colsum, corr, out, rows, cols, k, stream);
-  if (tiles <= 3) return launch<3>(d, x, row_means, colsum, corr, out, rows, cols, k, stream);
-  if (tiles <= 4) return launch<4>(d, x, row_means, colsum, corr, out, rows, cols, k, stream);
-  if (tiles <= 6) return launch<6>(d, x, row_means, colsum, corr, out, rows, cols, k, stream);
-  if (tiles <= 8) return launch<8>(d, x, row_means, colsum, corr, out, rows, cols, k, stream);
-  if (tiles <= 12) return launch<12>(d, x, row_means, colsum, corr, out, rows, cols, k, stream);
-  return launch<16>(d, x, row_means, colsum, corr, out, rows, cols, k, stream);
+  if (k < 1 || k > 128 || !valid_split(split)) return static_cast<int>(cudaErrorInvalidValue);
+  return by_width(k, [&](auto nt) {
+    return launch<decltype(nt)::value>(d, x, row_means, colsum, corr, out, rows, cols, k, split,
+                                       stream);
+  });
+}
+
+// The clusters of `split` blocks that the card holds at once for a launch of
+// k columns (cudaOccupancyMaxActiveClusters), into *clusters.
+REPRO_EXPORT int repro_center_matvec_clusters(int k, int split, int* clusters) {
+  if (k < 1 || k > 128 || !valid_split(split)) return static_cast<int>(cudaErrorInvalidValue);
+  return by_width(k, [&](auto nt) {
+    return resident_clusters<decltype(nt)::value>(k, split, clusters);
+  });
 }

@@ -79,7 +79,8 @@ _F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "repro_symhollow": [_P, _I, _P, _P],
-    "repro_center_matvec": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_center_matvec": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_center_matvec_clusters": [_I, _I, _IP],
     "repro_inverse_orders": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_permute_reduce_grid": [_I, _I, _I, _IP],
     "repro_permute_reduce_partials": [_P, _P, _L, _P, _P, _P, _I, _I, _I,

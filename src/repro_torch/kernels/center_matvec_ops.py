@@ -9,7 +9,10 @@ columns goes through in slabs of 128, each a launch that reads D again.
 
 ``block_product_op`` is the kernel's block mode for the distributed
 matvec: ``E_blk @ X_col`` for one rank's (r, c) block of D, the kernel run
-with zero means and corrections, so no block-sized E is ever formed.
+with zero means and corrections, so no block-sized E is ever formed. A
+block has fewer 128-row strips than the square, so the kernel sweeps each
+strip with a thread-block cluster (``sweep_split``: 2 blocks a strip at a
+2 x 2 mesh's (8192, 8192) block), still one launch a call.
 """
 
 from __future__ import annotations

@@ -18,6 +18,10 @@ from repro.kernels.center_matvec_ops import center_matvec_pallas
 from repro_torch.core.centering import (center_distance_matrix,
                                         center_distance_matrix_ref)
 from repro_torch.core.operators import CenteredGramOperator
+from repro_torch.kernels import _build
+from repro_torch.kernels.center_matvec import (RESIDENT_CLUSTERS, SM_COUNT,
+                                               STAGE_COLS, STRIP_ROWS,
+                                               SWEEP_SPLITS, sweep_split)
 from repro_torch.kernels.center_matvec_ops import (block_product_op,
                                                    center_matvec_op)
 from repro_torch.kernels.center_matvec_ref import (center_corrections,
@@ -100,7 +104,9 @@ def test_wrapper_checks_operands():
 # mantissa; for every stage of 32 columns, from zero, per 8-column k-step
 # the MMAs e_lo x_hi, e_hi x_lo, e_hi x_hi, each adding its 8 exact products
 # to the fp32 stage sum with one rounding; the stage sum added to the fp32
-# running sum; then the rank-1 corrections in fp32. (The tensor cores'
+# running sum of its cluster rank (rank q of a split s sums stages
+# [q T / s, (q + 1) T / s) of the T from zero); the ranks' sums added in
+# rank order; then the rank-1 corrections in fp32. (The tensor cores'
 # adder may round otherwise inside an MMA; the emulation models one
 # rounding to nearest an MMA.) It must stay within the shipped tolerance of
 # the fp64 plain version; plain TF32 (e_hi x_hi alone) must not.
@@ -122,23 +128,32 @@ def _split(v):
     return hi, _tf32(v - hi)
 
 
-def _emulate_kernel(d, x, row_means, global_mean, products=3):
+def _emulate_kernel(d, x, row_means, global_mean, products=3, split=1):
     """The kernel's result, computed in its order (``products=3``), or
-    with plain TF32 products (``products=1``)."""
+    with plain TF32 products (``products=1``), each strip's sweep split
+    over a cluster of ``split`` ranks."""
     n, k = x.shape
     colsum, corr = center_corrections(x, row_means, global_mean)
     e_hi, e_lo = _split(-0.5 * d * d)
     x_hi, x_lo = _split(x)
     terms = [(e_lo, x_hi), (e_hi, x_lo), (e_hi, x_hi)][3 - products:]
-    acc = torch.zeros((n, k), dtype=torch.float32)
-    for j0 in range(0, n, STAGE):
-        step = torch.zeros((n, k), dtype=torch.float32)
-        for s in range(j0, min(j0 + STAGE, n), KSTEP):
-            cols = slice(s, min(s + KSTEP, n))
-            for a, b in terms:
-                step = (step.double()
-                        + a[:, cols].double() @ b[cols].double()).float()
-        acc = acc + step
+    stages = -(-n // STAGE)
+    ranks = []
+    for q in range(split):
+        acc = torch.zeros((n, k), dtype=torch.float32)
+        for t in range(q * stages // split, (q + 1) * stages // split):
+            j0 = t * STAGE
+            step = torch.zeros((n, k), dtype=torch.float32)
+            for s in range(j0, min(j0 + STAGE, n), KSTEP):
+                cols = slice(s, min(s + KSTEP, n))
+                for a, b in terms:
+                    step = (step.double()
+                            + a[:, cols].double() @ b[cols].double()).float()
+            acc = acc + step
+        ranks.append(acc)
+    acc = ranks[0]
+    for part in ranks[1:]:
+        acc = acc + part
     return acc + (corr[None, :] - row_means[:, None] * colsum[None, :])
 
 
@@ -175,14 +190,65 @@ def test_tf32_rounding_matches_the_hardware_rule():
                                           rel=2.0 ** -21)
 
 
+@pytest.mark.parametrize("split", [1, 2, 4])
 @pytest.mark.parametrize("k", [20, 128])
-def test_3xtf32_emulation_is_within_the_shipped_tolerance(k):
+def test_3xtf32_emulation_is_within_the_shipped_tolerance(k, split):
     d, x, row_means, gm = _study_inputs(k)
     want = center_matvec_ref(d, x, row_means, gm)
-    use = _use_of_tolerance(_emulate_kernel(d, x, row_means, gm), want)
-    print(f"3xTF32 n={STUDY_N} k={k}: {use:.4f} of the tolerance "
-          f"(margin {1 / use:.1f}x)")
+    use = _use_of_tolerance(_emulate_kernel(d, x, row_means, gm,
+                                            split=split), want)
+    print(f"3xTF32 n={STUDY_N} k={k} split={split}: {use:.4f} of the "
+          f"tolerance (margin {1 / use:.1f}x)")
     assert use <= 1.0
+
+
+def test_split_emulation_sums_in_another_order():
+    """A split sums the unsplit kernel's terms in another order: close to
+    split = 1, not bitwise equal."""
+    d, x, row_means, gm = _study_inputs(20)
+    one = _emulate_kernel(d[:256, :256], x[:256], row_means[:256], gm)
+    two = _emulate_kernel(d[:256, :256], x[:256], row_means[:256], gm,
+                          split=2)
+    assert not torch.equal(one, two)
+    _close(two, one)
+
+
+@pytest.mark.parametrize("k", [20, 128])
+def test_sweep_split_keeps_the_main_path_square_unsplit(k):
+    assert sweep_split(16384, 16384, k) == 1
+
+
+@pytest.mark.parametrize("rows,cols,k,want", [
+    (8192, 8192, 20, 2), (8192, 8192, 128, 2), (8320, 4096, 20, 2),
+    (8448, 8448, 20, 2), (8449, 8449, 20, 1), (4096, 4096, 20, 2),
+    (3840, 3840, 128, 4), (129, 40, 7, 2), (7, 3, 3, 1), (1000, 700, 20, 8),
+    (1920, 1920, 64, 4), (1920, 1920, 48, 8), (2048, 2048, 20, 4)])
+def test_sweep_split_fills_the_card_within_the_stages(rows, cols, k, want):
+    """At least 2 at a 2 x 2 mesh's (8192, 8192) block; never more strips
+    than the card holds clusters of s at once (30 of 4, 15 of 8) nor ranks
+    than stages; 8 only where the seven slots of the cluster's sum fit the
+    shared memory the sweep leaves (k <= 48)."""
+    assert sweep_split(rows, cols, k) == want
+
+
+def test_sweep_split_bounds_hold_everywhere(monkeypatch):
+    """A function of its arguments alone: it asks no card and no library
+    (both refuse here), so the bits never depend on the card."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("sweep_split asked the card")
+
+    monkeypatch.setattr(_build, "library", refuse)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", refuse)
+    for rows in (1, 127, 129, 1000, 2048, 4096, 8192, 8448, 8449, 16384,
+                 20000):
+        for cols in (1, 31, 33, 40, 64, 100, 4096, 16384):
+            for k in (1, 7, 20, 45, 48, 49, 64, 65, 96, 97, 128):
+                s = sweep_split(rows, cols, k)
+                strips = -(-rows // STRIP_ROWS)
+                assert s in SWEEP_SPLITS
+                assert s == 1 or strips * s <= SM_COUNT
+                assert s == 1 or strips <= RESIDENT_CLUSTERS[s]
+                assert s <= max(1, -(-cols // STAGE_COLS))
 
 
 @pytest.mark.parametrize("k", [20, 128])

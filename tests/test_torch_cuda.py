@@ -77,7 +77,10 @@ from repro_torch.kernels.center_ref import (center_distance_matrix_ref,
                                             center_pass1_ref,
                                             center_pass2_ref,
                                             center_two_pass_ref)
-from repro_torch.kernels.center_matvec import center_matvec
+from repro_torch.kernels.center_matvec import (RESIDENT_CLUSTERS,
+                                               SWEEP_SPLITS, center_matvec,
+                                               resident_clusters,
+                                               sweep_split)
 from repro_torch.kernels.center_matvec_ops import (block_product_op,
                                                    center_matvec_op)
 from repro_torch.kernels.center_matvec_ref import (center_matvec_block_ref,
@@ -1154,8 +1157,13 @@ def test_center_square_call_is_the_block_call(cuda, n):
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("r,c,k", [(512, 512, 20), (1000, 700, 20),
                                    (1001, 333, 45), (129, 4096, 7),
-                                   (700, 1000, 128)])
+                                   (700, 1000, 128), (8192, 8192, 20),
+                                   (8192, 8192, 128), (8320, 4096, 20),
+                                   (129, 40, 7)])
 def test_center_matvec_block_mode_matches_plain(cuda, r, c, k, aligned):
+    """Each strip swept by a cluster of ``sweep_split`` blocks: 2 at a 2 x 2
+    mesh's (8192, 8192) block and at 65 strips, 8 at (512, 512), 2 where
+    two stages are all there is (129, 40)."""
     d = _matrix(max(r, c), r + c + 1, cuda)[:r, :c].contiguous()
     d = d if aligned else _misaligned(d)
     gen = torch.Generator().manual_seed(r + c + k)
@@ -1177,6 +1185,31 @@ def test_center_matvec_block_mode_matches_plain(cuda, r, c, k, aligned):
     scale = want.abs().max().item()
     np.testing.assert_allclose(product.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-5, atol=1e-5 * max(scale, 1.0))
+
+
+@pytest.mark.parametrize("k", [20, 128])
+def test_center_matvec_main_path_square_is_one_block_a_strip(cuda, k):
+    """The main path's square call at n = 16384 fills the card with its
+    128 strips, so it takes no cluster (one block a strip), and matches
+    its plain version."""
+    n = 16384
+    assert sweep_split(n, n, k) == 1
+    d, x, row_means, gm = _center_matvec_operands(n, k, cuda)
+    got = center_matvec_op(d, x, row_means, gm)
+    want = center_matvec_ref(d, x, row_means, gm)
+    scale = want.abs().max().item()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * max(scale, 1.0))
+    assert torch.equal(got, center_matvec_op(d, x, row_means, gm))
+
+
+@pytest.mark.parametrize("k", [7, 20, 45, 128])
+def test_center_matvec_clusters_run_in_one_wave(cuda, k):
+    """The card holds at once as many clusters of each size as
+    ``sweep_split`` counts on (``RESIDENT_CLUSTERS``), so a launch's
+    clusters run in one wave."""
+    for s in SWEEP_SPLITS:
+        assert resident_clusters(k, s) >= RESIDENT_CLUSTERS[s], (k, s)
 
 
 @pytest.mark.parametrize("n,c0,c", [(1000, 0, 1000), (1000, 500, 500),
