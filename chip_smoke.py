@@ -417,7 +417,9 @@ def device_breakdown(what: str, fn, card: str, top: int = 8):
     ``{"wall_ms", "busy_ms", "busy_share", "kernels"}``, or ``None`` when the
     profiler saw no device time. Only the device is traced: the host's
     operator events are not read, and a call of tens of thousands of small
-    kernels would take seconds to aggregate them."""
+    kernels would take seconds to aggregate them. The port's spans
+    (``repro_torch.*``), which the device's timeline may mirror, are not
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     sync()
@@ -427,7 +429,8 @@ def device_breakdown(what: str, fn, card: str, top: int = 8):
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("repro_torch.")]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not busy_ms:
         print(f"  {what}: the profiler saw no device time: not measured")

@@ -9,7 +9,8 @@ skinny (n, k) blocks, and
 
 so ``r`` and ``m`` are hoisted once and F is never formed. On the card
 ``CenteredGramOperator.matvec`` always goes through the ``center_matvec``
-kernel; on the CPU through its plain version.
+kernel; on the CPU through its plain version. Each product of either
+operator runs in an ``operator.matvec`` span.
 
 ``CondensedCenteredGramOperator`` is the same operator backed by the
 condensed distances of a feature-table production
@@ -40,6 +41,7 @@ from repro_torch.kernels.center_ops import center_row_sums_op
 from repro_torch.kernels.dispatch import require
 from repro_torch.launch.mesh import (check_device, full_tensor, local_block,
                                      placements, psum)
+from repro_torch.obs.trace import current_obs
 
 
 @dataclasses.dataclass
@@ -67,8 +69,9 @@ class CenteredGramOperator:
         squeeze = x.ndim == 1
         if squeeze:
             x = x[:, None]
-        out = center_matvec_op(self.d, x.contiguous(), self.row_means,
-                               self.global_mean)
+        with current_obs().span("operator.matvec", n=self.n, k=x.shape[1]):
+            out = center_matvec_op(self.d, x.contiguous(), self.row_means,
+                                   self.global_mean)
         return out[:, 0] if squeeze else out
 
     def trace(self) -> torch.Tensor:
@@ -146,18 +149,19 @@ class CondensedCenteredGramOperator:
         squeeze = x.ndim == 1
         if squeeze:
             x = x[:, None]
-        colsum = torch.sum(x, dim=0)                         # 1ᵀX   (k,)
-        corr = self.global_mean * colsum - self.row_means @ x  # m·1ᵀX − rᵀX
-        b = max(min(self.block, self.n), 1)
-        out = torch.empty((self.n, x.shape[1]), dtype=x.dtype,
-                          device=x.device)
-        for i0 in range(0, self.n, b):
-            bi = min(b, self.n - i0)
-            rows = self.row_panel(i0, bi)
-            e_rows = -0.5 * rows * rows
-            out[i0:i0 + bi] = (e_rows @ x
-                               - self.row_means[i0:i0 + bi, None]
-                               * colsum[None, :] + corr[None, :])
+        with current_obs().span("operator.matvec", n=self.n, k=x.shape[1]):
+            colsum = torch.sum(x, dim=0)                     # 1ᵀX   (k,)
+            corr = self.global_mean * colsum - self.row_means @ x
+            b = max(min(self.block, self.n), 1)
+            out = torch.empty((self.n, x.shape[1]), dtype=x.dtype,
+                              device=x.device)
+            for i0 in range(0, self.n, b):
+                bi = min(b, self.n - i0)
+                rows = self.row_panel(i0, bi)
+                e_rows = -0.5 * rows * rows
+                out[i0:i0 + bi] = (e_rows @ x
+                                   - self.row_means[i0:i0 + bi, None]
+                                   * colsum[None, :] + corr[None, :])
         return out[:, 0] if squeeze else out
 
     def trace(self) -> torch.Tensor:

@@ -24,8 +24,10 @@ moments are summed in fp64 from the n fp32 row sums and rounded to fp32
 the card and the CPU within 1e-5 of each other.
 
 Under an observing session the sweep runs in a ``dist.pairwise_condensed``
-span and charges the ledger's feature reads; each panel step notes its
-call as ``dist.panel_stats``. ``Workspace.from_features`` is the session
+span and charges the ledger's feature reads; each panel step (the launch,
+the running sums, the strip's selection) runs in a ``dist.panel`` span,
+which a recording profiler sees without a session, and notes its call as
+``dist.panel_stats``. ``Workspace.from_features`` is the session
 that consumes a production: its condensed vector, operator means and
 Mantel moments.
 """
@@ -99,11 +101,13 @@ def pairwise_condensed(x, metric="braycurtis", *, block: int = DEFAULT_BLOCK,
                   block=b, metric=metric.name, panels=-(-n // b)):
         for i0 in range(0, n, b):
             i1 = min(i0 + b, n)
-            strip, rs1, rs2 = _panel_stats(x[i0:i1], x, metric)
-            rowsum_d[i0:i1] = rs1
-            rowsum_d2[i0:i1] = rs2
-            upper = cols[None, :] > torch.arange(i0, i1, device=dev)[:, None]
-            condensed[row_start(n, i0):row_start(n, i1)] = strip[upper]
+            with current_obs().span("dist.panel", i0=i0, rows=i1 - i0):
+                strip, rs1, rs2 = _panel_stats(x[i0:i1], x, metric)
+                rowsum_d[i0:i1] = rs1
+                rowsum_d2[i0:i1] = rs2
+                upper = (cols[None, :]
+                         > torch.arange(i0, i1, device=dev)[:, None])
+                condensed[row_start(n, i0):row_start(n, i1)] = strip[upper]
     obs.charge_production(n, d, b, metric=metric.name)
 
     row_means = -0.5 * rowsum_d2 / n

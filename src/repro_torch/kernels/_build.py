@@ -23,6 +23,10 @@ where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels: set the counts to 0 with
 :func:`reset_launches`, drive the path, read them.
 
+``load_seconds`` holds the host seconds :func:`library`'s first call took
+(digest, build if one is needed, ``dlopen``, binding), for a benchmark's
+set-up breakdown.
+
 ``recorder`` is where a measurement listens to the launches
 (``repro_torch.obs.probe``): while one is active, each wrapper that
 counts a launch also passes it the kernel's name, the bytes its kernel
@@ -41,6 +45,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -68,6 +73,10 @@ launches: dict[str, int] = {
     "rmsnorm": 0,
     "rmsnorm_bwd": 0,
 }
+
+#: host seconds of :func:`library`'s first call: digest, build if needed,
+#: ``dlopen`` and binding; 0.0 until the library is loaded
+load_seconds = 0.0
 
 #: the active measurement's ``(name, bytes, operations)`` callback, or None
 recorder: Optional[Callable[[str, float, float], None]] = None
@@ -185,10 +194,11 @@ def build_log() -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The bound library, built on first use."""
-    global _lib
+    """The bound library, built on first use (timed in ``load_seconds``)."""
+    global _lib, load_seconds
     with _lock:
         if _lib is None:
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(build()))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
@@ -197,6 +207,7 @@ def library() -> ctypes.CDLL:
             lib.repro_error_string.argtypes = [ctypes.c_int]
             lib.repro_error_string.restype = ctypes.c_char_p
             _lib = lib
+            load_seconds += time.perf_counter() - t0
         return _lib
 
 

@@ -3,9 +3,10 @@
 The counterpart of ``repro/obs``, its eight modules:
 
 * ``obs.config``  — ``ObsConfig``, the switchboard ``ExecConfig`` carries;
-* ``obs.trace``   — nested span tracer with phase tags, JSON and Chrome
-  ``trace_event`` export, an optional ``torch.profiler`` bridge, and a
-  zero-overhead no-op path when disabled;
+* ``obs.trace``   — nested span tracer with phase tags, JSON and text
+  export, a ``torch.profiler`` bridge that names every span
+  ``repro_torch.<name>`` in a profile while one records, and a one-flag
+  no-op path otherwise;
 * ``obs.ledger``  — the audited analytic-traffic registry (hoist pass
   tables, Mantel per-permutation models, production feature reads),
   charged live by the instrumented stack;

@@ -9,9 +9,10 @@ config.
 
 ``enabled=False`` (the default) is the zero-overhead contract: a
 Workspace built with it never constructs a session, every ``span()``
-resolves to the shared no-op ``obs.trace.NULL_SPAN`` and every ledger
-charge is a no-op of ``obs.trace.NULL_OBS``. The call-count sentinel
-(``obs.compile``) is the one always-on piece.
+resolves to the shared no-op ``obs.trace.NULL_SPAN`` (or, while a torch
+profiler records, to a profiler annotation) and every ledger charge is a
+no-op of ``obs.trace.NULL_OBS``. The call-count sentinel
+(``obs.compile``) and the profiler bridge are the always-on pieces.
 
 This module imports nothing of ``repro_torch``, so ``api.config`` can
 import it without cycles.
@@ -38,11 +39,12 @@ class ObsConfig:
         instrumented call sites: hoist builds, permutation batches, the
         distance production sweep.
     annotate_xla:
-        Open a ``torch.profiler.record_function(name)`` around each span,
-        so spans line up with the kernels in a torch profile (the
-        reference bridges into ``jax.profiler.TraceAnnotation``; the name
-        is kept so a config carries across). Off by default: it adds a
-        profiler call per span even when no profile is being taken.
+        Kept so a config carries across from the reference, where it
+        bridges spans into ``jax.profiler.TraceAnnotation``. It has no
+        effect on the port: every span opens a
+        ``torch.profiler.record_function("repro_torch." + name)`` while a
+        profiler records, and costs one flag read when none does
+        (``obs.trace``).
     probe:
         Measure the programs the session runs at ``Workspace.report()``
         time (``obs.probe``: one call of each on the session's device,

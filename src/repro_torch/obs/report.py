@@ -28,7 +28,7 @@ from typing import Optional
 from repro_torch.obs.compile import sentinel
 from repro_torch.obs.config import ObsConfig
 from repro_torch.obs.ledger import Ledger
-from repro_torch.obs.trace import NULL_SPAN, Tracer
+from repro_torch.obs.trace import Tracer, profiled_span
 
 #: What a report's ``perm:*`` ledger entries measure, stated in the report.
 PERM_MODEL = ("reference model (Pallas) on the CPU: perm:* entries of "
@@ -46,7 +46,7 @@ class ObsSession:
     def __init__(self, config: Optional[ObsConfig] = None):
         self.config = config if config is not None else ObsConfig(
             enabled=True)
-        self.tracer = Tracer(annotate_xla=self.config.annotate_xla)
+        self.tracer = Tracer()
         self.ledger = Ledger()
         self.sentinel = sentinel
         self.sentinel_base = sentinel.snapshot()
@@ -54,9 +54,10 @@ class ObsSession:
     # -- spans -------------------------------------------------------------
     def span(self, name: str, phase: Optional[str] = None, **attrs):
         """A session span: entering it also makes this session ambient
-        (``current_obs()``) for the enclosed call chain."""
+        (``current_obs()``) for the enclosed call chain. With
+        ``spans=False`` only a recording profiler sees it."""
         if not self.config.spans:
-            return NULL_SPAN
+            return profiled_span(name)
         return self.tracer.span(name, phase, session=self, **attrs)
 
     # -- ledger charges (gated on config.ledger) ---------------------------

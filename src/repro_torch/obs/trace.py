@@ -16,20 +16,25 @@ vocabulary:
 Spans read the host clock, as in the reference. On the card, kernels run
 asynchronously, so a span measures the time until the host moved on — its
 launches plus whatever synchronised inside it — not the time the card
-spent. For device time, ``ObsConfig(annotate_xla=True)`` opens a
-``torch.profiler.record_function`` around each span, so a torch profile
-shows the span's kernels under its name.
+spent. For device time, every span bridges into ``torch.profiler``: while
+a profiler records, each span — a session's, a bare ``Tracer``'s, or the
+no-op session's — opens ``torch.profiler.record_function("repro_torch." +
+name)`` for its duration, so the profile's Chrome trace carries the spans
+beside the kernels they launched, on the clock the device trace is aligned
+to. The bridge follows the profiler alone: no configuration turns it on or
+off.
 
 Spans nest (a ``ws.permanova`` span holds its ``hoist:gram`` child and
 the engine's ``per_perm`` span), and export as plain dicts / JSON and as
-Chrome ``trace_event`` JSON (``chrome://tracing``, Perfetto).
+indented text lines.
 
 The no-op fast path lets every call site stay instrumented: with no
-active session ``current_obs()`` returns the shared ``NULL_OBS``, whose
-``span()`` returns the shared ``NULL_SPAN``: no allocation a call.
+active session and no profiler recording, ``current_obs()`` returns the
+shared ``NULL_OBS``, whose ``span()`` reads one flag and returns the shared
+``NULL_SPAN``: no allocation a call.
 
-This module imports nothing of ``repro_torch`` (torch only, lazily, for
-the profiler bridge), so any layer can import it without cycles.
+This module imports nothing of ``repro_torch`` (torch only, for the
+profiler bridge), so any layer can import it without cycles.
 """
 
 from __future__ import annotations
@@ -38,8 +43,25 @@ import json
 import time
 from typing import Optional
 
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
 #: the phase vocabulary — see the module docstring
 PHASES = ("hoist", "per_perm", "production", "solve", "step", "serve")
+#: what a span's name carries in a torch profile
+PROFILE_PREFIX = "repro_torch."
+
+
+def profiling() -> bool:
+    """True while a ``torch.profiler`` records: one module flag read."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def _annotation(name: str):
+    """An entered ``record_function`` under the span's profile name."""
+    ann = torch.profiler.record_function(PROFILE_PREFIX + name)
+    ann.__enter__()
+    return ann
 
 
 class Span:
@@ -76,10 +98,8 @@ class Span:
         self._tracer._open(self)
         if self._session is not None:
             push_obs(self._session)
-        if self._tracer.annotate_xla:
-            import torch
-            self._ann = torch.profiler.record_function(self.name)
-            self._ann.__enter__()
+        if profiling():
+            self._ann = _annotation(self.name)
         return self
 
     def end(self) -> "Span":
@@ -127,9 +147,7 @@ class Tracer:
     like the HoistCache it instruments.
     """
 
-    def __init__(self, annotate_xla: bool = False):
-        self.annotate_xla = annotate_xla
-        self.epoch = time.perf_counter()
+    def __init__(self):
         self.spans: list[Span] = []
         self._stack: list[Span] = []
 
@@ -186,29 +204,6 @@ class Tracer:
     def to_json(self, indent: Optional[int] = None) -> str:
         return json.dumps(self.to_dicts(), indent=indent, default=str)
 
-    def to_chrome_trace(self) -> list:
-        """Chrome/Perfetto ``trace_event`` list (``ph="X"`` complete
-        events, µs timebase) — dump with ``json.dump`` and load in
-        ``chrome://tracing`` or https://ui.perfetto.dev."""
-        events = []
-
-        def emit(span: Span):
-            if span.t0 is None or span.duration is None:
-                return
-            events.append({
-                "name": span.name, "ph": "X", "pid": 0, "tid": 0,
-                "cat": span.phase or "span",
-                "ts": (span.t0 - self.epoch) * 1e6,
-                "dur": span.duration * 1e6,
-                "args": {k: str(v) for k, v in span.attrs.items()},
-            })
-            for c in span.children:
-                emit(c)
-
-        for s in self.spans:
-            emit(s)
-        return events
-
     def tree_lines(self, min_seconds: float = 0.0) -> list:
         """The span tree as indented text lines (the example's session
         epilogue printer)."""
@@ -261,16 +256,55 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+class _ProfiledSpan:
+    """A span that only a recording ``torch.profiler`` sees: no session
+    collects it. Same surface as ``Span``'s lifecycle."""
+
+    __slots__ = ("name", "_ann")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._ann = None
+
+    def begin(self):
+        self._ann = _annotation(self.name)
+        return self
+
+    def end(self):
+        if self._ann is not None:
+            self._ann.__exit__(None, None, None)
+            self._ann = None
+        return self
+
+    def __enter__(self):
+        return self.begin()
+
+    def __exit__(self, *exc):
+        self.end()
+        return False
+
+    def add(self, **attrs):
+        return self
+
+
+def profiled_span(name: str):
+    """The span of a call site no session collects: the shared
+    ``NULL_SPAN``, or, while a profiler records, one it sees as
+    ``repro_torch.<name>``."""
+    return _ProfiledSpan(name) if profiling() else NULL_SPAN
+
+
 class _NullObs:
     """THE no-op session: every instrumented call site talks to this when
     observability is off (or no session is ambient). Same method surface
-    as ``obs.report.ObsSession``, all free."""
+    as ``obs.report.ObsSession``, all free; its spans reach a recording
+    profiler and nothing else."""
 
     __slots__ = ()
     enabled = False
 
     def span(self, name, phase=None, **attrs):
-        return NULL_SPAN
+        return profiled_span(name)
 
     def charge(self, op, floats, **params):
         return None

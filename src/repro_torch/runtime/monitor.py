@@ -14,7 +14,8 @@ detection half:
 The monitor is folded on the span stream: every step is a ``phase="step"`` span on an ``obs.trace.Tracer``
 (the monitor's own by default, or a shared session tracer passed in),
 so step timings ride the same export surface as the analysis spans —
-JSON, Chrome ``trace_event``, ``Tracer.total("step")`` — and the
+JSON, ``Tracer.total("step")``, a torch profile's ``repro_torch.step`` —
+and the
 ``StepRecord`` view is derived from the spans, not stored beside them.
 
 The same watchdog covers serving: ``repro_torch.serve``'s tile

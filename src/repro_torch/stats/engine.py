@@ -9,7 +9,10 @@ primary path. ``permutation_test`` pads the (K, n) orders up to full
 of the reference), hands each tile to ``per_batch`` — for the Mantel
 family one launch of the ``permute_reduce`` kernel per tile on the card —
 and drops the padded tail before finishing. Under an observing session
-(``repro_torch.obs``) the test runs in an ``engine.<method>`` span and,
+(``repro_torch.obs``) the test, its order draw included, runs in an
+``engine.<method>`` span, the draw in an ``engine.orders`` span and each
+tile in an ``engine.tile`` span (a recording profiler sees all three
+without a session), and,
 for a statistic that names its ``ledger_model`` (the condensed gathers of
 the Mantel family and ANOSIM, the statistics the reference batches),
 charges a per-permutation model for every row of the padded tiles: that
@@ -104,10 +107,15 @@ def permutation_orders(generator: Union[int, torch.Generator, None],
                        permutations: int, n: int,
                        device: DeviceLike = "cpu") -> torch.Tensor:
     """(K, n) int32 independent uniform permutations of range(n): the
-    stable argsort of iid uint32-range words drawn on the CPU."""
-    words = torch.randint(0, 2**32, (permutations, n), dtype=torch.int64,
-                          generator=as_generator(generator))
-    return torch.argsort(words.to(device), dim=-1, stable=True).to(torch.int32)
+    stable argsort of iid uint32-range words drawn on the CPU, in an
+    ``engine.orders`` span (the draw, its copy, the argsort)."""
+    with current_obs().span("engine.orders", permutations=permutations,
+                            n=n):
+        words = torch.randint(0, 2**32, (permutations, n),
+                              dtype=torch.int64,
+                              generator=as_generator(generator))
+        return torch.argsort(words.to(device), dim=-1,
+                             stable=True).to(torch.int32)
 
 
 def rank_seed(key: Union[int, None], dev: int) -> int:
@@ -160,14 +168,19 @@ def local_orders(key, mesh, perm_axes, permutations: int, n: int,
 def given_orders(orders, permutations: int, n: int,
                  device: torch.device) -> torch.Tensor:
     """Caller-given (K, n) orders as int32 on ``device``, refused unless
-    their shape is (K, n) and their indices lie in [0, n)."""
-    orders = torch.as_tensor(orders).to(device=device, dtype=torch.int32)
-    if tuple(orders.shape) != (permutations, n):
-        raise ValueError(f"orders must be ({permutations}, {n}), got "
-                         f"{tuple(orders.shape)}")
-    if permutations and (int(orders.min()) < 0 or int(orders.max()) >= n):
-        raise ValueError(f"orders must hold indices in [0, {n})")
-    return orders
+    their shape is (K, n) and their indices lie in [0, n); the copy and
+    the check run in an ``engine.orders`` span."""
+    with current_obs().span("engine.orders", permutations=permutations,
+                            n=n, given=True):
+        orders = torch.as_tensor(orders).to(device=device,
+                                            dtype=torch.int32)
+        if tuple(orders.shape) != (permutations, n):
+            raise ValueError(f"orders must be ({permutations}, {n}), got "
+                             f"{tuple(orders.shape)}")
+        if permutations and (int(orders.min()) < 0
+                             or int(orders.max()) >= n):
+            raise ValueError(f"orders must hold indices in [0, {n})")
+        return orders
 
 
 def count_better(orig_stat: torch.Tensor, permuted_stats: torch.Tensor,
@@ -224,13 +237,15 @@ def hoist_and_observe(stat: Statistic, device: torch.device):
 
 def tile_statistics(stat: Statistic, invariants, orders: torch.Tensor
                     ) -> torch.Tensor:
-    """(B,) null statistics for one tile of permutation orders."""
+    """(B,) null statistics for one tile of permutation orders, in an
+    ``engine.tile`` span."""
     note_trace("stats.engine.tile",
                (type(stat).__name__, stat.n, orders.shape[0]))
-    per_batch = getattr(stat, "per_batch", None)
-    if per_batch is not None:
-        return per_batch(invariants, orders)
-    return torch.stack([stat.per_perm(invariants, o) for o in orders])
+    with current_obs().span("engine.tile", rows=orders.shape[0]):
+        per_batch = getattr(stat, "per_batch", None)
+        if per_batch is not None:
+            return per_batch(invariants, orders)
+        return torch.stack([stat.per_perm(invariants, o) for o in orders])
 
 
 def null_distribution(stat: Statistic, invariants, orders: torch.Tensor,
@@ -316,19 +331,19 @@ def permutation_test(stat: Statistic, permutations: int = 999,
     dev = resolve_device(device)
     batch_size = _batch_size(stat, batch_size, config, dev)
     n = stat.n
-    if orders is None:
-        seed = 0 if key is None else \
-            (None if isinstance(key, torch.Generator) else int(key))
-        orders = permutation_orders(key, permutations, n, dev)
-    else:
-        seed = None
-        orders = given_orders(orders, permutations, n, dev)
     obs = current_obs()          # the ambient session (NULL_OBS when none)
     batched = getattr(stat, "per_batch", None) is not None
     tiles = -(-permutations // batch_size) if permutations else 0
     with obs.span(f"engine.{method or type(stat).__name__}",
                   phase="per_perm", n=n, permutations=permutations,
                   batch_size=batch_size, tiles=tiles, batched=batched):
+        if orders is None:
+            seed = 0 if key is None else \
+                (None if isinstance(key, torch.Generator) else int(key))
+            orders = permutation_orders(key, permutations, n, dev)
+        else:
+            seed = None
+            orders = given_orders(orders, permutations, n, dev)
         invariants, observed = hoist_and_observe(stat, dev)
         permuted = null_distribution(stat, invariants, orders, batch_size)
     if getattr(stat, "ledger_model", None) is not None and permutations:

@@ -16,6 +16,7 @@ against the reference, in ``tests/test_torch_probe.py``.
 
 import json
 import time
+from collections import Counter
 
 import jax
 import numpy as np
@@ -181,26 +182,113 @@ def test_tracer_exports_json_and_chrome_trace():
     tree = json.loads(t.to_json())
     assert tree[0]["name"] == "a"
     assert tree[0]["children"][0]["name"] == "b"
-    events = t.to_chrome_trace()
-    assert {e["name"] for e in events} == {"a", "b"}
-    for e in events:
-        assert e["ph"] == "X" and e["dur"] >= 0.0
-    a = next(e for e in events if e["name"] == "a")
-    assert a["cat"] == "hoist" and a["args"]["impl"] == "xla"
+    assert tree[0]["phase"] == "hoist" and tree[0]["attrs"]["impl"] == "xla"
     lines = t.tree_lines()
     assert len(lines) == 2 and "a [hoist]" in lines[0]
 
 
-def test_spans_bridge_into_the_torch_profiler():
-    """``annotate_xla`` opens a ``torch.profiler.record_function`` around
-    each span, so a torch profile shows the spans by name."""
+def _profiled(fn):
+    """``fn()`` under a CPU ``torch.profiler``: the count of each
+    ``repro_torch.*`` span in the profile, and every event name."""
     from torch.profiler import ProfilerActivity, profile
-    t = Tracer(annotate_xla=True)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    names = [e.name for e in prof.events()]
+    return Counter(n.removeprefix("repro_torch.") for n in names
+                   if n.startswith("repro_torch.")), names
+
+
+def test_spans_bridge_into_the_torch_profiler():
+    """While a profiler records, every span opens a
+    ``torch.profiler.record_function`` under its prefixed name, with no
+    configuration asking for it; the tracer keeps the bare name."""
+    t = Tracer()
+
+    def run():
         with t.span("ws.bridge_probe", phase="solve"):
             torch.ones(8).sum()
-    assert "ws.bridge_probe" in {e.key for e in prof.key_averages()}
+        t.span("step", phase="step").begin().end()
+    spans, names = _profiled(run)
+    assert spans == {"ws.bridge_probe": 1, "step": 1}
+    assert "ws.bridge_probe" not in names
+    assert [s.name for s in t.spans] == ["ws.bridge_probe", "step"]
     assert t.spans[0].duration is not None
+
+
+def test_free_mantel_spans_reach_the_profiler_without_a_session():
+    """The order draw once and each tile of 32 permutations, K = 99."""
+    from repro_torch.core import mantel
+    x, y = (random_distance_matrix(s, 40, device="cpu") for s in (1, 2))
+    spans, names = _profiled(lambda: mantel(x, y, permutations=99, key=3,
+                                            device="cpu"))
+    assert spans["engine.orders"] == 1 and spans["engine.tile"] == 4
+    assert spans["engine.mantel"] == spans["ws.mantel"] == 1
+    assert not {"engine.orders", "engine.tile", "ws.mantel"} & set(names)
+
+
+@pytest.mark.parametrize("backing", ["square", "condensed"])
+def test_operator_pcoa_matvec_spans(backing):
+    """``2 + POWER_ITERS`` products of either operator, each a span."""
+    from repro_torch.core import pcoa
+    from repro_torch.core.pcoa import POWER_ITERS
+    if backing == "square":
+        dm = random_distance_matrix(1, 40, device="cpu")
+        spans, _ = _profiled(lambda: pcoa(dm, dimensions=5, device="cpu"))
+        assert spans["pcoa.fsvd"] == 1
+    else:
+        ws = Workspace.from_features(_features(2), config=ExecConfig(
+            device="cpu"))
+        ws.condensed()
+        spans, _ = _profiled(lambda: ws.pcoa(dimensions=5))
+    assert spans["operator.matvec"] == 2 + POWER_ITERS
+
+
+def test_production_panel_spans():
+    """n = 70 in panels of 32: three ``dist.panel`` spans."""
+    from repro_torch.dist.driver import pairwise_condensed
+    spans, _ = _profiled(lambda: pairwise_condensed(
+        _features(3, n=70), block=32, device="cpu"))
+    assert spans == {"dist.pairwise_condensed": 1, "dist.panel": 3}
+
+
+def test_session_span_tree_holds_the_order_draw():
+    """Under a session the draw and the tiles are children of the
+    ``engine.<method>`` span, given orders too; in a profile the
+    session's spans carry the prefix."""
+    d, e = _dm(40, seed=1), _dm(40, seed=2)
+    ws = Workspace(d, config=ExecConfig(obs=OBS, device="cpu"))
+    spans, names = _profiled(lambda: ws.mantel(e, permutations=99, key=3))
+    ws.mantel(e, permutations=64, orders=_orders(64, 40))
+    engines = [c for s in ws.report().spans if s["name"] == "ws.mantel"
+               for c in s.get("children", ())
+               if c["name"] == "engine.mantel"]
+    assert len(engines) == 2
+    for engine, tiles in zip(engines, (4, 2)):
+        kids = [c["name"] for c in engine["children"]]
+        assert kids == ["engine.orders"] + ["engine.tile"] * tiles
+    assert engines[1]["children"][0]["attrs"]["given"] is True
+    assert spans["ws.mantel"] == spans["engine.orders"] == 1
+    assert not {"ws.mantel", "engine.mantel", "engine.orders"} & set(names)
+
+
+def test_the_off_path_is_the_shared_null_span():
+    """No profiler, no session: the shared ``NULL_SPAN``; a session
+    without spans too. Under a profiler the no-op session's span is seen
+    by the profiler and nowhere else."""
+    from repro_torch.obs.report import ObsSession
+    from repro_torch.obs.trace import profiled_span, profiling
+    assert not profiling()
+    assert current_obs().span("engine.tile", rows=32) is NULL_SPAN
+    assert profiled_span("x") is NULL_SPAN
+    assert ObsSession(ObsConfig(enabled=True, spans=False)).span(
+        "ws.x") is NULL_SPAN
+    seen = []
+
+    def run():
+        with NULL_OBS.span("engine.orders") as span:
+            seen.append(span)
+    spans, _ = _profiled(run)
+    assert spans == {"engine.orders": 1} and seen[0] is not NULL_SPAN
 
 
 def test_ambient_session_stack():
