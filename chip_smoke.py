@@ -83,8 +83,14 @@ check fails:
    tile, kernel and op; the block and column-range modes at the 2 x 2
    mesh's shapes); one permutation's ``permute_reduce`` (S = 1, 2)
    and ``mantel_corr`` sums bitwise the same beside other tile-mates and at
-   other positions of the tile; then the analysis paths' tensors are freed
-   and
+   other positions of the tile; 5c the sparse-support Bray–Curtis panel
+   at the features cell's shape (4743 x 45383 integer counts, 1.27%
+   nonzero): against its plain version, bit for bit against the dense
+   ``pairwise_panel`` on every panel, two launches bitwise equal, the
+   diagonal 0, the production's launches and its condensed vector and
+   hoists bit for bit the dense route's, and its time from a CUDA graph
+   beside its bound, its plain version and the dense kernel's; then the
+   analysis paths' tensors are freed and
 6. the LM serving path: qwen3-8b at full width and depth (36 layers,
    d = 4096, 16.4 GB of bf16 weights drawn from a seed on the card),
    four prompts of 512 token ids prefilled (``build_prefill_fn``, 544
@@ -166,7 +172,10 @@ OUT`` saves the square calls' outputs of the ``center`` pair,
 seeds, and ``--same-bits A B`` compares two such files bitwise.
 ``--train-times TREE`` runs phase 8's ``launch.train.run`` of the checkout
 at TREE and prints its step seconds, so that a parent's training step is
-timed in the same call.
+timed in the same call. ``--sparse-panel`` runs phase 5c alone, and
+``--sparse-crossover`` times a whole Bray–Curtis production by both routes
+at the features cell's shape over nonzero shares from 1% to 30%: the
+crossover that ``dist/driver.py``'s ``SPARSE_SHARE`` is set from.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it fails before printing any result.
@@ -308,6 +317,12 @@ TF32_FLOPS = 495e12          # tensor cores, TF32 (center_matvec's 3xTF32)
 # Euclidean a-b and an FMA; Bray-Curtis a-b, a+b and two accumulates (the
 # abs is an operand modifier).
 PAIRWISE_INSTR = {"euclidean": 2, "braycurtis": 4}
+# phase 5c: the features cell's table (HMP16SData V35(), 4743 samples x
+# 45383 OTUs) as integer counts at its nonzero share, and the shares
+# --sparse-crossover sweeps
+HMP_SHAPE = (4743, 45383)
+HMP_SHARE = 0.0127
+CROSSOVER_SHARES = (0.01, 0.02, 0.05, 0.08, 0.10, 0.12, 0.15, 0.20, 0.30)
 
 CENTER_TOL = {"rtol": 2e-4, "atol": 2e-4}    # tests/test_kernels.py, fp32
 CORR_TOL = {"rtol": 1e-4, "atol": 1e-5}      # tests/test_kernels.py, mantel_corr
@@ -1172,8 +1187,8 @@ def phase_feature_checks(feat: dict, x: torch.Tensor, y: torch.Tensor,
     launches = feat["launches"]
     panels = 2 * -(-N // PANEL)
     tiles = -(-PERMUTATIONS // 32)
-    want = {"pairwise_panel": panels, "inverse_orders": tiles,
-            "permute_reduce": tiles,
+    want = {"pairwise_panel": panels, "pairwise_sparse_panel": 0,
+            "inverse_orders": tiles, "permute_reduce": tiles,
             "permute_reduce_finish": tiles, "center_matvec": 0,
             "symhollow": 0, "center_pass1": 0, "center_finish": 0,
             "center_pass2": 0, "mantel_corr": 0, "mantel_corr_finish": 0,
@@ -3758,6 +3773,150 @@ def print_kernel_times(kernels: list) -> None:
               f"{kern['library_host_launch_ms']:.4f} ms")
 
 
+def count_table(n: int, d: int, share: float, seed: int) -> torch.Tensor:
+    """An (n, d) fp32 table of integer counts on the card: each entry
+    nonzero with probability ``share``, its count 1 to 40."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randint(1, 41, (n, d), generator=gen, device="cuda",
+                      dtype=torch.float32)
+    x *= torch.rand((n, d), generator=gen, device="cuda") < share
+    return x
+
+
+def routed_production(x: torch.Tensor, share: float) -> tuple:
+    """``pairwise_condensed(x)`` with the route's threshold set to
+    ``share`` (1.0: the sparse route wherever it fits; 0.0: the dense
+    route), and its host seconds."""
+    from repro_torch.dist import driver
+    kept = driver.SPARSE_SHARE
+    driver.SPARSE_SHARE = share
+    try:
+        return synced(lambda: driver.pairwise_condensed(x))
+    finally:
+        driver.SPARSE_SHARE = kept
+
+
+def phase_sparse_panel(card: str) -> dict:
+    """The sparse-support Bray–Curtis kernel at the features cell's shape:
+    against its plain version, bit for bit against the dense kernel on
+    every panel, a repeat bitwise, the diagonal 0, the production's
+    launches, and its condensed vector and hoists bit for bit the dense
+    route's; timed beside its bound (the compressed copy and the panel's
+    output once, its fp32 adds at the instruction rate), its plain version
+    and the dense kernel. Returns its entry of the ``kernels`` line."""
+    from repro_torch.dist import METRICS
+    from repro_torch.dist.driver import pairwise_condensed
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pairwise import (SPARSE_TERM_OPERATIONS,
+                                              pairwise_panel,
+                                              pairwise_sparse_panel,
+                                              sparse_rows)
+    from repro_torch.kernels.pairwise_ops import row_nonzeros, row_support
+    from repro_torch.kernels.pairwise_ref import pairwise_sparse_panel_ref
+
+    n, d = HMP_SHAPE
+    print(f"== phase 5c: the sparse-support Bray–Curtis panel at {n} x {d} "
+          f"({card})")
+    x = count_table(n, d, HMP_SHARE, SEED + 30)
+    counts = row_nonzeros(x)
+    nnz, max_row = torch.stack([counts.sum(), counts.max()]).tolist()
+    support = row_support(x, counts, max_row)
+    rows = sparse_rows(d, max_row)
+    print(f"  {nnz} nonzeros ({nnz / (n * d):.4%}), the fullest row "
+          f"{max_row}: {rows} held rows a block")
+    kind = METRICS[METRIC].kind
+    got = pairwise_sparse_panel(support, 0, PANEL)
+    error = compare(f"pairwise_sparse_panel bm={PANEL} n={n} d={d}", got,
+                    pairwise_sparse_panel_ref(support, 0, PANEL),
+                    **PAIRWISE_TOL)
+    check(torch.equal(got, pairwise_sparse_panel(support, 0, PANEL)),
+          "pairwise_sparse_panel: two launches differ")
+    for i0 in range(0, n, PANEL):
+        bm = min(PANEL, n - i0)
+        sparse = pairwise_sparse_panel(support, i0, bm)
+        check(torch.equal(sparse, pairwise_panel(x[i0:i0 + bm], x, kind)),
+              f"pairwise_sparse_panel: the panel at row {i0} is not the "
+              f"dense kernel's bit for bit")
+        diag = sparse[torch.arange(bm), i0 + torch.arange(bm)]
+        check(bool((diag == 0).all()), "pairwise_sparse_panel: a nonzero "
+                                       "diagonal")
+    print(f"  every panel bit for bit the dense kernel's, the diagonal 0")
+    _build.reset_launches()
+    prod = pairwise_condensed(x)
+    sync()
+    launches = {k: v for k, v in _build.launches.items() if v}
+    panels = -(-n // PANEL)
+    check(launches == {"pairwise_sparse_panel": panels},
+          f"the production's launches {launches}")
+    dense, dense_s = routed_production(x, 0.0)
+    for key in ("condensed", "row_means", "global_mean", "mean", "norm"):
+        check(torch.equal(prod[key], dense[key]),
+              f"production: {key} differs from the dense route's")
+    print(f"  the production: {panels} launches; condensed vector and "
+          f"hoists bit for bit the dense route's")
+    del prod, dense
+    sparse_s = [routed_production(x, 1.0)[1] for _ in range(5)]
+    entry = kernel_entry(
+        "pairwise_sparse_panel", "src/repro_torch/csrc/pairwise_sparse.cu",
+        "none: the Bray-Curtis panel over each row's nonzeros",
+        panels, error,
+        graph_ms(lambda: pairwise_sparse_panel(support, 0, PANEL), reps=20),
+        cuda_ms(lambda: pairwise_sparse_panel_ref(support, 0, PANEL),
+                reps=1),
+        8 * nnz + 4 * (n + 1) + 4 * PANEL * n,
+        SPARSE_TERM_OPERATIONS * PANEL * nnz, FP32_INSTR,
+        shape=[PANEL, n, d], nnz=nnz, held_rows=rows,
+        dense_kernel_ms=cuda_ms(lambda: pairwise_panel(x[:PANEL], x, kind),
+                                reps=3),
+        count_ms=cuda_ms(lambda: row_nonzeros(x), reps=10),
+        support_ms=cuda_ms(lambda: row_support(x, counts, max_row), reps=10),
+        production_s=sorted(sparse_s)[2], dense_production_s=dense_s)
+    print(f"  pairwise_sparse_panel: {entry['ms']:.4f} ms from a CUDA graph, "
+          f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}), plain "
+          f"{entry['plain_ms']:.4f} ms, the dense kernel "
+          f"{entry['dense_kernel_ms']:.4f} ms; count {entry['count_ms']:.4f}"
+          f" ms, compressed copy {entry['support_ms']:.4f} ms; the "
+          f"production {entry['production_s']:.4f} s (dense route "
+          f"{dense_s:.4f} s)")
+    return entry
+
+
+def sparse_crossover() -> dict:
+    """A Bray–Curtis production at the features cell's shape by both
+    routes, over nonzero shares: host seconds of each (the sparse route's
+    median of 3, the count and the compressed copy included), the held
+    rows the sparse kernel takes and one panel's kernel times."""
+    from repro_torch.dist import METRICS
+    from repro_torch.kernels.pairwise import (pairwise_panel,
+                                              pairwise_sparse_panel,
+                                              sparse_rows)
+    from repro_torch.kernels.pairwise_ops import row_nonzeros, row_support
+
+    n, d = HMP_SHAPE
+    kind = METRICS[METRIC].kind
+    out = []
+    for k, share in enumerate(CROSSOVER_SHARES):
+        x = count_table(n, d, share, SEED + 40 + k)
+        counts = row_nonzeros(x)
+        nnz, max_row = torch.stack([counts.sum(), counts.max()]).tolist()
+        rows = sparse_rows(d, max_row)
+        point = {"share": nnz / (n * d), "max_row": max_row, "rows": rows,
+                 "dense_s": routed_production(x, 0.0)[1],
+                 "dense_panel_ms": cuda_ms(
+                     lambda: pairwise_panel(x[:PANEL], x, kind), reps=2)}
+        if rows:
+            point["sparse_s"] = sorted(routed_production(x, 1.0)[1]
+                                       for _ in range(3))[1]
+            support = row_support(x, counts, max_row)
+            point["sparse_panel_ms"] = cuda_ms(
+                lambda: pairwise_sparse_panel(support, 0, PANEL), reps=3)
+            del support
+        print(json.dumps(point), flush=True)
+        out.append(point)
+        del x, counts
+    return {"crossover": out, "shape": [n, d], "panel": PANEL}
+
+
 def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
                       ynorm: torch.Tensor, table: torch.Tensor,
                       card: str) -> list:
@@ -4975,6 +5134,14 @@ def main() -> int:
         return distributed_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if sys.argv[1:2] == ["--lm-mesh-rank"] and len(sys.argv) == 5:
         return lm_mesh_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:] == ["--sparse-panel"]:
+        print(json.dumps({"kernels": [phase_sparse_panel(
+            phase_environment()["card"])]}))
+        return 0
+    if sys.argv[1:] == ["--sparse-crossover"]:
+        phase_environment()
+        print(json.dumps(sparse_crossover()))
+        return 0
     if sys.argv[1:] == ["--solver-first-calls"]:     # phase 4b's fresh process
         torch.zeros(1, device="cuda")
         print(json.dumps(solver_first_calls()))
@@ -5041,6 +5208,7 @@ def main() -> int:
     del battery, main_path
     kernels = run("5 kernel times", phase_kernel_line, launches, errors,
                   dm0.data, ynorm, x, card)
+    kernels.append(run("5c sparse panel", phase_sparse_panel, card))
     # phase 6 holds 16.4 GB of weights: free the analysis paths' tensors
     del dm0, d2, ynorm, x, y
     gc.collect()

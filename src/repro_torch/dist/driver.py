@@ -23,13 +23,41 @@ moments are summed in fp64 from the n fp32 row sums and rounded to fp32
 (the reference sums in fp32): ``Σd² − m·mean²`` cancels, and fp64 keeps
 the card and the CPU within 1e-5 of each other.
 
+**The sparse-support route.** A count table is mostly zeros (16S OTU
+tables: about 1% nonzero), and Bray–Curtis needs only one row of each
+pair's nonzeros: for any signs the zeros of b add nothing to
+
+    Σ_f |a_f − b_f| = Σ_{f ∈ supp b} (|a_f − b_f| − |a_f|) + Σ_f |a_f|,
+
+and likewise for Σ_f |a_f + b_f|. So a condensed Bray–Curtis production
+whose table's nonzero share is below ``SPARSE_SHARE`` first makes the
+table's compressed copy (``kernels.pairwise_ops.row_support``: row
+offsets, feature indices and values, ≈ 22 MB at the HMP V3-V5 table's
+4743 × 45383 and 1.3% nonzero), on the table's device, and each panel is
+summed over it (``pairwise_sparse_panel`` on the card, its plain version
+on the CPU). The rule reads only the input: the metric, the share (one
+counting pass, a synchronisation) and whether the fullest row fits the
+kernel's shared memory (``kernels.pairwise.sparse_rows``). The copy lives
+for this production alone: made before the panel loop, dropped before the
+call returns, never cached, since each production is asked for afresh.
+Every other metric, and a table at or above the share, takes the dense
+``pairwise_panel`` kernel as before, bit for bit; so does
+``pairwise_distances(out="square")``, whose exact symmetry needs d(i, j)
+and d(j, i) to be the same expression, which the sum over supp b is not.
+On integer counts the two routes give the same bits (every partial sum is
+an exact integer in fp32).
+
 Under an observing session the sweep runs in a ``dist.pairwise_condensed``
-span and charges the ledger's feature reads; each panel step (the launch,
-the running sums, the strip's selection) runs in a ``dist.panel`` span,
-which a recording profiler sees without a session, and notes its call as
-``dist.panel_stats``. ``Workspace.from_features`` is the session
-that consumes a production: its condensed vector, operator means and
-Mantel moments.
+span, with attributes ``route`` (``"sparse"`` or ``"dense"``) and
+``nonzero_share`` (``None`` for a metric the route never takes), and
+charges the ledger the reads of the route it took; the compressed copy is
+made in a ``dist.row_support`` span, so a profile shows each production
+that took the route. Each panel step (the launch, the running sums, the
+strip's selection) runs in a ``dist.panel`` span, which a recording
+profiler sees without a session, and notes its call as
+``dist.panel_stats``. ``Workspace.from_features`` is the session that
+consumes a production: its condensed vector, operator means and Mantel
+moments.
 """
 
 from __future__ import annotations
@@ -39,11 +67,24 @@ import torch
 from repro_torch.dist.metrics import get_metric
 from repro_torch.kernels.dispatch import (DeviceLike, clamp_block,
                                           resolve_device)
-from repro_torch.kernels.pairwise_ops import pairwise_panel_op
+from repro_torch.kernels.pairwise import sparse_rows
+from repro_torch.kernels.pairwise_ops import (SparseBrayCurtis,
+                                              pairwise_panel_op,
+                                              row_nonzeros, row_support)
 from repro_torch.obs.compile import note_trace
 from repro_torch.obs.trace import current_obs
 
 DEFAULT_BLOCK = 256
+
+#: The nonzero share below which a condensed Bray–Curtis production takes
+#: the sparse-support route. Measured on an H100 (700 W) with both routes
+#: at n = 4743, d = 45383, integer counts (``chip_smoke.py
+#: --sparse-crossover``): whole productions of 0.011, 0.018, 0.041, 0.060,
+#: 0.069, 0.088 and 0.110 s by the sparse route at 1, 2, 5, 8, 10, 12 and 15%
+#: nonzero, against 0.229–0.237 s by the dense one; at 20% (one held row a
+#: block) 0.247 s against 0.234, and 0.357 against 0.237 at 30%. The
+#: threshold is the last share at which the sparse route still won.
+SPARSE_SHARE = 0.15
 
 
 def condensed_size(n: int) -> int:
@@ -73,6 +114,23 @@ def _panel_stats(xi: torch.Tensor, x: torch.Tensor, metric):
     return strip, torch.sum(strip, dim=1), torch.sum(strip * strip, dim=1)
 
 
+def _sparse_support(x: torch.Tensor, metric):
+    """(the compressed copy of ``x`` if the production takes the
+    sparse-support route, else None; the nonzero share, None for a metric
+    the route never takes)."""
+    n, d = x.shape
+    if (metric.name != "braycurtis" or not 0 < n * d < 2 ** 31
+            or d >= 2 ** 24):
+        return None, None
+    counts = row_nonzeros(x)
+    nnz, max_row = torch.stack([counts.sum(), counts.max()]).tolist()
+    share = nnz / (n * d)
+    if share >= SPARSE_SHARE or not sparse_rows(d, max_row):
+        return None, share
+    with current_obs().span("dist.row_support", n=n, d=d, nnz=nnz):
+        return row_support(x, counts, max_row), share
+
+
 def pairwise_condensed(x, metric="braycurtis", *, block: int = DEFAULT_BLOCK,
                        device: DeviceLike = None) -> dict:
     """Condensed distances and fused hoists from an (n, d) feature table,
@@ -98,17 +156,26 @@ def pairwise_condensed(x, metric="braycurtis", *, block: int = DEFAULT_BLOCK,
     rowsum_d2 = torch.empty((n,), dtype=torch.float32, device=dev)
     cols = torch.arange(n, device=dev)
     with obs.span("dist.pairwise_condensed", phase="production", n=n, d=d,
-                  block=b, metric=metric.name, panels=-(-n // b)):
+                  block=b, metric=metric.name,
+                  panels=-(-n // b)) as span:
+        support, share = _sparse_support(x, metric)
+        route = "dense" if support is None else "sparse"
+        span.add(route=route, nonzero_share=share)
+        panel_metric = metric if support is None else \
+            SparseBrayCurtis(support)
         for i0 in range(0, n, b):
             i1 = min(i0 + b, n)
             with current_obs().span("dist.panel", i0=i0, rows=i1 - i0):
-                strip, rs1, rs2 = _panel_stats(x[i0:i1], x, metric)
+                strip, rs1, rs2 = _panel_stats(x[i0:i1], x, panel_metric)
                 rowsum_d[i0:i1] = rs1
                 rowsum_d2[i0:i1] = rs2
                 upper = (cols[None, :]
                          > torch.arange(i0, i1, device=dev)[:, None])
                 condensed[row_start(n, i0):row_start(n, i1)] = strip[upper]
-    obs.charge_production(n, d, b, metric=metric.name)
+    sparse = {} if support is None else {
+        "nnz": support.nnz, "rows": sparse_rows(d, support.max_row)}
+    del support, panel_metric
+    obs.charge_production(n, d, b, metric=metric.name, route=route, **sparse)
 
     row_means = -0.5 * rowsum_d2 / n
     sum_c = 0.5 * torch.sum(rowsum_d.double())

@@ -65,6 +65,7 @@ launches: dict[str, int] = {
     "permute_reduce": 0,
     "permute_reduce_finish": 0,
     "pairwise_panel": 0,
+    "pairwise_sparse_panel": 0,
     "center_pass1": 0,
     "center_finish": 0,
     "center_pass2": 0,
@@ -96,6 +97,8 @@ _SIGNATURES = {
                                       _I, _P],
     "repro_permute_reduce_finish": [_P, _P, _I, _I, _P],
     "repro_pairwise_panel": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_pairwise_sparse_panel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _P],
     "repro_center_pass1": [_P, _P, _I, _I, _I, _P],
     "repro_center_finish": [_P, _P, _P, _I, _P],
     "repro_center_pass2": [_P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -9,6 +9,10 @@
   sub-panels of rows stream against the whole table with the metric's
   reduce chunked over features, so the broadcast term stays bounded at
   (ROW_CHUNK, n, FEATURE_CHUNK).
+* ``pairwise_sparse_panel_ref`` — the plain version of the sparse-support
+  kernel (``csrc/pairwise_sparse.cu``): Bray–Curtis rows of a table
+  against the whole table, summed over each table row's nonzeros from the
+  table's compressed copy (``pairwise_ops.RowSupport``).
 """
 
 from __future__ import annotations
@@ -69,3 +73,39 @@ def pairwise_panel_ref(xi: torch.Tensor, x: torch.Tensor, metric: Metric
     if not rows:
         return torch.empty((0, x.shape[0]), dtype=xi.dtype, device=xi.device)
     return torch.cat(rows)
+
+
+def pairwise_sparse_panel_ref(support, row0: int, bm: int) -> torch.Tensor:
+    """(bm, n) Bray–Curtis distances between the rows [row0, row0 + bm) of
+    the table whose compressed copy is ``support`` and all n of its rows,
+    exactly 0 on the diagonal.
+
+    ``ROW_CHUNK`` panel rows at a time are made dense from their nonzeros
+    and read at every nonzero of the table: for a table row b,
+    Σ|a − b| = Σ|a| + Σ_{f ∈ supp b} (|a_f − b_f| − |a_f|), and likewise
+    Σ|a + b|; on the CPU each row's terms are summed in its feature
+    order."""
+    n, d = support.n, support.d
+    values, indices = support.values, support.indices.long()
+    dev = values.device
+    offsets = support.offsets.long()
+    owner = torch.repeat_interleave(torch.arange(n, device=dev),
+                                    offsets[1:] - offsets[:-1])
+    out = torch.empty((bm, n), dtype=torch.float32, device=dev)
+    for r0 in range(0, bm, ROW_CHUNK):
+        rows = min(ROW_CHUNK, bm - r0)
+        e0, e1 = (int(offsets[row0 + r0]),
+                  int(offsets[row0 + r0 + rows]))
+        a = torch.zeros((rows, d), dtype=torch.float32, device=dev)
+        a[owner[e0:e1] - (row0 + r0), indices[e0:e1]] = values[e0:e1]
+        held = a[:, indices]
+        held_abs = torch.abs(held)
+        num = torch.zeros((rows, n), dtype=torch.float32, device=dev)
+        den = torch.zeros((rows, n), dtype=torch.float32, device=dev)
+        num.index_add_(1, owner, torch.abs(held - values) - held_abs)
+        den.index_add_(1, owner, torch.abs(held + values) - held_abs)
+        total = torch.sum(torch.abs(a), dim=1, keepdim=True)
+        out[r0:r0 + rows] = _guarded(total + num, total + den)
+    diag = torch.arange(bm, device=dev)
+    out[diag, row0 + diag] = 0.0
+    return out

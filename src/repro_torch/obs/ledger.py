@@ -28,6 +28,9 @@ Registry layout
 * ``production_floats(n, d, block)`` — feature reads of the tiled
   distance production sweep (identical for fused and materialized
   modes, which is why the pass tables exclude it).
+* ``sparse_production_floats(n, d, block, nnz, rows)`` — the reads of
+  the sparse-support production, which sums each Bray–Curtis pair over
+  the nonzeros of a compressed copy of the table.
 
 Costs are exact functions of (operation, n, d, K, B, block): every
 ``Ledger`` entry records the operation, the floats moved and the
@@ -153,6 +156,18 @@ def production_floats(n: int, d: int, block: int) -> float:
     return float(panels) * n * d + float(n) * d
 
 
+def sparse_production_floats(n: int, d: int, block: int, nnz: int,
+                             rows: int) -> float:
+    """Reads of the sparse-support production (``dist/driver.py``), in
+    4-byte words: the nonzero count and the compressed copy's selection
+    each read the table once (2·n·d); then each group of ``rows`` panel
+    rows streams every nonzero (index and value) and two row offsets a
+    table row, Σ over panels of ⌈b_p / rows⌉·(2·nnz + 2·n)."""
+    b = max(min(block, n), 1)
+    groups = sum(-(-min(b, n - i0) // rows) for i0 in range(0, n, b))
+    return 2.0 * n * d + float(groups) * (2.0 * nnz + 2.0 * n)
+
+
 # --------------------------------------------------------------------------
 # The runtime ledger
 # --------------------------------------------------------------------------
@@ -218,9 +233,16 @@ class Ledger:
                            model=model, floats_per_perm=per_perm, **params)
 
     def charge_production(self, n: int, d: int, block: int,
-                          **params) -> LedgerEntry:
-        return self.charge("production", production_floats(n, d, block),
-                           n=n, d=d, block=block, **params)
+                          route: str = "dense", **params) -> LedgerEntry:
+        """The production's reads by the route it took: the dense panel
+        sweep (its entry the reference's), or the sparse-support sweep
+        (``nnz`` and ``rows`` in ``params``, ``route`` in the entry)."""
+        if route == "dense":
+            return self.charge("production", production_floats(n, d, block),
+                               n=n, d=d, block=block, **params)
+        return self.charge("production", sparse_production_floats(
+            n, d, block, params["nnz"], params["rows"]), n=n, d=d,
+            block=block, route=route, **params)
 
     # -- queries -----------------------------------------------------------
     def total_floats(self) -> float:

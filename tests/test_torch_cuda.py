@@ -11,7 +11,10 @@ Tolerances: ``symhollow`` is exact (it computes booleans);
 ``permute_reduce`` rtol 1e-5 / atol 1e-5, the reference's own kernel
 tolerances (``tests/test_kernels.py``, ``tests/test_permute_reduce.py``):
 both sum in another order than their plain versions. ``pairwise_panel``
-rtol 1e-5 / atol 1e-5 (``tests/test_dist.py``) and the ``center`` pair
+rtol 1e-5 / atol 1e-5 (``tests/test_dist.py``), and so is
+``pairwise_sparse_panel`` against its plain version on signed floats
+(another order again); on integer counts, where every partial sum is exact,
+it is held bit for bit against ``pairwise_panel``; the ``center`` pair
 rtol 2e-4 / atol 2e-4 in fp32, within 0.05·scale with correlation > 0.999
 in bf16 (``tests/test_kernels.py``), for the same reason. ``mantel_corr``
 rtol 1e-5 / atol 1e-5·max(scale, 1) on its raw sums and rtol 1e-4 /
@@ -95,8 +98,13 @@ from repro_torch.kernels.mantel_corr_ops import mantel_corr_op
 from repro_torch.kernels.mantel_corr_ref import (mantel_corr_plain,
                                                  mantel_corr_rows)
 from repro_torch.launch.mesh import check_device, full_tensor, make_host_mesh
-from repro_torch.kernels.pairwise_ops import pairwise_panel_op
-from repro_torch.kernels.pairwise_ref import pairwise_panel_ref
+from repro_torch.dist import driver
+from repro_torch.kernels.pairwise import (pairwise_panel,
+                                          pairwise_sparse_panel, sparse_rows)
+from repro_torch.kernels.pairwise_ops import (pairwise_panel_op,
+                                              row_nonzeros, row_support)
+from repro_torch.kernels.pairwise_ref import (pairwise_panel_ref,
+                                              pairwise_sparse_panel_ref)
 from repro_torch.configs import get_arch
 from repro_torch.kernels.permute_reduce import (permute_reduce_finish,
                                                 permute_reduce_partials)
@@ -356,7 +364,8 @@ def test_launch_counts_follow_the_main_path(cuda):
     assert _build.launches == {"symhollow": 1, "center_matvec": 4,
                                "inverse_orders": 2, "permute_reduce": 2,
                                "permute_reduce_finish": 2,
-                               "pairwise_panel": 0, "center_pass1": 0,
+                               "pairwise_panel": 0,
+                               "pairwise_sparse_panel": 0, "center_pass1": 0,
                                "center_finish": 0, "center_pass2": 0,
                                "mantel_corr": 0, "mantel_corr_finish": 0,
                                "rmsnorm": 0, "rmsnorm_bwd": 0}
@@ -402,6 +411,84 @@ def test_pairwise_panel_matches_plain(cuda, metric, bm, n, d):
     want = pairwise_panel_ref(xi, x, METRICS[metric])
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+def _support(x):
+    counts = row_nonzeros(x)
+    return row_support(x, counts, int(counts.max()))
+
+
+@pytest.mark.parametrize("n,d,share,heavy,rows", [
+    (300, 777, 0.02, 0, 4), (129, 4000, 0.05, 0, 4),
+    (200, 40000, 0.001, 8000, 2), (150, 40000, 0.001, 20000, 1)])
+def test_pairwise_sparse_panel_matches_plain(cuda, n, d, share, heavy, rows):
+    """Signed floats, an all-zero row and pair; 4, 2 and 1 held rows a
+    block (row 5 made ``heavy`` nonzeros long)."""
+    gen = torch.Generator().manual_seed(n + d)
+    x = torch.randn((n, d), generator=gen)
+    x[torch.rand((n, d), generator=gen) >= share] = 0.0
+    x[5, :heavy] = torch.randn(heavy, generator=gen)
+    x[[0, 2, n - 1]] = 0.0
+    x = x.to(cuda)
+    sup = _support(x)
+    assert sparse_rows(d, sup.max_row) == rows
+    for row0, bm in ((0, min(64, n)), (37, min(100, n - 37)), (n - 3, 3)):
+        got = pairwise_sparse_panel(sup, row0, bm)
+        want = pairwise_sparse_panel_ref(sup, row0, bm)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        dense = pairwise_panel(x[row0:row0 + bm], x, METRICS["braycurtis"]
+                               .kind)
+        np.testing.assert_allclose(got.cpu().numpy(), dense.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        assert torch.equal(got, pairwise_sparse_panel(sup, row0, bm))
+        diag = torch.arange(bm, device=cuda)
+        assert bool((got[diag, row0 + diag] == 0).all())
+
+
+def _hmp_counts(cuda, n=700, d=9000, seed=2**40 + 7):
+    """The features cell's generator scaled down: its communities and
+    rarefaction at n samples and d OTUs (about 1.3% nonzero at full d)."""
+    import json
+    from pathlib import Path
+    from perfbench.inputs.rarefied_counts import make
+    from perfbench.traffic import Plan
+    root = Path(__file__).resolve().parents[1]
+    config = json.loads((root / "perfbench" / "configs"
+                         / "features-hmp-v35.json").read_text())
+    config.update(n=n, d=d)
+    return make(config, Plan({}, seed), cuda)["table"]
+
+
+def test_pairwise_sparse_panel_is_the_dense_kernel_bitwise_on_counts(cuda):
+    x = _hmp_counts(cuda)
+    sup = _support(x)
+    assert sup.nnz < 0.1 * x.numel()
+    kind = METRICS["braycurtis"].kind
+    for i0 in range(0, x.shape[0], 256):
+        bm = min(256, x.shape[0] - i0)
+        got = pairwise_sparse_panel(sup, i0, bm)
+        assert torch.equal(got, pairwise_panel(x[i0:i0 + bm], x, kind)), i0
+        assert torch.equal(got, pairwise_sparse_panel(sup, i0, bm)), i0
+
+
+def test_sparse_production_launches_and_matches_the_dense_route(
+        cuda, monkeypatch):
+    """A production of counts below ``SPARSE_SHARE``: one sparse launch a
+    panel and none of the dense kernel, its condensed vector and hoists bit
+    for bit the dense route's."""
+    x = _hmp_counts(cuda, n=600, d=20000, seed=11)
+    _build.reset_launches()
+    sparse = pairwise_condensed(x, device=cuda)
+    assert {k: v for k, v in _build.launches.items() if v} == {
+        "pairwise_sparse_panel": 3}
+    monkeypatch.setattr(driver, "SPARSE_SHARE", 0.0)
+    _build.reset_launches()
+    dense = pairwise_condensed(x, device=cuda)
+    assert {k: v for k, v in _build.launches.items() if v} == {
+        "pairwise_panel": 3}
+    for key in ("condensed", "row_means", "global_mean", "mean", "norm"):
+        assert torch.equal(sparse[key], dense[key]), key
 
 
 def test_pairwise_square_is_symmetric_hollow_and_validates(cuda):

@@ -246,11 +246,12 @@ def test_kernel_modules_import_without_a_toolkit():
 def test_build_covers_every_source_and_refuses_without_nvcc(monkeypatch):
     names = {p.name for p in _build._sources()}
     assert {"symhollow.cu", "center_matvec.cu", "permute_reduce.cu",
-            "pairwise.cu", "center.cu", "mantel_corr.cu",
-            "rmsnorm.cu", "inverse_orders.cu"} <= names
+            "pairwise.cu", "pairwise_sparse.cu", "center.cu",
+            "mantel_corr.cu", "rmsnorm.cu", "inverse_orders.cu"} <= names
     assert set(_build.launches) == {
         "symhollow", "center_matvec", "inverse_orders", "permute_reduce",
-        "permute_reduce_finish", "pairwise_panel", "center_pass1",
+        "permute_reduce_finish", "pairwise_panel", "pairwise_sparse_panel",
+        "center_pass1",
         "center_finish", "center_pass2", "mantel_corr", "mantel_corr_finish",
         "rmsnorm", "rmsnorm_bwd"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
