@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.api import ExecConfig as JaxExecConfig
 from repro.api import Workspace as JaxWorkspace
 from repro.core import DistanceMatrix as JaxDistanceMatrix

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.core import DistanceMatrix as JaxDM
 from repro.core import mantel as jax_mantel
 from repro.stats import anosim as jax_anosim

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.core.centering import (center_distance_matrix_blocked as
                                   jax_blocked)
 from repro.kernels.center_ops import center_distance_matrix_pallas

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.core.centering import center_distance_matrix as jax_center
 from repro.core.operators import CenteredGramOperator as JaxOperator
 from repro.kernels.center_matvec_ops import center_matvec_pallas

@@ -12,6 +12,7 @@ import os
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro_torch.checkpoint import CheckpointManager
 
 
@@ -20,6 +21,15 @@ def _tree(seed):
     return {"a": torch.randn((4, 8), generator=g),
             "nested": {"b": torch.arange(6).reshape(2, 3).to(torch.bfloat16)},
             "step": torch.tensor(seed, dtype=torch.int32)}
+
+
+def _wait(mgr):
+    """``mgr.wait()``, with its writer thread given at most 300 s."""
+    if mgr._thread is not None:
+        mgr._thread.join(300)
+        assert not mgr._thread.is_alive(), \
+            "the async checkpoint write still runs after 300 s"
+    mgr.wait()
 
 
 def _leaves(tree):
@@ -59,7 +69,7 @@ def test_checkpoint_prune_keeps_newest(tmp_path):
 def test_checkpoint_async_then_wait(tmp_path):
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(9, _tree(9), blocking=False)
-    mgr.wait()
+    _wait(mgr)
     assert mgr.latest_step() == 9
 
 
@@ -113,7 +123,7 @@ def test_async_save_snapshots_before_an_in_place_update(tmp_path):
         tree["params"]["w"].mul_(-3.0).add_(1.0)
         tree["opt"]["m"]["w"].zero_()
         tree["opt"]["step"].add_(1)
-    mgr.wait()
+    _wait(mgr)
     got, meta = mgr.restore(tree)
     assert meta["step"] == 4
     assert torch.equal(got["params"]["w"], want["w"])
@@ -124,11 +134,11 @@ def test_async_save_snapshots_before_an_in_place_update(tmp_path):
 def test_a_failed_async_write_is_raised_by_wait(tmp_path):
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(1, _tree(1), blocking=False)
-    mgr.wait()
+    _wait(mgr)
     # a file where the writer's tmp directory goes: its rmtree fails
     (tmp_path / "step_2.tmp").write_text("not a directory")
     mgr.save(2, _tree(2), blocking=False)
     with pytest.raises(OSError):
-        mgr.wait()
+        _wait(mgr)
     assert mgr.latest_step() == 1
-    mgr.wait()                               # raised once
+    _wait(mgr)                               # raised once

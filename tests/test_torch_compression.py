@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.optim import compression as ref
 from repro_torch.optim import compression
 
@@ -110,7 +111,7 @@ def spawned(tmp_path_factory):
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
-                proc.wait()
+                proc.wait(timeout=SPAWN_TIMEOUT_S)
     codes = [p.returncode for p in procs]
     if any(codes):
         raise RuntimeError(f"ranks exited {codes}\n"

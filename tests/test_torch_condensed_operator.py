@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.core import CondensedCenteredGramOperator as JaxCondensedOperator
 from repro.core import pcoa as jax_pcoa
 from repro.dist import pairwise_condensed as jax_condensed

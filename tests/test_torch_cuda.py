@@ -61,6 +61,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro_torch import models
 from repro_torch.api import ExecConfig, Workspace
 from repro_torch.core import (CenteredGramOperator,

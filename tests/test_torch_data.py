@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.data.distance import DistanceTileStream as RefStream
 from repro.data.pipeline import TokenPipeline as RefPipeline
 from repro_torch.configs import SHAPES, get_arch

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.dist import METRICS as JAX_METRICS
 from repro.dist import pairwise_condensed as jax_condensed
 from repro.dist import pairwise_distances as jax_distances

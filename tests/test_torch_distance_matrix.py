@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.core import distance_matrix as jdm
 from repro.kernels import dispatch as jdispatch
 from repro_torch import convert

@@ -40,6 +40,7 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.core import DistanceMatrix as JaxDistanceMatrix
 from repro.core.centering import \
     center_distance_matrix_distributed as jax_center_distributed
@@ -522,7 +523,7 @@ def _spawn(spec: str, world: int, tmp: Path) -> dict:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
-                proc.wait()
+                proc.wait(timeout=SPAWN_TIMEOUT_S)
     verdicts = {}
     for line in outputs[0][0].splitlines():
         try:

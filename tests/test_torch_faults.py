@@ -14,6 +14,7 @@ import time
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.checkpoint.journal import _encode as jax_encode
 from repro.checkpoint.journal import replay as jax_replay
 from repro.faults import FaultInjector as JaxInjector

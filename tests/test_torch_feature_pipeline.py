@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.api import Workspace
 from repro.stats.engine import permutation_orders as jax_orders
 from repro_torch.api import ExecConfig

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import repro_torch
 from repro_torch import convert, models
 from repro_torch.api import ExecConfig, Workspace
@@ -408,3 +409,21 @@ def test_cpu_training_launches_nothing(tmp_path):
     DistanceTileStream(n=20, tile=8, device="cpu").dense()
     assert set(_build.launches.values()) == {0}
     assert {"rmsnorm", "rmsnorm_bwd"} <= set(_build.launches)
+
+
+def test_torch_threads_are_this_processs_share_of_the_cores():
+    """``tests/torch_threads.py`` sizes each test process's torch pool to its
+    share of the host's cores: one thread a worker under ``-n 6`` on 8
+    cores, every core in a one-process run."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    assert torch.get_num_threads() == max(1, (os.cpu_count() or 1)
+                                           // workers)
+
+
+def test_every_port_test_module_imports_the_thread_setting():
+    """The setting reaches a process through the port's test modules: each
+    imports ``torch_threads``, so any one of them run alone takes it."""
+    here = Path(__file__).parent
+    missing = [p.name for p in sorted(here.glob("test_torch_*.py"))
+               if "\nimport torch_threads" not in p.read_text()]
+    assert not missing

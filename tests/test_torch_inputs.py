@@ -10,6 +10,7 @@ import jax
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.configs import ARCHS as REF_ARCHS
 from repro.configs import SHAPES as REF_SHAPES
 from repro.launch.inputs import input_specs as ref_input_specs

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro_torch.launch import train as train_launch
 
 

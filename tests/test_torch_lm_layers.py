@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro import configs as ref_configs
 from repro.models import layers as ref
 from repro_torch import configs

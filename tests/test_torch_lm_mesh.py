@@ -43,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro import configs as ref_configs
 from repro.data.pipeline import TokenPipeline as RefPipeline
 from repro.optim.adamw import AdamWConfig as RefAdamWConfig
@@ -323,7 +324,7 @@ def _spawn(spec: str, tmp: Path) -> dict:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
-                proc.wait()
+                proc.wait(timeout=SPAWN_TIMEOUT_S)
     verdicts = {}
     for line in outputs[0][0].splitlines():
         try:

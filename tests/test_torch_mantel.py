@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.core.distance_matrix import DistanceMatrix as JaxDM
 from repro.core.mantel import MantelStatistic as JaxMantel
 from repro.stats import engine as jax_engine

@@ -14,6 +14,7 @@ import pytest
 import torch
 from scipy.stats import pearsonr
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.kernels.mantel_corr_ops import mantel_corr_pallas
 from repro.kernels.mantel_corr_ref import mantel_corr_ref as jax_mantel_corr_ref
 from repro.stats import engine as jax_engine

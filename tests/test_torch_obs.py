@@ -23,7 +23,10 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import repro.obs as jax_obs
+import repro.obs.compile
+import repro.obs.report
 from repro.api import ExecConfig as JaxExecConfig
 from repro.api import Workspace as JaxWorkspace
 from repro.stats.engine import permutation_orders as jax_orders
@@ -381,7 +384,20 @@ def test_one_permute_reduce_program_serves_any_k():
 # --------------------------------------------------------------------------
 # RunReport: the instrumented battery end to end
 # --------------------------------------------------------------------------
-def test_feature_backed_battery_report():
+@pytest.fixture
+def own_jax_compile_window(monkeypatch):
+    """The reference runs on a compile sentinel of its own and leaves the
+    jit caches cold: both are process-wide, and ``tests/test_obs.py``'s
+    battery report, at the same shapes in the same worker, counts the
+    programs first traced inside its own window."""
+    fresh = jax_obs.CompileSentinel()
+    monkeypatch.setattr(repro.obs.compile, "sentinel", fresh)
+    monkeypatch.setattr(repro.obs.report, "sentinel", fresh)
+    yield
+    jax.clear_caches()
+
+
+def test_feature_backed_battery_report(own_jax_compile_window):
     """The six-analysis battery on an observing feature-backed session:
     the ledger carries every hoist, permutation batch and the production
     sweep once, 4.0 hoist passes, and equals the reference's ledger

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.optim.adamw import AdamWConfig as RefAdamWConfig
 from repro.optim.adamw import adamw_update as ref_adamw_update
 from repro.optim.adamw import lr_schedule as ref_lr_schedule

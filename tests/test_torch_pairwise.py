@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.dist import get_metric as jax_get_metric
 from repro.kernels.pairwise_ops import pairwise_panel_pallas
 from repro.kernels.pairwise_ref import pairwise_ref as jax_pairwise_ref

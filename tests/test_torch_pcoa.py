@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.core import pcoa as jax_pcoa
 from repro.core import random_distance_matrix as jax_random_dm
 from repro.core.pcoa import resolve_dimensions as jax_resolve

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.core.distance_matrix import DistanceMatrix as JaxDM
 from repro.stats import engine as jax_engine
 from repro_torch.core import (CenteredGramOperator,

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.kernels.permute_reduce_ops import permute_reduce as jax_reduce
 from repro.kernels.permute_reduce_ref import permute_reduce_ref as jax_oracle
 from repro_torch.kernels import _build

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.api.config import ExecConfig as JaxExecConfig
 from repro.api.workspace import Workspace as JaxWorkspace
 from repro.obs import ObsConfig as JaxObsConfig

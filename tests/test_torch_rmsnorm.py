@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.kernels import rmsnorm_pallas
 from repro.kernels.rmsnorm_ref import rmsnorm_ref
 from repro.models.layers import rmsnorm as layers_rmsnorm

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.kernels.mantel_corr import mantel_corr as jax_mantel_kernel
 from repro.kernels.mantel_corr_ops import mantel_corr_pallas
 from repro.kernels.permute_reduce_ops import permute_reduce as jax_reduce

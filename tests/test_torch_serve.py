@@ -20,6 +20,7 @@ import os
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro_torch.api.config import ExecConfig
 from repro_torch.api.workspace import Workspace
 from repro_torch.faults import FaultPlan
@@ -484,7 +485,7 @@ class TestServeReport:
             await svc.wait(h)
             return h
 
-        h = asyncio.run(client())
+        h = asyncio.run(asyncio.wait_for(client(), 300))
         assert h.status == "done"
 
 

@@ -20,6 +20,7 @@ from jax.sharding import AbstractMesh as RefAbstractMesh
 from jax.sharding import PartitionSpec as RefP
 from torch.distributed.tensor import Replicate, Shard
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.configs import ARCHS as REF_ARCHS
 from repro.runtime.serve import abstract_cache as ref_abstract_cache
 from repro.runtime.train import abstract_train_state as ref_abstract_state

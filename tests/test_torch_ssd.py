@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro import configs as ref_configs
 from repro.models import ssd as ref
 from repro_torch import configs

@@ -62,6 +62,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro import configs as ref_configs
 from repro.data.pipeline import TokenPipeline as RefPipeline
 from repro.optim.adamw import AdamWConfig as RefAdamWConfig

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.tune import BackendBudget as JaxBudget
 from repro.tune import solve_tiles as jax_solve_tiles
 from repro.tune import model as jax_model

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from repro.core import validation as jax_validation
 from repro.core.distance_matrix import DistanceMatrix as JaxDistanceMatrix
 from repro.core.distance_matrix import DistanceMatrixError as JaxDMError
