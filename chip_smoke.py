@@ -14,7 +14,9 @@ check fails:
    small shapes (n = 1000, 1001) and at the paths' shapes
    (``center_matvec`` at k = 20 and 128, two launches bitwise equal); 2b
    does the same for the feature path's kernels (``pairwise_panel`` for
-   the five metrics, the ``center`` pair in fp32 and bf16); 2c for
+   the five metrics, the ``center`` pair in fp32 and bf16,
+   ``condensed_matvec`` at ragged n and k, two launches bitwise equal);
+   2c for
    ``mantel_corr`` (n = 1000 with K = 54, and one batch of 27 at
    n = 16384), and its identity order against the plain Pearson r; 2d for
    ``rmsnorm`` at the LM path's shapes in fp32 and bf16, two launches
@@ -89,8 +91,11 @@ check fails:
    ``pairwise_panel`` on every panel, two launches bitwise equal, the
    diagonal 0, the production's launches and its condensed vector and
    hoists bit for bit the dense route's, and its time from a CUDA graph
-   beside its bound, its plain version and the dense kernel's; then the
-   analysis paths' tensors are freed and
+   beside its bound, its plain version and the dense kernel's; 5d the
+   condensed operator's ``condensed_matvec`` at the features cell's
+   n = 4743 (k = 20 and 128) from a CUDA graph beside its bound, its plain
+   strip loop and the whole product a call; then the analysis paths'
+   tensors are freed and
 6. the LM serving path: qwen3-8b at full width and depth (36 layers,
    d = 4096, 16.4 GB of bf16 weights drawn from a seed on the card),
    four prompts of 512 token ids prefilled (``build_prefill_fn``, 544
@@ -161,6 +166,10 @@ check fails:
    phase 8d), and one of each phase's host seconds
    (``phase_walls_s``).
 
+``python3 chip_smoke.py --condensed-matvec TREE`` runs phase 5d's timing
+for the checkout at TREE: its condensed operator's whole product (the
+strip loop, where TREE predates the kernel), and the kernel alone where
+it has one, so that parent and change are timed in one call.
 ``python3 chip_smoke.py --center-matvec-op TREE`` times only
 ``center_matvec_op`` of the checkout at TREE (phase 5's shapes), so that a
 parent commit's op can be timed in the same call; ``--redesign-times
@@ -211,6 +220,7 @@ PANEL = 256          # rows of a pairwise panel: pairwise_condensed's default
 SMALL_FEATURES = 300  # features of phase 2b's ragged pairwise shape
 EIGH_N = 2048        # the eigh solve held against the CPU
 SMALL_FEATURE_N = 512  # the feature path held against the CPU
+CELL_N = 4743        # the features cell's samples: its condensed operator's n
 GROUPS = 4           # the battery's groups: 4 of N / 4 samples, drawn from a seed
 CORR_BATCH = 27      # mantel_corr permutations a launch: K = 999 in 37
 BATTERY_N = 512      # the battery held against the CPU
@@ -967,7 +977,39 @@ def phase_feature_kernels(x: torch.Tensor, d_main: torch.Tensor) -> dict:
           f"{err:.3e} (limit 0.05*scale = {0.05 * scale:.3e}), correlation "
           f"{corr:.6f} (> 0.999)")
     check(err < 0.05 * scale and corr > 0.999, "center bf16: outside limits")
+    check_condensed_matvec()
     return errors
+
+
+def condensed_operands(n: int, seed: int = SEED):
+    """(dc, row_means, global_mean) on the card: uniform condensed
+    distances in [0, 1) and their operator means."""
+    from repro_torch.core.distance_matrix import condensed_to_square
+
+    dc = torch.rand((n * (n - 1) // 2,),
+                    generator=torch.Generator().manual_seed(seed)).cuda()
+    sq = condensed_to_square(dc, n)
+    row_means = -0.5 * torch.mean(sq * sq, dim=1)
+    del sq
+    return dc, row_means, torch.mean(row_means)
+
+
+def check_condensed_matvec() -> None:
+    """``condensed_matvec`` against its plain strip loop on the card at
+    ragged n and k (two 32-column groups, a slab past 128); two launches
+    bitwise equal. Phase 5d holds it at the features cell's n."""
+    from repro_torch.kernels.condensed_matvec_ops import condensed_matvec_op
+    from repro_torch.kernels.condensed_matvec_ref import condensed_matvec_ref
+
+    for n, k in ((SMALL_N + 1, 45), (SMALL_N, 129)):
+        dc, row_means, gm = condensed_operands(n, SEED + n)
+        x = torch.randn((n, k), generator=torch.Generator().manual_seed(
+            SEED + k)).cuda()
+        got = condensed_matvec_op(dc, x, row_means, gm, n)
+        compare(f"condensed_matvec n={n} k={k}", got,
+                condensed_matvec_ref(dc, x, row_means, gm, n))
+        check(torch.equal(got, condensed_matvec_op(dc, x, row_means, gm, n)),
+              f"condensed_matvec n={n} k={k}: two launches differ")
 
 
 def phase_mantel_corr_kernel(d_main: torch.Tensor, d2: torch.Tensor) -> dict:
@@ -1190,9 +1232,9 @@ def phase_feature_checks(feat: dict, x: torch.Tensor, y: torch.Tensor,
     want = {"pairwise_panel": panels, "pairwise_sparse_panel": 0,
             "inverse_orders": tiles, "permute_reduce": tiles,
             "permute_reduce_finish": tiles, "center_matvec": 0,
-            "symhollow": 0, "center_pass1": 0, "center_finish": 0,
-            "center_pass2": 0, "mantel_corr": 0, "mantel_corr_finish": 0,
-            "rmsnorm": 0, "rmsnorm_bwd": 0}
+            "condensed_matvec": 4, "symhollow": 0, "center_pass1": 0,
+            "center_finish": 0, "center_pass2": 0, "mantel_corr": 0,
+            "mantel_corr_finish": 0, "rmsnorm": 0, "rmsnorm_bwd": 0}
     check(launches == want, f"feature path launches {launches} != {want}")
     prod = feat["prod_x"]
     cond = prod["condensed"]
@@ -1331,9 +1373,10 @@ def battery_tests(x, y, z, op, groups, orders, device, omega=None,
                             "permute_reduce_finish": tiles},
                            lambda: partial_mantel(x, y, z, permutations,
                                                   **common)),
-        # the condensed operator's matvec is plain torch: no kernel of the
-        # port runs (a condensed-input center_matvec is later work)
-        "permanova_operator": ({}, lambda: permutation_test(
+        # the condensed operator's products: the observed statistic's, then
+        # one a tile (32 orders x GROUPS columns, one launch of 128)
+        "permanova_operator": ({"condensed_matvec": tiles + 1},
+                               lambda: permutation_test(
             PermanovaOperatorStatistic(op, codes, op.n, GROUPS),
             permutations, method="permanova", **common)),
         "mantel_corr": ({"inverse_orders": corr_launches,
@@ -1643,7 +1686,7 @@ def phase_session(main: dict, feat: dict, battery: dict,
     feature_launches = {k: v + feat["launches"][k]
                         for k, v in _build.launches.items()}
     check_launches("anosim", per_tile)
-    check_launches("permanova", {})
+    check_launches("permanova", {"condensed_matvec": tiles + 1})
     busy = device_breakdown("feature session permanova again, profiled",
                             lambda: fx.permanova(groups, PERMUTATIONS), card)
     feature_probe = probed_report(fx, "feature session")
@@ -3773,6 +3816,38 @@ def print_kernel_times(kernels: list) -> None:
               f"{kern['library_host_launch_ms']:.4f} ms")
 
 
+def condensed_matvec_entry(launches: int) -> dict:
+    """Phase 5d: the ``condensed_matvec`` entry of the ``kernels`` line at
+    the features cell's n (``condensed_matvec_times``): the kernel from a
+    CUDA graph beside its bound and its plain strip loop on the card, at
+    k = DIMS + 10 and WIDE_K (``k128_*``), and the whole product a call."""
+    t = condensed_matvec_times()
+    n, k = CELL_N, DIMS + 10
+    m = n * (n - 1) // 2
+    wide = f"k{WIDE_K}_"
+    entry = kernel_entry(
+        "condensed_matvec", "src/repro_torch/csrc/condensed_matvec.cu",
+        "none: the reference gathers condensed row strips with jnp ops",
+        launches, t[f"k{k}_max_abs_err"], t[f"k{k}_kernel_ms"],
+        t[f"k{k}_plain_ms"],
+        4 * (m + 2 * n * k + n + 2 * k), 2 * n * n * k, FP32_FLOPS,
+        shape=[n, k], split=t[f"k{k}_split"],
+        two_read_ms=t[f"k{k}_two_read_ms"],
+        product_ms=t[f"k{k}_product_ms"], k128_ms=t[wide + "kernel_ms"],
+        k128_bound_ms=t[wide + "bound_ms"], k128_bound_by=t[wide + "bound_by"],
+        k128_plain_ms=t[wide + "plain_ms"],
+        k128_product_ms=t[wide + "product_ms"], k128_split=t[wide + "split"])
+    print(f"  condensed_matvec n={n}: k={k} {entry['ms']:.4f} ms from a CUDA "
+          f"graph (clusters of {entry['split']}), bound "
+          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}; two reads "
+          f"{entry['two_read_ms']:.4f}), plain {entry['plain_ms']:.4f} ms, "
+          f"product {entry['product_ms']:.4f} ms; k={WIDE_K} "
+          f"{entry['k128_ms']:.4f} ms, bound {entry['k128_bound_ms']:.4f} ms "
+          f"({entry['k128_bound_by']}), plain {entry['k128_plain_ms']:.4f} "
+          f"ms, product {entry['k128_product_ms']:.4f} ms")
+    return entry
+
+
 def count_table(n: int, d: int, share: float, seed: int) -> torch.Tensor:
     """An (n, d) fp32 table of integer counts on the card: each entry
     nonzero with probability ``share``, its count 1 to 40."""
@@ -5029,6 +5104,67 @@ def center_matvec_op_times() -> dict:
     return out
 
 
+def condensed_matvec_times() -> dict:
+    """The condensed operator's whole product (``CondensedCenteredGramOperator
+    .matvec``: the corrections and the kernel, or the parent's strip loop)
+    of the ``repro_torch`` first on the path, at the features cell's n and
+    k = DIMS + 10 and WIDE_K, on uniform condensed distances: ms a call from
+    Python (``product_ms``). Where that tree has the ``condensed_matvec``
+    kernel, also its launch alone from a CUDA graph (``kernel_ms``), its
+    plain strip loop on the card (``plain_ms``), its launches a product,
+    its error against the plain version and two products bitwise equal.
+    ``bound_ms``: each input read once at the HBM rate or the fp32 FMAs at
+    the CUDA cores' rate, the larger; ``two_read_ms``: every pair read
+    twice, the kernel's own floor. So a parent tree's product is timed in
+    the same call."""
+    import importlib.util
+
+    import repro_torch
+    from repro_torch.core import CondensedCenteredGramOperator
+    from repro_torch.kernels import _build
+
+    n = CELL_N
+    m = n * (n - 1) // 2
+    dc, row_means, gm = condensed_operands(n)
+    op = CondensedCenteredGramOperator(dc, row_means, gm, n)
+    kernel = importlib.util.find_spec(
+        "repro_torch.kernels.condensed_matvec") is not None
+    out = {"tree": str(Path(repro_torch.__file__).resolve().parents[2]),
+           "card": torch.cuda.get_device_name(0), "n": n, "kernel": kernel}
+    for width in (DIMS + 10, WIDE_K):
+        x = torch.randn((n, width), generator=torch.Generator().manual_seed(
+            SEED + width)).cuda()
+        pre = f"k{width}_"
+        out[pre + "product_ms"] = cuda_ms(lambda: op.matvec(x), reps=20)
+        bound, by = bound_ms(4 * (m + 2 * n * width + n + 2 * width),
+                             2 * n * n * width, FP32_FLOPS)
+        out.update({pre + "bound_ms": bound, pre + "bound_by": by,
+                    pre + "two_read_ms": 8 * m / HBM_BYTES_PER_S * 1e3})
+        if not kernel:
+            continue
+        from repro_torch.kernels.center_matvec_ref import center_corrections
+        from repro_torch.kernels.condensed_matvec import (condensed_matvec,
+                                                          sweep_split)
+        from repro_torch.kernels.condensed_matvec_ref import \
+            condensed_matvec_ref
+        colsum, corr = center_corrections(x, row_means, gm)
+        _build.reset_launches()
+        got = op.matvec(x)
+        sync()
+        out[pre + "launches"] = _build.launches["condensed_matvec"]
+        out[pre + "max_abs_err"] = compare(
+            f"condensed product n={n} k={width}", got,
+            condensed_matvec_ref(dc, x, row_means, gm, n))
+        check(torch.equal(got, op.matvec(x)),
+              f"condensed product k={width}: two products differ")
+        out[pre + "split"] = sweep_split(n, width)
+        out[pre + "kernel_ms"] = graph_ms(lambda: condensed_matvec(
+            dc, x, row_means, colsum, corr, n))
+        out[pre + "plain_ms"] = cuda_ms(lambda: condensed_matvec_ref(
+            dc, x, row_means, gm, n), reps=5)
+    return out
+
+
 def square_call_outputs() -> dict:
     """The square calls of the ``center`` pair (fp32 and bf16),
     ``center_matvec`` (k = 20, 45, 128) and ``mantel_corr`` (27 orders) at
@@ -5111,6 +5247,11 @@ def main() -> int:
         # another tree's center_matvec_op, timed as phase 5 times this one's
         sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
         print(json.dumps(center_matvec_op_times()))
+        return 0
+    if sys.argv[1:2] == ["--condensed-matvec"] and len(sys.argv) == 3:
+        # another (or this) tree's condensed operator product, timed
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
+        print(json.dumps({"condensed_matvec": condensed_matvec_times()}))
         return 0
     if sys.argv[1:2] == ["--train-times"] and len(sys.argv) == 3:
         # another (or this) tree's phase 8 run, timed
@@ -5209,6 +5350,8 @@ def main() -> int:
     kernels = run("5 kernel times", phase_kernel_line, launches, errors,
                   dm0.data, ynorm, x, card)
     kernels.append(run("5c sparse panel", phase_sparse_panel, card))
+    kernels.append(run("5d condensed matvec", condensed_matvec_entry,
+                       feature_launches["condensed_matvec"]))
     # phase 6 holds 16.4 GB of weights: free the analysis paths' tensors
     del dm0, d2, ynorm, x, y
     gc.collect()

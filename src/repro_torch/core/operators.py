@@ -15,9 +15,11 @@ operator runs in an ``operator.matvec`` span.
 ``CondensedCenteredGramOperator`` is the same operator backed by the
 condensed distances of a feature-table production
 (``repro_torch.dist.pairwise_condensed``), whose means it takes for free.
-Its matvec gathers each row strip of D from the condensed vector and
-multiplies with ``torch.matmul``: the reference has no kernel there, and a
-condensed-input ``center_matvec`` kernel is later work.
+On the card each of its products is one launch of the
+``condensed_matvec`` kernel, which reads D straight from the condensed
+vector (the reference has no kernel there: it gathers each row strip with
+jnp ops); on the CPU the kernel's plain version gathers a row strip of
+``block`` rows at a time and multiplies with ``torch.matmul``.
 
 ``centered_gram_matvec_distributed`` is ``F @ X`` over a D block-sharded on
 a device mesh, as ``core.centering``'s distributed centering lays it out:
@@ -33,11 +35,13 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.core.centering import center_distance_matrix
-from repro_torch.core.distance_matrix import (MAX_TRIANGLE_N, condensed_index,
+from repro_torch.core.distance_matrix import (MAX_TRIANGLE_N,
                                               condensed_to_square)
 from repro_torch.kernels.center_matvec_ops import (block_product_op,
                                                    center_matvec_op)
 from repro_torch.kernels.center_ops import center_row_sums_op
+from repro_torch.kernels.condensed_matvec_ops import condensed_matvec_op
+from repro_torch.kernels.condensed_matvec_ref import condensed_row_panel
 from repro_torch.kernels.dispatch import require
 from repro_torch.launch.mesh import (check_device, full_tensor, local_block,
                                      placements, psum)
@@ -89,15 +93,16 @@ class CenteredGramOperator:
 class CondensedCenteredGramOperator:
     """The centred-Gram operator backed by the CONDENSED distances.
 
-    The m = n(n−1)/2 condensed vector is the only large buffer, and each
-    matvec row strip is gathered from it by closed-form triangle indexing,
+    The m = n(n−1)/2 condensed vector is the only large buffer, and D is
+    read from it by closed-form triangle indexing,
 
         k(i, j) = i(2n − i − 1)/2 + (j − i − 1)   for i < j  (scipy layout),
 
-    per strip, so no n×n position map is built either. The index
-    arithmetic is int32, exact only for n <= 46340 (an overflow would
-    gather silently wrong distances), so construction refuses larger n.
-    D is hollow by construction, so ``trace`` needs no diagonal term.
+    so no n×n position map is built either: by the ``condensed_matvec``
+    kernel on the card, a row strip of ``block`` rows at a time on the CPU.
+    The index arithmetic is int32, exact only for n <= 46340 (an overflow
+    would read silently wrong distances), so construction refuses larger
+    n. D is hollow by construction, so ``trace`` needs no diagonal term.
     """
 
     dc: torch.Tensor           # (m,) condensed distances — the only big buffer
@@ -131,37 +136,19 @@ class CondensedCenteredGramOperator:
 
     def row_panel(self, i0: int, b: int) -> torch.Tensor:
         """Rows [i0, i0+b) of D gathered from the condensed vector."""
-        if self.dc.shape[0] == 0:              # n <= 1: no off-diagonal pairs
-            return torch.zeros((b, self.n), dtype=self.dtype,
-                               device=self.device)
-        r = torch.arange(i0, i0 + b, dtype=torch.int32,
-                         device=self.device)[:, None]
-        c = torch.arange(self.n, dtype=torch.int32,
-                         device=self.device)[None, :]
-        on_diag = r == c
-        k = condensed_index(r, c, self.n)
-        return torch.where(on_diag, 0.0,
-                           self.dc[torch.where(on_diag, 0, k).long()])
+        return condensed_row_panel(self.dc, self.n, i0, b)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """``F @ x`` with each D row strip gathered from the condensed
-        storage; peak extra memory is one (block, n) strip, never n²."""
+        """``F @ x`` with D read from the condensed storage: one
+        ``condensed_matvec`` launch (a slab of 128 columns) on the card, a
+        (block, n) strip at a time on the CPU; never n² extra memory."""
         squeeze = x.ndim == 1
         if squeeze:
             x = x[:, None]
         with current_obs().span("operator.matvec", n=self.n, k=x.shape[1]):
-            colsum = torch.sum(x, dim=0)                     # 1ᵀX   (k,)
-            corr = self.global_mean * colsum - self.row_means @ x
-            b = max(min(self.block, self.n), 1)
-            out = torch.empty((self.n, x.shape[1]), dtype=x.dtype,
-                              device=x.device)
-            for i0 in range(0, self.n, b):
-                bi = min(b, self.n - i0)
-                rows = self.row_panel(i0, bi)
-                e_rows = -0.5 * rows * rows
-                out[i0:i0 + bi] = (e_rows @ x
-                                   - self.row_means[i0:i0 + bi, None]
-                                   * colsum[None, :] + corr[None, :])
+            out = condensed_matvec_op(self.dc, x.contiguous(), self.row_means,
+                                      self.global_mean, self.n,
+                                      block=self.block)
         return out[:, 0] if squeeze else out
 
     def trace(self) -> torch.Tensor:

@@ -35,6 +35,11 @@ Mantel) and the materialized solves:
                        metrics of ``repro_torch.dist``.
 * ``center``         — two-pass Gower centering (paper Algorithm 2): pass 1
                        row sums, a fixed-order finish, pass 2.
+* ``condensed_matvec`` — the centred-Gram product over a production's
+                       condensed distances, D read straight from the
+                       condensed vector, one launch a product (no Pallas
+                       counterpart: the reference gathers row strips with
+                       jnp ops).
 
 The statistics battery runs on the kernels above; beside it, the
 materialized Mantel baseline (paper Algorithm 5 over square operands):

@@ -61,6 +61,7 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 launches: dict[str, int] = {
     "symhollow": 0,
     "center_matvec": 0,
+    "condensed_matvec": 0,
     "inverse_orders": 0,
     "permute_reduce": 0,
     "permute_reduce_finish": 0,
@@ -91,6 +92,8 @@ _SIGNATURES = {
     "repro_symhollow": [_P, _I, _P, _P],
     "repro_center_matvec": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_center_matvec_clusters": [_I, _I, _IP],
+    "repro_condensed_matvec": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_condensed_matvec_clusters": [_I, _I, _IP],
     "repro_inverse_orders": [_P, _P, _P, _P, _I, _I, _I, _P],
     "repro_permute_reduce_grid": [_I, _I, _I, _IP],
     "repro_permute_reduce_partials": [_P, _P, _L, _P, _P, _P, _I, _I, _I,

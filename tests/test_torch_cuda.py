@@ -7,7 +7,8 @@ tests/test_torch_cuda.py``.
 The kernels are built from ``src/repro_torch/csrc`` on first use.
 
 Tolerances: ``symhollow`` is exact (it computes booleans);
-``center_matvec`` rtol 1e-5 / atol 1e-5·max(scale, 1) and
+``center_matvec`` and ``condensed_matvec`` rtol 1e-5 / atol
+1e-5·max(scale, 1) and
 ``permute_reduce`` rtol 1e-5 / atol 1e-5, the reference's own kernel
 tolerances (``tests/test_kernels.py``, ``tests/test_permute_reduce.py``):
 both sum in another order than their plain versions. ``pairwise_panel``
@@ -71,7 +72,9 @@ from repro_torch.core import (CenteredGramOperator,
                               centered_gram_matvec_distributed, mantel, pcoa,
                               random_distance_matrix)
 from repro_torch.core.mantel import MantelStatistic, mantel_null_distributed
-from repro_torch.core.distance_matrix import DistanceMatrix, triangle_coords
+from repro_torch.core.distance_matrix import (DistanceMatrix,
+                                              condensed_to_square,
+                                              triangle_coords)
 from repro_torch.dist import METRICS, pairwise_condensed, pairwise_distances
 from repro_torch.kernels import _build
 from repro_torch.kernels.center import (center_finish, center_pass1,
@@ -89,6 +92,13 @@ from repro_torch.kernels.center_matvec_ops import (block_product_op,
                                                    center_matvec_op)
 from repro_torch.kernels.center_matvec_ref import (center_matvec_block_ref,
                                                    center_matvec_ref)
+from repro_torch.kernels.condensed_matvec import (STRIP_ROWS,
+                                                  resident_clusters as
+                                                  condensed_clusters,
+                                                  sweep_split as
+                                                  condensed_split)
+from repro_torch.kernels.condensed_matvec_ops import condensed_matvec_op
+from repro_torch.kernels.condensed_matvec_ref import condensed_matvec_ref
 from repro_torch.kernels.inverse_orders import (MAX_N, cluster_size,
                                                 inverse_orders,
                                                 inverse_orders_kernel,
@@ -206,6 +216,98 @@ def test_center_matvec_is_bitwise_reproducible(cuda):
     a = center_matvec_op(d, x, row_means, gm)
     b = center_matvec_op(d, x, row_means, gm)
     assert torch.equal(a, b)
+
+
+def _condensed_operands(n, k, cuda, seed=0):
+    """Bray–Curtis-like condensed distances in [0, 1), their operator
+    means, and an (n, k) block, on the card."""
+    gen = torch.Generator().manual_seed(seed + n)
+    dc = torch.rand((n * (n - 1) // 2,), generator=gen)
+    sq = condensed_to_square(dc, n)
+    row_means = -0.5 * torch.mean(sq * sq, dim=1)
+    x = torch.randn((n, k), generator=gen)
+    return (dc.to(cuda), x.to(cuda), row_means.to(cuda),
+            torch.mean(row_means).to(cuda))
+
+
+@pytest.mark.parametrize("k", [1, 20, 128, 129])
+@pytest.mark.parametrize("n", [2, 3, 127, 128, 129, 300, 1000])
+def test_condensed_matvec_matches_plain(cuda, n, k):
+    """Ragged n (strips, stages and the diagonal's tiles) and k (the
+    widths, 32-column groups, and slabs of 128 above): one launch a slab,
+    against the strip loop on the CPU."""
+    dc, x, row_means, gm = _condensed_operands(n, k, cuda)
+    _build.reset_launches()
+    got = condensed_matvec_op(dc, x, row_means, gm, n)
+    assert _build.launches["condensed_matvec"] == -(-k // 128)
+    want = condensed_matvec_ref(dc.cpu(), x.cpu(), row_means.cpu(), gm.cpu(),
+                                n)
+    scale = want.abs().max().item()
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * max(scale, 1.0))
+
+
+@pytest.mark.parametrize("n", [0, 1])
+def test_condensed_matvec_without_pairs_is_zeros_and_no_launch(cuda, n):
+    dc = torch.zeros((0,), device=cuda)
+    x = torch.randn((n, 20), device=cuda)
+    _build.reset_launches()
+    got = condensed_matvec_op(dc, x, torch.zeros((n,), device=cuda),
+                              torch.tensor(0.0, device=cuda), n)
+    assert _build.launches["condensed_matvec"] == 0
+    assert got.shape == (n, 20) and not bool(got.any())
+
+
+@pytest.mark.parametrize("n,k", [(1000, 20), (4743, 20), (1001, 128)])
+def test_condensed_matvec_is_bitwise_reproducible(cuda, n, k):
+    dc, x, row_means, gm = _condensed_operands(n, k, cuda, seed=1)
+    a = condensed_matvec_op(dc, x, row_means, gm, n)
+    b = condensed_matvec_op(dc, x, row_means, gm, n)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [700, 4743])
+def test_condensed_matvec_column_is_independent_of_its_batch(cuda, n):
+    """A column's bits are the same wherever it sits in a product of one
+    width: a tile of 5 orders padded as ``fixed_products`` pads it (its
+    rows repeated) against the full tile, and a column moved to another
+    position among other columns."""
+    dc, x, row_means, gm = _condensed_operands(n, 128, cuda, seed=2)
+    full = condensed_matvec_op(dc, x, row_means, gm, n)
+    padded = x.clone()
+    padded[:, 20:] = x[:, torch.arange(20, 128, device=cuda) % 20]
+    got = condensed_matvec_op(dc, padded, row_means, gm, n)
+    assert torch.equal(got[:, :20], full[:, :20])
+    moved = torch.randn((n, 128), device=cuda)
+    moved[:, 77] = x[:, 3]
+    assert torch.equal(condensed_matvec_op(dc, moved, row_means, gm, n)[:, 77],
+                       full[:, 3])
+
+
+def test_condensed_operator_permanova_rows_do_not_depend_on_b(cuda):
+    """The operator-form PERMANOVA over a feature production: a tile of 5
+    orders (padded to 32 by ``fixed_products``) gives bitwise the first 5
+    statistics of the full tile."""
+    n = 700
+    op = CondensedCenteredGramOperator.from_production(
+        pairwise_condensed(_abundances(n, 40, 17), device=cuda))
+    stat = PermanovaOperatorStatistic(
+        op, torch.from_numpy(np.arange(n) % 4).to(cuda), n, 4)
+    inv = stat.hoist()
+    orders = permutation_orders(8, 32, n, cuda)
+    assert torch.equal(stat.per_batch(inv, orders[:5]),
+                       stat.per_batch(inv, orders)[:5])
+
+
+@pytest.mark.parametrize("n,k", [(4743, 1), (4743, 20), (4743, 21),
+                                 (4743, 128), (16384, 20), (300, 20)])
+def test_condensed_matvec_clusters_run_in_one_wave(cuda, n, k):
+    """The split chosen from the shape alone keeps every block resident
+    at once on this card (where the strips do not fill it alone)."""
+    split = condensed_split(n, k)
+    if split > 1:
+        blocks = -(-n // STRIP_ROWS) * -(-k // 32)
+        assert condensed_clusters(k, split) >= blocks
 
 
 def _bits(t):
@@ -363,6 +465,7 @@ def test_launch_counts_follow_the_main_path(cuda):
     pcoa(dm, dimensions=4, device=cuda)
     mantel(dm, dm, permutations=40, device=cuda)
     assert _build.launches == {"symhollow": 1, "center_matvec": 4,
+                               "condensed_matvec": 0,
                                "inverse_orders": 2, "permute_reduce": 2,
                                "permute_reduce_finish": 2,
                                "pairwise_panel": 0,
@@ -551,6 +654,7 @@ def test_feature_path_launches_and_matches_cpu(cuda):
         results["cpu"], results["cuda"]
     assert set(l_cpu.values()) == {0}
     assert l_gpu["pairwise_panel"] == 6 and l_gpu["center_matvec"] == 0
+    assert l_gpu["condensed_matvec"] == 4      # a launch a product of pcoa
     assert l_gpu["permute_reduce"] == 2
     for key in ("condensed", "row_means", "global_mean", "mean"):
         np.testing.assert_allclose(p_gpu[key].cpu().numpy(),
@@ -650,7 +754,10 @@ def test_battery_card_matches_cpu_with_its_launches(cuda):
         "permdisp": {"center_matvec": 4},
         "partial_mantel": {"inverse_orders": 2, "permute_reduce": 2,
                            "permute_reduce_finish": 2},
-        "permanova_operator": {"pairwise_panel": 2},
+        # the observed statistic's product, then one a tile of 8 orders
+        # (padded to 32 by fixed_products) x 4 groups: 128 columns, one
+        # launch
+        "permanova_operator": {"pairwise_panel": 2, "condensed_matvec": 8},
     }
     for name, run in tests.items():
         results = {}
@@ -780,8 +887,8 @@ def test_every_centering_impl_runs_the_center_pair(cuda, n, impl):
 def test_feature_session_builds_no_square(cuda, n):
     """A feature-backed session runs the battery on the card without an
     n×n buffer: no ``"square"`` key, PCoA and PERMANOVA through the
-    condensed operator (no ``center_matvec``), and its answers match the
-    same session on the CPU."""
+    condensed operator (``condensed_matvec``, no ``center_matvec``), and
+    its answers match the same session on the CPU."""
     k = 49
     x = _abundances(n, 40, 31)
     y = _abundances(n, 40, 32)
@@ -805,9 +912,11 @@ def test_feature_session_builds_no_square(cuda, n):
     (cpu, l_cpu), (gpu, l_gpu) = results["cpu"], results["cuda"]
     assert set(l_cpu.values()) == {0}
     panels = 2 * -(-n // 256)
+    # pcoa's 4 products; PERMANOVA's observed product and one a tile of
+    # 32 orders x 3 groups
     assert {key: v for key, v in l_gpu.items() if v} == {
-        "pairwise_panel": panels, "inverse_orders": 4,
-        "permute_reduce": 4, "permute_reduce_finish": 4}
+        "pairwise_panel": panels, "condensed_matvec": 4 + 3,
+        "inverse_orders": 4, "permute_reduce": 4, "permute_reduce_finish": 4}
     np.testing.assert_allclose(gpu["pcoa"].eigenvalues.cpu().numpy(),
                                cpu["pcoa"].eigenvalues.numpy(), rtol=1e-4)
     for name in ("mantel", "anosim", "permanova"):
