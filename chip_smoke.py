@@ -166,22 +166,10 @@ check fails:
    phase 8d), and one of each phase's host seconds
    (``phase_walls_s``).
 
-``python3 chip_smoke.py --condensed-matvec TREE`` runs phase 5d's timing
-for the checkout at TREE: its condensed operator's whole product (the
-strip loop, where TREE predates the kernel), and the kernel alone where
-it has one, so that parent and change are timed in one call.
-``python3 chip_smoke.py --center-matvec-op TREE`` times only
-``center_matvec_op`` of the checkout at TREE (phase 5's shapes), so that a
-parent commit's op can be timed in the same call; ``--redesign-times
-TREE`` likewise times that checkout's ``inverse_orders`` (B = 32, n =
-16384) and whole ``rmsnorm`` backward (phase 5b's two shapes) beside their
-one-call yardsticks, each from a CUDA graph. ``--square-bits TREE
-OUT`` saves the square calls' outputs of the ``center`` pair,
-``center_matvec`` and ``mantel_corr`` of the checkout at TREE at fixed
-seeds, and ``--same-bits A B`` compares two such files bitwise.
-``--train-times TREE`` runs phase 8's ``launch.train.run`` of the checkout
-at TREE and prints its step seconds, so that a parent's training step is
-timed in the same call. ``--sparse-panel`` runs phase 5c alone, and
+``python3 chip_smoke.py --square-bits TREE OUT`` saves the square calls'
+outputs of the ``center`` pair, ``center_matvec`` and ``mantel_corr`` of
+the checkout at TREE at fixed seeds, and ``--same-bits A B`` compares two
+such files bitwise. ``--sparse-panel`` runs phase 5c alone, and
 ``--sparse-crossover`` times a whole Bray–Curtis production by both routes
 at the features cell's shape over nonzero shares from 1% to 30%: the
 crossover that ``dist/driver.py``'s ``SPARSE_SHARE`` is set from.
@@ -323,10 +311,6 @@ FP32_FLOPS = 67e12           # CUDA cores, outside the tensor cores
 FP64_FLOPS = 34e12           # CUDA cores, outside the tensor cores
 FP32_INSTR = FP32_FLOPS / 2  # instructions/s: the sheet counts an FMA as 2
 TF32_FLOPS = 495e12          # tensor cores, TF32 (center_matvec's 3xTF32)
-# fp32 instructions a pair-feature term, as csrc/pairwise.cu writes them:
-# Euclidean a-b and an FMA; Bray-Curtis a-b, a+b and two accumulates (the
-# abs is an operand modifier).
-PAIRWISE_INSTR = {"euclidean": 2, "braycurtis": 4}
 # phase 5c: the features cell's table (HMP16SData V35(), 4743 samples x
 # 45383 OTUs) as integer counts at its nonzero share, and the shares
 # --sparse-crossover sweeps
@@ -349,17 +333,8 @@ RMSNORM_BWD_ULPS = 2                          # bf16 dx and dw
 # three runs on an H100 80GB HBM3 at 700 W): its losses to the digits
 # printed, which this run's must meet (the first exactly, the forward being
 # the same; the later ones within 1e-3, dw's summation order having
-# changed), and its median step seconds and tokens a second, printed beside
-# this run's
+# changed)
 PRIOR_LOSSES = (13.4809, 12.1710, 12.0890, 12.1059, 12.0499)
-PRIOR_STEP_S = (0.9441, 1.0990, 1.1477)
-PRIOR_TOKENS_S = (4338.7, 3727.2, 3568.9)
-# the parent tree's kernels (PERF.md, two readings from a CUDA graph on an
-# H100 80GB HBM3 at 700 W): inverse_orders at (32, 16384) and the whole
-# backward at BWD_TIMED_SHAPES, printed beside this run's
-PARENT_MS = {"inverse_orders": (0.0223, 0.0208),
-             "rmsnorm_bwd (1024, 3072)": (0.0183, 0.0182),
-             "rmsnorm_bwd (24576, 128)": (0.0167, 0.0167)}
 # phase 5b's timed backward shapes, bf16: llama3.2-3b's block norm at a
 # (2, 512) microbatch and qwen3's q-norm rows at the same microbatch
 BWD_TIMED_SHAPES = [(1024, 3072), (24576, 128)]
@@ -3747,6 +3722,12 @@ def phase_pcoa_split(main: dict, card: str) -> None:
     print(f"  solver first calls in a fresh process (ms): {first}")
 
 
+def operand_bytes(*tensors: torch.Tensor) -> int:
+    """Bytes of the tensors a call reads and writes, each counted once: the
+    memory side of a bound."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def bound_ms(bytes_: float, flops: float, peak: float,
              tf32_flops: float = 0.0) -> tuple:
     """(ms, "bytes" or "operations"): the larger of ``bytes_`` over the HBM
@@ -3802,12 +3783,11 @@ def print_kernel_times(kernels: list) -> None:
     mc = by_name["mantel_corr"]
     print(f"  mantel_corr: {mc['bound_ms'] / mc['ms']:.4f} of its bound")
     io = by_name["inverse_orders"]
-    parent = PARENT_MS["inverse_orders"]
     print(f"  inverse_orders (32, {N}), a cluster of {io['cluster']} a row: "
           f"{io['ms']:.4f} ms from a CUDA graph "
-          f"({io['bound_ms'] / io['ms']:.4f} of the bound), scatter_ {io['library_ms']:.4f} ms, argsort "
-          f"{io['argsort_ms']:.4f} ms; the parent's {parent[0]:.4f} / "
-          f"{parent[1]:.4f} ms; from Python {io['host_launch_ms']:.4f} ms")
+          f"({io['bound_ms'] / io['ms']:.4f} of the bound), scatter_ "
+          f"{io['library_ms']:.4f} ms, argsort {io['argsort_ms']:.4f} ms; "
+          f"from Python {io['host_launch_ms']:.4f} ms")
     for name in ("permute_reduce_finish", "mantel_corr_finish"):
         kern = by_name[name]
         print(f"  {name}: {kern['ms']:.4f} ms from a CUDA graph, one-call "
@@ -3818,25 +3798,61 @@ def print_kernel_times(kernels: list) -> None:
 
 def condensed_matvec_entry(launches: int) -> dict:
     """Phase 5d: the ``condensed_matvec`` entry of the ``kernels`` line at
-    the features cell's n (``condensed_matvec_times``): the kernel from a
-    CUDA graph beside its bound and its plain strip loop on the card, at
-    k = DIMS + 10 and WIDE_K (``k128_*``), and the whole product a call."""
-    t = condensed_matvec_times()
+    the features cell's n, on uniform condensed distances, at k = DIMS + 10
+    and WIDE_K (``k128_*``): the launch alone from a CUDA graph beside its
+    bound and its plain strip loop on the card; the whole product
+    (``CondensedCenteredGramOperator.matvec``, the corrections and the
+    launch) a call from Python and its launches; its error against the
+    plain version, and two products bitwise equal. The bound: each operand
+    read once at the HBM rate or the fp32 FMAs at the CUDA cores' rate, the
+    larger; ``two_read_ms``: every pair read twice, the kernel's floor."""
+    from repro_torch.core import CondensedCenteredGramOperator
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.center_matvec_ref import center_corrections
+    from repro_torch.kernels.condensed_matvec import (condensed_matvec,
+                                                      sweep_split)
+    from repro_torch.kernels.condensed_matvec_ref import condensed_matvec_ref
+
     n, k = CELL_N, DIMS + 10
     m = n * (n - 1) // 2
-    wide = f"k{WIDE_K}_"
+    dc, row_means, gm = condensed_operands(n)
+    op = CondensedCenteredGramOperator(dc, row_means, gm, n)
+    t = {}
+    for width in (k, WIDE_K):
+        x = torch.randn((n, width), generator=torch.Generator().manual_seed(
+            SEED + width)).cuda()
+        colsum, corr = center_corrections(x, row_means, gm)
+        _build.reset_launches()
+        got = op.matvec(x)
+        sync()
+        t[width] = {
+            "product_launches": _build.launches["condensed_matvec"],
+            "max_abs_err": compare(
+                f"condensed product n={n} k={width}", got,
+                condensed_matvec_ref(dc, x, row_means, gm, n)),
+            "bytes": operand_bytes(dc, x, row_means, colsum, corr, got),
+            "product_ms": cuda_ms(lambda: op.matvec(x), reps=20),
+            "ms": graph_ms(lambda: condensed_matvec(dc, x, row_means, colsum,
+                                                    corr, n)),
+            "plain_ms": cuda_ms(lambda: condensed_matvec_ref(
+                dc, x, row_means, gm, n), reps=5),
+            "split": sweep_split(n, width)}
+        check(torch.equal(got, op.matvec(x)),
+              f"condensed product k={width}: two products differ")
+    small, wide = t[k], t[WIDE_K]
+    wide_bound = bound_ms(wide["bytes"], 2 * n * n * WIDE_K, FP32_FLOPS)
     entry = kernel_entry(
         "condensed_matvec", "src/repro_torch/csrc/condensed_matvec.cu",
         "none: the reference gathers condensed row strips with jnp ops",
-        launches, t[f"k{k}_max_abs_err"], t[f"k{k}_kernel_ms"],
-        t[f"k{k}_plain_ms"],
-        4 * (m + 2 * n * k + n + 2 * k), 2 * n * n * k, FP32_FLOPS,
-        shape=[n, k], split=t[f"k{k}_split"],
-        two_read_ms=t[f"k{k}_two_read_ms"],
-        product_ms=t[f"k{k}_product_ms"], k128_ms=t[wide + "kernel_ms"],
-        k128_bound_ms=t[wide + "bound_ms"], k128_bound_by=t[wide + "bound_by"],
-        k128_plain_ms=t[wide + "plain_ms"],
-        k128_product_ms=t[wide + "product_ms"], k128_split=t[wide + "split"])
+        launches, small["max_abs_err"], small["ms"], small["plain_ms"],
+        small["bytes"], 2 * n * n * k, FP32_FLOPS, shape=[n, k],
+        split=small["split"], two_read_ms=8 * m / HBM_BYTES_PER_S * 1e3,
+        product_ms=small["product_ms"],
+        product_launches=small["product_launches"], k128_ms=wide["ms"],
+        k128_bound_ms=wide_bound[0], k128_bound_by=wide_bound[1],
+        k128_plain_ms=wide["plain_ms"], k128_product_ms=wide["product_ms"],
+        k128_product_launches=wide["product_launches"],
+        k128_split=wide["split"])
     print(f"  condensed_matvec n={n}: k={k} {entry['ms']:.4f} ms from a CUDA "
           f"graph (clusters of {entry['split']}), bound "
           f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}; two reads "
@@ -3882,10 +3898,9 @@ def phase_sparse_panel(card: str) -> dict:
     from repro_torch.dist import METRICS
     from repro_torch.dist.driver import pairwise_condensed
     from repro_torch.kernels import _build
-    from repro_torch.kernels.pairwise import (SPARSE_TERM_OPERATIONS,
-                                              pairwise_panel,
+    from repro_torch.kernels.pairwise import (pairwise_panel,
                                               pairwise_sparse_panel,
-                                              sparse_rows)
+                                              sparse_cost, sparse_rows)
     from repro_torch.kernels.pairwise_ops import row_nonzeros, row_support
     from repro_torch.kernels.pairwise_ref import pairwise_sparse_panel_ref
 
@@ -3938,8 +3953,8 @@ def phase_sparse_panel(card: str) -> dict:
         graph_ms(lambda: pairwise_sparse_panel(support, 0, PANEL), reps=20),
         cuda_ms(lambda: pairwise_sparse_panel_ref(support, 0, PANEL),
                 reps=1),
-        8 * nnz + 4 * (n + 1) + 4 * PANEL * n,
-        SPARSE_TERM_OPERATIONS * PANEL * nnz, FP32_INSTR,
+        operand_bytes(support.offsets, support.indices, support.values, got),
+        sparse_cost(PANEL, n, nnz, rows)[1], FP32_INSTR,
         shape=[PANEL, n, d], nnz=nnz, held_rows=rows,
         dense_kernel_ms=cuda_ms(lambda: pairwise_panel(x[:PANEL], x, kind),
                                 reps=3),
@@ -4006,22 +4021,28 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
     from repro_torch.kernels.center_ref import (center_finish_ref,
                                                 center_pass1_ref,
                                                 center_pass2_ref)
-    from repro_torch.kernels.center_matvec import center_matvec
+    from repro_torch.kernels.center_matvec import (center_matvec,
+                                                   center_matvec_cost)
     from repro_torch.kernels.center_matvec_ref import (center_corrections,
                                                        center_matvec_ref)
     from repro_torch.kernels.inverse_orders import (cluster_size,
                                                     inverse_orders,
+                                                    inverse_orders_cost,
                                                     inverse_orders_kernel,
                                                     inverse_orders_plain)
-    from repro_torch.kernels.pairwise import pairwise_panel
+    from repro_torch.kernels.pairwise import (TERM_INSTRUCTIONS,
+                                              pairwise_panel)
     from repro_torch.kernels.pairwise_ref import pairwise_panel_ref
-    from repro_torch.kernels.permute_reduce import (permute_reduce_finish,
+    from repro_torch.kernels.permute_reduce import (finish_cost,
+                                                    partials_cost,
+                                                    permute_reduce_finish,
                                                     permute_reduce_partials)
     from repro_torch.kernels.permute_reduce_ops import DEFAULT_CHUNK
     from repro_torch.kernels.permute_reduce_ref import (
         permute_reduce_finish_ref, permute_reduce_ref)
     from repro_torch.kernels.symhollow import symhollow
     from repro_torch.kernels.symhollow_ref import is_symmetric_and_hollow_ref
+    from repro_torch.obs.ledger import row_stationary_floats
     from repro_torch.stats.engine import permutation_orders
 
     print(f"== phase 5: kernel times at the paths' shapes ({card})")
@@ -4041,12 +4062,11 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
 
     # center_matvec at pcoa's k and at the square-operator PERMANOVA's tile
     # (k = 128, one launch). The bound counts D, X, the row means, the two
-    # correction vectors and the output once, E's formation (2 n^2) at the
-    # fp32 rate and the 3xTF32 products (3 x 2 n^2 k) at the TF32
-    # tensor-core rate. Its yardstick: torch.matmul on an E formed
-    # beforehand (E@X without the corrections, not the same function).
-    # ``op_ms`` times the public op, corrections and all, as
-    # ``--center-matvec-op`` times another checkout's.
+    # correction vectors and the output once, E's formation (the launch's
+    # operations at k = 0) at the fp32 rate and the 3xTF32 products (the
+    # rest) at the TF32 tensor-core rate. Its yardstick: torch.matmul on an
+    # E formed beforehand (E@X without the corrections, not the same
+    # function). ``op_ms`` times the public op, corrections and all.
     from repro_torch.kernels.center_matvec_ops import center_matvec_op
     row_means = -0.5 * torch.mean(d * d, dim=1)
     gm = torch.mean(row_means)
@@ -4056,15 +4076,18 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
         gen = torch.Generator().manual_seed(SEED + width)
         x = torch.randn((n, width), generator=gen).cuda()
         colsum, corr = center_corrections(x, row_means, gm)
-        cm_bytes = 4 * (n * n + 2 * n * width + n + 2 * width)
+        cm_bytes = operand_bytes(d, x, row_means, colsum, corr, center_matvec(
+            d, x, row_means, colsum, corr))
+        form_ops = center_matvec_cost(n, n, 0)[1]
         widths[width] = {
             "ms": cuda_ms(lambda: center_matvec(d, x, row_means, colsum,
                                                 corr), reps=20),
             "op_ms": cuda_ms(lambda: center_matvec_op(d, x, row_means, gm),
                              reps=20),
             "matmul_ms": cuda_ms(lambda: torch.matmul(e, x), reps=20),
-            "bound": bound_ms(cm_bytes, 2 * n * n, FP32_FLOPS,
-                              3 * 2 * n * n * width),
+            "bytes": cm_bytes,
+            "bound": bound_ms(cm_bytes, form_ops, FP32_FLOPS,
+                              center_matvec_cost(n, n, width)[1] - form_ops),
             "x": x}
     del e
     wide = widths[WIDE_K]
@@ -4072,8 +4095,8 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
           "src/repro/kernels/center_matvec.py:59", widths[k]["ms"],
           cuda_ms(lambda: center_matvec_ref(d, widths[k]["x"], row_means,
                                             gm), reps=5),
-          4 * (n * n + 2 * n * k + n + 2 * k), 2 * n * n, FP32_FLOPS,
-          tf32_flops=3 * 2 * n * n * k,
+          widths[k]["bytes"], form_ops, FP32_FLOPS,
+          tf32_flops=center_matvec_cost(n, n, k)[1] - form_ops,
           rate="3xTF32 products on the tensor cores (495 TFLOP/s), E's "
                "formation on the fp32 cores (67 TFLOP/s)",
           yardstick_matmul_preformed_e_ms=widths[k]["matmul_ms"],
@@ -4098,7 +4121,9 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
           "src/repro/kernels/permute_reduce.py:90",
           graph_ms(lambda: inverse_orders_kernel(orders)),
           cuda_ms(lambda: inverse_orders_plain(orders), reps=reps),
-          10 * perms * n + 4 * perms, 0, FP32_INSTR,
+          operand_bytes(orders, *inverse_orders_kernel(orders)),
+          inverse_orders_cost(perms, n, cluster_size(perms, n))[1],
+          FP32_INSTR,
           library_ms=yardsticks["scatter_ms"],
           argsort_ms=yardsticks["argsort_ms"],
           cluster=cluster_size(perms, n),
@@ -4130,12 +4155,13 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
           "src/repro/kernels/permute_reduce.py:90", pr_ms,
           cuda_ms(lambda: permute_reduce_ref(
               xc, ys[:1], ii, jj, orders, n, DEFAULT_CHUNK), reps=2),
-          4 * m * (1 + rows) + 4 * perms * n + 8 * blocks * rows * perms,
-          2 * m * perms * rows, FP64_FLOPS,
+          operand_bytes(xc, ys[:1], orders, partials),
+          partials_cost(n, rows, perms, blocks)[1], FP64_FLOPS,
           rows2_ms=rows2_ms, perms2_ms=perms2_ms, blocks=blocks)
     # Analytic, not timed: the floor of a design that passes over one
-    # operand once a permutation, 4 m (B S + 1) + 8 n B bytes over HBM.
-    floors = {s_rows: (4 * m * (perms * s_rows + 1) + 8 * n * perms)
+    # operand once a permutation (the ledger's row-stationary model at one
+    # launch a tile), over HBM.
+    floors = {s_rows: 4 * perms * row_stationary_floats(n, perms, s_rows)
               / HBM_BYTES_PER_S * 1e3 for s_rows in (1, 2)}
     print(f"  permute_reduce one-pass floor (analytic, not timed): S=1 "
           f"{floors[1]:.4f} ms, {floors[1] / pr_ms:.4f} of the kernel's "
@@ -4145,8 +4171,8 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
           "src/repro/kernels/permute_reduce.py:90",
           graph_ms(lambda: permute_reduce_finish(partials)),
           cuda_ms(lambda: permute_reduce_finish_ref(partials), reps=20),
-          8 * blocks * rows * perms + 4 * rows * perms,
-          blocks * rows * perms, FP64_FLOPS,
+          operand_bytes(partials, permute_reduce_finish(partials)),
+          finish_cost(blocks, rows * perms)[1], FP64_FLOPS,
           library_ms=graph_ms(lambda: torch.sum(partials, dim=0)),
           host_launch_ms=cuda_ms(lambda: permute_reduce_finish(partials),
                                  reps=20),
@@ -4158,16 +4184,16 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
     # table, bound by the fp32 instructions of its n·PANEL·FEATURES terms
     xi = table[:PANEL]
     terms = PANEL * n * FEATURES
-    panel_bytes = 4 * (PANEL * FEATURES + n * FEATURES + PANEL * n)
     bc, eu = METRICS[METRIC], METRICS["euclidean"]
+    panel_bytes = operand_bytes(xi, table, pairwise_panel(xi, table, bc.kind))
     entry("pairwise_panel", "src/repro_torch/csrc/pairwise.cu",
           "src/repro/kernels/pairwise.py:70",
           cuda_ms(lambda: pairwise_panel(xi, table, bc.kind), reps=10),
           cuda_ms(lambda: pairwise_panel_ref(xi, table, bc), reps=1),
-          panel_bytes, PAIRWISE_INSTR[METRIC] * terms, FP32_INSTR,
+          panel_bytes, TERM_INSTRUCTIONS[bc.kind] * terms, FP32_INSTR,
           euclidean_ms=cuda_ms(lambda: pairwise_panel(xi, table, eu.kind),
                                reps=10),
-          euclidean_bound_ms=PAIRWISE_INSTR["euclidean"] * terms
+          euclidean_bound_ms=TERM_INSTRUCTIONS[eu.kind] * terms
           / FP32_INSTR * 1e3,
           yardstick_cdist_euclidean_ms=cuda_ms(lambda: torch.cdist(
               xi, table, compute_mode="donot_use_mm_for_euclid_dist"),
@@ -4269,9 +4295,15 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
     e_blk = -0.5 * blk * blk
     xw = block_operands(r, c, WIDE_K, SEED + 31)[3]
     zero_w = torch.zeros(WIDE_K, device="cuda")
-    block_bound = {width: bound_ms(4 * (r * c + c * width + r * width + r
-                                        + 2 * width), 2 * r * c, FP32_FLOPS,
-                                   3 * 2 * r * c * width)
+    block_bytes = {width: operand_bytes(blk, xs, zero_r, zs, zs, center_matvec(
+        blk, xs, zero_r, zs, zs)) for width, xs, zs in ((k, xb, zero_k),
+                                                         (WIDE_K, xw, zero_w))}
+    block_ops = {width: (center_matvec_cost(r, c, 0)[1],
+                         center_matvec_cost(r, c, width)[1]
+                         - center_matvec_cost(r, c, 0)[1])
+                 for width in (k, WIDE_K)}
+    block_bound = {width: bound_ms(block_bytes[width], block_ops[width][0],
+                                   FP32_FLOPS, block_ops[width][1])
                    for width in (k, WIDE_K)}
     # ``ms`` and ``k128_ms`` replay the launches from a CUDA graph: at k =
     # 20 the kernel takes less time than a launch from Python
@@ -4281,8 +4313,8 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
           graph_ms(lambda: center_matvec(blk, xb, zero_r, zero_k, zero_k)),
           cuda_ms(lambda: center_matvec_block_ref(blk, xb, zero_r, zero_k,
                                                   zero_k), reps=5),
-          4 * (r * c + c * k + r * k + r + 2 * k), 2 * r * c, FP32_FLOPS,
-          tf32_flops=3 * 2 * r * c * k, shape=[r, c, k],
+          block_bytes[k], block_ops[k][0], FP32_FLOPS,
+          tf32_flops=block_ops[k][1], shape=[r, c, k],
           split=sweep_split(r, c, k),
           yardstick_matmul_preformed_e_ms=cuda_ms(
               lambda: torch.matmul(e_blk, xb), reps=20),
@@ -4536,59 +4568,6 @@ def inverse_orders_yardsticks(orders: torch.Tensor) -> dict:
             "argsort_ms": graph_ms(lambda: torch.argsort(orders, dim=1))}
 
 
-def train_times() -> dict:
-    """Phase 8's run (``launch.train.run``: TRAIN_ARCH at full width and
-    depth, TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens, seed 0) by
-    the ``repro_torch`` first on the path, its step seconds and losses, so
-    that a parent tree's training step is timed in the same call as this
-    tree's (``--train-times TREE``)."""
-    import repro_torch
-    from repro_torch.kernels import _build
-    from repro_torch.launch import train as train_launch
-
-    args = train_launch.build_argparser().parse_args(
-        ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
-         str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed", "0"])
-    _build.library()
-    res = train_launch.run(args)
-    return {"tree": str(Path(repro_torch.__file__).resolve().parents[2]),
-            "card": torch.cuda.get_device_name(0),
-            "seconds": res["seconds"], "losses": res["losses"],
-            "median_s": float(np.median(res["seconds"][1:]))}
-
-
-def redesign_times() -> dict:
-    """``inverse_orders`` at the main path's tile (B = 32, n = N) and the
-    whole ``rmsnorm`` backward at phase 5b's two shapes, by the
-    ``repro_torch`` first on the path, each from a CUDA graph beside its
-    one-call yardsticks, so that a parent tree's kernels are timed in the
-    same call as this tree's (``--redesign-times TREE``)."""
-    import repro_torch
-    from repro_torch.kernels.inverse_orders import inverse_orders_kernel
-    from repro_torch.kernels.rmsnorm import rmsnorm_backward
-    from repro_torch.stats.engine import permutation_orders
-
-    out = {"tree": str(Path(repro_torch.__file__).resolve().parents[2]),
-           "card": torch.cuda.get_device_name(0),
-           "torch": torch.__version__}
-    orders = permutation_orders(SEED + 3, 32, N, "cuda")
-    out["inverse_orders_ms"] = graph_ms(lambda: inverse_orders_kernel(orders))
-    out.update({f"inverse_orders_{k}": v
-                for k, v in inverse_orders_yardsticks(orders).items()})
-    for rows, d in BWD_TIMED_SHAPES:
-        sets, w = rotated_bwd_inputs((rows, d))
-        cycle = itertools.cycle(sets)
-
-        def whole():
-            x, dy, inv = next(cycle)
-            return rmsnorm_backward(x, w, inv, dy)
-        out[f"rmsnorm_backward_{rows}x{d}_ms"] = graph_ms(whole)
-        out[f"fused_rms_norm_backward_{rows}x{d}_ms"] = \
-            fused_rms_norm_backward_ms(sets, w, d)
-        del sets
-    return out
-
-
 def rmsnorm_bwd_entries(launches: dict, error: float, card: str) -> list:
     """The ``rmsnorm`` backward, one launch, timed at BWD_TIMED_SHAPES in
     bf16 beside its bound, its plain version, its one-call yardstick
@@ -4650,14 +4629,12 @@ def rmsnorm_bwd_entries(launches: dict, error: float, card: str) -> list:
             host_launch_ms=cuda_ms(whole, reps=200), partial_rows=blocks))
         del sets, graphs, cyc, lib
         e = timed[-1]
-        parent = PARENT_MS[f"rmsnorm_bwd {(rows, d)}"]
         print(f"  rmsnorm_bwd {(rows, d)} ({what}), from a CUDA graph: "
               f"{e['ms']:.4f} ms ({e['bound_ms'] / e['ms']:.4f} of the "
               f"bound), plain {e['plain_ms']:.4f} ms, "
               f"_fused_rms_norm_backward {e['library_ms']:.4f} ms, bound "
-              f"{e['bound_ms']:.4f} ms ({e['bound_by']}); the parent's "
-              f"{parent[0]:.4f} / {parent[1]:.4f} ms; launched from Python "
-              f"{e['host_launch_ms']:.4f} ms, F.rms_norm's autograd "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}); launched from "
+              f"Python {e['host_launch_ms']:.4f} ms, F.rms_norm's autograd "
               f"{e['autograd_python_ms']:.4f} ms; {blocks} partial rows")
     main = dict(timed[0])
     main["shapes"] = [{k: t.get(k) for k in ("path", "shape", "ms",
@@ -4834,10 +4811,8 @@ def phase_train(card: str) -> dict:
     check(launches["rmsnorm"] == want_fwd
           and launches["rmsnorm_bwd"] == want_bwd,
           "training: rmsnorm launches on the main path")
-    print(f"  the prior tree's phase 8 (PERF.md, three runs): losses "
-          f"{list(PRIOR_LOSSES)}; median step {list(PRIOR_STEP_S)} s, "
-          f"{list(PRIOR_TOKENS_S)} tokens/s; this run {steady:.4f} s, "
-          f"{tokens / steady:.1f} tokens/s")
+    print(f"  the prior tree's phase 8 losses (PERF.md): "
+          f"{list(PRIOR_LOSSES)}")
     check(abs(res["losses"][0] - PRIOR_LOSSES[0]) <= 5e-5
           and all(abs(a - b) <= 1e-3 for a, b in zip(res["losses"][1:],
                                                       PRIOR_LOSSES[1:])),
@@ -5051,120 +5026,6 @@ def phase_train_checks(card: str) -> None:
           "kill-and-resume: the resumed losses differ from the straight run")
 
 
-def center_matvec_op_times() -> dict:
-    """``center_matvec_op`` of the ``repro_torch`` first on the path, at
-    n = N (the main path's matrix), as phase 5 times it, and at n = 4096
-    and BLOCK (leading squares of it), each at k = DIMS + 10 and WIDE_K;
-    ``block_product_op`` on phase 5's off-diagonal (BLOCK, BLOCK) block at
-    both k: ms a call and the kernel launches a call makes, and the
-    kernel's own launch alone replayed from a CUDA graph (``kernel_ms``:
-    the device's time, where the op at n <= BLOCK follows the host). So a
-    parent tree's ops are timed in the same call."""
-    import repro_torch
-    from repro_torch.core import random_distance_matrix
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.center_matvec import center_matvec
-    from repro_torch.kernels.center_matvec_ops import (block_product_op,
-                                                       center_matvec_op)
-    from repro_torch.kernels.center_matvec_ref import center_corrections
-
-    full = random_distance_matrix(SEED, N, dim=POINT_DIM).data
-    out = {"tree": str(Path(repro_torch.__file__).resolve().parents[2]),
-           "card": torch.cuda.get_device_name(0)}
-
-    def timed(label, op, kernel):
-        _build.reset_launches()
-        op()
-        sync()
-        out[f"{label}_launches"] = _build.launches["center_matvec"]
-        out[f"{label}_op_ms"] = cuda_ms(op, reps=20)
-        out[f"{label}_kernel_ms"] = graph_ms(kernel)
-
-    for n in (N, BLOCK, 4096):
-        d = full if n == N else full[:n, :n].contiguous()
-        row_means = -0.5 * torch.mean(d * d, dim=1)
-        gm = torch.mean(row_means)
-        for width in (DIMS + 10, WIDE_K):
-            gen = torch.Generator().manual_seed(SEED + width)
-            x = torch.randn((n, width), generator=gen).cuda()
-            colsum, corr = center_corrections(x, row_means, gm)
-            timed(f"k{width}" if n == N else f"n{n}_k{width}",
-                  lambda: center_matvec_op(d, x, row_means, gm),
-                  lambda: center_matvec(d, x, row_means, colsum, corr))
-        del d
-    blk = full[:BLOCK, BLOCK:].contiguous()
-    del full
-    zero_r = torch.zeros(BLOCK, device="cuda")
-    for width in (DIMS + 10, WIDE_K):
-        gen = torch.Generator().manual_seed(SEED + width)
-        x = torch.randn((BLOCK, width), generator=gen).cuda()
-        zero_k = torch.zeros(width, device="cuda")
-        timed(f"block{BLOCK}_k{width}", lambda: block_product_op(blk, x),
-              lambda: center_matvec(blk, x, zero_r, zero_k, zero_k))
-    return out
-
-
-def condensed_matvec_times() -> dict:
-    """The condensed operator's whole product (``CondensedCenteredGramOperator
-    .matvec``: the corrections and the kernel, or the parent's strip loop)
-    of the ``repro_torch`` first on the path, at the features cell's n and
-    k = DIMS + 10 and WIDE_K, on uniform condensed distances: ms a call from
-    Python (``product_ms``). Where that tree has the ``condensed_matvec``
-    kernel, also its launch alone from a CUDA graph (``kernel_ms``), its
-    plain strip loop on the card (``plain_ms``), its launches a product,
-    its error against the plain version and two products bitwise equal.
-    ``bound_ms``: each input read once at the HBM rate or the fp32 FMAs at
-    the CUDA cores' rate, the larger; ``two_read_ms``: every pair read
-    twice, the kernel's own floor. So a parent tree's product is timed in
-    the same call."""
-    import importlib.util
-
-    import repro_torch
-    from repro_torch.core import CondensedCenteredGramOperator
-    from repro_torch.kernels import _build
-
-    n = CELL_N
-    m = n * (n - 1) // 2
-    dc, row_means, gm = condensed_operands(n)
-    op = CondensedCenteredGramOperator(dc, row_means, gm, n)
-    kernel = importlib.util.find_spec(
-        "repro_torch.kernels.condensed_matvec") is not None
-    out = {"tree": str(Path(repro_torch.__file__).resolve().parents[2]),
-           "card": torch.cuda.get_device_name(0), "n": n, "kernel": kernel}
-    for width in (DIMS + 10, WIDE_K):
-        x = torch.randn((n, width), generator=torch.Generator().manual_seed(
-            SEED + width)).cuda()
-        pre = f"k{width}_"
-        out[pre + "product_ms"] = cuda_ms(lambda: op.matvec(x), reps=20)
-        bound, by = bound_ms(4 * (m + 2 * n * width + n + 2 * width),
-                             2 * n * n * width, FP32_FLOPS)
-        out.update({pre + "bound_ms": bound, pre + "bound_by": by,
-                    pre + "two_read_ms": 8 * m / HBM_BYTES_PER_S * 1e3})
-        if not kernel:
-            continue
-        from repro_torch.kernels.center_matvec_ref import center_corrections
-        from repro_torch.kernels.condensed_matvec import (condensed_matvec,
-                                                          sweep_split)
-        from repro_torch.kernels.condensed_matvec_ref import \
-            condensed_matvec_ref
-        colsum, corr = center_corrections(x, row_means, gm)
-        _build.reset_launches()
-        got = op.matvec(x)
-        sync()
-        out[pre + "launches"] = _build.launches["condensed_matvec"]
-        out[pre + "max_abs_err"] = compare(
-            f"condensed product n={n} k={width}", got,
-            condensed_matvec_ref(dc, x, row_means, gm, n))
-        check(torch.equal(got, op.matvec(x)),
-              f"condensed product k={width}: two products differ")
-        out[pre + "split"] = sweep_split(n, width)
-        out[pre + "kernel_ms"] = graph_ms(lambda: condensed_matvec(
-            dc, x, row_means, colsum, corr, n))
-        out[pre + "plain_ms"] = cuda_ms(lambda: condensed_matvec_ref(
-            dc, x, row_means, gm, n), reps=5)
-    return out
-
-
 def square_call_outputs() -> dict:
     """The square calls of the ``center`` pair (fp32 and bf16),
     ``center_matvec`` (k = 20, 45, 128) and ``mantel_corr`` (27 orders) at
@@ -5243,26 +5104,6 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--center-matvec-op"] and len(sys.argv) == 3:
-        # another tree's center_matvec_op, timed as phase 5 times this one's
-        sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
-        print(json.dumps(center_matvec_op_times()))
-        return 0
-    if sys.argv[1:2] == ["--condensed-matvec"] and len(sys.argv) == 3:
-        # another (or this) tree's condensed operator product, timed
-        sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
-        print(json.dumps({"condensed_matvec": condensed_matvec_times()}))
-        return 0
-    if sys.argv[1:2] == ["--train-times"] and len(sys.argv) == 3:
-        # another (or this) tree's phase 8 run, timed
-        sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
-        print(json.dumps({"train_times": train_times()}))
-        return 0
-    if sys.argv[1:2] == ["--redesign-times"] and len(sys.argv) == 3:
-        # another (or this) tree's inverse_orders and rmsnorm backward
-        sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))
-        print(json.dumps({"redesign_times": redesign_times()}))
-        return 0
     if sys.argv[1:2] == ["--square-bits"] and len(sys.argv) == 4:
         # the square calls' outputs of another (or this) tree, saved
         sys.path.insert(0, str(Path(sys.argv[2]).resolve() / "src"))

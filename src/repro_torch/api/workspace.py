@@ -64,9 +64,10 @@ from repro_torch.core.operators import (CenteredGramOperator,
                                         CondensedCenteredGramOperator)
 from repro_torch.core.pcoa import DEFAULT_SEED, materialized_gram
 from repro_torch.core.pcoa import pcoa as _pcoa
-from repro_torch.core.pcoa import resolve_dimensions
+from repro_torch.core.pcoa import resolve_dimensions, sketch_width
 from repro_torch.core.validation import ensure_finite
 from repro_torch.dist import condensed_size, get_metric, pairwise_condensed
+from repro_torch.dist.driver import production_route
 from repro_torch.kernels.dispatch import clamp_block, resolve_device
 from repro_torch.obs.ledger import FEATURE_HOIST_PASSES, HOIST_PASSES
 from repro_torch.obs.report import ObsSession, RunReport, build_report
@@ -366,43 +367,55 @@ class Workspace:
     def resolved_tiles(self) -> dict:
         """The geometry this session runs, as opposed to the knob values
         ``config`` carries (the reference reports Pallas's executed
-        blocks here). On the card: ``permute_reduce`` takes at most 128
-        outputs (S rows x permutations) a launch, so a tile of B
-        permutations runs in slabs of ``permute_reduce_perms_per_launch``
-        on ``permute_reduce_resident_blocks`` blocks (as many as the card
-        holds at once, capped at n), for S = 1 (Mantel, ANOSIM) and S = 2
-        (partial Mantel); ``center_matvec`` launches one block per
-        ``center_matvec_strip_rows`` output rows and takes up to
+        blocks here), as the launch modules state it. On the card:
+        ``permute_reduce`` runs a tile of B permutations in slabs of
+        ``permute_reduce_perms_per_launch`` on
+        ``permute_reduce_resident_blocks`` blocks, for S = 1 (Mantel,
+        ANOSIM) and S = 2 (partial Mantel); ``center_matvec`` sweeps
+        strips of ``center_matvec_strip_rows`` output rows and takes up to
         ``center_matvec_max_columns`` columns a launch. On the CPU the
         plain ``permute_reduce`` walks the condensed stream in chunks of
         ``permute_reduce_plain_chunk``. A feature-backed session's
-        production runs panels of ``production_panel_rows`` rows, which
-        are also the condensed operator's strips."""
-        from repro_torch.kernels.permute_reduce import MAX_OUTPUTS, MAX_ROWS
+        production runs panels of ``production_panel_rows`` rows by the
+        route ``production_route`` names (``dist.driver.production_route``
+        on the session's table); on the CPU those panels are also the
+        condensed operator's strips; on the card its product sweeps
+        strips of ``condensed_matvec_strip_rows`` rows with clusters of
+        ``condensed_matvec_split`` blocks at pcoa's sketch width."""
         b = self.config.resolve_batch_size(None, WORKSPACE_BATCH)
+        features = self._features is not None
         tiles = {"device": self.device.type, "batch_size": b,
                  "auto": self.tuned is not None,
                  "production_panel_rows": (
                      clamp_block(self.n, self.config.block)
-                     if self._features is not None else None)}
+                     if features else None)}
+        if features:
+            route = production_route(self._features, self._metric)
+            tiles["production_route"] = {
+                "route": route.route, "nonzero_share": route.share,
+                "nnz": route.nnz, "max_row": route.max_row}
         if self.device.type == "cuda":
-            from repro_torch.kernels import _build
-            from repro_torch.kernels.center_matvec import KMAX, STRIP_ROWS
-            per_launch = {s: min(b, MAX_OUTPUTS // s)
-                          for s in range(1, MAX_ROWS + 1)}
+            from repro_torch.kernels import (center_matvec, condensed_matvec,
+                                             permute_reduce)
+            per_launch = {s: permute_reduce.perms_per_launch(s, b)
+                          for s in (1, 2)}
             tiles.update({
                 "permute_reduce_perms_per_launch": {
                     f"S={s}": p for s, p in per_launch.items()},
                 "permute_reduce_launches_per_tile": {
                     f"S={s}": -(-b // p) for s, p in per_launch.items()},
                 "permute_reduce_resident_blocks": {
-                    f"S={s}": (_build.resident_grid(
-                        "repro_permute_reduce_grid", self.n, s, p)
-                        if self.n >= 2 else 0)
-                    for s, p in per_launch.items()},
-                "center_matvec_strip_rows": STRIP_ROWS,
-                "center_matvec_max_columns": KMAX,
-            })
+                    f"S={s}": (permute_reduce.resident_blocks(self.n, s, p)
+                               if self.n >= 2 else 0)
+                    for s, p in per_launch.items()}})
+            square = center_matvec.geometry(self.n, self.n, 1)
+            tiles.update(center_matvec_strip_rows=square["strip_rows"],
+                         center_matvec_max_columns=square["max_columns"])
+            if features:        # at pcoa's sketch of its default 10 dims
+                product = condensed_matvec.geometry(self.n,
+                                                    sketch_width(10, self.n))
+                tiles.update(condensed_matvec_strip_rows=product["strip_rows"],
+                             condensed_matvec_split=product["split"])
         else:
             from repro_torch.kernels.dispatch import snap_chunk
             from repro_torch.kernels.permute_reduce_ops import DEFAULT_CHUNK

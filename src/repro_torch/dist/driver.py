@@ -35,9 +35,11 @@ table's compressed copy (``kernels.pairwise_ops.row_support``: row
 offsets, feature indices and values, ≈ 22 MB at the HMP V3-V5 table's
 4743 × 45383 and 1.3% nonzero), on the table's device, and each panel is
 summed over it (``pairwise_sparse_panel`` on the card, its plain version
-on the CPU). The rule reads only the input: the metric, the share (one
-counting pass, a synchronisation) and whether the fullest row fits the
-kernel's shared memory (``kernels.pairwise.sparse_rows``). The copy lives
+on the CPU). The rule, :func:`production_route`, reads only the input:
+the metric, the share (one counting pass, a synchronisation) and whether
+the fullest row fits the kernel's shared memory
+(``kernels.pairwise.sparse_rows``); the probe and the session's report
+ask it too. The copy lives
 for this production alone: made before the panel loop, dropped before the
 call returns, never cached, since each production is asked for afresh.
 Every other metric, and a table at or above the share, takes the dense
@@ -61,6 +63,8 @@ moments.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -114,21 +118,34 @@ def _panel_stats(xi: torch.Tensor, x: torch.Tensor, metric):
     return strip, torch.sum(strip, dim=1), torch.sum(strip * strip, dim=1)
 
 
-def _sparse_support(x: torch.Tensor, metric):
-    """(the compressed copy of ``x`` if the production takes the
-    sparse-support route, else None; the nonzero share, None for a metric
-    the route never takes)."""
+class ProductionRoute(NamedTuple):
+    """``"sparse"`` or ``"dense"``; the table's nonzero ``share``, ``nnz``,
+    fullest row and each row's nonzeros (``counts``, for the compressed
+    copy), None or 0 for a metric the sparse route never takes."""
+
+    route: str
+    share: Optional[float]
+    nnz: int
+    max_row: int
+    counts: Optional[torch.Tensor]
+
+
+def production_route(x: torch.Tensor, metric) -> ProductionRoute:
+    """The route of a condensed production of the contiguous fp32 table
+    ``x`` under ``metric``: sparse for
+    Bray–Curtis below ``SPARSE_SHARE`` nonzero when the fullest row fits
+    the sparse kernel, else dense. One counting pass over the table and
+    one synchronisation, for Bray–Curtis only."""
     n, d = x.shape
     if (metric.name != "braycurtis" or not 0 < n * d < 2 ** 31
             or d >= 2 ** 24):
-        return None, None
+        return ProductionRoute("dense", None, 0, 0, None)
     counts = row_nonzeros(x)
     nnz, max_row = torch.stack([counts.sum(), counts.max()]).tolist()
     share = nnz / (n * d)
-    if share >= SPARSE_SHARE or not sparse_rows(d, max_row):
-        return None, share
-    with current_obs().span("dist.row_support", n=n, d=d, nnz=nnz):
-        return row_support(x, counts, max_row), share
+    sparse = share < SPARSE_SHARE and sparse_rows(d, max_row) > 0
+    return ProductionRoute("sparse" if sparse else "dense", share, nnz,
+                           max_row, counts)
 
 
 def pairwise_condensed(x, metric="braycurtis", *, block: int = DEFAULT_BLOCK,
@@ -158,9 +175,12 @@ def pairwise_condensed(x, metric="braycurtis", *, block: int = DEFAULT_BLOCK,
     with obs.span("dist.pairwise_condensed", phase="production", n=n, d=d,
                   block=b, metric=metric.name,
                   panels=-(-n // b)) as span:
-        support, share = _sparse_support(x, metric)
-        route = "dense" if support is None else "sparse"
-        span.add(route=route, nonzero_share=share)
+        route, support = production_route(x, metric), None
+        if route.route == "sparse":
+            with current_obs().span("dist.row_support", n=n, d=d,
+                                    nnz=route.nnz):
+                support = row_support(x, route.counts, route.max_row)
+        span.add(route=route.route, nonzero_share=route.share)
         panel_metric = metric if support is None else \
             SparseBrayCurtis(support)
         for i0 in range(0, n, b):
@@ -173,9 +193,10 @@ def pairwise_condensed(x, metric="braycurtis", *, block: int = DEFAULT_BLOCK,
                          > torch.arange(i0, i1, device=dev)[:, None])
                 condensed[row_start(n, i0):row_start(n, i1)] = strip[upper]
     sparse = {} if support is None else {
-        "nnz": support.nnz, "rows": sparse_rows(d, support.max_row)}
+        "nnz": route.nnz, "rows": sparse_rows(d, route.max_row)}
     del support, panel_metric
-    obs.charge_production(n, d, b, metric=metric.name, route=route, **sparse)
+    obs.charge_production(n, d, b, metric=metric.name, route=route.route,
+                          **sparse)
 
     row_means = -0.5 * rowsum_d2 / n
     sum_c = 0.5 * torch.sum(rowsum_d.double())

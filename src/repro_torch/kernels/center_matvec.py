@@ -53,12 +53,18 @@ def _padded_width(k: int) -> int:
     return 8 * next(t for t in _TILES if 8 * t >= k)
 
 
+def ring_stages(k: int) -> int:
+    """Stages of the producer's ring at k columns (``ring_stages`` of
+    ``csrc/center_matvec.cu``): 6 up to 64 padded columns, 4 above."""
+    return 4 if _padded_width(k) > 64 else 6
+
+
 def _room_after_sweep(k: int) -> int:
     """Bytes of shared memory past the mbarriers at k columns, which a
     cluster's sum may reuse once the sweep is over (``Layout`` of
     ``csrc/center_matvec.cu``: the D and X rings, two split X tiles)."""
     kp = _padded_width(k)
-    stages = 4 if kp > 64 else 6
+    stages = ring_stages(k)
     return (stages * STRIP_ROWS * (STAGE_COLS + 8) * 4
             + stages * STAGE_COLS * k * 4 + 2 * (STAGE_COLS // 2) * (kp + 2)
             * 16)
@@ -79,6 +85,17 @@ def sweep_split(rows: int, cols: int, k: int) -> int:
                if s == 1 or (strips <= RESIDENT_CLUSTERS[s] and s <= stages
                              and (s - 1) * STRIP_ROWS * _padded_width(k) * 4
                              <= room))
+
+
+def geometry(rows: int, cols: int, k: int) -> dict:
+    """(rows, cols) D against (cols, k) X: ``launches`` of ``width`` columns,
+    each strip of ``strip_rows`` output rows swept by a cluster of ``split``
+    blocks, a ring of ``stages`` stages of ``stage_cols`` D columns."""
+    width = min(max(k, 1), KMAX)
+    return {"strip_rows": STRIP_ROWS, "max_columns": KMAX, "width": width,
+            "launches": -(-max(k, 1) // KMAX), "stage_cols": STAGE_COLS,
+            "stages": ring_stages(width),
+            "split": sweep_split(rows, cols, width)}
 
 
 def center_matvec_cost(rows: int, cols: int, k: int) -> tuple[float, float]:

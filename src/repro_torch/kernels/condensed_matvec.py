@@ -64,6 +64,13 @@ def sweep_split(n: int, k: int) -> int:
                              and s <= stages))
 
 
+def geometry(n: int, k: int) -> dict:
+    """One launch at (n, k <= KMAX): strips of ``strip_rows`` output rows,
+    each swept by a cluster of ``split`` blocks of ``width`` columns."""
+    return {"strip_rows": STRIP_ROWS, "width": width(k),
+            "split": sweep_split(n, k)}
+
+
 def condensed_matvec_cost(n: int, k: int) -> tuple[float, float]:
     """(bytes, operations) of one launch: every pair loaded twice, once for
     each of its rows; X loaded once by each of the ceil(n / STRIP_ROWS)

@@ -29,6 +29,10 @@ TILE = 64
 #: (Euclidean, cityblock, Canberra, Bray–Curtis, Jaccard), as ``Metric::add``
 #: of ``csrc/pairwise.cu`` spells them; abs, compares and selects not counted
 TERM_OPERATIONS = (3, 2, 4, 4, 2)
+#: fp32 instructions a term of the Euclidean and Bray–Curtis kernels, by
+#: kind (an FMA is one instruction and two operations): what bounds a
+#: panel at the card's instruction rate
+TERM_INSTRUCTIONS = {0: 2, 3: 4}
 
 
 def pairwise_cost(bm: int, n: int, d: int, kind: int) -> tuple[float, float]:

@@ -19,13 +19,35 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.inverse_orders import inverse_orders
+from repro_torch.kernels.inverse_orders import (cluster_size,
+                                                inverse_orders,
+                                                inverse_orders_cost)
 
 #: invariant rows one launch reduces against the same staged x rows
 #: (Mantel streams 1, partial Mantel 2).
 MAX_ROWS = 2
 #: outputs (rows × permutations) a launch: four fp64 slots a lane.
 MAX_OUTPUTS = 128
+#: warps of a partials block (``kWarps``), each holding an fp64 partial of
+#: every output of the launch until the block sums them
+WARPS = 16
+
+
+def perms_per_launch(rows: int, perms: int) -> int:
+    """P, the permutations a launch takes of a tile of ``perms`` with
+    ``rows`` invariant rows: MAX_OUTPUTS / min(rows, MAX_ROWS), at most B."""
+    return max(min(perms, MAX_OUTPUTS // min(rows, MAX_ROWS)), 1)
+
+
+def shared_bytes(n: int, rows: int, perms: int) -> int:
+    """Dynamic shared memory of a partials block (``shared_bytes``): a row
+    of x, or the warps' fp64 partials of the launch's outputs."""
+    return max(4 * n, WARPS * 8 * rows * perms)
+
+
+def resident_blocks(n: int, rows: int, perms: int) -> int:
+    """Blocks of a partials launch: what the card holds at once, <= n."""
+    return _build.resident_grid("repro_permute_reduce_grid", n, rows, perms)
 
 
 def partials_cost(n: int, rows: int, perms: int, grid: int
@@ -50,6 +72,22 @@ def finish_cost(num_chunks: int, outputs: int) -> tuple[float, float]:
         float(num_chunks * outputs)
 
 
+def tile_cost(n: int, rows: int, perms: int, grid: int
+              ) -> tuple[float, float]:
+    """(bytes, operations) the launches of one :func:`permute_reduce_kernel`
+    call declare: the tile's ``inverse_orders``, and for each slab a
+    partials launch on ``grid`` blocks and its finish."""
+    nbytes, ops = inverse_orders_cost(perms, n, cluster_size(perms, n))
+    step = perms_per_launch(rows, perms)
+    for s0 in range(0, rows, MAX_ROWS):
+        for b0 in range(0, perms, step):
+            s, p = min(MAX_ROWS, rows - s0), min(step, perms - b0)
+            for cost in (partials_cost(n, s, p, grid),
+                         finish_cost(grid, s * p)):
+                nbytes, ops = nbytes + cost[0], ops + cost[1]
+    return nbytes, ops
+
+
 def permute_reduce_partials(xc: torch.Tensor, ys: torch.Tensor,
                             inv: torch.Tensor,
                             orders16: torch.Tensor) -> torch.Tensor:
@@ -68,7 +106,7 @@ def permute_reduce_partials(xc: torch.Tensor, ys: torch.Tensor,
     if rows * perms > MAX_OUTPUTS:
         raise ValueError(f"one launch takes {MAX_OUTPUTS} rows x "
                          f"permutations, got {rows} x {perms}")
-    grid = _build.resident_grid("repro_permute_reduce_grid", n, rows, perms)
+    grid = resident_blocks(n, rows, perms)
     partials = torch.empty((grid, rows, perms), dtype=torch.float64,
                            device=xc.device)
     err = _build.library().repro_permute_reduce_partials(
@@ -108,7 +146,7 @@ def permute_reduce_kernel(xc: torch.Tensor, ys: torch.Tensor,
     above ``MAX_OUTPUTS``, runs in slabs, each one launch pair."""
     inv, orders16 = inverse_orders(orders)
     rows, perms = ys.shape[0], orders.shape[0]
-    step = MAX_OUTPUTS // MAX_ROWS if rows > 1 else MAX_OUTPUTS
+    step = perms_per_launch(rows, perms)
     return torch.cat([
         torch.cat([permute_reduce_finish(permute_reduce_partials(
             xc, ys[s0:s0 + MAX_ROWS], inv[b0:b0 + step],

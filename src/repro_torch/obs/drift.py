@@ -14,64 +14,52 @@ run. Each band is tight: the closed form of what the program moves, one
 value, widened only by the backend's slack. Bytes are counted as
 ``obs.probe`` counts them: every aten op its operands read in full and
 its outputs written, gathers twice their output; a kernel launch the
-loads and stores its wrapper declares. Ratios quoted below are
-measured / expected, on this container's CPU (torch 2.13).
+loads and stores its wrapper declares.
 
-* ``kernels.permute_reduce``, one tile of B permutations with S rows.
-  CPU, the plain chunked version (regime ``plain-chunked``): per chunk
-  of c positions, the two triangle-map widenings (24c), the two order
-  gathers (16Bc), min/max and the six int32 ops of the triangle index
-  (92Bc), its widening and the xc gather (20Bc), the fp64 copies of the
-  gathered tile and of ys (12Bc + 12Sc), and the product (8Sc + 8Bc):
-  c(24 + 20S + 148B) bytes a chunk over the padded length, plus the
-  padding copies of ys, ii and jj and about 91 bytes an order element
-  for the plain ``inverse_orders``. Measured 1.000 (n = 2048, B = 32).
-  Card, the row-stationary kernels (``row-stationary``): each of the L
-  partials launches of P permutations loads the condensed x twice (the
-  run and the column of each row, 8m bytes), m floats of each ys row
-  and m 16-bit order values a permutation, and one inv entry a (row,
-  permutation); ``inverse_orders`` loads each order row once a block of
-  its cluster (``cluster_size``) and stores 6n bytes a row. The fp64
-  partials, S·P a block, depend on the grid the card holds at once (at
-  most n blocks): the band runs from none to n blocks' worth. The
-  measured side is, by construction, the same count: the launches
-  declare it (``kernels/permute_reduce.py::partials_cost``). What the
-  verdict checks is which launches ran, and that nothing else in the call
-  moves bytes at the tile's scale. Against the ledger's row-stationary model
-  (4m(S·B + L) + 8nB, which counts x and the order rows once) the ratio
-  is about 1.5 at S = 1, B = 32: the column loads of x and the order
-  walks come mostly from L2.
-  Peak: arguments + outputs up to the known temporaries (CPU: one
-  chunk's intermediates, 64Bc + (16 + 8S)c, the padded copies and the
-  inverse's 40Bn; card: inv and the 16-bit orders, 6Bn, the fp64
-  partials and the allocator's rounding).
-* ``dist.panel_stats``, one strip of b rows of an (n, d) table. CPU, the
-  plain panel (``plain``): the metric's broadcast terms over (8, n, 128)
-  sub-panel chunks, ``_PLAIN_TERM_BYTES`` bytes a (row, column, feature)
-  term (Bray–Curtis: a−b, its abs and sum, a+b, its abs and sum, 32),
-  plus the reads of the x chunk by the ops that broadcast it (4 bytes
-  each per 8 rows): the lower edge. The per-strip-element work above it
-  (each chunk's sums and their merges, the finish, the concatenation and
-  the running sums: 33–238 bytes a strip element measured over the five
-  metrics and 1–3 feature chunks) is bounded by 64 + 100 bytes a strip
-  element and feature chunk: the upper edge, an envelope. Measured 1.01–
-  1.05 of the lower edge at (1000, 130, 256), up to 1.95 at (16, 4, 16)
-  where the strip's work outweighs the terms. Card, one ``pairwise_panel`` launch
-  (``kernel``): the tile blocks read xi ceil(n/64) times and x
-  ceil(b/64) times and store the strip once; the running sums read and
-  write 24 bytes a strip element. The kernel's part is, by construction,
-  its declared count.
-  Peak: arguments + outputs up to five (8, n, 128) fp32 intermediates
-  and two strips on the CPU; up to one strip and the allocator's
-  rounding on the card.
-* ``kernels.center_matvec``, one matvec of the square operator. CPU, the
-  plain version (``plain``): −½D∘D in two passes, its fp64 copy and the
-  fp64 product, 40n² bytes, and about 72nk for the corrections and the
-  casts; measured 1.000–1.003. Card, one ``center_matvec`` launch
-  (``kernel``): one D pass, X read by each of the ceil(n/128) blocks, the
-  corrections' few passes over X: tight, the kernel's part by
-  construction its declared count. Peak: up to the fp32 E and its fp64
-  copy on the CPU, the allocator's rounding on the card.
+**On the card** a program's expected bytes are its launches' declared
+costs at the record's geometry (the launch modules' ``*_cost``, the one
+statement of each kernel's traffic: ``permute_reduce.tile_cost``,
+``pairwise_cost`` or ``sparse_cost``, ``center_matvec_cost``) plus the
+closed form of the aten ops around them (a panel's running sums; the
+matvec's corrections, ``center_corrections``), so a verdict checks which
+launches ran and that nothing else moves bytes at the program's scale. A
+tile's fp64 partials depend on the grid the card holds at once: its band
+runs from no block to n blocks, plus the O(B) rest. Peaks: the known
+temporaries and the caching allocator's rounding.
+
+**On the CPU** the plain versions run, which no launch declares; ratios
+quoted are measured / expected on a CPU (torch 2.13).
+
+* ``kernels.permute_reduce``, the plain chunked version (regime
+  ``plain-chunked``): per chunk of c positions, the two triangle-map
+  widenings (24c), the two order gathers (16Bc), min/max and the six
+  int32 ops of the triangle index (92Bc), its widening and the xc gather
+  (20Bc), the fp64 copies of the gathered tile and of ys (12Bc + 12Sc),
+  and the product (8Sc + 8Bc): c(24 + 20S + 148B) bytes a chunk over the
+  padded length, plus the padding copies of ys, ii and jj and about 91
+  bytes an order element for the plain ``inverse_orders``. Measured 1.000
+  (n = 2048, B = 32). Peak: one chunk's intermediates, 64Bc + (16 + 8S)c,
+  the padded copies and the inverse's 40Bn.
+* ``dist.panel_stats``, the plain dense panel (``plain``): the metric's
+  broadcast terms over (8, n, 128) sub-panel chunks,
+  ``_PLAIN_TERM_BYTES`` bytes a (row, column, feature) term (Bray–Curtis:
+  a−b, its abs and sum, a+b, its abs and sum, 32), plus the reads of the
+  x chunk by the ops that broadcast it (4 bytes each per 8 rows): the
+  lower edge. The per-strip-element work above it (33–238 bytes a strip
+  element measured over the five metrics and 1–3 feature chunks) is
+  bounded by 64 + 100 bytes a strip element and feature chunk: the upper
+  edge. Measured 1.01–1.05 of the lower edge at (1000, 130, 256), up to
+  1.95 at (16, 4, 16). Peak: five (8, n, 128) fp32 intermediates and two
+  strips. The plain sparse panel (``plain-sparse``), 8 rows at a time:
+  72 bytes a (panel row, nonzero) term, 24 a nonzero a chunk, 16 a panel
+  row and feature, 92 a strip element, the copy's widening (36 a
+  nonzero, 52 a row), and 24 for each of the panel rows' own e nonzeros:
+  the band runs from e = 0 to min(nnz, b·max_row). Peak: four (8, nnz)
+  terms, the widened indices, a dense chunk of rows and a strip.
+* ``kernels.center_matvec``, the plain version (``plain``): −½D∘D in two
+  passes, its fp64 copy and the fp64 product, 40n² bytes, and about 72nk
+  for the corrections and the casts; measured 1.000–1.003. Peak: up to
+  the fp32 E and its fp64 copy.
 * ``tune.stream_pass``: exactly 8 bytes an element on both devices (one
   kernel reads and writes one fp32 an element). Measured 1.0 exactly.
 
@@ -79,16 +67,11 @@ Slack is kept per backend, as the reference keeps it. ``"cpu"`` is set
 from the CPU runs above: the tight forms land within 1.000–1.004 of
 their value from n = 40 up and 1.038 at n = 12 (the center matvec's
 O(n) terms), so (0.95, 1.05). ``"cuda"`` started at the reference's
-accelerator slack (0.5, 2.0) and was narrowed from the card's ratios at
-n = 16384 (``chip_smoke.py`` phase 3d on an H100, PERF.md): the tight
-byte counts landed 1.0000000 (the panel), 1.0000091 (the center matvec)
-and 1.00024 (permute_reduce, whose form then left out the inverse's
-cluster re-reads and the partials) of their values, every peak inside
-its envelope, so (0.99, 1.01). At n = 512 those two left-out terms made
-1.3% and failed the card test: both are in the form now, against which
-the n = 16384 reading is 1.0000051 (the partials of a 264-block grid). With ``backend=None`` the sentinel judges each record by the
-device it ran on; a sentinel told one backend refuses a record of
-another.
+accelerator slack (0.5, 2.0) and was narrowed to (0.99, 1.01) from the
+card's readings at n = 16384 (``chip_smoke.py`` phase 3d on an H100,
+PERF.md), every peak inside its envelope. With ``backend=None`` the
+sentinel judges each record by the device it ran on; a sentinel told one
+backend refuses a record of another.
 """
 
 from __future__ import annotations
@@ -96,12 +79,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional
 
-from repro_torch.kernels.center_matvec import STRIP_ROWS
-from repro_torch.kernels.inverse_orders import cluster_size
-from repro_torch.kernels.pairwise import TILE
+from repro_torch.dist.metrics import get_metric
+from repro_torch.kernels.center_matvec import center_matvec_cost
+from repro_torch.kernels.pairwise import pairwise_cost, sparse_cost
+from repro_torch.kernels.permute_reduce import tile_cost
 from repro_torch.obs.ledger import (perm_traffic_floats, production_floats,
                                     row_stationary_floats,
-                                    row_stationary_launches)
+                                    row_stationary_launches,
+                                    sparse_production_floats)
 
 __all__ = ["DriftVerdict", "DriftSentinel", "reconcile"]
 
@@ -125,6 +110,9 @@ _ROW_CHUNK, _FEATURE_CHUNK = 8, 128
 #: what the card's caching allocator may add to a call's peak: rounding
 #: of each block and an unsplit cached block
 _ALLOCATOR_BYTES = 8 * 2**20
+#: bytes a strip element of the panel's running sums move: Σd (4), d·d
+#: (12) and Σd² (4)
+_RUNNING_SUMS = 20.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,18 +191,10 @@ class DriftSentinel:
         n, B, s = int(p["n"]), int(p["batch"]), int(p.get("s", 1))
         m = n * (n - 1) // 2
         if rec.backend == "cuda":
-            per_launch, launches = row_stationary_launches(B, s)
+            _, launches = row_stationary_launches(B, s)
             floor = 4.0 * B * row_stationary_floats(n, B, s)
-            # partials: x twice, ys once and the 16-bit orders' walk once a
-            # permutation, an inv entry a (row, permutation); the inverse:
-            # each order row once a block of its cluster, 6n bytes stored;
-            # the fp64 partials (a block's S·P, at most n blocks a launch)
-            # stored and read by the finish, and the O(B) rest (the finish's
-            # sums, their concatenation, the permutation check): the band's
-            # width
-            eff = (4.0 * m * (2 * launches + s * B) + 2.0 * m * B
-                   + 4.0 * n * B * (cluster_size(B, n) + 2.5))
-            lo, hi = eff, eff + 16.0 * s * B * n + 32.0 * (s + 1) * B
+            lo = tile_cost(n, s, B, 0)[0]
+            hi = tile_cost(n, s, B, n)[0] + 32.0 * (s + 1) * B
             temp = 6.0 * n * B + 8.0 * s * B * min(n, 2048) * launches \
                 + _ALLOCATOR_BYTES
             regime, note = ("row-stationary",
@@ -241,14 +221,17 @@ class DriftSentinel:
     def check_panel(self, rec) -> List[DriftVerdict]:
         p = rec.params
         n, d, b = int(p["n"]), int(p["d"]), int(p["block"])
-        floor = 4.0 * production_floats(n, d, b) / max(-(-n // b), 1)
+        panels = max(-(-n // b), 1)
+        if p.get("route") == "sparse":
+            return self._check_sparse_panel(rec, n, d, b, panels)
+        floor = 4.0 * production_floats(n, d, b) / panels
+        metric = p.get("metric", "braycurtis")
         if rec.backend == "cuda":
-            eff = (4.0 * d * (-(-n // TILE) * b + -(-b // TILE) * n)
-                   + 24.0 * b * n + 8.0 * b)
+            eff = (pairwise_cost(b, n, d, get_metric(metric).kind)[0]
+                   + _RUNNING_SUMS * b * n + 8.0 * b)
             temp = 4.0 * b * n + _ALLOCATOR_BYTES
             regime, note = "kernel", "tight: declared launch + running sums"
         else:
-            metric = p.get("metric", "braycurtis")
             eff = b * n * d * (_PLAIN_TERM_BYTES[metric]
                                + 4.0 * _PLAIN_X_READS[metric] / _ROW_CHUNK)
             chunks = max(-(-d // _FEATURE_CHUNK), 1)
@@ -265,15 +248,42 @@ class DriftSentinel:
                            eff, regime, note)
         return [bv, self._peak(rec, temp, regime, "args+out .. +one strip")]
 
+    def _check_sparse_panel(self, rec, n: int, d: int, b: int,
+                            panels: int) -> List[DriftVerdict]:
+        p = rec.params
+        nnz, rows, max_row = int(p["nnz"]), int(p["rows"]), int(p["max_row"])
+        floor = 4.0 * sparse_production_floats(n, d, b, nnz, rows) / panels
+        if rec.backend == "cuda":
+            lo = hi = (sparse_cost(b, n, nnz, rows)[0]
+                       + _RUNNING_SUMS * b * n + 8.0 * b)
+            temp = 4.0 * b * n + _ALLOCATOR_BYTES
+            regime, note = "sparse-kernel", \
+                "tight: declared launch + running sums"
+        else:
+            r, chunks = min(b, _ROW_CHUNK), -(-b // _ROW_CHUNK)
+            lo = (72.0 * b * nnz + 24.0 * chunks * nnz + 16.0 * b * d
+                  + (72.0 + _RUNNING_SUMS) * b * n + 52.0 * b
+                  + 32.0 * chunks + 36.0 * nnz + 52.0 * n + 12.0)
+            hi = lo + 24.0 * min(nnz, b * max_row)
+            temp = (16.0 * r * nnz + 16.0 * nnz + 24.0 * n + 64.0
+                    + 4.0 * r * d + 8.0 * r * n + 4.0 * b * n)
+            regime, note = "plain-sparse", \
+                "tight: 72 bytes a term .. + the panel's own nonzeros"
+        bv = self._verdict(rec, "bytes", rec.bytes_corrected, floor, lo, hi,
+                           regime, note)
+        return [bv, self._peak(rec, temp, regime,
+                               "args+out .. +the terms and a strip")]
+
     # -- center-matvec -----------------------------------------------------
     def check_center_matvec(self, rec) -> List[DriftVerdict]:
         p = rec.params
         n, k = int(p["n"]), int(p["k"])
         floor = 4.0 * (n * n + 2 * n * k + 2 * n)   # D + x + out + vecs
         if rec.backend == "cuda":
-            eff = 4.0 * (n * n + (-(-n // STRIP_ROWS) + 3) * n * k + 2 * n)
+            eff = (center_matvec_cost(n, n, k)[0] + 8.0 * n * k + 4.0 * n
+                   + 36.0 * k + 4.0)
             temp = float(_ALLOCATOR_BYTES)
-            regime, note = "kernel", "tight: one D pass"
+            regime, note = "kernel", "tight: declared launch + corrections"
         else:
             eff = 40.0 * n * n + 72.0 * n * k
             temp = 12.0 * n * n + 24.0 * n * k

@@ -359,7 +359,7 @@ def probe_permute_reduce(n: int, batch: int = 32, s: int = 1,
     (``None``: the default, snapped as a session snaps it), with the
     int32 triangle maps handed in, as the reference hands them."""
     from repro_torch.core.distance_matrix import triangle_coords
-    from repro_torch.kernels.permute_reduce import MAX_OUTPUTS
+    from repro_torch.kernels.permute_reduce import perms_per_launch
     from repro_torch.kernels.permute_reduce_ops import (DEFAULT_CHUNK,
                                                         permute_reduce)
 
@@ -370,7 +370,7 @@ def probe_permute_reduce(n: int, batch: int = 32, s: int = 1,
         if chunk is not None:
             raise ValueError("the card's permute_reduce takes no chunk")
         params.update(chunk=None,
-                      perms_per_launch=min(batch, MAX_OUTPUTS // s))
+                      perms_per_launch=perms_per_launch(s, batch))
     else:
         params["chunk"] = snap_chunk(m, DEFAULT_CHUNK if chunk is None
                                      else int(chunk))[0]
@@ -392,27 +392,68 @@ def probe_permute_reduce(n: int, batch: int = 32, s: int = 1,
     return _memoized("kernels.permute_reduce", dev, params, run)
 
 
+def _sparse_table(n: int, d: int, nnz: int, max_row: int,
+                  gen: torch.Generator, device: torch.device) -> torch.Tensor:
+    """An (n, d) table of ``nnz`` nonzeros in [0.5, 1.5) at a stride a row,
+    ``max_row`` in the first row and an even share of the rest in each."""
+    rest, others = nnz - max_row, max(n - 1, 1)
+    counts = torch.full((n,), rest // others, dtype=torch.int64,
+                        device=device)
+    counts[1:1 + rest % others] += 1
+    counts[0] = max_row
+    owner = torch.repeat_interleave(torch.arange(n, device=device), counts)
+    starts = torch.cumsum(counts, 0) - counts
+    stride = d // torch.clamp_min(counts, 1)[owner]
+    slot = torch.arange(nnz, device=device) - starts[owner]
+    x = torch.zeros((n, d), device=device)
+    x[owner, slot * stride + owner % stride] = 0.5 + torch.rand(
+        (nnz,), generator=gen, device=device)
+    return x
+
+
 def probe_panel_stats(n: int, d: int, block: int = 256,
-                      metric: str = "braycurtis",
-                      device: DeviceLike = None) -> ProbeRecord:
+                      metric: str = "braycurtis", device: DeviceLike = None,
+                      nnz: Optional[int] = None,
+                      max_row: Optional[int] = None) -> ProbeRecord:
     """Measure ONE row panel of the distance production sweep, the strip
     and its running sums (``dist.driver._panel_stats``): the
     ``pairwise_panel`` kernel on the card, its plain version on the CPU.
-    The production runs ceil(n / block) of these."""
+    Given ``nnz`` and ``max_row``, the panel of the sparse-support route
+    (Bray–Curtis) instead, over the compressed copy of a table with
+    ``nnz`` nonzeros whose fullest row holds ``max_row``: the
+    ``pairwise_sparse_panel`` kernel on the card, its plain version on the
+    CPU. The production runs ceil(n / block) of these."""
     from repro_torch.dist.driver import _panel_stats
     from repro_torch.dist.metrics import get_metric
+    from repro_torch.kernels.pairwise import sparse_rows
+    from repro_torch.kernels.pairwise_ops import (SparseBrayCurtis,
+                                                  row_nonzeros, row_support)
 
     dev = resolve_device(device)
     b = clamp_block(n, block)
-    params = {"n": n, "d": d, "block": b, "metric": metric}
+    params = {"n": n, "d": d, "block": b, "metric": metric, "route": "dense"}
+    if nnz is not None:
+        if metric != "braycurtis":
+            raise ValueError(f"the sparse route is Bray–Curtis's, not "
+                             f"{metric!r}'s")
+        params.update(route="sparse", nnz=nnz, max_row=max_row,
+                      rows=sparse_rows(d, max_row))
 
     def run() -> ProbeRecord:
         gen = _generator(dev)
-        xi = torch.rand((b, d), generator=gen, device=dev)
-        x = torch.rand((n, d), generator=gen, device=dev)
-        return probe_call("dist.panel_stats",
-                          lambda a, c: _panel_stats(a, c, get_metric(metric)),
-                          (xi, x), params)
+        if nnz is None:
+            xi = torch.rand((b, d), generator=gen, device=dev)
+            x = torch.rand((n, d), generator=gen, device=dev)
+            return probe_call(
+                "dist.panel_stats",
+                lambda a, c: _panel_stats(a, c, get_metric(metric)),
+                (xi, x), params)
+        x = _sparse_table(n, d, nnz, max_row, gen, dev)
+        support = row_support(x, row_nonzeros(x), max_row)
+        return probe_call(
+            "dist.panel_stats",
+            lambda t, s: _panel_stats(t[:b], t, SparseBrayCurtis(s)),
+            (x, support), params)
 
     return _memoized("dist.panel_stats", dev, params, run)
 
@@ -518,7 +559,8 @@ def probe_session(ws, dimensions: int = 10) -> Dict[str, ProbeRecord]:
 
     * ``kernels.permute_reduce`` — always (every permutation test), one
       tile of the session's B, S = 1;
-    * ``dist.panel_stats``       — feature-backed sessions (production);
+    * ``dist.panel_stats``       — feature-backed sessions: one panel of
+      the route the production takes (``dist.driver.production_route``);
     * ``kernels.center_matvec``  — square-backed sessions: the square
       operator's matvec is the fused center-matvec in the port (the
       reference probes it when ``matvec_impl="pallas"`` selects it);
@@ -532,10 +574,13 @@ def probe_session(ws, dimensions: int = 10) -> Dict[str, ProbeRecord]:
         n, batch=tiles["batch_size"], s=1,
         chunk=tiles.get("permute_reduce_plain_chunk"), device=dev)
     if ws._features is not None:
+        route = tiles["production_route"]
+        sparse = {} if route["route"] == "dense" else {
+            "nnz": route["nnz"], "max_row": route["max_row"]}
         records["dist.panel_stats"] = probe_panel_stats(
             n, int(ws._features.shape[1]),
             block=tiles["production_panel_rows"], metric=ws._metric.name,
-            device=dev)
+            device=dev, **sparse)
     else:
         records["kernels.center_matvec"] = probe_center_matvec(
             n, k=dimensions, device=dev)

@@ -18,14 +18,14 @@ Two families of terms:
   On the CPU the port's plain versions run these tiles' arithmetic, and a
   solve under a reference budget gives the reference's tiles and floats.
 * **the card's** (``perm_card_cost``, ``production_card_cost``,
-  ``matvec_card_cost``), from the CUDA kernels' own geometry:
-  ``permute_reduce`` moves 4m(S·B + L) + 8nB bytes a tile of B
-  permutations in L = ⌈B/P⌉ launches of P = min(B, 128/S), and one block
-  holds max(4n, 16·8·S·P) bytes of shared memory (a row of x, or the
-  fp64 reduction of its S·P outputs over 16 warps); ``center_matvec``
-  runs 128-row strips and k <= 128 columns a launch; ``pairwise_panel``
-  runs ``block``-row panels whose (b, d) rows and (b, n) output strip stay
-  in L2.
+  ``matvec_card_cost``), from the CUDA kernels' own geometry as their
+  launch modules state it: ``permute_reduce`` moves 4m(S·B + L) + 8nB
+  bytes a tile of B permutations in L = ⌈B/P⌉ launches of P
+  permutations, and one block holds ``permute_reduce.shared_bytes``;
+  ``center_matvec`` runs strips and a ring of stages of
+  ``center_matvec.geometry``; ``pairwise_panel`` runs ``block``-row
+  panels whose (b, d) rows and (b, n) output strip stay in L2 (the
+  dense route only: the sparse route is not priced).
 
 Parameter names match the ledger's: n observations, d features, B
 permutation batch, S streamed invariant rows (Mantel/ANOSIM 1, partial
@@ -37,7 +37,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from repro_torch.kernels.center_matvec import KMAX, STRIP_ROWS
+from repro_torch.kernels import center_matvec, permute_reduce
 from repro_torch.kernels.dispatch import clamp_block, pick_block, snap_chunk
 from repro_torch.obs.ledger import (FEATURE_HOIST_PASSES, HOIST_PASSES,
                                     ROW_STATIONARY_OUTPUTS, hoist_floats,
@@ -63,14 +63,6 @@ STANDALONE_SESSION_ARTIFACTS = ("operator", "coords",      # pcoa
                                 "gram",                    # permanova
                                 "operator", "coords",      # permdisp
                                 "condensed", "ranks")      # anosim
-
-#: ``center_matvec``'s ring on the card (``csrc/center_matvec.cu``): D
-#: columns a stage and the deepest ring
-MATVEC_STAGE_COLUMNS = 32
-MATVEC_STAGES = 6
-#: warps of a ``permute_reduce`` block (``csrc/permute_reduce.cu``), each
-#: holding fp64 partials of every output before the block's reduction
-PERM_WARPS = 16
 
 
 def condensed_size(n: int) -> int:
@@ -191,11 +183,11 @@ def matvec_cost(n: int, k: int, block: int, passes: float = 1.0,
 # --------------------------------------------------------------------------
 def perm_card_cost(n: int, batch: int, s: int = 1) -> CostTerms:
     """Per-permutation cost of the card's row-stationary ``permute_reduce``
-    on tiles of B: the ledger's ``row_stationary_floats``. A block's
-    shared memory holds max(4n, 16·8·S·P) bytes (a row of x, or the
-    warps' fp64 partials of the launch's S·P outputs)."""
+    on tiles of B: the ledger's ``row_stationary_floats``. A block holds
+    the kernel's shared memory (a row of x, or the warps' fp64 partials
+    of the launch's S·P outputs)."""
     per_launch, launches = row_stationary_launches(batch, s)
-    resident_bytes = max(4 * n, PERM_WARPS * 8 * s * per_launch)
+    resident_bytes = permute_reduce.shared_bytes(n, s, per_launch)
     return CostTerms(
         op="perm_batch", traffic_floats=row_stationary_floats(n, batch, s),
         resident_floats=resident_bytes / 4.0,
@@ -221,19 +213,19 @@ def production_card_cost(n: int, d: int, block: int) -> CostTerms:
 
 def matvec_card_cost(n: int, k: int, passes: float = 1.0) -> CostTerms:
     """``passes`` ``center_matvec`` sweeps on the card: one read of D a
-    launch, ⌈k/128⌉ launches a sweep; a block owns 128 output rows and
-    keeps up to 6 ring stages of a 128 x 32 D tile and its 32 x k X rows.
-    No knob of ``ExecConfig`` changes this geometry."""
-    cols = min(max(k, 1), KMAX)
-    launches = -(-max(k, 1) // KMAX)
-    resident = float(MATVEC_STAGES * MATVEC_STAGE_COLUMNS
-                     * (STRIP_ROWS + cols))
+    launch, ``launches`` a sweep; a block owns a strip of output rows and
+    keeps the ring's stages of a (strip rows x stage columns) D tile and
+    its (stage columns x k) X rows. No knob of ``ExecConfig`` changes
+    this geometry."""
+    g = center_matvec.geometry(n, n, k)
+    resident = float(g["stages"] * g["stage_cols"]
+                     * (g["strip_rows"] + g["width"]))
     return CostTerms(
         op="matvec",
-        traffic_floats=passes * launches * hoist_floats("square", n),
+        traffic_floats=passes * g["launches"] * hoist_floats("square", n),
         resident_floats=resident, base_floats=0.0,
-        params={"n": n, "k": k, "strip_rows": STRIP_ROWS,
-                "launches": launches, "passes": passes,
+        params={"n": n, "k": k, "strip_rows": g["strip_rows"],
+                "launches": g["launches"], "passes": passes,
                 "model": "center_matvec"})
 
 

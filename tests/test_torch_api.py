@@ -475,6 +475,9 @@ def test_resolved_tiles_report_the_cpu_geometry():
     tiles = ws.report().meta["tiles"]
     assert tiles == {"device": "cpu", "batch_size": 16, "auto": False,
                      "production_panel_rows": 8,
+                     "production_route": {"route": "dense",
+                                          "nonzero_share": 1.0, "nnz": 210,
+                                          "max_row": 7},
                      "permute_reduce_plain_chunk": 440}
 
 

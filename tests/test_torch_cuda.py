@@ -1770,6 +1770,34 @@ def test_probe_permute_reduce_on_the_card_is_within_its_bands(cuda):
         assert v.within, v
 
 
+def test_sparse_route_session_reports_drift_ok_on_the_card(cuda):
+    """A feature session on a count table below ``SPARSE_SHARE``: its
+    production takes the sparse route, and after its pcoa the probed
+    report measures one panel of that route on the card (the sparse
+    kernel, declared), every verdict within its band; the report's tiles
+    name the route and the condensed product's strips."""
+    from repro_torch.obs import ObsConfig
+    from repro_torch.obs.probe import clear_probe_cache
+
+    rng = np.random.default_rng(33)
+    x = ((rng.random((1000, 3000)) < 0.02)
+         * rng.integers(1, 40, (1000, 3000))).astype(np.float32)
+    clear_probe_cache()
+    ws = Workspace.from_features(x, config=ExecConfig(
+        obs=ObsConfig(enabled=True)))
+    ws.pcoa(dimensions=3)
+    rep = ws.report()
+    tiles = rep.meta["tiles"]
+    assert tiles["production_route"]["route"] == "sparse"
+    assert tiles["condensed_matvec_strip_rows"] == STRIP_ROWS
+    panel = rep.measured["dist.panel_stats"]
+    assert panel["params"]["route"] == "sparse"
+    assert panel["params"]["nnz"] == int((x != 0).sum())
+    assert set(panel["launches"]) == {"pairwise_sparse_panel"}
+    assert {r["backend"] for r in rep.measured.values()} == {"cuda"}
+    assert rep.drift["backend"] == "cuda" and rep.drift_ok, rep.drift
+
+
 def test_probed_report_leaves_launch_counts_as_found(cuda):
     """A probed ``report()`` of a card session launches the probes'
     kernels but leaves ``_build.launches`` and the cache counters as it

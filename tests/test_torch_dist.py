@@ -273,3 +273,27 @@ def test_sparse_route_only_for_sparse_braycurtis_condensed(monkeypatch):
         rtol=1e-5, atol=1e-6)
     monkeypatch.setattr(driver, "SPARSE_SHARE", share)   # at the share
     assert _production_span(sparse, "braycurtis")[0]["route"] == "dense"
+
+
+@pytest.mark.parametrize("metric, share, hook", [
+    ("braycurtis", 0.02, None), ("braycurtis", 0.02, 0.0),
+    ("braycurtis", 0.5, None), ("euclidean", 0.02, None),
+    ("jaccard", 0.02, None)])
+def test_production_route_names_the_route_the_production_takes(
+        monkeypatch, metric, share, hook):
+    """``production_route`` is the rule: what it says of a table is the
+    route the production's span reports, with the same nonzero share, and
+    its counts are the table's rows' nonzeros."""
+    if hook is not None:
+        monkeypatch.setattr(driver, "SPARSE_SHARE", hook)
+    x = _sparse(15, 40, 600, share)
+    route = driver.production_route(torch.from_numpy(x), get_metric(metric))
+    attrs, _ = _production_span(x, metric)
+    assert route.route == attrs["route"]
+    assert route.share == attrs["nonzero_share"]
+    if route.share is None:
+        assert (route.nnz, route.max_row, route.counts) == (0, 0, None)
+    else:
+        nonzeros = (x != 0).sum(axis=1)
+        assert route.counts.tolist() == nonzeros.tolist()
+        assert (route.nnz, route.max_row) == (nonzeros.sum(), nonzeros.max())

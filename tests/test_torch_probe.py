@@ -301,6 +301,128 @@ def test_reconcile_full_record_set_within_tolerance():
     json.dumps(doc)
 
 
+def _card_record(name, params, nbytes, argument_bytes, output_bytes):
+    return probe.ProbeRecord(
+        name=name, backend="cuda", flops=0.0, bytes_accessed=nbytes,
+        bytes_corrected=nbytes, peak_bytes=argument_bytes + output_bytes,
+        argument_bytes=argument_bytes, output_bytes=output_bytes,
+        temp_bytes=0, scan_trips={}, params=params)
+
+
+@pytest.mark.parametrize("program", ["permute_reduce", "panel",
+                                     "sparse_panel", "center_matvec"])
+def test_card_regimes_take_the_launches_declared_costs(program):
+    """A card record whose bytes are its launches' declared costs (the
+    launch modules' ``*_cost`` at the record's geometry) plus the aten ops
+    around them is within every band; 2% more bytes is not."""
+    from repro_torch.kernels.center_matvec import center_matvec_cost
+    from repro_torch.kernels.pairwise import (pairwise_cost, sparse_cost,
+                                              sparse_rows)
+    from repro_torch.kernels.permute_reduce import tile_cost
+
+    sentinel = drift.DriftSentinel(backend="cuda")
+    n = 16384
+    if program == "permute_reduce":
+        m, b, s = n * (n - 1) // 2, 32, 1
+        # a 264-block grid, the permutation check and the concatenations
+        nbytes = tile_cost(n, s, b, 264)[0] + 4 * b + 16 * s * b
+        rec = _card_record("kernels.permute_reduce", {
+            "n": n, "batch": b, "s": s, "chunk": None,
+            "perms_per_launch": b}, nbytes, 4 * m * (1 + s) + 4 * b * n,
+            4 * s * b)
+        check = sentinel.check_permute_reduce
+    elif program == "panel":
+        d, b = 2048, 256
+        nbytes = pairwise_cost(b, n, d, 3)[0] + 20 * b * n + 8 * b
+        rec = _card_record("dist.panel_stats", {
+            "n": n, "d": d, "block": b, "metric": "braycurtis",
+            "route": "dense"}, nbytes, 4 * (b + n) * d, 4 * b * (n + 2))
+        check = sentinel.check_panel
+    elif program == "sparse_panel":
+        n, d, b, nnz, max_row = 4743, 45383, 256, 2733443, 754
+        rows = sparse_rows(d, max_row)
+        nbytes = sparse_cost(b, n, nnz, rows)[0] + 20 * b * n + 8 * b
+        rec = _card_record("dist.panel_stats", {
+            "n": n, "d": d, "block": b, "metric": "braycurtis",
+            "route": "sparse", "nnz": nnz, "max_row": max_row,
+            "rows": rows}, nbytes, 4 * n * d + 8 * nnz + 4 * (n + 1),
+            4 * b * (n + 2))
+        check = sentinel.check_panel
+    else:
+        k = 10
+        nbytes = (center_matvec_cost(n, n, k)[0] + 8 * n * k + 4 * n
+                  + 36 * k + 4)
+        rec = _card_record("kernels.center_matvec", {"n": n, "k": k}, nbytes,
+                           4 * (n * n + n * k + n + 1), 4 * n * k)
+        check = sentinel.check_center_matvec
+    verdicts = check(rec)
+    assert {v.quantity for v in verdicts} == {"bytes", "peak"}
+    for v in verdicts:
+        assert v.within, v
+    blown = dataclasses.replace(rec, bytes_corrected=1.02 * nbytes)
+    assert not all(v.within for v in check(blown))
+
+
+def _counts(seed, n=60, d=400, share=0.05):
+    """An (n, d) table of integer counts, each entry nonzero with
+    probability ``share``."""
+    rng = np.random.default_rng(seed)
+    return ((rng.random((n, d)) < share)
+            * rng.integers(1, 40, (n, d))).astype(np.float32)
+
+
+def test_sparse_feature_session_probes_the_sparse_panel():
+    """A feature session on a table below ``SPARSE_SHARE`` probes one panel
+    of the route its production takes: the sparse panel, judged by the
+    sparse forms under the reference's verdict names."""
+    from repro_torch.kernels.pairwise import sparse_rows
+
+    x = _counts(11)
+    ws = Workspace.from_features(x, config=ExecConfig(
+        device=CPU, obs=ObsConfig(enabled=True)))
+    ws.pcoa(dimensions=3)
+    rep = ws.report()
+    route = rep.meta["tiles"]["production_route"]
+    assert route["route"] == "sparse"
+    assert route["nnz"] == int((x != 0).sum())
+    assert route["max_row"] == int((x != 0).sum(axis=1).max())
+    params = rep.measured["dist.panel_stats"]["params"]
+    assert params["route"] == "sparse"
+    assert (params["nnz"], params["max_row"]) == (route["nnz"],
+                                                  route["max_row"])
+    assert params["rows"] == sparse_rows(400, route["max_row"])
+    assert rep.drift_ok
+    assert {v["regime"] for v in rep.drift["verdicts"]
+            if v["name"] == "dist.panel_stats"} == {"plain-sparse"}
+    jws = JaxWorkspace.from_features(x, config=JaxExecConfig(
+        obs=JaxObsConfig(enabled=True)))
+    jws.pcoa(dimensions=3)
+    want = jws.report()
+    assert set(rep.measured) == set(want.measured)
+    assert [(v["name"], v["quantity"]) for v in rep.drift["verdicts"]] == \
+        [(v["name"], v["quantity"]) for v in want.drift["verdicts"]]
+
+
+@pytest.mark.parametrize("n, d, share, block", [
+    (48, 400, 0.05, 48), (200, 1000, 0.02, 64), (130, 500, 0.1, 40),
+    (5, 30, 0.1, 256)])
+def test_plain_sparse_panel_lies_in_its_band(n, d, share, block):
+    """The plain sparse panel's bytes lie between the closed form without
+    and with the panel rows' own nonzeros, and its peak in its envelope."""
+    nnz = int(n * d * share)
+    max_row = max(int(1.6 * d * share), -(-nnz // n))
+    rec = probe.probe_panel_stats(n, d, block=block, device=CPU, nnz=nnz,
+                                  max_row=max_row)
+    assert rec.params["route"] == "sparse"
+    assert set(rec.launches) == set()
+    verdicts = drift.DriftSentinel(backend="cpu").check_panel(rec)
+    for v in verdicts:
+        assert v.within and v.regime == "plain-sparse", v
+    b = next(v for v in verdicts if v.quantity == "bytes")
+    assert b.expected_lo / 0.95 <= rec.bytes_corrected \
+        <= b.expected_hi / 1.05
+
+
 # --------------------------------------------------------------------------
 # The session front door
 # --------------------------------------------------------------------------

@@ -42,6 +42,7 @@ from repro_torch.tune import (BackendBudget, calibrate, detect_budget,
 from repro_torch.tune.model import (SQUARE_SESSION_ARTIFACTS,
                                     STANDALONE_SESSION_ARTIFACTS,
                                     matvec_card_cost, perm_card_cost,
+                                    production_card_cost,
                                     session_hoist_passes)
 from repro_torch.tune.solve import (BATCH_MAX, CARD_UNREAD, DEFAULT_BATCH,
                                     DEFAULT_BLOCK, DEFAULT_CHUNK,
@@ -184,6 +185,91 @@ def test_row_stationary_model_is_the_kernels_geometry():
         assert cost.resident_bytes == max(4 * n, 16 * 8 * s
                                           * min(b, MAX_OUTPUTS // s))
     assert matvec_card_cost(n, 130).params["launches"] == 2
+
+
+#: the card's costs as the tuner priced them while it kept its own copies
+#: of the kernels' geometry: (traffic_floats, resident_floats, base_floats)
+#: and the parameters; the launch modules' statement must price the same
+PINNED_CARD_COSTS = [
+    (perm_card_cost, (2, 32, 1), (5.03125, 1024.0, 1.0),
+     {"perms_per_launch": 32, "launches_per_tile": 1}),
+    (perm_card_cost, (700, 32, 1), (253695.3125, 1024.0, 244650.0),
+     {"perms_per_launch": 32, "launches_per_tile": 1}),
+    (perm_card_cost, (16384, 32, 1), (138436352.0, 16384.0, 134209536.0),
+     {"perms_per_launch": 32, "launches_per_tile": 1}),
+    (perm_card_cost, (16384, 128, 2), (270548864.0, 16384.0, 134209536.0),
+     {"perms_per_launch": 64, "launches_per_tile": 2}),
+    (perm_card_cost, (4743, 64, 2), (22676505.328125, 4743.0, 11245653.0),
+     {"perms_per_launch": 64, "launches_per_tile": 1}),
+    (production_card_cost, (700, 64, 256), (179200.0, 195584.0, 0.0),
+     {"block": 256}),
+    (production_card_cost, (4743, 45383, 256),
+     (4305031380.0, 12832256.0, 0.0), {"block": 256}),
+    (production_card_cost, (16384, 2048, 128),
+     (4328521728.0, 2359296.0, 0.0), {"block": 128}),
+    (matvec_card_cost, (700, 16), (490000.0, 27648.0, 0.0),
+     {"strip_rows": 128, "launches": 1}),
+    (matvec_card_cost, (16384, 20), (268435456.0, 28416.0, 0.0),
+     {"strip_rows": 128, "launches": 1}),
+    (matvec_card_cost, (16384, 64), (268435456.0, 36864.0, 0.0),
+     {"strip_rows": 128, "launches": 1}),
+]
+
+#: ``solve_tiles`` on card budgets (n, d, shared bytes, L2 bytes): the
+#: tiles (block, feature_block, batch_size, chunk) and each modeled op's
+#: (traffic_floats, resident_floats), solved and default
+PINNED_CARD_SOLVES = [
+    ((16384, None, 227 * 1024, 50 * 2**20), (256, 128, 64, 65536),
+     {"matvec": (268435456.0, 27648.0), "perm_batch": (270548864.0, 16384.0)},
+     {"matvec": (268435456.0, 27648.0), "perm_batch": (272645888.0, 16384.0)}),
+    ((4743, 45383, 227 * 1024, 50 * 2**20), (256, 128, 64, 65536),
+     {"matvec": (22496049.0, 27648.0),
+      "perm_batch": (22676505.328125, 4743.0),
+      "production": (4305031380.0, 12832256.0)},
+     {"matvec": (22496049.0, 27648.0), "perm_batch": (22852218.65625, 4743.0),
+      "production": (4305031380.0, 12832256.0)}),
+    ((2048, 512, 48 * 1024, 2**20), (64, 128, 64, 65536),
+     {"matvec": (4194304.0, 27648.0), "perm_batch": (4229104.0, 4096.0),
+      "production": (34603008.0, 163840.0)},
+     {"matvec": (4194304.0, 27648.0), "perm_batch": (4261856.0, 2048.0),
+      "production": (34603008.0, 163840.0)}),
+    ((700, 8, 4 * 1024, 4 * 2**20), (256, 8, 16, 65536),
+     {"matvec": (490000.0, 27648.0), "perm_batch": (505990.625, 1024.0),
+      "production": (22400.0, 181248.0)},
+     {"matvec": (490000.0, 27648.0), "perm_batch": (498345.3125, 2048.0),
+      "production": (22400.0, 181248.0)}),
+]
+
+
+@pytest.mark.parametrize("cost, args, floats, params", PINNED_CARD_COSTS)
+def test_card_costs_are_the_pinned_figures(cost, args, floats, params):
+    """The card's cost terms read the kernels' geometry from the launch
+    modules and price what the tuner's own copies priced."""
+    c = cost(*args)
+    assert (c.traffic_floats, c.resident_floats, c.base_floats) == floats
+    assert {k: c.params[k] for k in params} == params
+
+
+def test_matvec_card_cost_reads_the_kernels_ring():
+    """Above 64 columns ``center_matvec`` keeps a ring of 4 stages, not 6:
+    the resident set reads ``ring_stages`` of the launch module."""
+    from repro_torch.kernels.center_matvec import geometry, ring_stages
+    assert [ring_stages(k) for k in (1, 64, 65, 128)] == [6, 6, 4, 4]
+    c = matvec_card_cost(4743, 130)
+    assert c.params["launches"] == geometry(4743, 4743, 130)["launches"] == 2
+    assert c.resident_floats == 4 * 32 * (128 + 128)
+    assert c.traffic_floats == 2 * 4743 * 4743
+
+
+@pytest.mark.parametrize("shape, tiles, modeled, default", PINNED_CARD_SOLVES)
+def test_card_solve_is_the_pinned_solve(shape, tiles, modeled, default):
+    n, d, shared, working = shape
+    t = solve_tiles(n, d, budget=_card(shared_bytes=shared,
+                                       working_bytes=working))
+    assert (t.block, t.feature_block, t.batch_size, t.chunk) == tiles
+    for got, want in ((t.modeled, modeled), (t.modeled_default, default)):
+        assert {op: (c["traffic_floats"], c["resident_floats"])
+                for op, c in got.items()} == want
 
 
 # --------------------------------------------------------------------------
