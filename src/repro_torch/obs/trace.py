@@ -217,7 +217,8 @@ class Tracer:
             tag = f" [{span.phase}]" if span.phase else ""
             attrs = ", ".join(f"{k}={v}" for k, v in span.attrs.items()
                               if k in ("impl", "backend", "kernel", "method",
-                                       "n", "permutations", "batch_size"))
+                                       "n", "permutations", "batch_size",
+                                       "draws_ahead"))
             lines.append(f"{dur}  {'  ' * depth}{span.name}{tag}"
                          f"{'  (' + attrs + ')' if attrs else ''}")
             for c in span.children:

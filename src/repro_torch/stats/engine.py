@@ -8,11 +8,15 @@ primary path. ``permutation_test`` pads the (K, n) orders up to full
 ``batch_size`` tiles by wrapping real permutations (``engine.py:226-246``
 of the reference), hands each tile to ``per_batch`` — for the Mantel
 family one launch of the ``permute_reduce`` kernel per tile on the card —
-and drops the padded tail before finishing. Under an observing session
-(``repro_torch.obs``) the test, its order draw included, runs in an
-``engine.<method>`` span, the draw in an ``engine.orders`` span and each
-tile in an ``engine.tile`` span (a recording profiler sees all three
-without a session), and,
+and drops the padded tail before finishing. A test that draws its own
+orders draws them a tile ahead (``OrderStream``): tile t + 1's words are
+drawn on the host while the card runs tile t, the same bits as the whole
+draw. Under an observing session (``repro_torch.obs``) the test, its
+order draw included, runs in an ``engine.<method>`` span, the first
+tile's draw in an ``engine.orders`` span, each tile in an ``engine.tile``
+span and each later draw in an ``engine.orders_ahead`` span inside the
+tile before it (a recording profiler sees them all without a session),
+and,
 for a statistic that names its ``ledger_model`` (the condensed gathers of
 the Mantel family and ANOSIM, the statistics the reference batches),
 charges a per-permutation model for every row of the padded tiles: that
@@ -38,7 +42,9 @@ the global orders the ranks draw.
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
+import functools
 from typing import Any, Optional, Protocol, Union, runtime_checkable
 
 import numpy as np
@@ -116,6 +122,75 @@ def permutation_orders(generator: Union[int, torch.Generator, None],
                               generator=as_generator(generator))
         return torch.argsort(words.to(device), dim=-1,
                              stable=True).to(torch.int32)
+
+
+class OrderStream:
+    """The orders of ``permutation_orders(generator, K, n, device)`` drawn
+    one padded tile of ``batch_size`` at a time: the same bits, and a
+    generator left where the whole draw leaves it.
+
+    ``first()`` draws tile 0 in an ``engine.orders`` span. ``ahead(t)``
+    draws tile t's rows in an ``engine.orders_ahead`` span; called after
+    tile t − 1's launches, its copy and argsort queue behind them on the
+    card while the host draws. ``tile(t)`` is padded tile t: the last one
+    is filled with rows of tile 0, as ``null_distribution`` wraps them, so
+    tile 0's orders are kept to the end. On the card the words pass
+    through two pinned host buffers used in turn, each written again only
+    once the event recorded behind its last copy has completed."""
+
+    def __init__(self, generator: Union[int, torch.Generator, None],
+                 permutations: int, n: int, batch_size: int,
+                 device: torch.device):
+        self.generator = as_generator(generator)
+        self.permutations, self.n = permutations, n
+        self.batch_size, self.device = batch_size, device
+        self.tiles = -(-permutations // batch_size)
+        self.drawn_ahead = 0
+        self._pinned = device.type == "cuda"
+        self._words: list = []
+        self._copied: list = []
+        self._first = self._next = None
+
+    def _draw(self, t: int) -> torch.Tensor:
+        """Tile t's real rows as (rows, n) int32 orders on the device."""
+        rows = min(self.batch_size, self.permutations - t * self.batch_size)
+        slot = t % len(self._words)
+        if self._copied[slot] is not None:
+            self._copied[slot].synchronize()
+        words = torch.randint(0, 2**32, (rows, self.n), dtype=torch.int64,
+                              generator=self.generator,
+                              out=self._words[slot][:rows])
+        words = words.to(self.device, non_blocking=self._pinned)
+        if self._pinned:
+            self._copied[slot] = torch.cuda.Event()
+            self._copied[slot].record(torch.cuda.current_stream(self.device))
+        return torch.argsort(words, dim=-1, stable=True).to(torch.int32)
+
+    def first(self) -> None:
+        with current_obs().span("engine.orders",
+                                permutations=self.permutations, n=self.n):
+            if self.tiles:
+                self._words = [torch.empty(
+                    (min(self.batch_size, self.permutations), self.n),
+                    dtype=torch.int64, pin_memory=self._pinned)
+                    for _ in range(2 if self._pinned else 1)]
+                self._copied = [None] * len(self._words)
+                self._first = self._draw(0)
+
+    def ahead(self, t: int) -> None:
+        with current_obs().span("engine.orders_ahead",
+                                rows=min(self.batch_size, self.permutations
+                                         - t * self.batch_size), tile=t):
+            self._next = self._draw(t)
+        self.drawn_ahead += 1
+
+    def tile(self, t: int) -> torch.Tensor:
+        orders = self._first if t == 0 else self._next
+        pad = self.tiles * self.batch_size - self.permutations
+        if t == self.tiles - 1 and pad:
+            wrap = torch.arange(pad, device=self.device) % self._first.shape[0]
+            orders = torch.cat([orders, self._first[wrap]])
+        return orders
 
 
 def rank_seed(key: Union[int, None], dev: int) -> int:
@@ -235,43 +310,77 @@ def hoist_and_observe(stat: Statistic, device: torch.device):
     return inv, stat.per_perm(inv, identity)
 
 
+#: the next tile's draw, which ``tile_statistics`` runs at the end of its
+#: span; ``tile_loop`` sets it around each call (not an argument: callers
+#: of ``tile_statistics``, and stand-ins for it, keep its three arguments)
+_draw_next: contextvars.ContextVar = contextvars.ContextVar("draw_next",
+                                                            default=None)
+
+
 def tile_statistics(stat: Statistic, invariants, orders: torch.Tensor
                     ) -> torch.Tensor:
     """(B,) null statistics for one tile of permutation orders, in an
-    ``engine.tile`` span."""
+    ``engine.tile`` span; inside ``tile_loop`` the next tile's draw, if
+    any, runs at the end of the span, after the tile's launches."""
     note_trace("stats.engine.tile",
                (type(stat).__name__, stat.n, orders.shape[0]))
     with current_obs().span("engine.tile", rows=orders.shape[0]):
         per_batch = getattr(stat, "per_batch", None)
         if per_batch is not None:
-            return per_batch(invariants, orders)
-        return torch.stack([stat.per_perm(invariants, o) for o in orders])
+            out = per_batch(invariants, orders)
+        else:
+            out = torch.stack([stat.per_perm(invariants, o) for o in orders])
+        draw = _draw_next.get()
+        if draw is not None:
+            _draw_next.set(None)
+            draw()
+        return out
 
 
-def null_distribution(stat: Statistic, invariants, orders: torch.Tensor,
-                      batch_size: int) -> torch.Tensor:
-    """(K,) null draws: the padded-tile loop, one ``tile_statistics`` call
-    per full tile of ``batch_size`` orders, the wrapped tail dropped."""
-    permutations = orders.shape[0]
+def tile_loop(stat: Statistic, invariants, permutations: int,
+              batch_size: int, device: torch.device, tile, ahead=None
+              ) -> torch.Tensor:
+    """(K,) null draws: one ``tile_statistics`` call per padded tile
+    ``tile(t)`` of ``batch_size`` orders, the wrapped tail dropped;
+    ``ahead(t + 1)``, when given, runs inside tile t's span (after it,
+    should a replaced ``tile_statistics`` not run it)."""
     note_trace("stats.engine.null_distribution",
                (type(stat).__name__, stat.n, permutations, batch_size))
     if permutations == 0:
-        return torch.zeros((0,), dtype=torch.float32, device=orders.device)
+        return torch.zeros((0,), dtype=torch.float32, device=device)
     if getattr(stat, "per_batch", None) is not None:
         # K is not in this signature: one padded per_batch program per
         # (statistic, n, B) serves every K
         note_trace("stats.engine.per_batch",
                    (type(stat).__name__, stat.n, batch_size))
     num_tiles = -(-permutations // batch_size)
-    total = num_tiles * batch_size
+    tiles = []
+    for t in range(num_tiles):
+        token = _draw_next.set(functools.partial(ahead, t + 1)
+                               if ahead is not None and t + 1 < num_tiles
+                               else None)
+        try:
+            tiles.append(tile_statistics(stat, invariants, tile(t)))
+        finally:
+            pending = _draw_next.get()
+            _draw_next.reset(token)
+        if pending is not None:
+            pending()
+    return torch.cat(tiles)[:permutations]
+
+
+def null_distribution(stat: Statistic, invariants, orders: torch.Tensor,
+                      batch_size: int) -> torch.Tensor:
+    """(K,) null draws of given (K, n) orders, padded to full tiles of
+    ``batch_size`` by wrapping real permutations (``tile_loop``)."""
+    permutations = orders.shape[0]
+    total = -(-permutations // batch_size) * batch_size
     if total != permutations:
         wrap = torch.arange(total, device=orders.device) % permutations
         orders = orders[wrap]
-    tiles = [tile_statistics(stat, invariants,
-                             orders[t * batch_size:(t + 1) * batch_size])
-             for t in range(num_tiles)]
-    return torch.cat(tiles)[:permutations]
-
+    return tile_loop(stat, invariants, permutations, batch_size,
+                     orders.device,
+                     lambda t: orders[t * batch_size:(t + 1) * batch_size])
 
 def encode_grouping(grouping) -> tuple[np.ndarray, int]:
     """Map arbitrary hashable labels to int codes in [0, num_groups), in
@@ -320,7 +429,10 @@ def permutation_test(stat: Statistic, permutations: int = 999,
     whose tensors lie on ``device`` (``None``: the card).
 
     ``key`` seeds the orders (an int, ``None`` for seed 0, or a CPU
-    generator); ``orders`` replaces the draw with given (K, n) orders.
+    generator), drawn a tile ahead (``OrderStream``), the bits of
+    ``permutation_orders``; ``orders`` replaces the draw with given (K, n)
+    orders. The ``engine.<method>`` span's ``draws_ahead`` counts the
+    tiles drawn inside an earlier tile's span.
     ``batch_size`` resolves as explicit arg > ``config.batch_size`` > 8; a
     still-unresolved ``"auto"`` (a config that never went through
     ``ExecConfig.resolve``) is solved here against the statistic's n on
@@ -336,16 +448,23 @@ def permutation_test(stat: Statistic, permutations: int = 999,
     tiles = -(-permutations // batch_size) if permutations else 0
     with obs.span(f"engine.{method or type(stat).__name__}",
                   phase="per_perm", n=n, permutations=permutations,
-                  batch_size=batch_size, tiles=tiles, batched=batched):
+                  batch_size=batch_size, tiles=tiles,
+                  batched=batched) as span:
         if orders is None:
             seed = 0 if key is None else \
                 (None if isinstance(key, torch.Generator) else int(key))
-            orders = permutation_orders(key, permutations, n, dev)
+            stream = OrderStream(key, permutations, n, batch_size, dev)
+            stream.first()
+            invariants, observed = hoist_and_observe(stat, dev)
+            permuted = tile_loop(stat, invariants, permutations, batch_size,
+                                 dev, stream.tile, stream.ahead)
+            span.add(draws_ahead=stream.drawn_ahead)
         else:
             seed = None
             orders = given_orders(orders, permutations, n, dev)
-        invariants, observed = hoist_and_observe(stat, dev)
-        permuted = null_distribution(stat, invariants, orders, batch_size)
+            invariants, observed = hoist_and_observe(stat, dev)
+            permuted = null_distribution(stat, invariants, orders, batch_size)
+            span.add(draws_ahead=0)
     if getattr(stat, "ledger_model", None) is not None and permutations:
         # the padded tail rows are real gathers, so they are charged too
         charge_tiles(obs, method or type(stat).__name__, stat, dev,

@@ -700,6 +700,45 @@ def test_mantel_corr_matches_plain(cuda, n, perms):
     assert torch.equal(got, mantel_corr(x, yhat, orders))   # bitwise again
 
 
+@pytest.mark.parametrize("method", ["mantel", "permanova", "anosim"])
+def test_streamed_orders_are_the_whole_draw_on_the_card(cuda, monkeypatch,
+                                                        method):
+    """n = 512, K = 999, B = 32: a test that draws its orders a tile
+    ahead, through the pinned buffers, gives the null and p-value of the
+    same test given ``permutation_orders``, bit for bit, and leaves a
+    generator key where the whole draw leaves it."""
+    from repro_torch.stats import engine
+    n, k = 512, 999
+    x, y = _matrix(n, 1, cuda), _matrix(n, 2, cuda)
+    grouping = np.arange(n) % 4
+    nulls = []
+    finish = engine.finish
+
+    def keep(orig, permuted, *args, **kwargs):
+        nulls.append(permuted.clone())
+        return finish(orig, permuted, *args, **kwargs)
+
+    monkeypatch.setattr(engine, "finish", keep)
+
+    def run(**kw):
+        ws = Workspace(x, config=ExecConfig(device=cuda, batch_size=32))
+        call = {"mantel": lambda: ws.mantel(y, permutations=k, **kw),
+                "permanova": lambda: ws.permanova(grouping, permutations=k,
+                                                  **kw),
+                "anosim": lambda: ws.anosim(grouping, permutations=k,
+                                            **kw)}[method]
+        return call(), nulls[-1]
+
+    key, drawn = (torch.Generator().manual_seed(11) for _ in range(2))
+    whole = permutation_orders(drawn, k, n, cuda)
+    want, want_null = run(orders=whole)
+    for got, got_null in (run(key=11), run(key=key)):
+        assert got_null.shape == (k,) and torch.equal(got_null, want_null)
+        assert got.p_value == want.p_value
+        assert got.statistic == want.statistic
+    assert torch.equal(key.get_state(), drawn.get_state())
+
+
 def test_mantel_corr_op_matches_cpu_and_the_condensed_null(cuda):
     n, k = 1000, 54
     d = random_distance_matrix(7, n, device="cpu").data

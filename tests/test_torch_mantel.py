@@ -163,3 +163,74 @@ def test_engine_rejects_bad_arguments():
                           device="cpu")
     r = engine.permutation_test(stat, 0, device="cpu")
     assert r.p_value == 1.0 and r.permutations == 0
+
+
+def _run_test(method, k, key, orders=None, b=32, n=40):
+    """``(result, null)`` of one ``Workspace`` test over the ``_pair``
+    squares (the null as ``engine.finish`` receives it)."""
+    from repro_torch.api import ExecConfig, Workspace
+    x, y = _pair(n, 0.3, seed=11)
+    ws = Workspace(DistanceMatrix(x, device="cpu"),
+                   config=ExecConfig(device="cpu", batch_size=b))
+    grouping = np.arange(n) % 3
+    call = {"mantel": lambda **kw: ws.mantel(DistanceMatrix(y, device="cpu"),
+                                             **kw),
+            "permanova": lambda **kw: ws.permanova(grouping, **kw),
+            "anosim": lambda **kw: ws.anosim(grouping, **kw)}[method]
+    nulls = []
+    finish = engine.finish
+
+    def keep(orig, permuted, *args, **kwargs):
+        nulls.append(permuted.clone())
+        return finish(orig, permuted, *args, **kwargs)
+
+    engine.finish = keep
+    try:
+        result = call(permutations=k, key=key, orders=orders)
+    finally:
+        engine.finish = finish
+    return result, nulls[0]
+
+
+@pytest.mark.parametrize("k,n,b", [(999, 40, 32), (99, 40, 32),
+                                   (17, 40, 32), (64, 40, 32), (0, 40, 32)])
+@pytest.mark.parametrize("method", ["mantel", "permanova", "anosim"])
+@pytest.mark.parametrize("keyed", ["int", "generator"])
+def test_streamed_orders_are_the_whole_draw_bit_for_bit(k, n, b, method,
+                                                        keyed):
+    """A test that draws its own orders a tile ahead gives the null and
+    p-value of the same test given ``permutation_orders(key, K, n)``, and
+    leaves a generator key where the whole draw leaves it."""
+    if keyed == "int":
+        key, whole = 5, engine.permutation_orders(5, k, n)
+    else:
+        key = torch.Generator().manual_seed(5)
+        drawn = torch.Generator().manual_seed(5)
+        whole = engine.permutation_orders(drawn, k, n)
+    got, got_null = _run_test(method, k, key, b=b, n=n)
+    want, want_null = _run_test(method, k, None, orders=whole, b=b, n=n)
+    assert got_null.shape == (k,)
+    assert torch.equal(got_null, want_null)
+    assert got.p_value == want.p_value or (
+        np.isnan(got.p_value) and np.isnan(want.p_value))
+    assert got.statistic == want.statistic
+    if keyed == "generator":
+        assert torch.equal(key.get_state(), drawn.get_state())
+
+
+@pytest.mark.parametrize("k,n,b", [(999, 40, 32), (99, 40, 32),
+                                   (17, 40, 32), (64, 40, 32), (5, 40, 32),
+                                   (0, 40, 32)])
+def test_order_stream_tiles_are_the_wrapped_whole_draw(k, n, b):
+    """Padded tile t of the stream is rows ``[tB, (t + 1)B)`` of the whole
+    draw wrapped to full tiles, the last tile's padding from tile 0."""
+    whole = engine.permutation_orders(9, k, n)
+    tiles = -(-k // b)
+    wrapped = whole[torch.arange(tiles * b) % k] if k else whole
+    stream = engine.OrderStream(9, k, n, b, torch.device("cpu"))
+    stream.first()
+    for t in range(tiles):
+        if t:
+            stream.ahead(t)
+        assert torch.equal(stream.tile(t), wrapped[t * b:(t + 1) * b])
+    assert stream.drawn_ahead == max(tiles - 1, 0)

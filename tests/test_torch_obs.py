@@ -274,6 +274,67 @@ def test_session_span_tree_holds_the_order_draw():
     assert not {"ws.mantel", "engine.mantel", "engine.orders"} & set(names)
 
 
+def _engine_span(ws, method):
+    """The newest ``engine.<method>`` span of ``ws``'s report."""
+    return [c for s in ws.report().spans if s["name"] == f"ws.{method}"
+            for c in s.get("children", ())
+            if c["name"] == f"engine.{method}"][-1]
+
+
+def test_drawn_orders_are_drawn_a_tile_ahead():
+    """K = 99 in tiles of 32: tiles 1-3 are drawn inside the tile before
+    them, each in an ``engine.orders_ahead`` span a child of an
+    ``engine.tile``; given orders draw nothing ahead."""
+    d, e = _dm(40, seed=1), _dm(40, seed=2)
+    ws = Workspace(d, config=ExecConfig(obs=OBS, device="cpu"))
+    spans, names = _profiled(lambda: ws.mantel(e, permutations=99, key=3))
+    engine = _engine_span(ws, "mantel")
+    assert engine["attrs"]["draws_ahead"] == 3
+    assert [c["name"] for c in engine["children"]] == \
+        ["engine.orders"] + ["engine.tile"] * 4
+    ahead = [(t, c) for t, tile in enumerate(engine["children"][1:])
+             for c in tile.get("children", ())
+             if c["name"] == "engine.orders_ahead"]
+    assert [(t, c["attrs"]) for t, c in ahead] == [
+        (0, {"rows": 32, "tile": 1}), (1, {"rows": 32, "tile": 2}),
+        (2, {"rows": 3, "tile": 3})]
+    assert spans["engine.orders_ahead"] == 3 and spans["engine.orders"] == 1
+    assert spans["engine.tile"] == 4
+    assert "engine.orders_ahead" not in names
+    spans, _ = _profiled(lambda: ws.mantel(e, permutations=64,
+                                           orders=_orders(64, 40)))
+    engine = _engine_span(ws, "mantel")
+    assert engine["attrs"]["draws_ahead"] == 0
+    assert "engine.orders_ahead" not in spans
+    assert not any(c["name"] == "engine.orders_ahead"
+                   for tile in engine["children"]
+                   for c in tile.get("children", ()))
+
+
+@pytest.mark.parametrize("method,k", [
+    ("mantel", 99), ("partial_mantel", 40), ("permanova", 64),
+    ("anosim", 17), ("permdisp", 33), ("mantel", 0)])
+def test_every_workspace_test_reports_its_draws_ahead(method, k):
+    """``draws_ahead`` on the ``engine.<method>`` span: tiles − 1 for
+    drawn orders, whatever the statistic."""
+    d, e, f = (_dm(40, seed=s) for s in (1, 2, 3))
+    ws = Workspace(d, config=ExecConfig(obs=OBS, device="cpu"))
+    grouping = np.arange(40) % 4
+    call = {"mantel": lambda: ws.mantel(e, permutations=k, key=1),
+            "partial_mantel": lambda: ws.partial_mantel(e, f,
+                                                        permutations=k,
+                                                        key=1),
+            "permanova": lambda: ws.permanova(grouping, permutations=k,
+                                              key=1),
+            "anosim": lambda: ws.anosim(grouping, permutations=k, key=1),
+            "permdisp": lambda: ws.permdisp(grouping, permutations=k,
+                                            key=1)}[method]
+    call()
+    attrs = _engine_span(ws, method)["attrs"]
+    assert attrs["draws_ahead"] == max(attrs["tiles"] - 1, 0)
+    assert attrs["tiles"] == -(-k // 32)
+
+
 def test_the_off_path_is_the_shared_null_span():
     """No profiler, no session: the shared ``NULL_SPAN``; a session
     without spans too. Under a profiler the no-op session's span is seen
