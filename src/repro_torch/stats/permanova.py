@@ -9,7 +9,9 @@ design over a distance matrix, with the paper §4.2 split:
   invariant, McArdle & Anderson 2001), the one-hot design ``Z`` and the
   group sizes.
 * **per permutation**: permuting the labels permutes the rows of Z, and
-  ``SS_among = Σ_g (Z_pᵀ G Z_p)_gg / n_g``.
+  ``SS_among = Σ_g ((Z_p − 1 wᵀ)ᵀ G Z_p)_gg / n_g``, w the groups' shares
+  n_g / n: ``Σ_g (Z_pᵀ G Z_p)_gg / n_g − 1ᵀ G 1 / n``, the among-group sum
+  of squares about the grand centroid (see ``_forms``).
 
 The reference's engine vmaps ``per_perm`` over a tile, and XLA turns the
 B products ``G @ Z_p`` into one. The port writes that vmap out as
@@ -50,6 +52,23 @@ def _permuted_designs(z: torch.Tensor, orders: torch.Tensor) -> torch.Tensor:
     return z[orders.long()].permute(1, 0, 2).reshape(n, perms * z.shape[1])
 
 
+def _forms(inv: dict, z: torch.Tensor, product: torch.Tensor,
+           num_groups: int) -> torch.Tensor:
+    """The (B, g) forms ``diag((Z_p − 1 wᵀ)ᵀ G Z_p)`` of B designs side by
+    side in ``z`` (n, B·g), ``product = G z``, w the groups' shares.
+
+    Centring the weights is a no-op for an exactly centred G (``1ᵀG = 0``).
+    The G of fp32 arithmetic carries its centring's rounding in its row and
+    grand means, an error ``a1ᵀ + 1aᵀ + c11ᵀ``, which the centred weights
+    cancel: summed over the groups it adds nothing. Where the groups barely
+    differ SS_among is about (g − 1) / (n − 1) of SS_total, and with the
+    plain design that rounding alone moves F by up to 2e-4 of itself
+    (n = 16384, 4 groups, the ``center`` pair on an H100)."""
+    n = z.shape[0]
+    centred = z.reshape(n, -1, num_groups) - inv["shares"]
+    return torch.sum(centred * product.reshape(n, -1, num_groups), dim=0)
+
+
 def _pseudo_f(inv: dict, s: torch.Tensor, n: int,
               num_groups: int) -> torch.Tensor:
     """F from the (..., g) quadratic forms ``diag(Z_pᵀ G Z_p)``."""
@@ -76,11 +95,12 @@ class PermanovaStatistic:
             center_distance_matrix(self.dm)
         z, sizes = _design(self.grouping.to(g.device), self.num_groups,
                            g.dtype)
-        return {"g": g, "z": z, "sizes": sizes, "ss_total": torch.trace(g)}
+        return {"g": g, "z": z, "sizes": sizes, "shares": sizes / self.n,
+                "ss_total": torch.trace(g)}
 
     def per_perm(self, inv: dict, order: torch.Tensor) -> torch.Tensor:
         z = inv["z"][order.long()]                   # O(n·g) label gather
-        s = torch.sum(z * (inv["g"] @ z), dim=0)     # (g,) quadratic forms
+        s = _forms(inv, z, inv["g"] @ z, self.num_groups)[0]
         return _pseudo_f(inv, s, self.n, self.num_groups)
 
     def per_batch(self, inv: dict, orders: torch.Tensor) -> torch.Tensor:
@@ -88,9 +108,8 @@ class PermanovaStatistic:
 
     def _batch(self, inv: dict, orders: torch.Tensor) -> torch.Tensor:
         zc = _permuted_designs(inv["z"], orders)
-        s = torch.sum(zc * torch.matmul(inv["g"], zc), dim=0)
-        return _pseudo_f(inv, s.reshape(orders.shape[0], self.num_groups),
-                         self.n, self.num_groups)
+        s = _forms(inv, zc, torch.matmul(inv["g"], zc), self.num_groups)
+        return _pseudo_f(inv, s, self.n, self.num_groups)
 
 
 @dataclasses.dataclass
@@ -112,11 +131,12 @@ class PermanovaOperatorStatistic:
     def hoist(self) -> dict:
         z, sizes = _design(self.grouping.to(self.op.row_means.device),
                            self.num_groups, self.op.dtype)
-        return {"z": z, "sizes": sizes, "ss_total": self.op.trace()}
+        return {"z": z, "sizes": sizes, "shares": sizes / self.n,
+                "ss_total": self.op.trace()}
 
     def per_perm(self, inv: dict, order: torch.Tensor) -> torch.Tensor:
         z = inv["z"][order.long()]
-        s = torch.sum(z * self.op.matvec(z), dim=0)
+        s = _forms(inv, z, self.op.matvec(z), self.num_groups)[0]
         return _pseudo_f(inv, s, self.n, self.num_groups)
 
     def per_batch(self, inv: dict, orders: torch.Tensor) -> torch.Tensor:
@@ -124,9 +144,8 @@ class PermanovaOperatorStatistic:
 
     def _batch(self, inv: dict, orders: torch.Tensor) -> torch.Tensor:
         zc = _permuted_designs(inv["z"], orders)
-        s = torch.sum(zc * self.op.matvec(zc), dim=0)
-        return _pseudo_f(inv, s.reshape(orders.shape[0], self.num_groups),
-                         self.n, self.num_groups)
+        s = _forms(inv, zc, self.op.matvec(zc), self.num_groups)
+        return _pseudo_f(inv, s, self.n, self.num_groups)
 
 
 def permanova(dm: DistanceMatrix, grouping, permutations: int = 999,
