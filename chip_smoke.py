@@ -18,7 +18,9 @@ check fails:
    ``condensed_matvec`` at ragged n and k, two launches bitwise equal);
    2c for
    ``mantel_corr`` (n = 1000 with K = 54, and one batch of 27 at
-   n = 16384), and its identity order against the plain Pearson r; 2d for
+   n = 16384), and its identity order against the plain Pearson r;
+   ``within_sums`` (ANOSIM's tiles) is held bit for bit against its plain
+   version at n = 1000, 1001 and 16384 in phase 2; 2d for
    ``rmsnorm`` at the LM path's shapes in fp32 and bf16, two launches
    bitwise equal; phases 2, 2b and 2c also hold the distributed paths'
    modes against their plain versions: ``center_matvec`` and the
@@ -83,8 +85,10 @@ check fails:
 5. per-kernel times, bounds and plain versions at the paths' shapes
    (``center_matvec`` also at k = 128, the square-operator PERMANOVA's
    tile, kernel and op; the block and column-range modes at the 2 x 2
-   mesh's shapes); one permutation's ``permute_reduce`` (S = 1, 2)
-   and ``mantel_corr`` sums bitwise the same beside other tile-mates and at
+   mesh's shapes; ``within_sums`` at ANOSIM's tile beside
+   ``permute_reduce`` over the within-group indicator); one permutation's
+   ``permute_reduce`` (S = 1, 2), ``mantel_corr`` and ``within_sums``
+   sums bitwise the same beside other tile-mates and at
    other positions of the tile; 5c the sparse-support Bray–Curtis panel
    at the features cell's shape (4743 x 45383 integer counts, 1.27%
    nonzero): against its plain version, bit for bit against the dense
@@ -173,6 +177,10 @@ such files bitwise. ``--sparse-panel`` runs phase 5c alone, and
 ``--sparse-crossover`` times a whole Bray–Curtis production by both routes
 at the features cell's shape over nonzero shares from 1% to 30%: the
 crossover that ``dist/driver.py``'s ``SPARSE_SHARE`` is set from.
+``--within-sums`` runs ANOSIM's ``within_sums`` checks (phase 2's, its
+tile-mates), a free ``anosim`` at n = N twice with its launches, and its
+phase 5 entries, timed beside ``permute_reduce`` over the within-group
+indicator on the same tile, ANOSIM's path before it.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it fails before printing any result.
@@ -555,6 +563,8 @@ def phase_kernels(d_main: torch.Tensor, ynorm_main: torch.Tensor) -> dict:
     check_center_matvec_blocks(d_main, d_ragged, errors)
     for d in (d_small, d_ragged, d_main):
         check_permute_reduce(d, ynorm_main if d is d_main else None, errors)
+    for d in (d_small, d_ragged, d_main):
+        check_within_sums(d, errors)
     return errors
 
 
@@ -715,6 +725,219 @@ def check_permute_reduce(d: torch.Tensor, ynorm, errors: dict) -> None:
         raise SmokeFailure(f"permute_reduce {label}: a repeated order index "
                            f"was not refused")
     del xc, ys, ii, jj
+
+
+def anosim_inputs(d: torch.Tensor) -> tuple:
+    """``(ranks, codes)`` of ANOSIM on the square ``d``: the fp32 average
+    ranks of its condensed distances, and int32 codes of GROUPS groups
+    (phase 3c's grouping at n = N, a seeded draw at another n)."""
+    from repro_torch.core.distance_matrix import condensed_form
+    from repro_torch.stats.anosim import rank_transform_condensed
+
+    n = d.shape[0]
+    groups = battery_groups() if n == N else \
+        np.random.default_rng(SEED + n).integers(0, GROUPS, size=n)
+    return (rank_transform_condensed(condensed_form(d))["ranks"],
+            torch.from_numpy(groups).to(torch.int32).cuda())
+
+
+def check_within_sums(d: torch.Tensor, errors: dict) -> None:
+    """within_sums at one n against its plain version, bit for bit (both
+    sum doubled ranks exactly): B = 32 at GROUPS groups and at 300 groups,
+    and B = 5; the finish against its plain version; two launches bitwise
+    equal; a repeated order index refused. ``errors`` takes the main
+    path's (0: equal bits)."""
+    from repro_torch.kernels.inverse_orders import inverse_orders
+    from repro_torch.kernels.within_sums import (within_sums_finish,
+                                                 within_sums_partials)
+    from repro_torch.kernels.within_sums_ops import DEFAULT_CHUNK, within_sums
+    from repro_torch.kernels.within_sums_ref import (within_sums_finish_ref,
+                                                     within_sums_ref)
+    from repro_torch.stats.engine import permutation_orders
+
+    n = d.shape[0]
+    label = f"n={n}"
+    ranks, codes = anosim_inputs(d)
+    many = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        0, 300, size=n)).to(torch.int32).cuda()
+    orders = permutation_orders(SEED + 3, 32, n, "cuda")
+    _, orders16 = inverse_orders(orders)
+    for case, c, b in ((f"{GROUPS} groups B=32", codes, 32),
+                       ("300 groups B=32", many, 32),
+                       (f"{GROUPS} groups B=5", codes, 5)):
+        partials = within_sums_partials(ranks, c, orders16[:b])
+        out = within_sums_finish(partials)
+        want = within_sums_ref(ranks, c, orders[:b], DEFAULT_CHUNK)
+        check(torch.equal(out, want),
+              f"within_sums {label} {case}: differs from its plain version "
+              f"(max abs {float((out - want).abs().max())})")
+        check(torch.equal(out, within_sums_finish_ref(partials)),
+              f"within_sums_finish {label} {case}: differs from its plain "
+              f"version")
+        again = within_sums_finish(within_sums_partials(ranks, c,
+                                                        orders16[:b]))
+        check(torch.equal(out, again),
+              f"within_sums {label} {case}: two launches differ")
+        print(f"  within_sums {label} {case}: bitwise its plain version, "
+              f"two launches bitwise equal ({partials.shape[0]} blocks)")
+    if n == N:
+        errors["within_sums"] = errors["within_sums_finish"] = 0.0
+    bad = orders.clone()
+    bad[5, 7] = bad[5, 8]
+    try:
+        within_sums(ranks, codes, bad)
+    except ValueError as e:
+        print(f"  within_sums {label}: a repeated order index refused ({e})")
+    else:
+        raise SmokeFailure(f"within_sums {label}: a repeated order index "
+                           f"was not refused")
+    del ranks
+
+
+def within_sums_entries(d: torch.Tensor, launches: dict,
+                        errors: dict) -> list:
+    """``within_sums`` and its finish at the battery's ANOSIM tile (n =
+    N, B = 32, GROUPS groups) from a CUDA graph, beside their bounds and
+    plain versions. The partials' bound counts the ranks, codes, orders
+    and partials once and a compare and an add a pair and permutation at
+    the fp32 rate. Its yardstick is the path ANOSIM took before it:
+    ``permute_reduce`` (partials and finish, from a CUDA graph) with the
+    m-long within-group indicator as the gathered side on the same tile;
+    ``op_ms`` times the public op, ``inverse_orders`` and its check
+    included."""
+    from repro_torch.core.distance_matrix import condensed_form
+    from repro_torch.kernels.inverse_orders import inverse_orders
+    from repro_torch.kernels.permute_reduce import (permute_reduce_finish,
+                                                    permute_reduce_partials)
+    from repro_torch.kernels.within_sums import (finish_cost, tile_count,
+                                                 within_sums_finish,
+                                                 within_sums_partials)
+    from repro_torch.kernels.within_sums_ops import DEFAULT_CHUNK, within_sums
+    from repro_torch.kernels.within_sums_ref import (within_sums_finish_ref,
+                                                     within_sums_ref)
+    from repro_torch.stats.engine import permutation_orders
+
+    n, perms = d.shape[0], 32
+    m = n * (n - 1) // 2
+    ranks, codes = anosim_inputs(d)
+    orders = permutation_orders(SEED + 3, perms, n, "cuda")
+    inv, orders16 = inverse_orders(orders)
+    partials = within_sums_partials(ranks, codes, orders16)
+    blocks = partials.shape[0]
+    within = condensed_form(codes[:, None] == codes[None, :]).float()
+    old_path_ms = graph_ms(lambda: permute_reduce_finish(
+        permute_reduce_partials(within, ranks[None], inv, orders16)), reps=5)
+    old = permute_reduce_finish(permute_reduce_partials(
+        within, ranks[None], inv, orders16))[0]
+    del within
+    new = within_sums_finish(partials)
+    gap = float(((old - new).abs() / new.abs()).max())
+    print(f"  within_sums (32, {n}) against permute_reduce on the "
+          f"indicator: largest relative gap {gap:.3g} (fp64 partials "
+          f"against exact sums)")
+    out = [kernel_entry(
+        "within_sums", "src/repro_torch/csrc/within_sums.cu",
+        "none: ANOSIM's within-group rank sums",
+        launches.get("within_sums", 0), errors["within_sums"],
+        graph_ms(lambda: within_sums_partials(ranks, codes, orders16),
+                 reps=20),
+        cuda_ms(lambda: within_sums_ref(ranks, codes, orders, DEFAULT_CHUNK),
+                reps=1),
+        operand_bytes(ranks, codes, orders16, partials),
+        2.0 * m * perms, FP32_FLOPS,
+        role="ANOSIM's tile: the ranks once, the permuted codes compared; "
+             "yardstick permute_reduce over the within-group indicator, "
+             "ANOSIM's path before",
+        permute_reduce_ms=old_path_ms, gap_to_permute_reduce=gap,
+        host_launch_ms=cuda_ms(lambda: within_sums_finish(
+            within_sums_partials(ranks, codes, orders16)), reps=20),
+        op_ms=cuda_ms(lambda: within_sums(ranks, codes, orders), reps=5),
+        blocks=blocks, tiles=tile_count(n))]
+    out.append(kernel_entry(
+        "within_sums_finish", "src/repro_torch/csrc/within_sums.cu",
+        "none: ANOSIM's within-group rank sums",
+        launches.get("within_sums_finish", 0), errors["within_sums_finish"],
+        graph_ms(lambda: within_sums_finish(partials)),
+        cuda_ms(lambda: within_sums_finish_ref(partials), reps=20),
+        operand_bytes(partials, within_sums_finish(partials)),
+        finish_cost(blocks, perms)[1], FP32_FLOPS))
+    ws = out[0]
+    print(f"  within_sums (32, {n}): {ws['ms']:.4f} ms from a CUDA graph, "
+          f"bound {ws['bound_ms']:.4f} ms ({ws['bound_by']}), "
+          f"{ws['bound_ms'] / ws['ms']:.4f} of it; permute_reduce on the "
+          f"same tile {old_path_ms:.4f} ms "
+          f"({old_path_ms / (ws['ms'] + out[1]['ms']):.2f}x); the op "
+          f"{ws['op_ms']:.4f} ms; plain {ws['plain_ms']:.1f} ms")
+    del ranks, partials
+    return out
+
+
+def check_within_sums_tile_mates(d: torch.Tensor) -> None:
+    """One permutation's ``within_sums`` partials and output bitwise the
+    same beside three sets of tile-mates and at positions 0, 17 and 31 of
+    a tile of 32, at n = N."""
+    from repro_torch.kernels.inverse_orders import inverse_orders
+    from repro_torch.kernels.within_sums import (within_sums_finish,
+                                                 within_sums_partials)
+    from repro_torch.stats.engine import permutation_orders
+
+    n = d.shape[0]
+    ranks, codes = anosim_inputs(d)
+    target = permutation_orders(SEED + 6, 1, n, "cuda")
+    seen = set()
+    for partners in range(3):
+        others = permutation_orders(SEED + 7 + partners, 31, n, "cuda")
+        for pos in (0, 17, 31):
+            orders = torch.cat([others[:pos], target, others[pos:]])
+            part = within_sums_partials(ranks, codes,
+                                        inverse_orders(orders)[1])
+            seen.add((part[:, pos].cpu().numpy().tobytes(),
+                      within_sums_finish(part)[pos].cpu().numpy().tobytes()))
+    check(len(seen) == 1, f"within_sums n={n}: one permutation's sums depend "
+                          f"on its tile-mates ({len(seen)} results)")
+    print(f"  within_sums n={n}: one permutation's partials and output "
+          f"bitwise equal beside 3 sets of tile-mates at positions 0, 17, 31")
+    del ranks
+
+
+def within_sums_only(card: str) -> int:
+    """``--within-sums``: ``within_sums`` alone at n = 1000, 1001 and N
+    against its plain version, its tile-mates and its times (phase 2's,
+    phase 5's checks), then a free ``anosim`` at n = N, K = PERMUTATIONS
+    twice with its launches; prints the two kernels' entries as a
+    ``kernels`` line."""
+    from repro_torch.core import DistanceMatrix, random_distance_matrix
+    from repro_torch.kernels import _build
+    from repro_torch.stats import anosim
+
+    print("== within_sums alone")
+    errors = {}
+    d_main = random_distance_matrix(SEED, N, dim=POINT_DIM).data
+    for n in (SMALL_N, SMALL_N + 1):
+        check_within_sums(random_distance_matrix(SEED + n, n,
+                                                 device="cuda").data, errors)
+    check_within_sums(d_main, errors)
+    check_within_sums_tile_mates(d_main)
+    dm = DistanceMatrix(d_main)
+    groups = battery_groups()
+    for run in ("cold", "warm"):
+        sync()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = anosim(dm, groups, PERMUTATIONS)
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.launches.items() if v}
+        print(f"  anosim n={N} K={PERMUTATIONS} ({run}): {seconds:.4f} s "
+              f"({card}); R {res.statistic:.6g}, p {res.p_value}; "
+              f"launches {launches}")
+    tiles = -(-PERMUTATIONS // 32)
+    check(launches == {"inverse_orders": tiles, "within_sums": tiles,
+                       "within_sums_finish": tiles},
+          f"anosim launches {launches}")
+    kernels = within_sums_entries(d_main, launches, errors)
+    print(json.dumps({"kernels": kernels, "card": card}))
+    return 0
 
 
 def main_inputs():
@@ -1206,7 +1429,8 @@ def phase_feature_checks(feat: dict, x: torch.Tensor, y: torch.Tensor,
     tiles = -(-PERMUTATIONS // 32)
     want = {"pairwise_panel": panels, "pairwise_sparse_panel": 0,
             "inverse_orders": tiles, "permute_reduce": tiles,
-            "permute_reduce_finish": tiles, "center_matvec": 0,
+            "permute_reduce_finish": tiles, "within_sums": 0,
+            "within_sums_finish": 0, "center_matvec": 0,
             "condensed_matvec": 4, "symhollow": 0, "center_pass1": 0,
             "center_finish": 0, "center_pass2": 0, "mantel_corr": 0,
             "mantel_corr_finish": 0, "rmsnorm": 0, "rmsnorm_bwd": 0}
@@ -1337,8 +1561,8 @@ def battery_tests(x, y, z, op, groups, orders, device, omega=None,
         "permanova": ({"center_pass1": 1, "center_finish": 1,
                        "center_pass2": 1},
                       lambda: permanova(x, groups, permutations, **common)),
-        "anosim": ({"inverse_orders": tiles, "permute_reduce": tiles,
-                    "permute_reduce_finish": tiles},
+        "anosim": ({"inverse_orders": tiles, "within_sums": tiles,
+                    "within_sums_finish": tiles},
                    lambda: anosim(x, groups, permutations, **common)),
         "permdisp": ({"center_matvec": 4},
                      lambda: permdisp(x, groups, permutations,
@@ -1562,6 +1786,8 @@ def phase_session(main: dict, feat: dict, battery: dict,
     tiles = -(-PERMUTATIONS // 32)
     per_tile = {"inverse_orders": tiles, "permute_reduce": tiles,
                 "permute_reduce_finish": tiles}
+    anosim_tile = {"inverse_orders": tiles, "within_sums": tiles,
+                   "within_sums_finish": tiles}
     # each test of a session draws its orders (phase 3c's were drawn once
     # and given to every test): the draw alone, for the comparison
     timed("order draw", lambda: permutation_orders(None, PERMUTATIONS, N,
@@ -1594,7 +1820,8 @@ def phase_session(main: dict, feat: dict, battery: dict,
     check_launches("permanova", {"center_pass1": 1, "center_finish": 1,
                                  "center_pass2": 1})
     check_launches("permdisp", {})
-    for name in ("anosim", "mantel", "partial_mantel"):
+    check_launches("anosim", anosim_tile)
+    for name in ("mantel", "partial_mantel"):
         check_launches(name, per_tile)
     builds = {w: {a: wsn.cache.build_count(a) for a in
                   ("operator", "gram", "condensed", "ranks", "moments",
@@ -1660,7 +1887,7 @@ def phase_session(main: dict, feat: dict, battery: dict,
     fperm = timed("permanova", lambda: fx.permanova(groups, PERMUTATIONS))
     feature_launches = {k: v + feat["launches"][k]
                         for k, v in _build.launches.items()}
-    check_launches("anosim", per_tile)
+    check_launches("anosim", anosim_tile)
     check_launches("permanova", {"condensed_matvec": tiles + 1})
     busy = device_breakdown("feature session permanova again, profiled",
                             lambda: fx.permanova(groups, PERMUTATIONS), card)
@@ -1810,10 +2037,10 @@ def phase_service(main: dict, battery: dict, tables, card: str) -> dict:
     twelve permutation tests at BENCH_serve.json's Ks and two pcoa
     requests run coalesced. Checks: every request done with no fault,
     retry or breaker trip; ceil(ΣK/B) tiles a lane; each hoist built once;
-    K adds no ``permute_reduce`` signature; every result bitwise the same
-    request run alone through a default ``Workspace`` with the same seed;
-    every last streamed frame collapsed onto the p-value. Prints the
-    ``service`` line."""
+    K adds no ``permute_reduce`` or ``within_sums`` signature; every
+    result bitwise the same request run alone through a default
+    ``Workspace`` with the same seed; every last streamed frame collapsed
+    onto the p-value. Prints the ``service`` line."""
     from repro_torch.api import Workspace
     from repro_torch.core import random_distance_matrix
     from repro_torch.kernels import _build
@@ -1872,18 +2099,25 @@ def phase_service(main: dict, battery: dict, tables, card: str) -> dict:
     check(all(v == 1 for b in builds.values() for v in b.values()),
           f"service: a hoist was built twice: {builds}")
     pr = signatures.get("kernels.permute_reduce", {})
-    print(f"  kernels.permute_reduce in the run: {pr}; hoist builds "
-          f"{builds}")
+    ws_sig = signatures.get("kernels.within_sums", {})
+    print(f"  kernels.permute_reduce in the run: {pr}; kernels.within_sums "
+          f"{ws_sig}; hoist builds {builds}")
     # every tile of the mixed-K run has B = 32, so the run adds no
-    # permute_reduce signature to those of phases 3c and 3d: one a value
-    # of S (Mantel and ANOSIM 1, partial Mantel 2) serves every K
+    # permute_reduce or within_sums signature to those of phases 3c and
+    # 3d: one a value of S (Mantel 1, partial Mantel 2), and ANOSIM's one,
+    # serve every K
     check(svc.scheduler.batch_size == 32 and all(
         svc.pool.get(sid).config.batch_size == 32
         for sid in svc.pool.studies()), "service: B is not 32 everywhere")
     gather_tiles = sum(-(-k // 32) for (_, method), k in lanes.items()
-                       if method in ("mantel", "anosim", "partial_mantel"))
+                       if method in ("mantel", "partial_mantel"))
+    anosim_tiles = sum(-(-k // 32) for (_, method), k in lanes.items()
+                       if method == "anosim")
     check(pr.get("programs") == 0 and pr.get("traces") == gather_tiles,
           f"service: K added permute_reduce signatures: {pr}")
+    check(ws_sig.get("programs") == 0 and ws_sig.get("traces")
+          == anosim_tiles, f"service: K added within_sums signatures: "
+          f"{ws_sig}")
     for h in handles:
         last = h.updates[-1]
         check(last.p_lo == last.p_hi == h.result.p_value and last.done,
@@ -4179,6 +4413,7 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
           library_host_launch_ms=cuda_ms(lambda: torch.sum(partials, dim=0),
                                          reps=20))
     del xc, ys, partials
+    kernels.extend(within_sums_entries(d, launches, errors))
 
     # the feature path: one panel of PANEL rows against the (n, FEATURES)
     # table, bound by the fp32 instructions of its n·PANEL·FEATURES terms
@@ -4349,6 +4584,7 @@ def phase_kernel_line(launches: dict, errors: dict, d: torch.Tensor,
           c0=BLOCK, perms=MAX_PERMS)
     del ycols, partials
     check_tile_mates(d, ynorm, yhat)
+    check_within_sums_tile_mates(d)
     del yhat
     print_kernel_times(kernels)
     return kernels
@@ -5124,6 +5360,8 @@ def main() -> int:
         phase_environment()
         print(json.dumps(sparse_crossover()))
         return 0
+    if sys.argv[1:] == ["--within-sums"]:
+        return within_sums_only(phase_environment()["card"])
     if sys.argv[1:] == ["--solver-first-calls"]:     # phase 4b's fresh process
         torch.zeros(1, device="cuda")
         print(json.dumps(solver_first_calls()))
@@ -5181,6 +5419,8 @@ def main() -> int:
                      ("center_pass1", "center_finish", "center_pass2")})
     launches.update({k: battery["launches"]["mantel_corr"][k] for k in
                      ("mantel_corr", "mantel_corr_finish")})
+    launches.update({k: battery["launches"]["anosim"][k] for k in
+                     ("within_sums", "within_sums_finish")})
     # the block and column-range modes: their launches in phase 7
     launches.update({f"{k}_block": distributed["block_launches"].get(k, 0)
                      for k in ("center_pass1", "center_pass2",

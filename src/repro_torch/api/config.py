@@ -62,9 +62,9 @@ class ExecConfig:
     matvec_impl, pairwise_impl, kernel:
         ``"xla"`` (default) or ``"pallas"``. Read by no route: the
         operator matvec runs ``center_matvec``, the production
-        ``pairwise_panel`` and the condensed reductions of the Mantel
-        family and ANOSIM ``permute_reduce`` on the card, their plain
-        versions on the CPU; ``kernel="pallas"`` names the partial-Mantel
+        ``pairwise_panel``, the condensed reductions of the Mantel family
+        ``permute_reduce`` and ANOSIM's ``within_sums`` on the card, their
+        plain versions on the CPU; ``kernel="pallas"`` names the partial-Mantel
         statistic ``PartialMantelPallasStatistic``, as in the reference.
     interpret, chunk, feature_block:
         The reference's Pallas dispatch mode (``None``, ``True`` or

@@ -33,8 +33,9 @@ distances are produced panel by panel in condensed layout
 (``repro_torch.dist.pairwise_condensed``, on the card ``pairwise_panel``
 launches), with the operator means and the Mantel moments taken from the
 same sweep, and every analysis runs without an n×n matrix: the Mantel
-family and ANOSIM gather condensed storage (``permute_reduce``), PCoA and
-PERMANOVA run through the condensed operator. The square builds left are
+family gathers condensed storage (``permute_reduce``), ANOSIM walks its
+condensed ranks (``within_sums``), PCoA and PERMANOVA run through the
+condensed operator. The square builds left are
 opt-ins: ``gram`` for eigh or materialized ordination, and the
 ``"square"`` key when ``ws.dm`` itself is asked for. ``refresh()`` drops
 the whole cache (generation-counted) when the data change.

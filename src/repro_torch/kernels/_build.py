@@ -65,6 +65,8 @@ launches: dict[str, int] = {
     "inverse_orders": 0,
     "permute_reduce": 0,
     "permute_reduce_finish": 0,
+    "within_sums": 0,
+    "within_sums_finish": 0,
     "pairwise_panel": 0,
     "pairwise_sparse_panel": 0,
     "center_pass1": 0,
@@ -99,6 +101,9 @@ _SIGNATURES = {
     "repro_permute_reduce_partials": [_P, _P, _L, _P, _P, _P, _I, _I, _I,
                                       _I, _P],
     "repro_permute_reduce_finish": [_P, _P, _I, _I, _P],
+    "repro_within_sums_grid": [_I, _IP],
+    "repro_within_sums_partials": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_within_sums_finish": [_P, _P, _I, _I, _P],
     "repro_pairwise_panel": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_pairwise_sparse_panel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     _P],

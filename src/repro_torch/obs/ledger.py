@@ -12,7 +12,9 @@ Beside the reference's models stands the port's own: the row-stationary
 ``permute_reduce`` of the card moves other bytes than ``condensed_fused``
 — 4m(S·B + L) + 8nB a tile of B permutations in L launches
 (``row_stationary_floats``). The engine and the serve scheduler charge it
-for tiles that run on the card, the reference's model on the CPU.
+for tiles that run on the card, the reference's model on the CPU;
+ANOSIM's tiles on the card run ``within_sums`` instead and charge its
+launches' bytes (``within_sums_floats``).
 
 Registry layout
 ---------------
@@ -25,6 +27,8 @@ Registry layout
   PERMUTATION by each formulation of the Mantel-family inner loop.
 * ``row_stationary_floats(n, batch, s)`` — the same per-permutation
   figure for the card's row-stationary ``permute_reduce``.
+* ``within_sums_floats(n, batch)`` — the figure for ANOSIM's
+  ``within_sums`` kernel on the card.
 * ``production_floats(n, d, block)`` — feature reads of the tiled
   distance production sweep (identical for fused and materialized
   modes, which is why the pass tables exclude it).
@@ -42,6 +46,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+from repro_torch.kernels.within_sums import tile_cost as within_sums_tile_cost
 
 # --------------------------------------------------------------------------
 # The audited registry
@@ -146,6 +152,15 @@ def row_stationary_floats(n: int, batch: int, s: int = 1) -> float:
     return (float(m) * (s * batch + launches) + 2.0 * n * batch) / batch
 
 
+def within_sums_floats(n: int, batch: int) -> float:
+    """fp32 floats moved PER PERMUTATION by the card's ``within_sums``
+    (``csrc/within_sums.cu``), ANOSIM's tile of B permutations: the bytes
+    its launches declare (``kernels.within_sums.tile_cost``: the ranks read
+    once, each tile's permuted codes, the orders' inversion) over 4B, the
+    grid's O(B) partials left out."""
+    return within_sums_tile_cost(n, batch, 0)[0] / (4.0 * batch)
+
+
 def production_floats(n: int, d: int, block: int) -> float:
     """Feature reads of the tiled pairwise production: each of the
     ⌈n/b⌉ row panels streams the full (n, d) table against its own
@@ -223,9 +238,12 @@ class Ledger:
         """One permutation run of ``permutations`` draws in B=``batch``
         tiles, per the audited per-permutation model
         (``model="row_stationary"`` reads the invariant rows ``s``, default
-        1, from ``params``)."""
+        1, from ``params``; ``"within_sums"`` is ANOSIM's kernel on the
+        card)."""
         if model == "row_stationary":
             per_perm = row_stationary_floats(n, batch, params.get("s", 1))
+        elif model == "within_sums":
+            per_perm = within_sums_floats(n, batch)
         else:
             per_perm = perm_traffic_floats(n, batch)[model]
         return self.charge(f"perm:{op}", per_perm * permutations, n=n,

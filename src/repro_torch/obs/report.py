@@ -35,7 +35,8 @@ PERM_MODEL = ("reference model (Pallas) on the CPU: perm:* entries of "
               "tiles run there charge the reference's per-permutation "
               "gathers (condensed_fused); tiles run on the card charge the "
               "port's row-stationary permute_reduce, 4m(S*B + L) + 8nB "
-              "bytes a tile of L launches (row_stationary)")
+              "bytes a tile of L launches (row_stationary), ANOSIM's its "
+              "within_sums launches (within_sums)")
 
 
 class ObsSession:

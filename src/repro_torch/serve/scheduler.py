@@ -6,8 +6,9 @@ executes rows in padded ``(B, n)`` tiles
 (``stats.engine.tile_statistics``). Nothing about a row depends on its
 tile-mates — on the card ``permute_reduce`` sums each permutation in an
 order fixed by n and its position alone, whatever the other rows of its
-tile (``tests/test_torch_cuda.py``), and the batched statistics reduce
-each row on its own — so the scheduler is free to pack rows from
+tile (``tests/test_torch_cuda.py``), ``within_sums`` (ANOSIM) sums it
+exactly (``tests/test_torch_within_sums.py``), and the batched statistics
+reduce each row on its own — so the scheduler is free to pack rows from
 *different* requests into one tile whenever they share the exact
 invariant stack (study, generation, method, operands). Tiles are torch
 tensors on the study's device, and B is the service's one

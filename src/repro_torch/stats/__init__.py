@@ -10,7 +10,8 @@ The counterpart of ``repro/stats``:
 * ``permanova``      — pseudo-F from the centred Gower matrix (materialized
                        by the ``center`` kernel pair, or as an operator).
 * ``anosim``         — Clarke's R with the ranks hoisted and kept
-                       condensed; each tile is one ``permute_reduce``.
+                       condensed; each tile is one ``within_sums``, which
+                       compares the permuted group codes.
 * ``permdisp``       — Anderson's dispersion F with the ordination hoisted.
 * ``partial_mantel`` — three-matrix partial correlation, ŷ residualized
                        once; each tile is one S = 2 ``permute_reduce``.

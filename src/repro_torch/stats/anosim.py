@@ -5,23 +5,26 @@ The counterpart of ``repro/stats/anosim.py``. R = (mean between-group rank
 distances. The paper §4.2 split:
 
 * **hoisted** (computed once): the ranks of the m condensed distances (one
-  sort), kept condensed; the condensed within-group indicator of the
-  ORIGINAL labels, ``w[k] = [codes[i_k] == codes[j_k]]``; the total rank
+  sort), kept condensed; the group codes, on the device; the total rank
   sum; and the within-pair count ``Σ_g n_g(n_g−1)/2``.
 * **per permutation**: relabelling the samples by ``order`` makes display
-  pair (i, j) a within-pair iff the original pair (order[i], order[j]) is
-  one, so only the within-group rank sum changes,
+  pair (i, j) a within-pair iff its permuted codes agree, so only the
+  within-group rank sum changes,
 
-      w_sum(p) = Σ_k ranks[k] · w[tri(order[i_k], order[j_k])],
+      w_sum(p) = Σ_k ranks[k] · [codes[order[i_k]] == codes[order[j_k]]],
 
-  which is the ``permute_reduce`` shape with the indicator as the gathered
-  side and the ranks as the invariant row: on the card one launch of its
-  kernel per tile of B permutations.
+  which ``kernels.within_sums`` computes from the n codes, never forming
+  an m-long indicator: on the card one launch of its kernel per tile of B
+  permutations, which reads the ranks once a tile. The reference gathers
+  the ORIGINAL labels' condensed indicator at each permutation's pairs
+  through ``permute_reduce``; the sum is the same.
 
 Ranks are fp32, computed as the reference computes them: ``0.5 * (lo + hi
 + 1)`` in int32, cast once. They are exact half-integers only while
 2m + 1 < 2²⁴, i.e. n <= 5793; above that the cast rounds them (to a
-spacing of up to 8 at n = 16384), as in the reference.
+spacing of up to 8 at n = 16384), as in the reference. Either way 2·rank
+is an integer below 2³¹ (n <= 46340), so ``within_sums`` sums the doubled
+ranks exactly in int64, in any order, on both devices.
 
 ``anosim_ref`` mirrors scikit-bio's eager evaluation: per permutation it
 rebuilds the within-pair mask over all m pairs and takes two masked means.
@@ -34,10 +37,12 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.core.distance_matrix import (DistanceMatrix, condensed_form,
-                                              permuted_condensed)
+from repro_torch.core.distance_matrix import (MAX_TRIANGLE_N,
+                                              PERMUTED_CHUNK, DistanceMatrix,
+                                              condensed_form)
 from repro_torch.kernels.dispatch import DeviceLike
-from repro_torch.kernels.permute_reduce_ops import permute_reduce
+from repro_torch.kernels.within_sums_ops import within_sums
+from repro_torch.kernels.within_sums_ref import within_sums_ref
 from repro_torch.stats import engine
 from repro_torch.stats.engine import PermutationTestResult
 
@@ -72,10 +77,10 @@ class AnosimStatistic:
     holds the int codes in [0, num_groups) on the device of the data."""
 
     #: the ledger's per-permutation traffic model of this loop on the CPU
-    #: (``obs.ledger.perm_traffic_floats``), and the invariant rows S it
-    #: streams through ``permute_reduce`` (the card's row-stationary model)
+    #: (``obs.ledger.perm_traffic_floats``, the reference's gather), and on
+    #: the card (``obs.ledger.within_sums_floats``, the kernel's tile)
     ledger_model = "condensed_fused"
-    ledger_rows = 1
+    card_ledger_model = "within_sums"
 
     dm: Optional[torch.Tensor]
     grouping: torch.Tensor
@@ -89,16 +94,19 @@ class AnosimStatistic:
         rt = self.pre if self.pre is not None else \
             rank_transform_condensed(_as_condensed(self.dm))
         ranks = rt["ranks"]
-        codes = self.grouping.to(device=ranks.device, dtype=torch.int64)
-        # the within-indicator of the ORIGINAL labels: permuting the samples
-        # only permutes which pair is looked up
-        within = condensed_form(codes[:, None] == codes[None, :]).to(
-            ranks.dtype)
+        # within_sums sums 2·rank as an exact integer: the hoist's ranks
+        # are 0.5 * (lo + hi + 1) rounded once, so 2·rank is an integer of
+        # at most 2m, below 2³¹ up to MAX_TRIANGLE_N
+        if ranks.dtype != torch.float32 or self.n > MAX_TRIANGLE_N:
+            raise ValueError(f"ANOSIM takes the fp32 ranks of n <= "
+                             f"{MAX_TRIANGLE_N} samples, got {ranks.dtype} "
+                             f"at n={self.n}")
+        codes = self.grouping.to(device=ranks.device, dtype=torch.int32)
         sizes = torch.bincount(codes, minlength=self.num_groups).to(
             ranks.dtype)
         m = self.n * (self.n - 1) / 2.0
         within_count = torch.sum(sizes * (sizes - 1)) / 2.0
-        return {"ranks": ranks, "within": within,
+        return {"ranks": ranks, "codes": codes,
                 "total_sum": rt["total_sum"], "within_count": within_count,
                 "between_count": m - within_count,
                 "divisor": self.n * (self.n - 1) / 4.0}
@@ -110,13 +118,15 @@ class AnosimStatistic:
         return (r_b - r_w) / inv["divisor"]
 
     def per_perm(self, inv: dict, order: torch.Tensor) -> torch.Tensor:
-        w_sum = torch.dot(inv["ranks"],
-                          permuted_condensed(inv["within"], order, self.n))
-        return self._finish_r(inv, w_sum)
+        # the plain version on either device: the same exact sum, bit for
+        # bit, as the card's kernel gives the order in a tile
+        w_sum = within_sums_ref(inv["ranks"], inv["codes"], order[None],
+                                PERMUTED_CHUNK)
+        return self._finish_r(inv, w_sum[0])
 
     def per_batch(self, inv: dict, orders: torch.Tensor) -> torch.Tensor:
-        w_sums = permute_reduce(inv["within"], inv["ranks"][None, :], orders)
-        return self._finish_r(inv, w_sums[0])
+        return self._finish_r(inv, within_sums(inv["ranks"], inv["codes"],
+                                               orders))
 
 
 def anosim(dm: DistanceMatrix, grouping, permutations: int = 999,

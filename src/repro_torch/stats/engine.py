@@ -7,7 +7,8 @@ K, and the optional ``per_batch(invariants, orders) -> (B,)`` is the
 primary path. ``permutation_test`` pads the (K, n) orders up to full
 ``batch_size`` tiles by wrapping real permutations (``engine.py:226-246``
 of the reference), hands each tile to ``per_batch`` — for the Mantel
-family one launch of the ``permute_reduce`` kernel per tile on the card —
+family one launch of the ``permute_reduce`` kernel per tile on the card,
+for ANOSIM one of ``within_sums`` —
 and drops the padded tail before finishing. A test that draws its own
 orders draws them a tile ahead (``OrderStream``): tile t + 1's words are
 drawn on the host while the card runs tile t, the same bits as the whole
@@ -20,7 +21,8 @@ and,
 for a statistic that names its ``ledger_model`` (the condensed gathers of
 the Mantel family and ANOSIM, the statistics the reference batches),
 charges a per-permutation model for every row of the padded tiles: that
-model on the CPU, the card's row-stationary model on the card;
+model on the CPU, on the card the model of the kernel it runs (the
+row-stationary ``permute_reduce``, ANOSIM's ``within_sums``);
 each loop function notes its calls under the reference's sentinel
 names (``stats.engine.*``).
 
@@ -286,14 +288,17 @@ def finish(orig_stat: torch.Tensor, permuted_stats: torch.Tensor,
 def charge_tiles(obs, op: str, stat: Statistic, device: torch.device,
                  rows: int, batch_size: int) -> None:
     """Charge ``rows`` permutations run in tiles of ``batch_size`` to the
-    observing session: on the card the row-stationary ``permute_reduce``
-    model with the statistic's S invariant rows (``ledger_rows``, 1 when
-    unnamed), on the CPU the statistic's reference model
-    (``ledger_model``, the condensed gather when unnamed)."""
+    observing session: on the card the model of the kernel the statistic
+    runs (``card_ledger_model``; unnamed, the row-stationary
+    ``permute_reduce`` with the statistic's S invariant rows,
+    ``ledger_rows``, 1 when unnamed), on the CPU the statistic's reference
+    model (``ledger_model``, the condensed gather when unnamed)."""
     if device.type == "cuda":
-        obs.charge_perm_batch(op, stat.n, rows, batch_size,
-                              model="row_stationary",
-                              s=getattr(stat, "ledger_rows", 1))
+        model = getattr(stat, "card_ledger_model", "row_stationary")
+        params = {"s": getattr(stat, "ledger_rows", 1)} \
+            if model == "row_stationary" else {}
+        obs.charge_perm_batch(op, stat.n, rows, batch_size, model=model,
+                              **params)
     else:
         obs.charge_perm_batch(op, stat.n, rows, batch_size,
                               model=getattr(stat, "ledger_model",

@@ -28,8 +28,10 @@ Two families of terms:
   dense route only: the sparse route is not priced).
 
 Parameter names match the ledger's: n observations, d features, B
-permutation batch, S streamed invariant rows (Mantel/ANOSIM 1, partial
-Mantel 2), plus the tile knobs block / feature_block / chunk.
+permutation batch, S streamed invariant rows (Mantel 1, partial Mantel 2;
+ANOSIM streams none through ``permute_reduce``: its tiles run
+``within_sums``, whose shared memory is fixed), plus the tile knobs block /
+feature_block / chunk.
 """
 
 from __future__ import annotations

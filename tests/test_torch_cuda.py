@@ -468,6 +468,7 @@ def test_launch_counts_follow_the_main_path(cuda):
                                "condensed_matvec": 0,
                                "inverse_orders": 2, "permute_reduce": 2,
                                "permute_reduce_finish": 2,
+                               "within_sums": 0, "within_sums_finish": 0,
                                "pairwise_panel": 0,
                                "pairwise_sparse_panel": 0, "center_pass1": 0,
                                "center_finish": 0, "center_pass2": 0,
@@ -788,8 +789,8 @@ def test_battery_card_matches_cpu_with_its_launches(cuda):
     want_launches = {
         "permanova": {"center_pass1": 1, "center_finish": 1,
                       "center_pass2": 1},
-        "anosim": {"inverse_orders": 2, "permute_reduce": 2,
-                   "permute_reduce_finish": 2},
+        "anosim": {"inverse_orders": 2, "within_sums": 2,
+                   "within_sums_finish": 2},
         "permdisp": {"center_matvec": 4},
         "partial_mantel": {"inverse_orders": 2, "permute_reduce": 2,
                            "permute_reduce_finish": 2},
@@ -837,7 +838,8 @@ def test_session_battery_is_bitwise_the_free_functions(cuda, n):
     """A square-backed session on the card gives bitwise the statistics
     and p-values of the free functions on the same orders and sketch;
     admission launches ``symhollow`` once a matrix, ``pcoa`` the four
-    ``center_matvec`` launches, PERMDISP none, and the center pair once."""
+    ``center_matvec`` launches, PERMDISP none, the center pair once,
+    ANOSIM ``within_sums`` and the Mantel pair ``permute_reduce`` a tile."""
     k = 99
     d, y, z = (random_distance_matrix(s, n, dim=5, device=cuda).data
                for s in (21, 22, 23))
@@ -854,8 +856,9 @@ def test_session_battery_is_bitwise_the_free_functions(cuda, n):
     assert launches == {"symhollow": 3, "center_matvec": 4,
                         "center_pass1": 1, "center_finish": 1,
                         "center_pass2": 1, "inverse_orders": 3 * tiles,
-                        "permute_reduce": 3 * tiles,
-                        "permute_reduce_finish": 3 * tiles}
+                        "permute_reduce": 2 * tiles,
+                        "permute_reduce_finish": 2 * tiles,
+                        "within_sums": tiles, "within_sums_finish": tiles}
     assert all(ws.cache.build_count(a) == 1 for a in
                ("operator", "gram", "condensed", "ranks", "moments",
                 "coords"))
@@ -952,10 +955,12 @@ def test_feature_session_builds_no_square(cuda, n):
     assert set(l_cpu.values()) == {0}
     panels = 2 * -(-n // 256)
     # pcoa's 4 products; PERMANOVA's observed product and one a tile of
-    # 32 orders x 3 groups
+    # 32 orders x 3 groups; Mantel's 2 tiles through permute_reduce,
+    # ANOSIM's 2 through within_sums
     assert {key: v for key, v in l_gpu.items() if v} == {
         "pairwise_panel": panels, "condensed_matvec": 4 + 3,
-        "inverse_orders": 4, "permute_reduce": 4, "permute_reduce_finish": 4}
+        "inverse_orders": 4, "permute_reduce": 2, "permute_reduce_finish": 2,
+        "within_sums": 2, "within_sums_finish": 2}
     np.testing.assert_allclose(gpu["pcoa"].eigenvalues.cpu().numpy(),
                                cpu["pcoa"].eigenvalues.numpy(), rtol=1e-4)
     for name in ("mantel", "anosim", "permanova"):
@@ -1287,7 +1292,8 @@ def test_service_is_bitwise_standalone_workspaces(cuda):
     mixed requests on square and feature studies, coalesced, each bitwise
     the same request run alone through a default ``Workspace`` with the
     same seed; each lane ran ceil(ΣK/B) tiles, each hoist was built once,
-    and the ledgers charge the row-stationary model."""
+    and the ledgers charge ANOSIM's tiles to ``within_sums`` and the
+    others to the row-stationary model."""
     from repro_torch.serve import AnalysisService, ServeConfig
     n = 700
     rng = np.random.default_rng(5)
@@ -1315,6 +1321,7 @@ def test_service_is_bitwise_standalone_workspaces(cuda):
     svc.run()
     launched = {k for k, v in _build.launches.items() if v}
     assert {"inverse_orders", "permute_reduce", "permute_reduce_finish",
+            "within_sums", "within_sums_finish",
             "center_matvec", "center_pass1", "center_finish",
             "center_pass2"} <= launched
     lanes = {}
@@ -1337,9 +1344,11 @@ def test_service_is_bitwise_standalone_workspaces(cuda):
     for sid in ("s0", "f0"):
         ws = svc.pool.get(sid)
         assert all(v == 1 for v in ws.cache.misses.values()), sid
-        models = {e.params["model"] for e in ws.obs.ledger.entries
-                  if e.op.startswith("perm:")}
-        assert models == {"row_stationary"}
+        models = {(e.op.endswith(":anosim"), e.params["model"])
+                  for e in ws.obs.ledger.entries if e.op.startswith("perm:")}
+        # ANOSIM's tiles charge its own kernel, every other lane's the
+        # row-stationary permute_reduce
+        assert models == {(True, "within_sums"), (False, "row_stationary")}
 
 
 # --------------------------------------------------------------------------

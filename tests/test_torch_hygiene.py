@@ -249,11 +249,12 @@ def test_build_covers_every_source_and_refuses_without_nvcc(monkeypatch):
     assert {"symhollow.cu", "center_matvec.cu", "condensed_matvec.cu",
             "permute_reduce.cu", "pairwise.cu", "pairwise_sparse.cu",
             "center.cu", "mantel_corr.cu", "rmsnorm.cu",
-            "inverse_orders.cu"} <= names
+            "inverse_orders.cu", "within_sums.cu"} <= names
     assert set(_build.launches) == {
         "symhollow", "center_matvec", "condensed_matvec", "inverse_orders",
         "permute_reduce",
-        "permute_reduce_finish", "pairwise_panel", "pairwise_sparse_panel",
+        "permute_reduce_finish", "within_sums", "within_sums_finish",
+        "pairwise_panel", "pairwise_sparse_panel",
         "center_pass1",
         "center_finish", "center_pass2", "mantel_corr", "mantel_corr_finish",
         "rmsnorm", "rmsnorm_bwd"}

@@ -512,7 +512,10 @@ def test_feature_backed_battery_report(own_jax_compile_window):
     nested = [c["name"] for c in pcoa_span.get("children", ())]
     assert "hoist:coords" in nested
     assert rep.cache["misses"]
-    assert rep.compile["kernels.permute_reduce"]["traces"] == 6   # 3 x 2 tiles
+    # Mantel and partial Mantel through permute_reduce, ANOSIM through
+    # within_sums: 2 tiles each
+    assert rep.compile["kernels.permute_reduce"]["traces"] == 4
+    assert rep.compile["kernels.within_sums"]["traces"] == 2
     assert rep.compile["stats.engine.per_batch"]["traces"] == 5
     doc = json.loads(rep.to_json())
     assert doc["meta"]["n"] == 40

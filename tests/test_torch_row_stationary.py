@@ -237,7 +237,8 @@ def test_permuted_condensed_is_the_permuted_squares_condensed_form(
 
 def test_hoists_keep_no_triangle_map_and_launch_nothing():
     """The card's kernels read no (ii, jj) map, so no hoist builds one;
-    ANOSIM's within-group indicator is the condensed equality of labels."""
+    ANOSIM's hoist keeps the n group codes and no m-long within-group
+    indicator: ``within_sums`` compares the permuted codes."""
     n = 40
     d, y, z = (torch.from_numpy(_matrix(n, s)) for s in (1, 2, 3))
     codes = torch.arange(n) % 3
@@ -248,6 +249,7 @@ def test_hoists_keep_no_triangle_map_and_launch_nothing():
     assert set(_build.launches.values()) == {0}
     for inv in hoists:
         assert not {"ii", "jj"} & set(inv)
-    ii, jj = triangle_coords(n)
-    want = (codes[ii.long()] == codes[jj.long()]).float()
-    assert torch.equal(hoists[2]["within"], want)
+    assert torch.equal(hoists[2]["codes"].long(), codes)
+    m = n * (n - 1) // 2
+    assert [k for k, v in hoists[2].items()
+            if torch.is_tensor(v) and v.numel() >= m] == ["ranks"]
